@@ -1,0 +1,176 @@
+// Nearest hit over each ray subtile's candidate clusters, one block per
+// subtile.
+//
+// Replaces the TPU kernel montecarlopathtracing_tpu/kernels/cluster.py::
+// _intersect_kernel (its pallas_call in _cluster_intersect_padded) with
+// ftb=False, in both of its triangle tests:
+//   compat (MT = false), per-triangle rows n, n.v0, m_i = n x e_i, k_i:
+//     t = (kn - n.o) / (n.d);  c_i = m_i.o + t * (m_i.d) - k_i;
+//     inside = c1*c2 >= 0 && c1*c3 >= 0 && c2*c3 >= 0
+//   Moller-Trumbore (MT = true), rows n_raw, kn, e1, e2, k_u, k_v, with the
+//   per-ray w = o x d in ray columns 6..8:
+//     det = -n.d;  t = (n.o - kn) / det;  au = e2.w + k_u.d;
+//     av = -(e1.w) + k_v.d;
+//     inside = au*det >= 0 && av*det >= 0 && (det - au - av)*det >= 0
+// A triangle is accepted when inside and t > 0; the result per ray is the
+// lexicographic minimum of (t, triangle id) over accepted triangles with
+// t < 1e30, which is the winner of the TPU kernel's deferred best (ties at
+// equal t go to the lowest id).  A miss is (1e30, -1).
+//
+// Bound: about 34 f32 operations per (ray, triangle) pair of a candidate
+// cluster against 16 * W * 4 bytes of table per (subtile, cluster) pair, so
+// at tile 64 (34 operations per table byte) the kernel is bound by f32
+// operations, not memory.  The design keeps the rays in registers, stages
+// each candidate cluster's 16 x W constant
+// block in shared memory once per subtile (several clusters per stage when
+// W < 128), and splits the W columns over S threads per ray; the S partial
+// bests meet in a warp-shuffle reduction.  Candidate lists come ascending
+// from cluster_keys; the order does not change the result.
+//
+// Built with -fmad=false and IEEE division, and every expression keeps the
+// TPU kernel's operation order, so t, the hit mask and the winner match the
+// plain PyTorch version (cluster_intersect_padded_plain) bit for bit.
+
+#include <cuda_runtime.h>
+#include <limits.h>
+
+namespace {
+
+constexpr float kBig = 1e30f;
+constexpr int kStageCols = 128;  // table columns staged per pass (min)
+
+__device__ __forceinline__ float dot3(float ax, float ay, float az,
+                                      const float* row, int stride, int j) {
+  return ax * row[j] + ay * row[stride + j] + az * row[2 * stride + j];
+}
+
+template <bool MT>
+__global__ void cluster_intersect_kernel(
+    const float* __restrict__ rays, int ray_stride,
+    const int* __restrict__ counts, const int* __restrict__ ids,
+    int n_clusters, const float* __restrict__ tconst, int width, int tile,
+    int split, int stage_clusters, float* __restrict__ out_t,
+    int* __restrict__ out_tri) {
+  extern __shared__ float s_tab[];  // [16][stage_clusters * width]
+
+  const int sub = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int ray = tid / split;
+  const int part = tid - ray * split;
+  const float* rp = rays + ((size_t)sub * tile + ray) * ray_stride;
+  const float ox = rp[0], oy = rp[1], oz = rp[2];
+  const float dx = rp[3], dy = rp[4], dz = rp[5];
+  float wx = 0.0f, wy = 0.0f, wz = 0.0f;
+  if (MT) {
+    wx = rp[6];
+    wy = rp[7];
+    wz = rp[8];
+  }
+
+  const int n = counts[sub];
+  const int* cand = ids + (size_t)sub * n_clusters;
+  float bt = kBig;
+  int bi = INT_MAX;
+
+  for (int k0 = 0; k0 < n; k0 += stage_clusters) {
+    const int nk = min(stage_clusters, n - k0);
+    const int cols = nk * width;
+    __syncthreads();  // the previous stage is no longer read
+    for (int idx = tid; idx < 16 * cols; idx += blockDim.x) {
+      const int row = idx / cols;
+      const int col = idx - row * cols;
+      const int k = col / width;
+      const int cc = col - k * width;
+      const int cid = cand[k0 + k];
+      s_tab[row * cols + col] =
+          tconst[((size_t)cid * 16 + row) * width + cc];
+    }
+    __syncthreads();
+    for (int j = part; j < cols; j += split) {
+      float t;
+      bool inside;
+      if (MT) {
+        const float det = -dot3(dx, dy, dz, s_tab + 0 * cols, cols, j);
+        const float o_n = dot3(ox, oy, oz, s_tab + 0 * cols, cols, j);
+        t = (o_n - s_tab[3 * cols + j]) / det;
+        const float au = dot3(wx, wy, wz, s_tab + 7 * cols, cols, j) +
+                         dot3(dx, dy, dz, s_tab + 10 * cols, cols, j);
+        const float av = -dot3(wx, wy, wz, s_tab + 4 * cols, cols, j) +
+                         dot3(dx, dy, dz, s_tab + 13 * cols, cols, j);
+        inside = (au * det >= 0.0f) && (av * det >= 0.0f) &&
+                 ((det - au - av) * det >= 0.0f);
+      } else {
+        const float n_o = dot3(ox, oy, oz, s_tab + 0 * cols, cols, j);
+        const float n_d = dot3(dx, dy, dz, s_tab + 0 * cols, cols, j);
+        t = (s_tab[3 * cols + j] - n_o) / n_d;
+        const float c1 = dot3(ox, oy, oz, s_tab + 4 * cols, cols, j) +
+                         t * dot3(dx, dy, dz, s_tab + 4 * cols, cols, j) -
+                         s_tab[7 * cols + j];
+        const float c2 = dot3(ox, oy, oz, s_tab + 8 * cols, cols, j) +
+                         t * dot3(dx, dy, dz, s_tab + 8 * cols, cols, j) -
+                         s_tab[11 * cols + j];
+        const float c3 = dot3(ox, oy, oz, s_tab + 12 * cols, cols, j) +
+                         t * dot3(dx, dy, dz, s_tab + 12 * cols, cols, j) -
+                         s_tab[15 * cols + j];
+        inside = (c1 * c2 >= 0.0f) && (c1 * c3 >= 0.0f) && (c2 * c3 >= 0.0f);
+      }
+      if (inside && t > 0.0f && t < kBig) {
+        const int k = j / width;
+        const int tri = cand[k0 + k] * width + (j - k * width);
+        if (t < bt || (t == bt && tri < bi)) {
+          bt = t;
+          bi = tri;
+        }
+      }
+    }
+  }
+
+  // Lexicographic (t, tri) minimum over the `split` lanes of this ray: an
+  // aligned group of consecutive lanes of one warp (split is a power of two
+  // and divides the block size).  The block's last warp may be partial.
+  const int in_warp = min(32, (int)blockDim.x - (tid & ~31));
+  const unsigned mask = in_warp == 32 ? 0xffffffffu : (1u << in_warp) - 1u;
+  for (int off = split >> 1; off > 0; off >>= 1) {
+    const float ot = __shfl_xor_sync(mask, bt, off);
+    const int oi = __shfl_xor_sync(mask, bi, off);
+    if (ot < bt || (ot == bt && oi < bi)) {
+      bt = ot;
+      bi = oi;
+    }
+  }
+  if (part == 0) {
+    const size_t g = (size_t)sub * tile + ray;
+    out_t[g] = bt;
+    out_tri[g] = bt < kBig ? bi : -1;
+  }
+}
+
+}  // namespace
+
+extern "C" int mcpt_cluster_intersect(const float* rays, int ray_stride,
+                                      int n_subtiles, int tile,
+                                      const int* counts, const int* ids,
+                                      int n_clusters, const float* tconst,
+                                      int width, int mt, float* out_t,
+                                      int* out_tri, void* stream) {
+  if (n_subtiles <= 0) return (int)cudaGetLastError();
+  // S threads per ray (a power of two, at most a warp), consecutive lanes:
+  // about 256-thread blocks for tiles up to 256 rays, one thread per ray
+  // beyond.
+  int split = 1;
+  while (split < 32 && tile * split * 2 <= 256) split *= 2;
+  const int threads = tile * split;
+  const int stage_clusters = width >= kStageCols ? 1 : kStageCols / width;
+  const size_t smem = sizeof(float) * 16 * (size_t)stage_clusters * width;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (mt) {
+    cluster_intersect_kernel<true><<<n_subtiles, threads, smem, s>>>(
+        rays, ray_stride, counts, ids, n_clusters, tconst, width, tile, split,
+        stage_clusters, out_t, out_tri);
+  } else {
+    cluster_intersect_kernel<false><<<n_subtiles, threads, smem, s>>>(
+        rays, ray_stride, counts, ids, n_clusters, tconst, width, tile, split,
+        stage_clusters, out_t, out_tri);
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,104 @@
+#!/usr/bin/env python3
+"""Profile one frame of the PyTorch port's forward main path on a CUDA card.
+
+    python3 profile_torch.py                  # built-in box, 1024 x 1024
+    python3 profile_torch.py --scene large    # 100k-triangle interior, 1280 x 720
+
+Renders the frame once unprofiled (wall time), then once under
+torch.profiler, and prints one JSON line: wall seconds, wavefront
+iterations, device busy time (sum of kernel times) and the idle share of
+the unprofiled wall time, CUDA kernel launches per iteration, the two
+ported kernels' device time, and the 12 top kernels and host ops by time.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import torch
+
+TOP = 12
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scene", choices=["box", "large"], default="box")
+    ap.add_argument("--spp", type=int, default=None,
+                    help="samples per pixel (default 16 box, 4 large)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_torch: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torch.profiler import ProfilerActivity, profile
+
+    from montecarlopathtracing_torch.config import RenderOptions
+    from montecarlopathtracing_torch.integrator.wavefront import (
+        render_image_host_chunked)
+    from montecarlopathtracing_torch.kernels import cluster as K
+    from montecarlopathtracing_torch.scene.builtin import (load_builtin_box,
+                                                           load_builtin_large)
+
+    if args.scene == "box":
+        scene, _ = load_builtin_box(width=1024, height=1024, device="cuda")
+        spp = args.spp or 16
+    else:
+        scene, _ = load_builtin_large(n_tris=100_000, width=1280, height=720,
+                                      device="cuda")
+        spp = args.spp or 4
+    opts = RenderOptions(spp=spp, spp_chunk=spp)
+    render_image_host_chunked(scene, None, opts.replace(spp=1, spp_chunk=1),
+                              device="cuda")  # warm-up (kernel build, caches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    render_image_host_chunked(scene, None, opts, device="cuda")
+    torch.cuda.synchronize()
+    wall_plain = time.perf_counter() - t0  # the same frame, not profiled
+
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        _, rays = render_image_host_chunked(scene, None, opts, device="cuda")
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    iters = K.launch_counts()["cluster_intersect"] - 1  # minus the bootstrap
+
+    events = prof.key_averages()
+    dev_attr = ("device_time_total" if hasattr(events[0], "device_time_total")
+                else "cuda_time_total")
+    kernels, host_ops = [], []
+    for e in events:
+        dt = getattr(e, dev_attr, 0) or 0
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            kernels.append((e.key, dt, e.count))
+        elif e.key.startswith("aten::"):
+            host_ops.append((e.key, e.cpu_time_total, e.count))
+    busy_us = sum(k[1] for k in kernels)
+    n_kernels = sum(k[2] for k in kernels)
+    kernels.sort(key=lambda k: -k[1])
+    host_ops.sort(key=lambda k: -k[1])
+    ported = {name: sum(k[1] for k in kernels if name in k[0]) / 1e3
+              for name in ("cluster_keys_kernel", "cluster_intersect_kernel")}
+    print(json.dumps({
+        "scene": args.scene, "spp": spp, "device": torch.cuda.get_device_name(0),
+        "wall_s": wall_plain, "wall_s_profiled": wall, "rays": rays,
+        "iterations": iters, "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": 1.0 - busy_us / 1e6 / wall_plain,
+        "cuda_kernels": n_kernels,
+        "cuda_kernels_per_iteration": n_kernels / max(iters, 1),
+        "ms_per_iteration": wall_plain * 1e3 / max(iters, 1),
+        "device_ms_per_iteration": busy_us / 1e3 / max(iters, 1),
+        "ported_kernels_ms": ported,
+        "top_kernels_ms": [(k[0][:80], k[1] / 1e3, k[2]) for k in kernels[:TOP]],
+        "top_host_ops_ms": [(k[0], k[1] / 1e3, k[2]) for k in host_ops[:TOP]],
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one CUDA card.
+"""Drive the PyTorch/CUDA port's main paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -7,33 +7,43 @@ Phases, always all of them, one JSON line each (any failure raises and
 exits non-zero):
 
 1. device   the card's name and power limit (nvidia-smi);
-2. build    both CUDA kernels compiled from kernels/csrc (one nvcc each,
-            started together);
+2. build    every CUDA kernel compiled from kernels/csrc (one nvcc per
+            source, started together);
 3. kernels  each kernel against its plain PyTorch version on the same CUDA
             tensors (keys, candidate lists, t and tri exactly equal), and the
-            whole intersector against brute force: (a) the box table with
-            random rays, a ragged count and one parked subtile, (b) the
-            100k-triangle interior's table in compat and Moller-Trumbore
-            mode, plus its camera and shadow rays at the main path's shape
-            (131,072 rays);
+            whole intersectors against brute force:
+            (a) the box table with random rays, a ragged count and one parked
+            subtile; (b) the 100k-triangle interior's table in compat and
+            Moller-Trumbore mode, plus its camera and shadow rays at the main
+            path's shape (131,072 rays); (c) the 400k-triangle interior's
+            chunked and supergroup tables, compat and Moller-Trumbore: random
+            rays (ragged, a parked subtile), rays from a corner that leave
+            whole chunks parked, camera and shadow rays at the main path's
+            shape, and the front-to-back kernel against the single-table
+            kernel on one candidate set;
 4. box      api.render_scene on the built-in box at 1024 x 1024, spp 16;
 5. large    the 100k-triangle interior at 1280 x 720, spp 4, through
-            render_image_host_chunked;
-            each of 4 and 5 renders its frame twice: once timed, with the
-            launch counters, and once with the intersect calls recorded for
-            phase 7;
-6. parity   a 64 x 64 MODERN render on the card against the same render on
+            render_image_host_chunked (single-table plan);
+6. large400 the 400k-triangle interior at 1280 x 720 through
+            api.render_scene, once with the default options (chunked plan)
+            and once with large_mode="hbm_always" (supergroup plan); the two
+            images must agree;
+            each of 4, 5 and 6 renders its frame twice: once timed, with the
+            launch counters zeroed just before and read just after, and once
+            with the intersect calls recorded for phase 8;
+7. parity   a 64 x 64 MODERN render on the card against the same render on
             the CPU (plain versions);
-7. timing   every intersect call of the phase 4 and 5 frames replayed: each
-            kernel and its plain version on the call's inputs, checked
-            exactly equal and timed (CUDA events, device time only), with
-            its bound;
-8. a "kernels" line per ported kernel, then the card's nvidia-smi line, then
-   the last line {"ok": true, "device": {...}}.
+8. timing   every intersect call of the four frames replayed: each kernel
+            and its plain version on the call's inputs, checked exactly
+            equal and timed (CUDA events, device time only), with its bound;
+            for the front-to-back kernels also the (subtile, candidate) pairs
+            tested, against all candidate pairs and against the pairs no
+            exact exit could skip;
+9. a "kernels" line with one row per ported kernel, then the card's
+   nvidia-smi line, then the last line {"ok": true, "device": {...}}.
 
-Launch counters are zeroed just before the timed render of phases 4 and 5
-and read just after; the recording renders and the replays of phase 7 come
-after and are not counted.
+The recording renders and the replays of phase 8 come after the counters are
+read and are not counted.
 Imports only numpy, torch and montecarlopathtracing_torch.
 """
 
@@ -60,6 +70,11 @@ OPS_TRI_PAIR = 34      # f32 ops per (ray, triangle) test
 # plus one shadow ray each (one light).
 MAIN_RAYS = 131072
 
+# Samples per pixel of the 400k-triangle frames (every intersect call of
+# both is replayed against the plain versions, which bounds it).
+LARGE400_SPP = 4
+MEGA = 16              # RenderOptions().cluster_mega: the ray padding unit
+
 # GPU clock cycles the stream sleeps before a timed call (~1 ms on an H100),
 # so the host has enqueued the call before the start event is stamped.
 SLEEP_CYCLES = 2_000_000
@@ -85,7 +100,7 @@ def check(cond: bool, what: str) -> None:
 # Phase 3 helpers.
 # ---------------------------------------------------------------------------
 
-def camera_and_shadow_rays(scene, n_lanes: int, seed: int):
+def camera_and_shadow_rays(scene, n_lanes: int, seed: int, accel=None):
     """[camera segments of the first n_lanes swizzled pixels; one shadow ray
     from each primary hit toward a random point of the light], as the main
     path's combined intersect call sees them.  Misses' shadow rays park."""
@@ -99,7 +114,7 @@ def camera_and_shadow_rays(scene, n_lanes: int, seed: int):
                           device=scene.device)
     o, d = primary_rays(cam, ids)
     o = o.contiguous()
-    hit, t, _ = intersect_any(scene, None, o, d, RenderOptions())
+    hit, t, _ = intersect_any(scene, None, o, d, RenderOptions(), accel=accel)
     p = o + d * torch.where(hit, t, 0.0)[:, None]
     g = torch.Generator(device="cpu").manual_seed(seed)
     f = scene.light_face_tri[0][0].long()
@@ -154,46 +169,59 @@ def exact_match(accel, origin, direction, mt: bool, tile: int, label: str):
             "t_max_abs_err": float(torch.abs(bt - bt_p).max())}
 
 
+def brute_contract(scene, got, origin, direction, mt: bool, label: str,
+                   outliers: float = 0.0):
+    """A whole intersector's result ``got`` against brute force under the
+    test suite's contract: hit mask equal, t within rtol 1e-4 / atol 1e-5,
+    tri equal on >= 99% of hits (ids may differ only at equal-t ties).  At
+    most the share ``outliers`` of the rays may fall outside it: 0 on the
+    small tables; 1 in 1,000 on the 400k-triangle scene, where among
+    thousands of rays through triangles a few millimetres across some ray
+    grazes a silhouette edge and accept or reject hangs on the last bit
+    (brute force on the card rounds its fused elementwise expressions
+    differently from the table form, whose kernels and plain versions are
+    held equal bit for bit elsewhere), so that ray hits what lies behind."""
+    from montecarlopathtracing_torch.accel.lbvh import brute_force_intersect
+
+    hc, tc, ic = got
+    hb, tb, ib = brute_force_intersect(scene, origin, direction, compat=not mt)
+    both = hb & hc
+    outside = (hb != hc) | (both & (torch.abs(tb - tc)
+                                    > 1e-5 + 1e-4 * torch.abs(tc)))
+    n_out = int(outside.sum())
+    check(n_out <= outliers * origin.shape[0],
+          f"{label}: {n_out} of {origin.shape[0]} rays differ from brute "
+          "force in hit or t (rtol 1e-4 / atol 1e-5)")
+    diff = both & ~outside & (ib != ic)
+    check(float(diff.sum()) <= 0.01 * max(1, int(both.sum())),
+          f"{label}: tri differs from brute force on more than 1% of hits")
+    return {"hits": int(hb.sum()), "tri_ties": int(diff.sum()),
+            "rays_outside_tolerance": n_out}
+
+
 def compare_kernels(scene, accel, origin, direction, mt: bool, tile: int,
                     label: str):
-    """exact_match, then the whole intersector vs brute force under the test
-    suite's contract (hit mask exact, t within rtol 1e-4, tri equal on at
-    least 99% of hits: ids may differ only at equal-t ties)."""
-    from montecarlopathtracing_torch.accel.lbvh import brute_force_intersect
+    """exact_match, then the whole single-table intersector against brute
+    force (brute_contract, no outliers)."""
     from montecarlopathtracing_torch.kernels import cluster as K
 
     res = exact_match(accel, origin, direction, mt, tile, label)
-    hc, tc, ic = K.cluster_intersect(accel, origin, direction, tile=tile, mt=mt)
-    hb, tb, ib = brute_force_intersect(scene, origin, direction, compat=not mt)
-    check(torch.equal(hb, hc), f"{label}: hit mask differs from brute force")
-    ok = hb
-    err = torch.abs(tb[ok] - tc[ok])
-    check(bool((err <= 1e-5 + 1e-4 * torch.abs(tc[ok])).all()),
-          f"{label}: t differs from brute force beyond rtol 1e-4")
-    diff = ok & (ib != ic)
-    check(float(diff.sum()) <= 0.01 * max(1, int(ok.sum())),
-          f"{label}: tri differs from brute force on more than 1% of hits")
-    return {**res, "hits": int(hb.sum()), "tri_ties": int(diff.sum())}
+    got = K.cluster_intersect(accel, origin, direction, tile=tile, mt=mt)
+    return {**res, **brute_contract(scene, got, origin, direction, mt, label)}
 
 
 def bounds(rays_n: int, tile: int, c: int, width: int, ray_cols: int,
            live_subtiles: int, cand_pairs: int):
-    """Least time (ms) for each kernel's work on these inputs: the larger of
-    bytes over HBM bandwidth and f32 operations over the f32 peak."""
+    """The bytes each of kernels 1 and 2 must move on these inputs (inputs
+    read once, outputs written once) and the f32 operations it must do."""
     n_sub = rays_n // tile
     key_bytes = 4 * (rays_n * 8 + 8 * c + n_sub * c + n_sub + cand_pairs)
     key_ops = OPS_KEY_PAIR * live_subtiles * tile * c
     isect_bytes = 4 * (rays_n * ray_cols + n_sub + cand_pairs
                        + c * 16 * width + 2 * rays_n)
     isect_ops = OPS_TRI_PAIR * tile * width * cand_pairs
-    out = {}
-    for name, b, o in (("cluster_keys", key_bytes, key_ops),
-                       ("cluster_intersect", isect_bytes, isect_ops)):
-        tb, to = b / PEAK_BYTES * 1e3, o / PEAK_F32 * 1e3
-        out[name] = {"bound_ms": max(tb, to),
-                     "bound_by": "bytes" if tb >= to else "operations",
-                     "bytes": b, "ops": o}
-    return out
+    return {"cluster_keys": {"bytes": key_bytes, "ops": key_ops},
+            "cluster_intersect": {"bytes": isect_bytes, "ops": isect_ops}}
 
 
 def sleep_ms() -> float:
@@ -237,7 +265,6 @@ def frame_kernel_stats(calls, tile: int, label: str):
     rows = {"cluster_keys": [], "cluster_intersect": []}
     pairs = []
     sleep = sleep_ms()
-    host_late = {"cluster_keys": 0, "cluster_intersect": 0}
     for acc, origin, direction, mt in calls:
         o, d = pad_rays(origin, direction, tile)
         rays = K.pack_rays(o, d)
@@ -257,8 +284,6 @@ def frame_kernel_stats(calls, tile: int, label: str):
             rays_i, counts, ids, acc.tconst, tile, mt), sleep)
         pm2, _, (bt_p, bi_p) = timed(lambda: K.cluster_intersect_padded_plain(
             rays_i, counts, ids, acc.tconst, tile, mt), sleep)
-        host_late["cluster_keys"] += late1
-        host_late["cluster_intersect"] += late2
         check(torch.equal(bt, bt_p) and torch.equal(bi, bi_p),
               f"{label}: intersect differs from the plain version on a frame call")
         live = int((torch.amin(rays[:, 0].reshape(-1, tile), dim=1) <= 5e8).sum())
@@ -266,24 +291,181 @@ def frame_kernel_stats(calls, tile: int, label: str):
         pairs.append(n_pairs)
         b = bounds(rays.shape[0], tile, acc.num_clusters, acc.width,
                    rays_i.shape[1], live, n_pairs)
-        rows["cluster_keys"].append((ms1, pm1, b["cluster_keys"]))
-        rows["cluster_intersect"].append((ms2, pm2, b["cluster_intersect"]))
-    out = {}
-    for name, r in rows.items():
-        n = len(r)
-        to = sum(x[2]["ops"] for x in r) / PEAK_F32 * 1e3
-        tb = sum(x[2]["bytes"] for x in r) / PEAK_BYTES * 1e3
-        out[name] = {"ms": sum(x[0] for x in r) / n,
-                     "ms_max": max(x[0] for x in r),
-                     "plain_ms": sum(x[1] for x in r) / n,
-                     "bound_ms": sum(x[2]["bound_ms"] for x in r) / n,
-                     "bound_by": "bytes" if tb >= to else "operations",
-                     "calls": n, "host_outlasted_sleep": host_late[name]}
+        for name, ms, pm, late in (("cluster_keys", ms1, pm1, late1),
+                                   ("cluster_intersect", ms2, pm2, late2)):
+            rows[name].append({"ms": ms, "plain_ms": pm, "late": late,
+                               "bytes": b[name]["bytes"], "ops": b[name]["ops"]})
+    out = {name: aggregate(r) for name, r in rows.items()}
     emit({"phase": "kernel_time", "case": label, "calls": len(pairs),
           "rays_per_call_max": max(int(c[1].shape[0]) for c in calls),
           "clusters": calls[0][0].num_clusters, "width": calls[0][0].width,
           "candidate_pairs_mean": sum(pairs) / len(pairs),
           "candidate_pairs_max": max(pairs), "sleep_ms": sleep, **out})
+    return out
+
+
+def bound_of(n_bytes: int, n_ops: int):
+    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and f32
+    operations over the f32 peak."""
+    tb, to = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_F32 * 1e3
+    return max(tb, to), "bytes" if tb >= to else "operations"
+
+
+def aggregate(rows):
+    """Means over a frame's calls of one kernel; rows are dicts with ms,
+    plain_ms, bytes, ops and late (the host outlasted the sleep)."""
+    n = len(rows)
+    _, by = bound_of(sum(r["bytes"] for r in rows), sum(r["ops"] for r in rows))
+    return {"ms": sum(r["ms"] for r in rows) / n,
+            "ms_max": max(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows) / n,
+            "bound_ms": sum(bound_of(r["bytes"], r["ops"])[0] for r in rows) / n,
+            "bound_by": by, "calls": n,
+            "host_outlasted_sleep": sum(r["late"] for r in rows)}
+
+
+def max_err(a, b) -> float:
+    """Largest |a - b| over the finite entries (0.0 when exactly equal)."""
+    ok = (a < 1e30) & (b < 1e30)
+    return float(torch.abs(a - b)[ok].max()) if bool(ok.any()) else 0.0
+
+
+def ftb_pairs(bt, cap, counts, qkeys, tile: int, counter):
+    """(candidate pairs, pairs the kernel tested, pairs no exact exit could
+    skip): per (chunk, subtile) row, all candidates, the kernel's count, and
+    the candidates whose key is <= the row's final max over rays of
+    min(best t, cap)."""
+    from montecarlopathtracing_torch.kernels import cluster as K
+
+    need = K.ftb_needed(bt.reshape(-1), cap.reshape(-1), counts, qkeys, tile)
+    return int(counts.sum()), int(counter), int(need.sum())
+
+
+def chunked_call(acc, origin, direction, mt: bool, tile: int, sleep: float,
+                 label: str):
+    """One chunked intersect call taken apart: kernels 3 (chunk-axis keys)
+    and 4 (front-to-back intersect) and their plain versions on the call's
+    own inputs, checked exactly equal, each timed once.  Returns per-kernel
+    rows for ``aggregate`` and the pair counts."""
+    from montecarlopathtracing_torch.kernels import cluster as K
+
+    o, d, _, tile = K._shape_and_pad(origin, direction, tile, MEGA)
+    cap = K.chunk_caps(acc, o, d)
+    rays = K.pack_rays(o, d, mt=mt)
+    ms1, late1, (keys, counts) = timed(
+        lambda: K.cluster_keys_chunked(rays, cap, acc.caabb, tile), sleep)
+    pm1, _, (keys_p, counts_p) = timed(
+        lambda: K.cluster_keys_chunked_plain(rays, cap, acc.caabb, tile), sleep)
+    check(torch.equal(keys, keys_p) and torch.equal(counts, counts_p),
+          f"{label}: chunk-axis keys differ from the plain version")
+    order, qkeys = K._ftb_candidates(keys)
+    ms2, late2, (bt, bi) = timed(lambda: K.cluster_intersect_ftb(
+        rays, counts, order, qkeys, acc.tconst, tile, mt, chunk_cap=cap), sleep)
+    pm2, _, (bt_p, bi_p) = timed(lambda: K.cluster_intersect_ftb_plain(
+        rays, counts, order, qkeys, acc.tconst, tile, mt, chunk_cap=cap), sleep)
+    check(torch.equal(bt, bt_p) and torch.equal(bi, bi_p),
+          f"{label}: front-to-back intersect differs from the plain version")
+    counter = torch.zeros(1, dtype=torch.int64, device=rays.device)
+    bt_c, bi_c = K.cluster_intersect_ftb(rays, counts, order, qkeys, acc.tconst,
+                                         tile, mt, chunk_cap=cap, counter=counter)
+    check(torch.equal(bt, bt_c) and torch.equal(bi, bi_c),
+          f"{label}: the pair counter changed the result")
+    cand, tested, needed = ftb_pairs(bt, cap, counts, qkeys, tile, counter)
+    check(needed <= tested <= cand, f"{label}: pairs {needed} <= {tested} <= {cand}")
+    k_n, c, w = acc.num_chunks, acc.clusters_per_chunk, acc.width
+    r = rays.shape[0]
+    n_rows = counts.shape[0]
+    live = int(((cap.reshape(n_rows, tile) >= 0)
+                & (rays[:, 0].reshape(-1, tile).repeat(k_n, 1) <= 5e8))
+               .any(dim=1).sum())
+    key_row = {"ms": ms1, "plain_ms": pm1, "late": late1,
+               "bytes": 4 * (r * 8 + k_n * r + k_n * 8 * c + n_rows * c + n_rows),
+               "ops": OPS_KEY_PAIR * live * tile * c}
+    isect_row = {"ms": ms2, "plain_ms": pm2, "late": late2,
+                 "bytes": 4 * (r * rays.shape[1] + k_n * r + n_rows + 2 * needed
+                               + min(k_n * c, needed) * 16 * w + 2 * k_n * r),
+                 "ops": OPS_TRI_PAIR * tile * w * needed,
+                 "ops_all": OPS_TRI_PAIR * tile * w * cand}
+    return {"keys": key_row, "isect": isect_row, "cand": cand, "tested": tested,
+            "needed": needed, "rays": origin.shape[0],
+            "err_keys": max_err(keys, keys_p), "err_t": max_err(bt, bt_p)}
+
+
+def hbm_call(acc, origin, direction, mt: bool, tile: int, sleep: float,
+             label: str):
+    """One supergroup intersect call taken apart: kernel 1 over the
+    supergroup AABBs (keys only) and kernel 5 with their plain versions,
+    checked exactly equal, each timed once."""
+    from montecarlopathtracing_torch.kernels import cluster as K
+
+    o, d, _, tile = K._shape_and_pad(origin, direction, tile, MEGA)
+    rays8 = K.pack_rays(o, d)
+    ms1, late1, (keys, counts, _) = timed(
+        lambda: K.cluster_keys(rays8, acc.caabb, tile, with_ids=False), sleep)
+    pm1, _, (keys_p, counts_p, _) = timed(
+        lambda: K.cluster_keys_plain(rays8, acc.caabb, tile), sleep)
+    check(torch.equal(keys, keys_p) and torch.equal(counts, counts_p),
+          f"{label}: supergroup keys differ from the plain version")
+    order, qkeys = K._ftb_candidates(keys)
+    rays = K.pack_rays(o, d, mt=True) if mt else rays8
+    ms2, late2, (bt, bi) = timed(lambda: K.cluster_intersect_hbm_padded(
+        rays, counts, order, qkeys, acc.tconst, tile, mt), sleep)
+    pm2, _, (bt_p, bi_p) = timed(lambda: K.cluster_intersect_hbm_plain(
+        rays, counts, order, qkeys, acc.tconst, tile, mt), sleep)
+    check(torch.equal(bt, bt_p) and torch.equal(bi, bi_p),
+          f"{label}: supergroup intersect differs from the plain version")
+    counter = torch.zeros(1, dtype=torch.int64, device=rays.device)
+    bt_c, bi_c = K.cluster_intersect_hbm_padded(rays, counts, order, qkeys,
+                                                acc.tconst, tile, mt,
+                                                counter=counter)
+    check(torch.equal(bt, bt_c) and torch.equal(bi, bi_c),
+          f"{label}: the pair counter changed the result")
+    cap = rays[:, 9 if mt else 6]
+    cand, tested, needed = ftb_pairs(bt, cap, counts, qkeys, tile, counter)
+    check(needed <= tested <= cand, f"{label}: pairs {needed} <= {tested} <= {cand}")
+    s_n, cols = acc.num_supergroups, acc.tconst.shape[2]
+    r = rays.shape[0]
+    n_rows = counts.shape[0]
+    live = int((torch.amin(rays8[:, 0].reshape(-1, tile), dim=1) <= 5e8).sum())
+    key_row = {"ms": ms1, "plain_ms": pm1, "late": late1,
+               "bytes": 4 * (r * 8 + 8 * s_n + n_rows * s_n + n_rows),
+               "ops": OPS_KEY_PAIR * live * tile * s_n}
+    isect_row = {"ms": ms2, "plain_ms": pm2, "late": late2,
+                 "bytes": 4 * (r * rays.shape[1] + n_rows + 2 * needed
+                               + min(s_n, needed) * 16 * cols + 2 * r),
+                 "ops": OPS_TRI_PAIR * tile * cols * needed,
+                 "ops_all": OPS_TRI_PAIR * tile * cols * cand}
+    return {"keys": key_row, "isect": isect_row, "cand": cand, "tested": tested,
+            "needed": needed, "rays": origin.shape[0],
+            "err_keys": max_err(keys, keys_p), "err_t": max_err(bt, bt_p)}
+
+
+def ftb_frame_stats(calls, call_fn, tile: int, label: str, names):
+    """Replay every intersect call of a 400k frame through ``call_fn``
+    (chunked_call or hbm_call).  ``names`` = (key kernel, intersect kernel).
+    Returns {kernel name: aggregate} plus the frame's pair counts."""
+    sleep = sleep_ms()
+    recs = [call_fn(acc, o, d, mt, tile, sleep, label) for acc, o, d, mt in calls]
+    out = {names[0]: aggregate([r["keys"] for r in recs]),
+           names[1]: aggregate([r["isect"] for r in recs])}
+    cand, tested, needed = (sum(r[k] for r in recs)
+                            for k in ("cand", "tested", "needed"))
+    check(tested < cand, f"{label}: the early exit never fired "
+                         f"({tested} of {cand} pairs tested)")
+    pairs = {"candidate_pairs": cand, "tested_pairs": tested,
+             "unskippable_pairs": needed, "tested_share": tested / cand,
+             "candidate_pairs_max": max(r["cand"] for r in recs)}
+    # The intersect kernel's bound had every candidate been tested, beside
+    # the bound over the pairs no exact exit could skip.
+    pairs["bound_ms_all_candidates"] = sum(
+        bound_of(r["isect"]["bytes"], r["isect"]["ops_all"])[0]
+        for r in recs) / len(recs)
+    emit({"phase": "kernel_time", "case": label, "calls": len(recs),
+          "rays_per_call_max": max(r["rays"] for r in recs),
+          "sleep_ms": sleep, **pairs, **out})
+    out["pairs"] = pairs
+    out["err"] = {names[0]: max(r["err_keys"] for r in recs),
+                  names[1]: max(r["err_t"] for r in recs)}
     return out
 
 
@@ -343,12 +525,32 @@ def phase_kernels(dev, state):
 
 def phase_timing(state):
     """Each kernel's time per launch and its plain version's, replayed over
-    every intersect call of the phase-4 and phase-5 frames."""
+    every intersect call of the four frames."""
     for label in ("box", "large"):
         calls = state.pop(f"calls_{label}")
         state[f"time_{label}"] = frame_kernel_stats(calls, 64, label)
         del calls
         torch.cuda.empty_cache()
+    for label, fn, names in (("large400_chunked", chunked_call,
+                              PATH_KERNELS["chunked"]),
+                             ("large400_hbm", hbm_call, PATH_KERNELS["hbm"])):
+        calls = state.pop(f"calls_{label}")
+        state[f"time_{label}"] = ftb_frame_stats(calls, fn, 64, label, names)
+        del calls
+        torch.cuda.empty_cache()
+
+
+# The kernels each plan's render must go through.
+PATH_KERNELS = {
+    "single": ("cluster_keys", "cluster_intersect"),
+    "chunked": ("cluster_keys_chunked", "cluster_intersect_ftb"),
+    "hbm": ("cluster_keys", "cluster_intersect_hbm"),
+}
+
+
+def check_launched(launches, names, label: str):
+    check(all(launches[n] > 0 for n in names),
+          f"{label}: a kernel of the path was not launched: {launches}")
 
 
 def image_checks(img, label: str):
@@ -360,28 +562,30 @@ def image_checks(img, label: str):
 
 
 class CaptureCall:
-    """Wraps the intersector the wavefront calls and keeps the inputs of every
-    call (the combined [arrivals; shadow rays] batches), so the kernels can
-    be replayed on a real frame.  Calls pass through unchanged.  The
+    """Wraps the intersector the wavefront calls (by its name in the
+    integrator module) and keeps the inputs of every call (the combined
+    [arrivals; shadow rays] batches), so the kernels can be replayed on a
+    real frame.  Calls pass through unchanged.  The
     wavefront builds fresh ray tensors for each call, so references are kept,
     not copies.  Used only on a second, untimed render of a frame."""
 
-    def __init__(self):
+    def __init__(self, name: str = "cluster_intersect"):
         from montecarlopathtracing_torch.integrator import wavefront
 
-        self.module, self.calls = wavefront, []
-        self.inner = wavefront.cluster_intersect
+        self.module, self.name, self.calls = wavefront, name, []
+        self.inner = getattr(wavefront, name)
 
     def __enter__(self):
-        self.module.cluster_intersect = self
+        setattr(self.module, self.name, self)
         return self
 
     def __exit__(self, *exc):
-        self.module.cluster_intersect = self.inner
+        setattr(self.module, self.name, self.inner)
 
-    def __call__(self, accel, origin, direction, **kw):
+    def __call__(self, accel, *args, **kw):
+        origin, direction = args[-2:]  # the chunked entry takes offsets first
         self.calls.append((accel, origin, direction, kw.get("mt", False)))
-        return self.inner(accel, origin, direction, **kw)
+        return self.inner(accel, *args, **kw)
 
 
 def phase_box(dev, state):
@@ -404,8 +608,7 @@ def phase_box(dev, state):
             api.render_scene(d, "box", spp=16, options=RenderOptions(spp_chunk=16),
                              out_dir=os.path.join(d, "capture"), device=dev)
         state["calls_box"] = cap.calls
-        check(all(v > 0 for v in launches.values()),
-              f"box: a kernel was not launched on the main path: {launches}")
+        check_launched(launches, PATH_KERNELS["single"], "box")
         mean = image_checks(img, "box")
         check(img.shape == (1024, 1024, 3), "box: image shape")
         png = read_png(path)
@@ -439,8 +642,7 @@ def phase_large(dev, state):
     with CaptureCall() as cap:
         render_image_host_chunked(scene, None, opts, device=dev)
     state["calls_large"] = cap.calls
-    check(all(v > 0 for v in launches.values()),
-          f"large: a kernel was not launched on the main path: {launches}")
+    check_launched(launches, PATH_KERNELS["single"], "large")
     mean = image_checks(img, "large")
     state["launches_large"] = launches
     emit({"phase": "large", "width": 1280, "height": 720, "spp": 4,
@@ -449,6 +651,160 @@ def phase_large(dev, state):
           "textured": int(scene.atlas.shape[0] > 0), "seconds": secs,
           "load_seconds": state["large_load_s"], "rays": rays,
           "rays_per_s": rays / secs, "mean": mean, "launches": launches})
+
+
+def phase_kernels_large400(dev, state):
+    """Phase 3 (c): kernels 3, 4 and 5 on the 400k-triangle interior's
+    chunked and supergroup tables."""
+    from montecarlopathtracing_torch.config import RenderOptions
+    from montecarlopathtracing_torch.integrator.wavefront import resolve_plan
+    from montecarlopathtracing_torch.kernels import cluster as K
+    from montecarlopathtracing_torch.scene.builtin import load_builtin_large
+
+    tile = 64
+    t0 = time.perf_counter()
+    scene, _ = load_builtin_large(n_tris=400_000, width=1280, height=720,
+                                  device=dev)
+    torch.cuda.synchronize()
+    state["large400"] = scene
+    state["large400_load_s"] = time.perf_counter() - t0
+    kind, width, _, n_chunks = resolve_plan(RenderOptions(), scene.num_tris_padded)
+    check(kind == "cluster" and n_chunks > 1,
+          f"large400: expected the chunked plan, got {(kind, width, n_chunks)}")
+
+    rng = np.random.default_rng(2)
+    n = 8192 + 21
+    o = rng.uniform(0.1, 2.9, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o[tile:2 * tile] = 1e9  # one parked subtile
+    o_r, d_r = torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev)
+    # Rays from the room's near corner pointing out of it: they miss the box
+    # of every chunk of props, so whole chunks are parked.
+    m = 4096 + 5
+    o_c = torch.as_tensor(rng.uniform(0.02, 0.05, (m, 3)).astype(np.float32),
+                          device=dev)
+    d_c = -torch.abs(d_r[:m])
+    sleep = sleep_ms()
+    results = []
+    cam = None
+    for mt in (False, True):
+        tag = "_mt" if mt else ""
+        single = K.build_cluster_accel(scene, width=width, mt=mt)
+        chunked, _ = K.build_cluster_accel_chunked(scene, width=width,
+                                                   n_chunks=n_chunks, mt=mt)
+        hbm = K.build_hbm_accel(single)
+        if cam is None:
+            cam = camera_and_shadow_rays(scene, MAIN_RAYS // 2, seed=3,
+                                         accel=chunked)
+        for label, (oo, dd) in (("random", (o_r, d_r)), ("corner", (o_c, d_c)),
+                                ("camera_shadow", cam)):
+            rec = chunked_call(chunked, oo, dd, mt, tile, sleep,
+                               f"large400_chunked_{label}{tag}")
+            rec_h = hbm_call(hbm, oo, dd, mt, tile, sleep,
+                             f"large400_hbm_{label}{tag}")
+            # The whole intersectors agree with the single-table kernels.
+            base = K.cluster_intersect(single, oo, dd, tile=tile, mt=mt)
+            ftb = K.cluster_intersect(single, oo, dd, tile=tile, mt=mt, ftb=True)
+            ch = K.cluster_intersect_chunked(chunked, None, oo, dd, tile=tile,
+                                             mt=mt)
+            hb = K.cluster_intersect_hbm(hbm, oo, dd, tile=tile, mt=mt)
+            for name, got in (("ftb", ftb), ("chunked", ch), ("hbm", hb)):
+                check(all(torch.equal(a, b) for a, b in zip(base, got)),
+                      f"large400 {label}{tag}: {name} intersector differs from "
+                      "the single-table kernel on the same rays")
+            extra = {}
+            if label == "random":
+                extra = brute_contract(scene, ch, oo, dd, mt,
+                                       f"large400_chunked{tag}", outliers=1e-3)
+                # A supergroup of 32 clusters (what a table of ~5M triangles
+                # gets): 4,096 columns, staged in 32 pieces.
+                hbm32 = K.build_hbm_accel(single, 32)
+                rec32 = hbm_call(hbm32, oo, dd, mt, tile, sleep,
+                                 f"large400_hbm_sg32{tag}")
+                extra["hbm_sg32_pairs"] = [rec32["cand"], rec32["tested"],
+                                           rec32["needed"]]
+                del hbm32
+            if label == "corner":
+                parked = int((K.chunk_caps(chunked, oo, dd) < 0).all(dim=1).sum())
+                check(parked > 0, "large400 corner rays: no chunk was parked "
+                                  "for every ray")
+                extra = {"chunks_parked_for_every_ray": parked}
+            results.append({
+                "case": f"large400_{label}{tag}", "rays": int(oo.shape[0]),
+                "mt": mt, "chunks": chunked.num_chunks,
+                "clusters_per_chunk": chunked.clusters_per_chunk,
+                "supergroups": hbm.num_supergroups, "sgroup": hbm.sgroup,
+                "chunked_pairs": [rec["cand"], rec["tested"], rec["needed"]],
+                "hbm_pairs": [rec_h["cand"], rec_h["tested"], rec_h["needed"]],
+                "keys_max_abs_err": max(rec["err_keys"], rec_h["err_keys"]),
+                "t_max_abs_err": max(rec["err_t"], rec_h["err_t"]), **extra})
+        del single, chunked, hbm
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels_large400", "ok": True,
+          "load_seconds": state["large400_load_s"],
+          "tris_padded": scene.num_tris_padded, "cases": results})
+    state["max_abs_err_400"] = {
+        "keys": max(r["keys_max_abs_err"] for r in results),
+        "t": max(r["t_max_abs_err"] for r in results)}
+
+
+def phase_large400(dev, state):
+    """Phase 6: the 400k-triangle interior through
+    render_image_host_chunked (the frame loop under api.render_scene; the
+    built-in interior is built in memory and has no OBJ file to parse),
+    under the chunked plan (default options) and the supergroup plan."""
+    from montecarlopathtracing_torch.config import RenderOptions
+    from montecarlopathtracing_torch.integrator.wavefront import (
+        render_image_host_chunked, resolve_plan)
+    from montecarlopathtracing_torch.kernels import cluster as K
+
+    scene = state["large400"]
+    spp = LARGE400_SPP
+    images = {}
+    for label, mode, capture in (
+            ("large400_chunked", "hbm", "cluster_intersect_chunked"),
+            ("large400_hbm", "hbm_always", "cluster_intersect_hbm")):
+        opts = RenderOptions(spp=spp, spp_chunk=spp, large_mode=mode)
+        plan_name = "chunked" if mode == "hbm" else "hbm"
+        plan = resolve_plan(opts, scene.num_tris_padded)
+        check(plan[0] == ("cluster" if plan_name == "chunked" else "cluster_hbm"),
+              f"{label}: unexpected plan {plan}")
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        img, rays = render_image_host_chunked(scene, None, opts, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = K.launch_counts()
+        check_launched(launches, PATH_KERNELS[plan_name], label)
+        with CaptureCall(capture) as cap:
+            render_image_host_chunked(scene, None, opts, device=dev)
+        state[f"calls_{label}"] = cap.calls
+        check(len(cap.calls) > 0, f"{label}: no intersect call recorded")
+        mean = image_checks(img, label)
+        check(img.shape == (720, 1280, 3), f"{label}: image shape")
+        images[label] = img
+        acc = cap.calls[0][0]
+        shape = ({"chunks": acc.num_chunks,
+                  "clusters_per_chunk": acc.clusters_per_chunk}
+                 if plan_name == "chunked" else
+                 {"supergroups": acc.num_supergroups, "sgroup": acc.sgroup})
+        state[f"launches_{label}"] = launches
+        emit({"phase": label, "width": 1280, "height": 720, "spp": spp,
+              "lanes": 65536, "tris_padded": scene.num_tris_padded,
+              "plan": list(plan), **shape, "seconds": secs,
+              "load_seconds": state["large400_load_s"], "rays": rays,
+              "rays_per_s": rays / secs, "mean": mean, "launches": launches})
+    a = images["large400_chunked"].cpu().numpy()
+    b = images["large400_hbm"].cpu().numpy()
+    outside = np.abs(a - b) > 1e-5 + 1e-4 * np.abs(a)
+    frac = float(outside.any(axis=2).mean())
+    mean_rel = abs(float(a.mean()) - float(b.mean())) / max(abs(float(a.mean())), 1e-30)
+    check(frac <= 0.005, f"large400: {frac:.4%} pixels differ between the plans")
+    check(mean_rel <= 1e-4, f"large400: image means differ by {mean_rel:.3e}")
+    emit({"phase": "large400_plans_agree", "frac_pixels_outside": frac,
+          "mean_rel_diff": mean_rel, "max_abs_diff": float(np.abs(a - b).max())})
 
 
 def phase_parity(dev, state):
@@ -502,32 +858,64 @@ def main() -> int:
         info[name] = {"seconds": b["seconds"], "ptxas": regs}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "kernels": info})
     phase_kernels(dev, state)
+    phase_kernels_large400(dev, state)
     phase_box(dev, state)
     phase_large(dev, state)
+    phase_large400(dev, state)
     phase_parity(dev, state)
     phase_timing(state)
 
-    rows = []
-    replaces = {
-        "cluster_keys": ("montecarlopathtracing_torch/kernels/csrc/cluster_keys.cu",
-                         "montecarlopathtracing_tpu/kernels/cluster.py:167"),
-        "cluster_intersect": ("montecarlopathtracing_torch/kernels/csrc/cluster_intersect.cu",
-                              "montecarlopathtracing_tpu/kernels/cluster.py:351"),
+    csrc = "montecarlopathtracing_torch/kernels/csrc/"
+    tpu = "montecarlopathtracing_tpu/kernels/cluster.py:"
+    frames = ("box", "large", "large400_chunked", "large400_hbm")
+    t400c, t400h = state["time_large400_chunked"], state["time_large400_hbm"]
+    # name -> (source, TPU call site, the frame its launches and times are
+    # from, that frame's stats, max_abs_err over the kernels phases).
+    table = {
+        "cluster_keys": (
+            "cluster_keys.cu", "257", "large", state["time_large"],
+            state["max_abs_err"]["cluster_keys"]),
+        "cluster_intersect": (
+            "cluster_intersect.cu", "618", "large", state["time_large"],
+            state["max_abs_err"]["cluster_intersect"]),
+        "cluster_keys_chunked": (
+            "cluster_keys.cu", "955", "large400_chunked", t400c,
+            max(state["max_abs_err_400"]["keys"],
+                t400c["err"]["cluster_keys_chunked"])),
+        "cluster_intersect_ftb": (
+            "cluster_intersect_ftb.cu", "987", "large400_chunked", t400c,
+            max(state["max_abs_err_400"]["t"],
+                t400c["err"]["cluster_intersect_ftb"])),
+        "cluster_intersect_hbm": (
+            "cluster_intersect_hbm.cu", "1270", "large400_hbm", t400h,
+            max(state["max_abs_err_400"]["t"],
+                t400h["err"]["cluster_intersect_hbm"])),
     }
-    for name, (src, rep) in replaces.items():
-        t = state["time_large"][name]
-        rows.append({
-            "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": state["launches_box"][name],
-            "launches_large": state["launches_large"][name],
-            "max_abs_err": state["max_abs_err"][name],
-            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None,
-            "ms_max": t["ms_max"],
-            "ms_box": state["time_box"][name]["ms"],
-            "plain_ms_box": state["time_box"][name]["plain_ms"],
-            "bound_ms_box": state["time_box"][name]["bound_ms"],
-        })
+    rows = []
+    for name, (src, site, frame, stats, err) in table.items():
+        t = stats[name]
+        by_frame = {f: state[f"launches_{f}"][name] for f in frames}
+        check(by_frame[frame] > 0, f"{name} was not launched on frame {frame}")
+        row = {
+            "name": name, "route": "cuda", "source": csrc + src,
+            "replaces": tpu + site, "launches": by_frame[frame],
+            "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "frame": frame, "ms_max": t["ms_max"],
+            "launches_by_frame": by_frame,
+        }
+        if frame == "large":
+            tb = state["time_box"][name]
+            row.update(ms_box=tb["ms"], plain_ms_box=tb["plain_ms"],
+                       bound_ms_box=tb["bound_ms"])
+        if name == "cluster_keys":
+            th = t400h[name]
+            row.update(ms_large400_hbm=th["ms"],
+                       plain_ms_large400_hbm=th["plain_ms"],
+                       bound_ms_large400_hbm=th["bound_ms"])
+        if "pairs" in stats and name.startswith("cluster_intersect"):
+            row.update(stats["pairs"])
+        rows.append(row)
     emit({"kernels": rows})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

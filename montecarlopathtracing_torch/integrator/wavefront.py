@@ -11,9 +11,13 @@ termination predicate is read back only every ``check_every`` iterations:
 an iteration after the pool has drained changes nothing (no lane is active,
 none is refilled, nothing is staged), so the film does not depend on it.
 
+A scene whose triangle table is past the single-table budget renders through
+the chunked or the supergroup ("HBM") cluster intersector, as
+``resolve_plan`` decides; their tables are built once per scene
+(``intersector_tables``).
+
 Not ported yet: the differentiable renderer (ROADMAP.md item A12), the
-scan-over-samples renderer ``refill=False`` (A8), the chunked and HBM
-large-scene intersectors (A10) and the LBVH walks (A11).
+scan-over-samples renderer ``refill=False`` (A8) and the LBVH walks (A11).
 """
 
 from __future__ import annotations
@@ -25,7 +29,14 @@ import torch
 
 from ..accel.lbvh import brute_force_intersect
 from ..config import RenderOptions
-from ..kernels.cluster import build_cluster_accel, cluster_intersect
+from ..kernels.cluster import (
+    build_cluster_accel,
+    build_cluster_accel_chunked,
+    build_hbm_accel,
+    cluster_intersect,
+    cluster_intersect_chunked,
+    cluster_intersect_hbm,
+)
 from ..ops.intersect import barycentric
 from ..ops.sampling import (
     PI,
@@ -110,20 +121,31 @@ def resolve_intersector(opts: RenderOptions) -> str:
 
 
 def resolve_plan(opts: RenderOptions, num_tris: int):
-    """The intersector that will run for this (options, scene) pair:
-    ('cluster', width, group, 1) or ('brute', None, None, 1).  Scenes past
-    the single-table budget need the chunked or HBM intersectors, which are
-    not ported yet."""
+    """The intersector that will run for this (options, scene) pair, a
+    4-tuple: ('cluster', width, group, n_chunks) for the cluster kernels
+    (n_chunks > 1: chunked tables), ('cluster_hbm', 128, group, 1) for the
+    supergroup intersector, or ('brute', None, None, 1).
+
+    The policy is the JAX package's.  A table within the single-table budget
+    is one table; past it the triangle range is cut into chunks, unless
+    ``large_mode="hbm_always"`` asks for the supergroup intersector; past
+    ``max_table_chunks`` chunks, ``large_mode`` "hbm" and "hbm_always" take
+    the supergroup intersector, and "chunked" falls back to the LBVH packet
+    walk, which is not ported yet."""
     kind = resolve_intersector(opts)
-    if kind == "cluster":
-        plan = _cluster_plan(opts, num_tris)
-        if plan is None or plan[2] != 1:
-            raise NotImplementedError(
-                f"a scene of {num_tris} padded triangles needs the chunked or "
-                "HBM-streaming cluster intersector, not ported yet (ROADMAP.md "
-                "item A10, kernels B3 and B4)")
-        return kind, plan[0], plan[1], 1
-    return kind, None, None, 1
+    if kind != "cluster":
+        return kind, None, None, 1
+    plan = _cluster_plan(opts, num_tris)
+    if plan is not None and (plan[2] == 1 or opts.large_mode != "hbm_always"):
+        return kind, plan[0], plan[1], plan[2]
+    if opts.large_mode in ("hbm", "hbm_always"):
+        g = max(1, (opts.cluster_width * opts.cluster_group) // 128)
+        return kind + "_hbm", 128, g, 1
+    raise NotImplementedError(
+        f"a scene of {num_tris} padded triangles is past the chunk cap "
+        f"(max_table_chunks={opts.max_table_chunks}) and large_mode="
+        f"{opts.large_mode!r} falls back to the LBVH packet walk, not ported "
+        "yet (ROADMAP.md item A11); large_mode='hbm' renders it")
 
 
 def swizzle_tile(opts: RenderOptions, num_tris: int) -> int:
@@ -158,29 +180,40 @@ def _cluster_plan(opts: RenderOptions, num_tris: int):
 
 
 def intersector_tables(scene, opts: RenderOptions):
-    """The cluster tables intersect_any would build for this scene (None for
-    the brute-force oracle); build once and pass as ``accel`` to reuse."""
-    kind, width, _, _ = resolve_plan(opts, scene.num_tris_padded)
-    if kind != "cluster":
+    """The tables intersect_any needs for this scene, by plan: a
+    ClusterAccel, a ChunkedClusterAccel, an HbmClusterAccel, or None for the
+    brute-force oracle.  Build once per scene and pass as ``accel``."""
+    kind, width, _, n_chunks = resolve_plan(opts, scene.num_tris_padded)
+    if kind == "brute":
         return None
-    return build_cluster_accel(scene, width=width,
-                               mt=not opts.compat.plane_sign_triangle_test)
+    mt = not opts.compat.plane_sign_triangle_test
+    if kind == "cluster_hbm":
+        return build_hbm_accel(build_cluster_accel(scene, width=width, mt=mt))
+    if n_chunks > 1:
+        return build_cluster_accel_chunked(scene, width=width,
+                                           n_chunks=n_chunks, mt=mt)[0]
+    return build_cluster_accel(scene, width=width, mt=mt)
 
 
 def intersect_any(scene, bvh, origin, direction, opts: RenderOptions,
                   accel=None):
     """Nearest-hit dispatch: (hit (R,) bool, t (R,) f32, tri (R,) i32).
-    ``bvh`` is unused (None) until the LBVH is ported; ``accel`` takes
-    prebuilt cluster tables (intersector_tables)."""
+    ``bvh`` is unused (None) until the LBVH is ported; ``accel`` takes the
+    prebuilt tables (intersector_tables), built here when it is None."""
     compat_tri = opts.compat.plane_sign_triangle_test
-    kind, width, group, _ = resolve_plan(opts, scene.num_tris_padded)
+    kind, _, group, n_chunks = resolve_plan(opts, scene.num_tris_padded)
     if kind == "brute":
         return brute_force_intersect(scene, origin, direction, compat=compat_tri)
     if accel is None:
-        accel = build_cluster_accel(scene, width=width, mt=not compat_tri)
-    return cluster_intersect(accel, origin, direction, tile=opts.cluster_rays,
-                             mega=opts.cluster_mega, group=group,
-                             mt=not compat_tri)
+        accel = intersector_tables(scene, opts)
+    shape = dict(tile=opts.cluster_rays, mega=opts.cluster_mega,
+                 mt=not compat_tri)
+    if kind == "cluster_hbm":
+        return cluster_intersect_hbm(accel, origin, direction, **shape)
+    if n_chunks > 1:
+        return cluster_intersect_chunked(accel, None, origin, direction,
+                                         group=group, **shape)
+    return cluster_intersect(accel, origin, direction, group=group, **shape)
 
 
 def _permute_rows(perm, f32_fields, int_fields):
@@ -407,7 +440,7 @@ def _next_ray(scene, opts: RenderOptions, p, pn, matf, kd, incoming, u):
 def _should_sort(opts: RenderOptions, num_tris: int) -> bool:
     if opts.sort_rays is not None:
         return opts.sort_rays
-    return resolve_plan(opts, num_tris)[0] == "cluster"
+    return resolve_plan(opts, num_tris)[0].startswith("cluster")
 
 
 def _direction_bin(d):

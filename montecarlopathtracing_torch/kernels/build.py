@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with a
 plain C interface and loaded through ``ctypes`` (no PyTorch headers, so a
-build takes seconds).  Libraries are built at first use into
+build takes seconds).  Shared device code sits in ``csrc/*.cuh``; a source
+may export more than one entry point.  Libraries are built at first use into
 ``kernels/build/``, named by a hash of the sources and flags, so an edited
 source rebuilds and an unchanged one is reused.  A missing ``nvcc`` or a
 failed build raises with the compiler's output: nothing falls back to the
@@ -28,7 +29,9 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 
-KERNELS = ("cluster_keys", "cluster_intersect")
+# The sources, one library each.
+KERNELS = ("cluster_keys", "cluster_intersect", "cluster_intersect_ftb",
+           "cluster_intersect_hbm")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -37,13 +40,24 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures: (argtypes, restype) of each library's entry point.
+# Entry points: name -> (source, C symbol, argtypes); every one returns the
+# CUDA error of its launch as an int.
 _SIGNATURES = {
-    "cluster_keys": ("mcpt_cluster_keys",
+    "cluster_keys": ("cluster_keys", "mcpt_cluster_keys",
                      [_P, _I, _I, _I, _P, _I, _P, _P, _P, _P]),
-    "cluster_intersect": ("mcpt_cluster_intersect",
+    "cluster_keys_chunked": ("cluster_keys", "mcpt_cluster_keys_chunked",
+                             [_P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P]),
+    "cluster_intersect": ("cluster_intersect", "mcpt_cluster_intersect",
                           [_P, _I, _I, _I, _P, _P, _I, _P, _I, _I, _P, _P,
                            _P]),
+    "cluster_intersect_ftb": ("cluster_intersect_ftb",
+                              "mcpt_cluster_intersect_ftb",
+                              [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _I,
+                               _I, _P, _P, _P, _P]),
+    "cluster_intersect_hbm": ("cluster_intersect_hbm",
+                              "mcpt_cluster_intersect_hbm",
+                              [_P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _I, _P,
+                               _P, _P, _P]),
 }
 
 
@@ -112,9 +126,9 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, dict]:
 
 @functools.lru_cache(maxsize=None)
 def load(name: str):
-    """The C entry point of kernel ``name``, built first if needed."""
-    path = build([name])[name]["path"]
-    symbol, argtypes = _SIGNATURES[name]
+    """The C entry point ``name``, its source built first if needed."""
+    source, symbol, argtypes = _SIGNATURES[name]
+    path = build([source])[source]["path"]
     fn = getattr(ctypes.CDLL(path), symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int

@@ -18,10 +18,30 @@ signature beside it.  A wrapper runs the plain version only for a tensor on
 the CPU; for a CUDA tensor it launches the kernel or raises.  Each wrapper
 counts its launches in a ``launches`` attribute.
 
+Scenes whose table is past the single-table budget (the plan is the
+integrator's, ``wavefront.resolve_plan``) take one of two further paths, both
+front to back with an early exit:
+
+* ``cluster_intersect_chunked``: the triangle range cut into K chunks with a
+  table each.  A routing slab pass against the K chunk AABBs gives every
+  (chunk, ray) an exit cap, -1 where the ray misses the chunk; the key kernel
+  runs over all chunks in one launch (``cluster_keys_chunked``), one packed
+  sort orders each (chunk, subtile)'s candidates by entry key
+  (``_ftb_order``), ``cluster_intersect_ftb`` tests them until the next
+  key is past every ray's min(best t, cap), and the K results merge
+  lexicographically on (t, global triangle id).
+* ``cluster_intersect_hbm``: one table, swizzled into supergroups of ``sg``
+  clusters; candidates and the exit work per supergroup.
+
+``cluster_intersect(..., ftb=True)`` is the single-table entry to the same
+front-to-back kernel.  The exit never changes a result: the best hit is an
+order-independent lexicographic minimum and a skipped candidate's entry is
+beyond every ray's bound.
+
 ``cluster_group``, ``cluster_mega`` and ``defer`` are TPU panel-shape
 mechanisms: they are accepted (and clamped, for the same padding) but do not
-change results.  The front-to-back early exit (``ftb``) belongs to the
-chunked large-scene path and is not ported yet (ROADMAP.md item A10).
+change results.  The Hopper kernels check the exit at their own granularity
+(every candidate), not the TPU kernel's stride of 4 panels of ``group``.
 """
 
 from __future__ import annotations
@@ -149,7 +169,12 @@ def _check_cuda_inputs(name, **tensors):
 
 
 def _ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+    """The tensor's device address; a null pointer for None."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _stream(dev) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
 # --------------------------------------------------------------------------
@@ -199,9 +224,11 @@ def cluster_keys_plain(rays, caabb, tile: int):
     return keys, counts, ids
 
 
-def cluster_keys(rays, caabb, tile: int):
+def cluster_keys(rays, caabb, tile: int, with_ids: bool = True):
     """Candidate keys and lists per ray subtile; see cluster_keys_plain for
-    the contract (on the card, ids past each row's count are unwritten)."""
+    the contract (on the card, ids past each row's count are unwritten, and
+    ids is None when ``with_ids`` is false: the front-to-back paths order
+    the candidates by key themselves)."""
     if rays.device.type == "cpu":
         return cluster_keys_plain(rays, caabb, tile)
     from .build import load
@@ -218,12 +245,13 @@ def cluster_keys(rays, caabb, tile: int):
     c = caabb.shape[1]
     keys = torch.empty((n_sub, c), dtype=torch.float32, device=dev)
     counts = torch.empty((n_sub,), dtype=torch.int32, device=dev)
-    ids = torch.empty((n_sub, c), dtype=torch.int32, device=dev)
+    ids = (torch.empty((n_sub, c), dtype=torch.int32, device=dev)
+           if with_ids else None)
     fn = load("cluster_keys")
     with torch.cuda.device(dev):
         err = fn(_ptr(rays), rays.shape[1], n_sub, tile, _ptr(caabb), c,
                  _ptr(keys), _ptr(counts), _ptr(ids),
-                 ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+                 _stream(dev))
     if err != 0:
         raise RuntimeError(f"cluster_keys launch failed: CUDA error {err}")
     cluster_keys.launches += 1
@@ -256,22 +284,21 @@ def cluster_intersect_padded_plain(rays, counts, ids, tconst, tile: int,
     if n_sub == 0:
         return out_t.reshape(-1), out_i.reshape(-1)
     sub = rays.reshape(n_sub, tile, rays.shape[1])
-    kmax = int(counts.max())
-    step = max(1, _PLAIN_BLOCK // max(1, tile * kmax * width))
     col = torch.arange(width, dtype=torch.int32, device=dev)
-    for s0 in range(0, n_sub, step):
-        cnt = counts[s0:s0 + step]
-        k = int(cnt.max())
-        if k == 0:
-            continue
-        b = cnt.shape[0]
+    # Subtiles in order of their candidate count, so that a block pads its
+    # lists to a count close to each member's own; one read of the counts.
+    cnt_sorted, by_count = torch.sort(counts)
+    for lo, hi, k in _plain_blocks(cnt_sorted.tolist(), tile * width):
+        rows = by_count[lo:hi]
+        cnt = cnt_sorted[lo:hi]
+        b = hi - lo
         used = torch.arange(k, device=dev)[None, :] < cnt[:, None]  # (b, k)
-        cid = torch.where(used, ids[s0:s0 + step, :k], 0)
+        cid = torch.where(used, ids[rows, :k], 0)
         tc = (tconst[cid.long()].permute(0, 2, 1, 3)
               .reshape(b, 16, 1, k * width))  # rows broadcast over rays
         tri = (cid[:, :, None] * width + col).reshape(b, 1, k * width)
         live = used[:, :, None].expand(b, k, width).reshape(b, 1, k * width)
-        ray = sub[s0:s0 + step]
+        ray = sub[rows]
         ox, oy, oz = ray[..., 0:1], ray[..., 1:2], ray[..., 2:3]
         dx, dy, dz = ray[..., 3:4], ray[..., 4:5], ray[..., 5:6]
 
@@ -300,9 +327,26 @@ def cluster_intersect_padded_plain(rays, counts, ids, tconst, tile: int,
         bt = torch.amin(tm, dim=2)  # (b, tile)
         bi = torch.amin(torch.where(good & (tm == bt[..., None]), tri, _INT_MAX),
                         dim=2)
-        out_t[s0:s0 + step] = bt
-        out_i[s0:s0 + step] = torch.where(bt < BIG, bi, -1)
+        out_t[rows] = bt
+        out_i[rows] = torch.where(bt < BIG, bi, -1)
     return out_t.reshape(-1), out_i.reshape(-1)
+
+
+def _plain_blocks(counts_ascending, per_candidate: int):
+    """Cut subtiles (given by their ascending candidate counts) into blocks
+    of at most _PLAIN_BLOCK temporary elements: yields (lo, hi, k) with k the
+    block's largest count; subtiles without candidates are left out."""
+    n = len(counts_ascending)
+    lo = 0
+    while lo < n and counts_ascending[lo] == 0:
+        lo += 1
+    while lo < n:
+        hi = lo + 1
+        while (hi < n and (hi + 1 - lo) * counts_ascending[hi] * per_candidate
+               <= _PLAIN_BLOCK):
+            hi += 1
+        yield lo, hi, counts_ascending[hi - 1]
+        lo = hi
 
 
 def cluster_intersect_padded(rays, counts, ids, tconst, tile: int,
@@ -336,7 +380,7 @@ def cluster_intersect_padded(rays, counts, ids, tconst, tile: int,
         err = fn(_ptr(rays), rays.shape[1], n_sub, tile, _ptr(counts), _ptr(ids),
                  tconst.shape[0], _ptr(tconst), width, int(mt), _ptr(out_t),
                  _ptr(out_i),
-                 ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+                 _stream(dev))
     if err != 0:
         raise RuntimeError(f"cluster_intersect launch failed: CUDA error {err}")
     cluster_intersect_padded.launches += 1
@@ -346,27 +390,321 @@ def cluster_intersect_padded(rays, counts, ids, tconst, tile: int,
 cluster_intersect_padded.launches = 0
 
 
+# --------------------------------------------------------------------------
+# Front-to-back candidate order.
+# --------------------------------------------------------------------------
+
+def _ftb_order(key, c: int, group: int, mega: int):
+    """Front-to-back candidate order from per-(subtile, cluster) entry keys,
+    as one int32 sort: a non-negative f32 key keeps its order when viewed as
+    int32, its low ceil(log2 c) mantissa bits are replaced by the cluster id,
+    and the packed word is sorted.
+
+    Returns (order (rows, c) i32, gkeys (rows / mega, mega, c / group) f32):
+    the cluster ids by ascending key, and the key of every ``group``-th one,
+    quantised DOWN (clearing low mantissa bits of a non-negative float rounds
+    toward zero), so an exit that compares it can only be more conservative.
+    Integer work: equal to the JAX package's function bit for bit.
+    """
+    idb = max(1, (c - 1).bit_length())
+    mask = (1 << idb) - 1
+    kbits = key.contiguous().view(torch.int32)
+    iota = torch.arange(c, dtype=torch.int32, device=key.device)
+    packed = torch.sort((kbits & ~mask) | iota, dim=1).values
+    order = packed & mask
+    gq = (packed & ~mask).view(torch.float32)
+    return order, gq[:, ::group].reshape(-1, mega, c // group)
+
+
+def _ftb_candidates(keys):
+    """(order, qkeys) per row of ``keys``: all ids front to back and each
+    one's quantised-down key.  The candidates are each row's first
+    ``count`` (the key kernels' count of keys < 1e30)."""
+    c = keys.shape[1]
+    order, qkeys = _ftb_order(keys, c, 1, 1)
+    return order, qkeys.reshape(-1, c)
+
+
+def ftb_needed(bt, cap, counts, qkeys, tile: int):
+    """Per row, the number of leading candidates whose quantised key is <=
+    the row's bound max over rays of min(bt, cap): the candidates that no
+    exact exit can skip once the rays' best distances are ``bt``.  bt, cap
+    (rows * tile,); counts (rows,), qkeys (rows, C) ascending.  The bound of
+    the final result is a lower limit for every exit; the bound of a partial
+    result (from a prefix of the candidates) is an upper one."""
+    rows = counts.shape[0]
+    bound = torch.amax(torch.minimum(bt, cap).reshape(rows, tile), dim=1)
+    j = torch.arange(qkeys.shape[1], device=qkeys.device)[None, :]
+    ok = (qkeys <= bound[:, None]) & (j < counts[:, None])
+    return ok.sum(dim=1, dtype=torch.int32)
+
+
+# --------------------------------------------------------------------------
+# Kernel 3: candidate keys over a chunk axis, one launch for all chunks.
+# --------------------------------------------------------------------------
+
+def _park_rays(rays, cap, mt: bool):
+    """The ray rows as one chunk sees them: where cap < 0 the origin moves to
+    1e9 (and w = o x d follows, with ``mt``)."""
+    moved = (cap < 0)[:, None]
+    origin = torch.where(moved, 1e9, rays[:, 0:3])
+    out = rays.clone()
+    out[:, 0:3] = origin
+    if mt:
+        out[:, 6:9] = cross(origin, rays[:, 3:6])
+    return out
+
+
+def cluster_keys_chunked_plain(rays, chunk_cap, caabb, tile: int):
+    """Plain PyTorch version of the chunked key kernel.
+
+    rays (R, k >= 6) f32, shared by all chunks; chunk_cap (K, R) f32, < 0
+    where the ray is parked for the chunk (its origin counts as 1e9);
+    caabb (K, 8, C) f32.  Returns (keys (K * R/tile, C) f32, counts
+    (K * R/tile,) i32), rows chunk-major: cluster_keys_plain's keys of chunk
+    k's table against chunk k's view of the rays.
+    """
+    keys, counts = [], []
+    for k in range(caabb.shape[0]):
+        kk, cc, _ = cluster_keys_plain(_park_rays(rays, chunk_cap[k], False),
+                                       caabb[k], tile)
+        keys.append(kk)
+        counts.append(cc)
+    return torch.cat(keys), torch.cat(counts)
+
+
+def cluster_keys_chunked(rays, chunk_cap, caabb, tile: int):
+    """Candidate keys of every (chunk, subtile) in one launch; see
+    cluster_keys_chunked_plain for the contract."""
+    if rays.device.type == "cpu":
+        return cluster_keys_chunked_plain(rays, chunk_cap, caabb, tile)
+    from .build import load
+
+    dev = _check_cuda_inputs("cluster_keys_chunked", rays=rays,
+                             chunk_cap=chunk_cap, caabb=caabb)
+    if any(t.dtype != torch.float32 for t in (rays, chunk_cap, caabb)):
+        raise TypeError("cluster_keys_chunked: inputs must be float32")
+    if rays.dim() != 2 or rays.shape[1] < 6 or rays.shape[0] % tile:
+        raise ValueError(f"cluster_keys_chunked: rays {tuple(rays.shape)} must "
+                         f"be (R, >=6) with R a multiple of tile={tile}")
+    if (caabb.dim() != 3 or caabb.shape[1] != 8 or not 1 <= tile <= 1024
+            or chunk_cap.shape != (caabb.shape[0], rays.shape[0])
+            or caabb.shape[0] > 65535):
+        raise ValueError("cluster_keys_chunked: caabb must be (K <= 65535, 8, "
+                         "C), chunk_cap (K, R), tile in [1, 1024]")
+    k_n, _, c = caabb.shape
+    n_sub = rays.shape[0] // tile
+    keys = torch.empty((k_n * n_sub, c), dtype=torch.float32, device=dev)
+    counts = torch.empty((k_n * n_sub,), dtype=torch.int32, device=dev)
+    fn = load("cluster_keys_chunked")
+    with torch.cuda.device(dev):
+        err = fn(_ptr(rays), rays.shape[1], n_sub, tile, k_n, _ptr(chunk_cap),
+                 _ptr(caabb), c, _ptr(keys), _ptr(counts), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"cluster_keys_chunked launch failed: CUDA error {err}")
+    cluster_keys_chunked.launches += 1
+    return keys, counts
+
+
+cluster_keys_chunked.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Kernels 4 and 5: nearest hit over front-to-back candidates, early exit.
+# --------------------------------------------------------------------------
+
+# Leading candidates the plain versions test first to get a bound.
+_PLAIN_FIRST = 2
+
+
+def _ftb_plain(rays, cap, counts, order, qkeys, tconst, tile: int, mt: bool):
+    """Nearest hit over one table's front-to-back candidates in two passes of
+    cluster_intersect_padded_plain: the first _PLAIN_FIRST candidates of each
+    subtile give a bound, and the second pass tests the prefix that this
+    bound cannot exclude (ftb_needed).  Same result as testing every
+    candidate, at a fraction of the temporaries."""
+    first = torch.clamp(counts, max=_PLAIN_FIRST)
+    bt, _ = cluster_intersect_padded_plain(rays, first, order, tconst, tile, mt)
+    need = ftb_needed(bt, cap, counts, qkeys, tile)
+    return cluster_intersect_padded_plain(rays, need, order, tconst, tile, mt)
+
+
+def cluster_intersect_ftb_plain(rays, counts, order, qkeys, tconst, tile: int,
+                                mt: bool = False, chunk_cap=None, counter=None):
+    """Plain PyTorch version of the front-to-back intersect kernel.
+
+    rays (R, 8) [o d cap 0] or, with ``mt``, (R, 16) [o d w cap 0...] f32,
+    shared by all chunks; counts (K * R/tile,) i32, order (K * R/tile, C) i32
+    and qkeys (K * R/tile, C) f32 from _ftb_candidates, rows chunk-major;
+    tconst (K * C, 16, W) f32.  ``chunk_cap`` (K, R) f32 gives each (chunk,
+    ray) its cap and parks the ray for the chunk where it is < 0; without it
+    K = 1, the cap is the rays' cap column and no ray is moved.
+    Returns (t (K, R) f32, tri (K, R) i32), tri local to the chunk:
+    cluster_intersect_padded_plain's result over each row's first
+    ``counts`` candidates.  ``counter`` is the kernel's and is left alone.
+    """
+    r = rays.shape[0]
+    n_sub = r // tile
+    if chunk_cap is None:
+        caps = rays[:, 9 if mt else 6][None]
+    else:
+        caps = chunk_cap
+    k_n = caps.shape[0]
+    c = order.shape[1]
+    out_t, out_i = [], []
+    for k in range(k_n):
+        rows = slice(k * n_sub, (k + 1) * n_sub)
+        rays_k = rays if chunk_cap is None else _park_rays(rays, caps[k], mt)
+        bt, bi = _ftb_plain(rays_k, caps[k], counts[rows], order[rows],
+                            qkeys[rows], tconst[k * c:(k + 1) * c], tile, mt)
+        out_t.append(bt)
+        out_i.append(bi)
+    return torch.stack(out_t), torch.stack(out_i)
+
+
+def _check_ftb_inputs(name, rays, counts, order, qkeys, tconst, tile, mt,
+                      k_n, counter, **more):
+    dev = _check_cuda_inputs(name, rays=rays, counts=counts, order=order,
+                             qkeys=qkeys, tconst=tconst, **more)
+    if (rays.dtype != torch.float32 or tconst.dtype != torch.float32
+            or qkeys.dtype != torch.float32 or counts.dtype != torch.int32
+            or order.dtype != torch.int32):
+        raise TypeError(f"{name}: rays/qkeys/tconst float32, counts/order int32")
+    if (rays.dim() != 2 or rays.shape[1] != (16 if mt else 8)
+            or rays.shape[0] % tile or not 1 <= tile <= 1024):
+        raise ValueError(f"{name}: rays {tuple(rays.shape)} must be (R, "
+                         f"{16 if mt else 8}), R a multiple of tile={tile} "
+                         "in [1, 1024]")
+    rows = k_n * (rays.shape[0] // tile)
+    if (tconst.dim() != 3 or tconst.shape[1] != 16 or tconst.shape[0] % k_n
+            or counts.shape != (rows,)
+            or order.shape != (rows, tconst.shape[0] // k_n)
+            or qkeys.shape != order.shape):
+        raise ValueError(f"{name}: tconst must be (K * C, 16, W), counts "
+                         "(K * R/tile,), order and qkeys (K * R/tile, C)")
+    cols = tconst.shape[2]
+    if cols & (cols - 1):
+        raise ValueError(f"{name}: the table's column count {cols} must be a "
+                         "power of two")
+    if counter is not None and (counter.dtype != torch.int64
+                                or counter.numel() != 1
+                                or counter.device != dev):
+        raise ValueError(f"{name}: counter must be one int64 on {dev}")
+    return dev
+
+
+def cluster_intersect_ftb(rays, counts, order, qkeys, tconst, tile: int,
+                          mt: bool = False, chunk_cap=None, counter=None):
+    """Nearest hit per (chunk, ray) over front-to-back candidate clusters,
+    stopping once the next candidate's key is past every ray's min(best t,
+    cap); see cluster_intersect_ftb_plain for the contract.  ``counter`` (one
+    int64 on the card, or None) receives the number of (subtile, candidate)
+    pairs tested."""
+    if rays.device.type == "cpu":
+        return cluster_intersect_ftb_plain(rays, counts, order, qkeys, tconst,
+                                           tile, mt, chunk_cap)
+    from .build import load
+
+    k_n = 1 if chunk_cap is None else chunk_cap.shape[0]
+    more = {} if chunk_cap is None else {"chunk_cap": chunk_cap}
+    dev = _check_ftb_inputs("cluster_intersect_ftb", rays, counts, order, qkeys,
+                            tconst, tile, mt, k_n, counter, **more)
+    r = rays.shape[0]
+    if chunk_cap is not None and (chunk_cap.dtype != torch.float32
+                                  or chunk_cap.shape != (k_n, r)
+                                  or k_n > 65535):
+        raise ValueError("cluster_intersect_ftb: chunk_cap must be (K <= 65535, "
+                         "R) float32")
+    out_t = torch.empty((k_n, r), dtype=torch.float32, device=dev)
+    out_i = torch.empty((k_n, r), dtype=torch.int32, device=dev)
+    fn = load("cluster_intersect_ftb")
+    with torch.cuda.device(dev):
+        err = fn(_ptr(rays), rays.shape[1], r // tile, tile, k_n,
+                 _ptr(chunk_cap), _ptr(counts), _ptr(order), _ptr(qkeys),
+                 order.shape[1], _ptr(tconst), tconst.shape[2], int(mt),
+                 _ptr(out_t), _ptr(out_i), _ptr(counter), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"cluster_intersect_ftb launch failed: CUDA error {err}")
+    cluster_intersect_ftb.launches += 1
+    return out_t, out_i
+
+
+cluster_intersect_ftb.launches = 0
+
+
+def cluster_intersect_hbm_plain(rays, counts, order, qkeys, tconst, tile: int,
+                                mt: bool = False, counter=None):
+    """Plain PyTorch version of the supergroup intersect kernel.
+
+    rays (R, 8 | 16) with the cap in column 6 (9 with ``mt``); counts
+    (R/tile,) i32, order (R/tile, S) i32 and qkeys (R/tile, S) f32 from
+    _ftb_candidates over the supergroup AABBs; tconst (S, 16, sg * W) f32,
+    the swizzled table (build_hbm_accel).  Returns (t (R,) f32, tri (R,)
+    i32), tri = supergroup * sg * W + column: a global triangle id.
+    """
+    cap = rays[:, 9 if mt else 6]
+    return _ftb_plain(rays, cap, counts, order, qkeys, tconst, tile, mt)
+
+
+def cluster_intersect_hbm_padded(rays, counts, order, qkeys, tconst, tile: int,
+                                 mt: bool = False, counter=None):
+    """Nearest hit per ray over front-to-back candidate supergroups, the exit
+    checked before each supergroup; see cluster_intersect_hbm_plain for the
+    contract and cluster_intersect_ftb for ``counter``."""
+    if rays.device.type == "cpu":
+        return cluster_intersect_hbm_plain(rays, counts, order, qkeys, tconst,
+                                           tile, mt)
+    from .build import load
+
+    dev = _check_ftb_inputs("cluster_intersect_hbm", rays, counts, order, qkeys,
+                            tconst, tile, mt, 1, counter)
+    r = rays.shape[0]
+    out_t = torch.empty((r,), dtype=torch.float32, device=dev)
+    out_i = torch.empty((r,), dtype=torch.int32, device=dev)
+    fn = load("cluster_intersect_hbm")
+    with torch.cuda.device(dev):
+        err = fn(_ptr(rays), rays.shape[1], r // tile, tile, _ptr(counts),
+                 _ptr(order), _ptr(qkeys), order.shape[1], _ptr(tconst),
+                 tconst.shape[2], int(mt), _ptr(out_t), _ptr(out_i),
+                 _ptr(counter), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"cluster_intersect_hbm launch failed: CUDA error {err}")
+    cluster_intersect_hbm_padded.launches += 1
+    return out_t, out_i
+
+
+cluster_intersect_hbm_padded.launches = 0
+
+_WRAPPERS = {
+    "cluster_keys": cluster_keys,
+    "cluster_intersect": cluster_intersect_padded,
+    "cluster_keys_chunked": cluster_keys_chunked,
+    "cluster_intersect_ftb": cluster_intersect_ftb,
+    "cluster_intersect_hbm": cluster_intersect_hbm_padded,
+}
+
+
 def launch_counts() -> dict:
-    """{kernel name: launches so far} for the two kernels of this module."""
-    return {"cluster_keys": cluster_keys.launches,
-            "cluster_intersect": cluster_intersect_padded.launches}
+    """{kernel name: launches so far} for the kernels of this module."""
+    return {name: fn.launches for name, fn in _WRAPPERS.items()}
 
 
 def reset_launch_counts() -> None:
-    cluster_keys.launches = 0
-    cluster_intersect_padded.launches = 0
+    for fn in _WRAPPERS.values():
+        fn.launches = 0
 
 
 # --------------------------------------------------------------------------
-# The intersector.
+# The intersectors.
 # --------------------------------------------------------------------------
 
-def pack_rays(origin, direction, mt: bool = False):
+def pack_rays(origin, direction, mt: bool = False, t_cap=None):
     """Kernel ray rows: (R, 8) [o d cap 0], or (R, 16) [o d w cap 0*6] with
-    w = o x d when ``mt``.  The cap column (the TPU kernel's front-to-back
-    exit cap) is 1e30: uncapped."""
+    w = o x d when ``mt``.  The cap column is the front-to-back exit cap
+    ``t_cap`` (R,), 1e30 (uncapped) without one."""
     r = origin.shape[0]
-    cap = origin.new_full((r, 1), BIG)
+    cap = (origin.new_full((r, 1), BIG) if t_cap is None
+           else t_cap.to(origin.dtype)[:, None])
     if mt:
         w = cross(origin, direction)
         return torch.cat([origin, direction, w, cap, origin.new_zeros((r, 6))],
@@ -375,43 +713,268 @@ def pack_rays(origin, direction, mt: bool = False):
                      dim=1).contiguous()
 
 
-def _candidates(rays, cmin, cmax, tile: int):
-    """(counts, ids): each subtile's ascending candidate clusters."""
-    _, counts, ids = cluster_keys(rays, _caabb(cmin, cmax), tile)
-    return counts, ids
+def _shape_and_pad(origin, direction, tile: int, mega: int, t_cap=None):
+    """The TPU entry points' shape rules: tile and mega clamped to the ray
+    count, the rays padded to a multiple of tile * mega with parked dummies
+    (origin 1e9, cap -1) whose candidate lists stay empty.  Returns (origin,
+    direction, t_cap, tile)."""
+    r = origin.shape[0]
+    tile = min(tile, max(8, r))
+    mega = max(1, min(mega, r // tile if r >= tile else 1))
+    pad = (-r) % (tile * mega)
+    if pad:
+        origin = torch.cat([origin, origin.new_full((pad, 3), 1e9)])
+        direction = torch.cat([direction, direction.new_tensor(
+            [[1.0, 0.0, 0.0]]).expand(pad, 3)])
+        if t_cap is not None:
+            t_cap = torch.cat([t_cap, t_cap.new_full((pad,), -1.0)])
+    return origin, direction, t_cap, tile
+
+
+def _result(bt, bi, r: int):
+    bt, bi = bt[:r], bi[:r]
+    hit = bi >= 0
+    return hit, torch.where(hit, bt, BIG), torch.where(hit, bi, -1)
 
 
 def cluster_intersect(accel: ClusterAccel, origin, direction,
                       tile: int = 256, mega: int = 16, group: int = 4,
-                      mt: bool = False, defer: bool = True, ftb: bool = False):
+                      mt: bool = False, defer: bool = True, ftb: bool = False,
+                      t_cap=None):
     """Nearest-hit query: (hit (R,) bool, t (R,) f32, tri (R,) i32).
 
     Same result contract as brute_force_intersect (smallest t > 0; a miss is
     t = 1e30, tri = -1); ties between coincident triangles go to the lowest
     triangle id.  ``mt`` selects the Moller-Trumbore test (the accel must be
     built with the matching ``build_cluster_accel(..., mt=...)`` table).
+    ``ftb`` orders the candidates front to back and stops early (kernel
+    cluster_intersect_ftb): identical results; ``t_cap`` (R,) then caps each
+    ray's bound (its exit distance from the scene's box, say).
     """
-    if ftb:
-        raise NotImplementedError(
-            "the front-to-back early exit belongs to the chunked large-scene "
-            "intersector, not ported yet (ROADMAP.md item A10, kernel B3)")
     r = origin.shape[0]
-    tile = min(tile, max(8, r))
-    mega = max(1, min(mega, r // tile if r >= tile else 1))
-    group = min(max(1, group), accel.num_clusters)
-    group = 1 << (group.bit_length() - 1)  # accepted for parity; no effect
-    step = tile * mega
-    pad = (-r) % step
-    if pad:
-        # Dummy rays far outside every scene: their candidate lists stay empty.
-        origin = torch.cat([origin, origin.new_full((pad, 3), 1e9)])
-        direction = torch.cat([direction, direction.new_tensor(
-            [[1.0, 0.0, 0.0]]).expand(pad, 3)])
-    rays = pack_rays(origin, direction)
-    counts, ids = _candidates(rays, accel.cmin, accel.cmax, tile)
+    origin, direction, t_cap, tile = _shape_and_pad(origin, direction, tile,
+                                                    mega, t_cap)
+    width = accel.width
+    ftb = ftb and width & (width - 1) == 0
+    rays = pack_rays(origin, direction, t_cap=t_cap)
+    caabb = _caabb(accel.cmin, accel.cmax)
+    if ftb:
+        keys, counts, _ = cluster_keys(rays, caabb, tile, with_ids=False)
+        order, qkeys = _ftb_candidates(keys)
+    else:
+        _, counts, ids = cluster_keys(rays, caabb, tile)
     if mt:
-        rays = pack_rays(origin, direction, mt=True)
-    bt, bi = cluster_intersect_padded(rays, counts, ids, accel.tconst, tile, mt)
-    bt, bi = bt[:r], bi[:r]
-    hit = bi >= 0
-    return hit, torch.where(hit, bt, BIG), bi
+        rays = pack_rays(origin, direction, mt=True, t_cap=t_cap)
+    if ftb:
+        bt, bi = cluster_intersect_ftb(rays, counts, order, qkeys, accel.tconst,
+                                       tile, mt)
+        bt, bi = bt[0], bi[0]
+    else:
+        bt, bi = cluster_intersect_padded(rays, counts, ids, accel.tconst, tile,
+                                          mt)
+    return _result(bt, bi, r)
+
+
+# --------------------------------------------------------------------------
+# Chunked tables: scenes past the single-table budget.
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ChunkedClusterAccel:
+    """Stacked per-chunk tables.
+
+    tconst: (K*C, 16, width), chunk k's constant blocks at rows
+            [k*C, (k+1)*C) (zero rows past a chunk's own clusters: t = 0/0 =
+            NaN, never hit).
+    cmin/cmax: (K, C, 3) cluster AABBs (padding clusters inverted-empty).
+    kmin/kmax: (K, 3) whole-chunk AABBs for ray routing.
+    offsets: (K,) i32, chunk k's first global (padded) triangle id.
+    caabb: (K, 8, C), the key kernel's view of cmin/cmax, built once.
+    """
+
+    tconst: Any
+    cmin: Any
+    cmax: Any
+    kmin: Any
+    kmax: Any
+    offsets: Any
+    caabb: Any
+
+    @property
+    def num_chunks(self) -> int:
+        return self.cmin.shape[0]
+
+    @property
+    def clusters_per_chunk(self) -> int:
+        return self.cmin.shape[1]
+
+    @property
+    def width(self) -> int:
+        return self.tconst.shape[2]
+
+
+def build_cluster_accel_chunked(scene, width: int, n_chunks: int,
+                                mt: bool = False):
+    """Cut the (cluster-ordered, padded) triangle range into ``n_chunks``
+    width-aligned contiguous chunks and stack their tables.  Chunk k covers
+    triangles [offsets[k], offsets[k+1]); the order keeps each chunk
+    spatially tight, so a ray's candidates concentrate in few chunks.
+    Returns (accel, offsets as a Python list)."""
+    t = scene.num_tris_padded
+    per = -(-(t // width) // n_chunks) * width
+    accels, offsets = [], []
+    for k in range(n_chunks):
+        a, b = k * per, min((k + 1) * per, t)
+        if a >= b:
+            break
+        sub = dataclasses.replace(
+            scene, v0=scene.v0[a:b], v1=scene.v1[a:b], v2=scene.v2[a:b],
+            geom_n=scene.geom_n[a:b], tri_valid=scene.tri_valid[a:b])
+        accels.append(build_cluster_accel(sub, width=width, mt=mt))
+        offsets.append(a)
+    # A common C, a multiple of 8 as in the JAX package (so the tables have
+    # the same shape); padding clusters are inverted-empty, never candidates.
+    c = -(-max(a.num_clusters for a in accels) // 8) * 8
+
+    def padded(x, value):
+        extra = x.new_full((c - x.shape[0],) + tuple(x.shape[1:]), value)
+        return torch.cat([x, extra])
+
+    tconst = torch.cat([padded(a.tconst, 0.0) for a in accels])
+    cmin = torch.stack([padded(a.cmin, BIG) for a in accels])
+    cmax = torch.stack([padded(a.cmax, -BIG) for a in accels])
+    caabb = torch.cat([cmin.transpose(1, 2), cmax.transpose(1, 2),
+                       cmin.new_zeros((len(accels), 2, c))], dim=1).contiguous()
+    accel = ChunkedClusterAccel(
+        tconst=tconst, cmin=cmin, cmax=cmax,
+        kmin=torch.amin(cmin, dim=1), kmax=torch.amax(cmax, dim=1),
+        offsets=torch.tensor(offsets, dtype=torch.int32, device=tconst.device),
+        caabb=caabb)
+    return accel, offsets
+
+
+def chunk_caps(accel: ChunkedClusterAccel, origin, direction):
+    """Routing slab pass against the K chunk AABBs: (K, R) f32, each ray's
+    exit distance from each chunk's box, -1 where it misses the box (the ray
+    is parked for that chunk).  A NaN slab distance (0 * inf) counts as an
+    open axis, as in the key kernel."""
+    inv = 1.0 / direction  # (R, 3); +-inf on zero components
+    lo = (accel.kmin[:, None] - origin[None]) * inv[None]  # (K, R, 3)
+    hi = (accel.kmax[:, None] - origin[None]) * inv[None]
+    tn = torch.minimum(lo, hi)
+    tf = torch.maximum(lo, hi)
+    tn = torch.where(torch.isnan(tn), -torch.inf, tn)
+    tf = torch.where(torch.isnan(tf), torch.inf, tf)
+    enter = torch.amax(tn, dim=2)
+    exit_ = torch.amin(tf, dim=2)
+    touch = (enter <= exit_) & (exit_ >= 0)
+    return torch.where(touch, exit_, -1.0)
+
+
+def cluster_intersect_chunked(accel: ChunkedClusterAccel, offsets, origin,
+                              direction, tile: int = 256, mega: int = 16,
+                              group: int = 4, mt: bool = False):
+    """Nearest hit over a chunked accel in two kernel launches (one key
+    kernel, one test kernel, each over all K chunks), merged lexicographically
+    on (t, global triangle id): the single-table contract (chunks ascend in
+    triangle id).  ``offsets`` is accepted for the JAX package's signature;
+    ``accel.offsets`` is what is used.
+
+    A ray is parked for every chunk whose box it misses, so a (chunk,
+    subtile) pair none of whose rays touch the chunk costs one skipped block
+    in each kernel.  The rays are not copied per chunk: the (K, R) caps carry
+    what differs between the chunks' views of a ray.
+    """
+    width = accel.width
+    if width & (width - 1):
+        raise ValueError("the chunked path requires a power-of-two width")
+    r = origin.shape[0]
+    origin, direction, _, tile = _shape_and_pad(origin, direction, tile, mega)
+    cap = chunk_caps(accel, origin, direction)
+    rays = pack_rays(origin, direction, mt=mt)
+    keys, counts = cluster_keys_chunked(rays, cap, accel.caabb, tile)
+    order, qkeys = _ftb_candidates(keys)
+    bt, bi = cluster_intersect_ftb(rays, counts, order, qkeys, accel.tconst,
+                                   tile, mt, chunk_cap=cap)
+    # Lexicographic (t, global tri) minimum across the chunks.
+    hit_k = bi >= 0
+    tri_g = torch.where(hit_k, bi + accel.offsets[:, None], _INT_MAX)
+    t_k = torch.where(hit_k, bt, BIG)
+    best_t = torch.amin(t_k, dim=0)
+    best_i = torch.amin(torch.where(t_k == best_t[None], tri_g, _INT_MAX), dim=0)
+    return _result(best_t, torch.where(best_t < BIG, best_i, -1), r)
+
+
+# --------------------------------------------------------------------------
+# Supergroup tables: one table of any size, candidates per supergroup.
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class HbmClusterAccel:
+    """The swizzled table of the supergroup intersector.
+
+    tconst: (S, 16, sg*width): supergroup s's sg clusters side by side, so
+            column c of block s is triangle s*sg*width + c (zero rows past
+            the last cluster: never hit).
+    caabb: (8, S) supergroup AABBs as the key kernel reads them.
+    sgroup: clusters per supergroup.
+    """
+
+    tconst: Any
+    caabb: Any
+    sgroup: int
+
+    @property
+    def num_supergroups(self) -> int:
+        return self.tconst.shape[0]
+
+
+def supergroup_size(num_clusters: int, max_s: int = 2048) -> int:
+    """Smallest power-of-two supergroup size (at least 4) keeping
+    S = C/sg <= max_s."""
+    sg = 4
+    while -(-num_clusters // sg) > max_s:
+        sg *= 2
+    return sg
+
+
+def build_hbm_accel(accel: ClusterAccel, sgroup: int | None = None):
+    """Supergroup tables from a single-table accel: per-supergroup AABBs and
+    the table swizzled to (S, 16, sg*width), padded with empty clusters to a
+    whole number of supergroups."""
+    c, width = accel.num_clusters, accel.width
+    if width & (width - 1):
+        raise ValueError("the supergroup path requires a power-of-two width")
+    sg = sgroup or supergroup_size(c)
+    s_n = -(-c // sg)
+    pad = s_n * sg - c
+    cmin = torch.cat([accel.cmin, accel.cmin.new_full((pad, 3), BIG)])
+    cmax = torch.cat([accel.cmax, accel.cmax.new_full((pad, 3), -BIG)])
+    smin = torch.amin(cmin.reshape(s_n, sg, 3), dim=1)
+    smax = torch.amax(cmax.reshape(s_n, sg, 3), dim=1)
+    tconst = torch.cat([accel.tconst, accel.tconst.new_zeros((pad, 16, width))])
+    tconst = (tconst.reshape(s_n, sg, 16, width).permute(0, 2, 1, 3)
+              .reshape(s_n, 16, sg * width).contiguous())
+    return HbmClusterAccel(tconst=tconst, caabb=_caabb(smin, smax), sgroup=sg)
+
+
+def cluster_intersect_hbm(accel, origin, direction, tile: int = 64,
+                          mega: int = 16, sgroup: int | None = None,
+                          mt: bool = False, t_cap=None):
+    """Nearest hit over the supergroup tables; same result contract as
+    cluster_intersect.  ``accel`` is an HbmClusterAccel (build it once per
+    scene with build_hbm_accel) or a ClusterAccel, from which the supergroup
+    tables are built here with ``sgroup``."""
+    if isinstance(accel, ClusterAccel):
+        accel = build_hbm_accel(accel, sgroup)
+    r = origin.shape[0]
+    origin, direction, t_cap, tile = _shape_and_pad(origin, direction, tile,
+                                                    mega, t_cap)
+    rays = pack_rays(origin, direction, t_cap=t_cap)
+    keys, counts, _ = cluster_keys(rays, accel.caabb, tile, with_ids=False)
+    order, qkeys = _ftb_candidates(keys)
+    if mt:
+        rays = pack_rays(origin, direction, mt=True, t_cap=t_cap)
+    bt, bi = cluster_intersect_hbm_padded(rays, counts, order, qkeys,
+                                          accel.tconst, tile, mt)
+    return _result(bt, bi, r)

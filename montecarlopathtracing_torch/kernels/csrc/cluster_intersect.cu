@@ -27,22 +27,19 @@
 // bests meet in a warp-shuffle reduction.  Candidate lists come ascending
 // from cluster_keys; the order does not change the result.
 //
-// Built with -fmad=false and IEEE division, and every expression keeps the
-// TPU kernel's operation order, so t, the hit mask and the winner match the
-// plain PyTorch version (cluster_intersect_padded_plain) bit for bit.
+// The triangle tests and the lexicographic best live in cluster_tri.cuh,
+// shared with the front-to-back kernels.  Built with -fmad=false and IEEE
+// division, and every expression keeps the TPU kernel's operation order, so
+// t, the hit mask and the winner match the plain PyTorch version
+// (cluster_intersect_padded_plain) bit for bit.
 
-#include <cuda_runtime.h>
-#include <limits.h>
+#include "cluster_tri.cuh"
 
 namespace {
 
-constexpr float kBig = 1e30f;
-constexpr int kStageCols = 128;  // table columns staged per pass (min)
+using namespace mcpt;
 
-__device__ __forceinline__ float dot3(float ax, float ay, float az,
-                                      const float* row, int stride, int j) {
-  return ax * row[j] + ay * row[stride + j] + az * row[2 * stride + j];
-}
+constexpr int kStageCols = 128;  // table columns staged per pass (min)
 
 template <bool MT>
 __global__ void cluster_intersect_kernel(
@@ -57,15 +54,8 @@ __global__ void cluster_intersect_kernel(
   const int tid = threadIdx.x;
   const int ray = tid / split;
   const int part = tid - ray * split;
-  const float* rp = rays + ((size_t)sub * tile + ray) * ray_stride;
-  const float ox = rp[0], oy = rp[1], oz = rp[2];
-  const float dx = rp[3], dy = rp[4], dz = rp[5];
-  float wx = 0.0f, wy = 0.0f, wz = 0.0f;
-  if (MT) {
-    wx = rp[6];
-    wy = rp[7];
-    wz = rp[8];
-  }
+  const Ray r =
+      load_ray<MT>(rays + ((size_t)sub * tile + ray) * ray_stride);
 
   const int n = counts[sub];
   const int* cand = ids + (size_t)sub * n_clusters;
@@ -88,56 +78,14 @@ __global__ void cluster_intersect_kernel(
     __syncthreads();
     for (int j = part; j < cols; j += split) {
       float t;
-      bool inside;
-      if (MT) {
-        const float det = -dot3(dx, dy, dz, s_tab + 0 * cols, cols, j);
-        const float o_n = dot3(ox, oy, oz, s_tab + 0 * cols, cols, j);
-        t = (o_n - s_tab[3 * cols + j]) / det;
-        const float au = dot3(wx, wy, wz, s_tab + 7 * cols, cols, j) +
-                         dot3(dx, dy, dz, s_tab + 10 * cols, cols, j);
-        const float av = -dot3(wx, wy, wz, s_tab + 4 * cols, cols, j) +
-                         dot3(dx, dy, dz, s_tab + 13 * cols, cols, j);
-        inside = (au * det >= 0.0f) && (av * det >= 0.0f) &&
-                 ((det - au - av) * det >= 0.0f);
-      } else {
-        const float n_o = dot3(ox, oy, oz, s_tab + 0 * cols, cols, j);
-        const float n_d = dot3(dx, dy, dz, s_tab + 0 * cols, cols, j);
-        t = (s_tab[3 * cols + j] - n_o) / n_d;
-        const float c1 = dot3(ox, oy, oz, s_tab + 4 * cols, cols, j) +
-                         t * dot3(dx, dy, dz, s_tab + 4 * cols, cols, j) -
-                         s_tab[7 * cols + j];
-        const float c2 = dot3(ox, oy, oz, s_tab + 8 * cols, cols, j) +
-                         t * dot3(dx, dy, dz, s_tab + 8 * cols, cols, j) -
-                         s_tab[11 * cols + j];
-        const float c3 = dot3(ox, oy, oz, s_tab + 12 * cols, cols, j) +
-                         t * dot3(dx, dy, dz, s_tab + 12 * cols, cols, j) -
-                         s_tab[15 * cols + j];
-        inside = (c1 * c2 >= 0.0f) && (c1 * c3 >= 0.0f) && (c2 * c3 >= 0.0f);
-      }
-      if (inside && t > 0.0f && t < kBig) {
+      if (tri_test<MT>(r, s_tab, cols, j, t)) {
         const int k = j / width;
-        const int tri = cand[k0 + k] * width + (j - k * width);
-        if (t < bt || (t == bt && tri < bi)) {
-          bt = t;
-          bi = tri;
-        }
+        lex_min(bt, bi, t, cand[k0 + k] * width + (j - k * width));
       }
     }
   }
 
-  // Lexicographic (t, tri) minimum over the `split` lanes of this ray: an
-  // aligned group of consecutive lanes of one warp (split is a power of two
-  // and divides the block size).  The block's last warp may be partial.
-  const int in_warp = min(32, (int)blockDim.x - (tid & ~31));
-  const unsigned mask = in_warp == 32 ? 0xffffffffu : (1u << in_warp) - 1u;
-  for (int off = split >> 1; off > 0; off >>= 1) {
-    const float ot = __shfl_xor_sync(mask, bt, off);
-    const int oi = __shfl_xor_sync(mask, bi, off);
-    if (ot < bt || (ot == bt && oi < bi)) {
-      bt = ot;
-      bi = oi;
-    }
-  }
+  lex_reduce(bt, bi, split, warp_mask());
   if (part == 0) {
     const size_t g = (size_t)sub * tile + ray;
     out_t[g] = bt;
@@ -154,11 +102,7 @@ extern "C" int mcpt_cluster_intersect(const float* rays, int ray_stride,
                                       int width, int mt, float* out_t,
                                       int* out_tri, void* stream) {
   if (n_subtiles <= 0) return (int)cudaGetLastError();
-  // S threads per ray (a power of two, at most a warp), consecutive lanes:
-  // about 256-thread blocks for tiles up to 256 rays, one thread per ray
-  // beyond.
-  int split = 1;
-  while (split < 32 && tile * split * 2 <= 256) split *= 2;
+  const int split = mcpt::ray_split(tile);
   const int threads = tile * split;
   const int stage_clusters = width >= kStageCols ? 1 : kStageCols / width;
   const size_t smem = sizeof(float) * 16 * (size_t)stage_clusters * width;

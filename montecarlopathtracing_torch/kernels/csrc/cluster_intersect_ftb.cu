@@ -1,0 +1,29 @@
+// Nearest hit over each (chunk, ray subtile)'s front-to-back candidate
+// clusters, with the early exit.
+//
+// Replaces the TPU kernel montecarlopathtracing_tpu/kernels/cluster.py::
+// _intersect_kernel with ftb=True: its pallas_call over a (K chunks,
+// n_steps) grid in cluster_intersect_chunked, and the one in
+// _cluster_intersect_padded when front-to-back keys are given (K = 1).
+//
+// Table layout: tconst (K * C, 16, W), chunk k's clusters at rows
+// [k * C, (k + 1) * C); a candidate unit is one cluster, and the triangle id
+// written is cluster * W + column, local to the chunk.  All K chunks run in
+// one launch, over one copy of the rays: chunk_cap (K, R) carries what the
+// TPU version kept in K copies of the ray rows (the cap column, and the
+// origin moved to 1e9 for a ray that misses the chunk's AABB).  The TPU
+// kernel checks its exit every 4 panels of `group` clusters; this one checks
+// before every cluster.  Kernel, bound and design: cluster_ftb.cuh.
+
+#include "cluster_ftb.cuh"
+
+extern "C" int mcpt_cluster_intersect_ftb(
+    const float* rays, int ray_stride, int n_subtiles, int tile, int n_chunks,
+    const float* chunk_cap, const int* counts, const int* order,
+    const float* qkeys, int n_clusters, const float* tconst, int width, int mt,
+    float* out_t, int* out_tri, unsigned long long* tested, void* stream) {
+  return mcpt::launch_cluster_ftb(rays, ray_stride, n_subtiles, tile, n_chunks,
+                                  chunk_cap, counts, order, qkeys, n_clusters,
+                                  tconst, width, mt, out_t, out_tri, tested,
+                                  stream);
+}

@@ -1,8 +1,17 @@
-// Cluster candidate keys and candidate lists, one block per ray subtile.
+// Cluster candidate keys and candidate lists, one block per (ray subtile,
+// chunk).
 //
 // Replaces the TPU kernel montecarlopathtracing_tpu/kernels/cluster.py::
-// _key_kernel (its pallas_call in _candidate_keys) and fuses the ascending
-// candidate compaction that _candidates does after it with ftb=False.
+// _key_kernel at two of its call sites:
+//   mcpt_cluster_keys          its pallas_call in _candidate_keys, with the
+//                              ascending candidate compaction that
+//                              _candidates does after it with ftb=False
+//                              fused in (ids may be null: keys and counts
+//                              only, for the front-to-back paths);
+//   mcpt_cluster_keys_chunked  its pallas_call over a (K chunks, n_steps)
+//                              grid in cluster_intersect_chunked: all K
+//                              chunks in one launch, chunk k's AABB table
+//                              against chunk k's view of the rays.
 //
 // Contract, per subtile s of `tile` consecutive rays and per cluster c:
 //   keys[s, c] = min over the subtile's rays of the clamped slab-entry
@@ -11,8 +20,13 @@
 //                open axis: tn -> -inf, tf -> +inf.  A subtile whose every
 //                origin.x is > 5e8 (parked rays sit at 1e9) gets 1e30 for
 //                every cluster.
-//   ids[s, 0:counts[s]] = the clusters with keys < 1e30, ascending.
+//   counts[s] = the number of clusters with keys < 1e30.
+//   ids[s, 0:counts[s]] = those clusters, ascending.
 //   ids[s, counts[s]:] is left unwritten.
+// With chunks, rows are chunk-major (row = chunk * n_subtiles + s), caabb is
+// (K, 8, C), and chunk_cap (K, R) says how chunk k sees ray r: a cap < 0
+// parks the ray for that chunk (its origin counts as 1e9 on every axis, as
+// in the K copies of the rays that the TPU version builds).
 //
 // Bound: per (ray, cluster) pair about 20 f32 operations against 4 bytes of
 // key written per (subtile, cluster); at tile 64 that is ~300 operations
@@ -35,6 +49,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr float kBig = 1e30f;
+constexpr float kParked = 1e9f;  // origin of a parked ray
 
 __device__ __forceinline__ void slab(float lo, float hi, float o, float inv,
                                      float& tn, float& tf) {
@@ -48,24 +63,31 @@ __device__ __forceinline__ void slab(float lo, float hi, float o, float inv,
 
 __global__ void __launch_bounds__(kThreads)
 cluster_keys_kernel(const float* __restrict__ rays, int ray_stride,
-                    const float* __restrict__ caabb, int n_clusters, int tile,
-                    float* __restrict__ keys, int* __restrict__ counts,
-                    int* __restrict__ ids) {
+                    const float* __restrict__ chunk_cap,
+                    const float* __restrict__ caabb_all, int n_clusters,
+                    int tile, float* __restrict__ keys,
+                    int* __restrict__ counts, int* __restrict__ ids) {
   extern __shared__ float s_ray[];  // [6][tile]: ox oy oz ix iy iz
   __shared__ int s_warp[kThreads / 32];
   __shared__ int s_base;
 
   const int sub = blockIdx.x;
+  const int chunk = blockIdx.y;
+  const size_t out_row = (size_t)chunk * gridDim.x + sub;
   const int tid = threadIdx.x;
   const float* rb = rays + (size_t)sub * tile * ray_stride;
+  const float* caabb = caabb_all + (size_t)chunk * 8 * n_clusters;
+  const float* cap =
+      chunk_cap == nullptr ? nullptr : chunk_cap + out_row * tile;
 
   bool live = false;  // some ray of the subtile is not parked
   for (int r = tid; r < tile; r += kThreads) {
     const float* ray = rb + (size_t)r * ray_stride;
-    const float ox = ray[0];
+    const bool moved = cap != nullptr && cap[r] < 0.0f;
+    const float ox = moved ? kParked : ray[0];
     s_ray[0 * tile + r] = ox;
-    s_ray[1 * tile + r] = ray[1];
-    s_ray[2 * tile + r] = ray[2];
+    s_ray[1 * tile + r] = moved ? kParked : ray[1];
+    s_ray[2 * tile + r] = moved ? kParked : ray[2];
     s_ray[3 * tile + r] = 1.0f / ray[3];
     s_ray[4 * tile + r] = 1.0f / ray[4];
     s_ray[5 * tile + r] = 1.0f / ray[5];
@@ -76,8 +98,8 @@ cluster_keys_kernel(const float* __restrict__ rays, int ray_stride,
 
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  float* krow = keys + (size_t)sub * n_clusters;
-  int* irow = ids + (size_t)sub * n_clusters;
+  float* krow = keys + out_row * n_clusters;
+  int* irow = ids == nullptr ? nullptr : ids + out_row * n_clusters;
 
   for (int c0 = 0; c0 < n_clusters; c0 += kThreads) {
     const int c = c0 + tid;
@@ -116,10 +138,25 @@ cluster_keys_kernel(const float* __restrict__ rays, int ray_stride,
       s_base = acc;
     }
     __syncthreads();
-    if (h) irow[s_warp[warp] + __popc(ballot & ((1u << lane) - 1u))] = c;
-    __syncthreads();  // s_warp is rewritten by the next chunk
+    if (h && irow != nullptr)
+      irow[s_warp[warp] + __popc(ballot & ((1u << lane) - 1u))] = c;
+    __syncthreads();  // s_warp is rewritten by the next pass
   }
-  if (tid == 0) counts[sub] = s_base;
+  if (tid == 0) counts[out_row] = s_base;
+}
+
+int launch_keys(const float* rays, int ray_stride, int n_subtiles, int tile,
+                int n_chunks, const float* chunk_cap, const float* caabb,
+                int n_clusters, float* keys, int* counts, int* ids,
+                void* stream) {
+  if (n_subtiles > 0 && n_chunks > 0) {
+    const size_t smem = sizeof(float) * 6 * (size_t)tile;
+    const dim3 grid(n_subtiles, n_chunks);
+    cluster_keys_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+        rays, ray_stride, chunk_cap, caabb, n_clusters, tile, keys, counts,
+        ids);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -128,10 +165,16 @@ extern "C" int mcpt_cluster_keys(const float* rays, int ray_stride,
                                  int n_subtiles, int tile, const float* caabb,
                                  int n_clusters, float* keys, int* counts,
                                  int* ids, void* stream) {
-  if (n_subtiles > 0) {
-    const size_t smem = sizeof(float) * 6 * (size_t)tile;
-    cluster_keys_kernel<<<n_subtiles, kThreads, smem, (cudaStream_t)stream>>>(
-        rays, ray_stride, caabb, n_clusters, tile, keys, counts, ids);
-  }
-  return (int)cudaGetLastError();
+  return launch_keys(rays, ray_stride, n_subtiles, tile, 1, nullptr, caabb,
+                     n_clusters, keys, counts, ids, stream);
+}
+
+extern "C" int mcpt_cluster_keys_chunked(const float* rays, int ray_stride,
+                                         int n_subtiles, int tile,
+                                         int n_chunks, const float* chunk_cap,
+                                         const float* caabb, int n_clusters,
+                                         float* keys, int* counts,
+                                         void* stream) {
+  return launch_keys(rays, ray_stride, n_subtiles, tile, n_chunks, chunk_cap,
+                     caabb, n_clusters, keys, counts, nullptr, stream);
 }

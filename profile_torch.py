@@ -2,13 +2,18 @@
 """Profile one frame of the PyTorch port's forward main path on a CUDA card.
 
     python3 profile_torch.py                  # built-in box, 1024 x 1024
-    python3 profile_torch.py --scene large    # 100k-triangle interior, 1280 x 720
+    python3 profile_torch.py --scene large    # 400k-triangle interior, 1280 x 720
+    python3 profile_torch.py --scene large --large-mode hbm_always
+    python3 profile_torch.py --scene large --tris 100000   # single-table plan
 
 Renders the frame once unprofiled (wall time), then once under
 torch.profiler, and prints one JSON line: wall seconds, wavefront
 iterations, device busy time (sum of kernel times) and the idle share of
-the unprofiled wall time, CUDA kernel launches per iteration, the two
-ported kernels' device time, and the 12 top kernels and host ops by time.
+the unprofiled wall time, CUDA kernel launches per iteration, the ported
+kernels' device time, the intersector plan, and the 12 top kernels and host
+ops by time.  ``--large-mode`` is RenderOptions.large_mode: the default
+"hbm" renders the 400k interior under the chunked plan, "hbm_always" under
+the supergroup plan.
 """
 
 from __future__ import annotations
@@ -29,6 +34,11 @@ def main(argv=None) -> int:
     ap.add_argument("--scene", choices=["box", "large"], default="box")
     ap.add_argument("--spp", type=int, default=None,
                     help="samples per pixel (default 16 box, 4 large)")
+    ap.add_argument("--tris", type=int, default=400_000,
+                    help="triangles of --scene large (default 400000)")
+    ap.add_argument("--large-mode", default="hbm",
+                    choices=["hbm", "hbm_always", "chunked"],
+                    help="RenderOptions.large_mode (default hbm)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch: CUDA is not available", file=sys.stderr)
@@ -38,7 +48,7 @@ def main(argv=None) -> int:
 
     from montecarlopathtracing_torch.config import RenderOptions
     from montecarlopathtracing_torch.integrator.wavefront import (
-        render_image_host_chunked)
+        render_image_host_chunked, resolve_plan)
     from montecarlopathtracing_torch.kernels import cluster as K
     from montecarlopathtracing_torch.scene.builtin import (load_builtin_box,
                                                            load_builtin_large)
@@ -47,10 +57,11 @@ def main(argv=None) -> int:
         scene, _ = load_builtin_box(width=1024, height=1024, device="cuda")
         spp = args.spp or 16
     else:
-        scene, _ = load_builtin_large(n_tris=100_000, width=1280, height=720,
+        scene, _ = load_builtin_large(n_tris=args.tris, width=1280, height=720,
                                       device="cuda")
         spp = args.spp or 4
-    opts = RenderOptions(spp=spp, spp_chunk=spp)
+    opts = RenderOptions(spp=spp, spp_chunk=spp, large_mode=args.large_mode)
+    plan = resolve_plan(opts, scene.num_tris_padded)
     render_image_host_chunked(scene, None, opts.replace(spp=1, spp_chunk=1),
                               device="cuda")  # warm-up (kernel build, caches)
     torch.cuda.synchronize()
@@ -66,7 +77,9 @@ def main(argv=None) -> int:
         _, rays = render_image_host_chunked(scene, None, opts, device="cuda")
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    iters = K.launch_counts()["cluster_intersect"] - 1  # minus the bootstrap
+    # One intersect launch per iteration, plus the bootstrap.
+    iters = max(K.launch_counts()[n] for n in (
+        "cluster_intersect", "cluster_intersect_ftb", "cluster_intersect_hbm")) - 1
 
     events = prof.key_averages()
     dev_attr = ("device_time_total" if hasattr(events[0], "device_time_total")
@@ -83,9 +96,11 @@ def main(argv=None) -> int:
     kernels.sort(key=lambda k: -k[1])
     host_ops.sort(key=lambda k: -k[1])
     ported = {name: sum(k[1] for k in kernels if name in k[0]) / 1e3
-              for name in ("cluster_keys_kernel", "cluster_intersect_kernel")}
+              for name in ("cluster_keys_kernel", "cluster_intersect_kernel",
+                           "cluster_ftb_kernel")}
     print(json.dumps({
         "scene": args.scene, "spp": spp, "device": torch.cuda.get_device_name(0),
+        "tris_padded": scene.num_tris_padded, "plan": list(plan),
         "wall_s": wall_plain, "wall_s_profiled": wall, "rays": rays,
         "iterations": iters, "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall_plain,

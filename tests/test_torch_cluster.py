@@ -155,10 +155,3 @@ def test_brute_force_matches_jax(scenes, compat):
     tr = tbrute(ts, torch.as_tensor(o), torch.as_tensor(d), compat=compat)
     _check_contract(*jr, *tr)
 
-
-def test_ftb_not_ported(scenes):
-    _, ts = scenes
-    ta = tcl.build_cluster_accel(ts, width=4)
-    with pytest.raises(NotImplementedError, match="A10"):
-        tcl.cluster_intersect(ta, torch.zeros((4, 3)), torch.ones((4, 3)),
-                              ftb=True)

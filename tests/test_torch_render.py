@@ -180,8 +180,6 @@ def test_unported_paths_raise(scene_dir):
             twf.render_image_stats(ts, None, opts.replace(**kw), device="cpu")
     with pytest.raises(NotImplementedError, match="A12"):
         twf.render_image_stats(ts, None, opts, differentiable=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        twf.resolve_plan(RenderOptions(), num_tris=1 << 19)
     with pytest.raises(NotImplementedError):
         twf.resolve_plan(RenderOptions(intersector="cluster_interpret"), 16)
     assert twf.resolve_plan(RenderOptions(), 16)[0] == "cluster"

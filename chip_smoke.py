@@ -35,7 +35,11 @@ exits non-zero):
             the CPU (plain versions);
 8. timing   every intersect call of the four frames replayed: each kernel
             and its plain version on the call's inputs, checked exactly
-            equal and timed (CUDA events, device time only), with its bound;
+            equal and timed (CUDA events, device time only), with its bound,
+            its bound with contraction off (bound_unfused_ms: the kernels are
+            built with -fmad=false, so a multiply-add is two instructions
+            and the card does half its f32 peak at most), and
+            the ratio of the frame's slowest launch to the mean;
             for the front-to-back kernels also the (subtile, candidate) pairs
             tested, against all candidate pairs and against the pairs no
             exact exit could skip;
@@ -313,13 +317,19 @@ def bound_of(n_bytes: int, n_ops: int):
 
 def aggregate(rows):
     """Means over a frame's calls of one kernel; rows are dicts with ms,
-    plain_ms, bytes, ops and late (the host outlasted the sleep)."""
+    plain_ms, bytes, ops and late (the host outlasted the sleep).
+    bound_unfused_ms is bound_ms with the operations counted at half the f32
+    peak (no contraction of a*b+c); ms_max_over_mean is the slowest launch
+    over the mean."""
     n = len(rows)
     _, by = bound_of(sum(r["bytes"] for r in rows), sum(r["ops"] for r in rows))
-    return {"ms": sum(r["ms"] for r in rows) / n,
-            "ms_max": max(r["ms"] for r in rows),
+    ms = sum(r["ms"] for r in rows) / n
+    ms_max = max(r["ms"] for r in rows)
+    return {"ms": ms, "ms_max": ms_max, "ms_max_over_mean": ms_max / ms,
             "plain_ms": sum(r["plain_ms"] for r in rows) / n,
             "bound_ms": sum(bound_of(r["bytes"], r["ops"])[0] for r in rows) / n,
+            "bound_unfused_ms": sum(bound_of(r["bytes"], 2 * r["ops"])[0]
+                                    for r in rows) / n,
             "bound_by": by, "calls": n,
             "host_outlasted_sleep": sum(r["late"] for r in rows)}
 
@@ -902,17 +912,21 @@ def main() -> int:
             "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "frame": frame, "ms_max": t["ms_max"],
+            "ms_max_over_mean": t["ms_max_over_mean"],
+            "bound_unfused_ms": t["bound_unfused_ms"],
             "launches_by_frame": by_frame,
         }
         if frame == "large":
             tb = state["time_box"][name]
             row.update(ms_box=tb["ms"], plain_ms_box=tb["plain_ms"],
-                       bound_ms_box=tb["bound_ms"])
+                       bound_ms_box=tb["bound_ms"],
+                       bound_unfused_ms_box=tb["bound_unfused_ms"])
         if name == "cluster_keys":
             th = t400h[name]
             row.update(ms_large400_hbm=th["ms"],
                        plain_ms_large400_hbm=th["plain_ms"],
-                       bound_ms_large400_hbm=th["bound_ms"])
+                       bound_ms_large400_hbm=th["bound_ms"],
+                       bound_unfused_ms_large400_hbm=th["bound_unfused_ms"])
         if "pairs" in stats and name.startswith("cluster_intersect"):
             row.update(stats["pairs"])
         rows.append(row)

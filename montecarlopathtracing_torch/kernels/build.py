@@ -37,6 +37,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
 )
+# Further flags for a measurement build (say "-DMCPT_SKIP_TESTS"); part of a
+# library's hash.  After changing them call ``load.cache_clear()``.
+EXTRA_FLAGS: tuple = ()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,16 +51,16 @@ _SIGNATURES = {
     "cluster_keys_chunked": ("cluster_keys", "mcpt_cluster_keys_chunked",
                              [_P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P]),
     "cluster_intersect": ("cluster_intersect", "mcpt_cluster_intersect",
-                          [_P, _I, _I, _I, _P, _P, _I, _P, _I, _I, _P, _P,
-                           _P]),
+                          [_P, _I, _I, _I, _P, _P, _I, _P, _I, _I, _I, _P,
+                           _P, _P, _P]),
     "cluster_intersect_ftb": ("cluster_intersect_ftb",
                               "mcpt_cluster_intersect_ftb",
-                              [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _I,
-                               _I, _P, _P, _P, _P]),
+                              [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P,
+                               _I, _I, _I, _P, _P, _P, _P, _P]),
     "cluster_intersect_hbm": ("cluster_intersect_hbm",
                               "mcpt_cluster_intersect_hbm",
-                              [_P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _I, _P,
-                               _P, _P, _P]),
+                              [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I,
+                               _I, _P, _P, _P, _P, _P]),
 }
 
 
@@ -81,7 +84,7 @@ def _library_path(name: str) -> str:
         if fname == name + ".cu" or fname.endswith(".cuh"):
             with open(os.path.join(CSRC_DIR, fname), "rb") as fh:
                 h.update(fname.encode() + b"\0" + fh.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + tuple(EXTRA_FLAGS)).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
@@ -104,7 +107,8 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, dict]:
             continue
         nvcc = nvcc or find_nvcc()
         tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, name + ".cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *EXTRA_FLAGS, "-o", tmp,
+               os.path.join(CSRC_DIR, name + ".cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        path, tmp, time.perf_counter())

@@ -16,7 +16,10 @@ Each of the two is a CUDA kernel (``csrc/cluster_keys.cu``,
 ``csrc/cluster_intersect.cu``) with a plain PyTorch version of the same
 signature beside it.  A wrapper runs the plain version only for a tensor on
 the CPU; for a CUDA tensor it launches the kernel or raises.  Each wrapper
-counts its launches in a ``launches`` attribute.
+counts its launches in a ``launches`` attribute.  The intersect kernel cuts
+a long candidate list over several blocks, which meet in one 64-bit
+``atomicMin`` per ray; the wrapper presets those words to the miss and
+unpacks them (``_unpack_hits``).
 
 Scenes whose table is past the single-table budget (the plan is the
 integrator's, ``wavefront.resolve_plan``) take one of two further paths, both
@@ -34,7 +37,11 @@ front to back with an early exit:
   clusters; candidates and the exit work per supergroup.
 
 ``cluster_intersect(..., ftb=True)`` is the single-table entry to the same
-front-to-back kernel.  The exit never changes a result: the best hit is an
+front-to-back kernel.  The supergroup kernel deals a subtile's 128-column
+pieces out to ``HBM_SPLIT`` blocks that share the rays' best hits (and so
+the exit bound) through the same join words as the single-table kernel; both
+front-to-back kernels start their rows longest candidate list first.  The
+exit never changes a result: the best hit is an
 order-independent lexicographic minimum and a skipped candidate's entry is
 beyond every ray's bound.
 
@@ -48,6 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 from typing import Any
 
 import torch
@@ -349,6 +357,35 @@ def _plain_blocks(counts_ascending, per_candidate: int):
         lo = hi
 
 
+# The intersect kernel's join word: (float32 bits of t) << 32 | triangle id.
+# An accepted t is positive, so the words order as (t, id) does, and the
+# least word over any split of a subtile's candidates is the subtile's
+# result.  The miss (1e30, -1) is the largest word a kernel can meet.
+_PACKED_MISS = (0x7149F2CA << 32) | 0xFFFFFFFF
+
+# Blocks a subtile's candidate list is cut over at most.
+INTERSECT_SPLIT = 8
+
+
+def _kernel_outputs(n_split: int, shape, dev):
+    """(packed, out_t, out_i) for an intersect launch: join words preset to
+    the miss when the blocks of several grid rows meet on a ray, else the
+    output arrays that the ray's one block writes."""
+    if n_split > 1:
+        return torch.full((math.prod(shape),), _PACKED_MISS, dtype=torch.int64,
+                          device=dev), None, None
+    return (None, torch.empty(shape, dtype=torch.float32, device=dev),
+            torch.empty(shape, dtype=torch.int32, device=dev))
+
+
+def _unpack_hits(packed):
+    """(t (R,) f32, tri (R,) i32) from (R,) int64 join words; the miss word
+    gives (1e30, -1).  Reads the words as little-endian int32 pairs."""
+    words = packed.view(torch.int32).reshape(-1, 2)
+    return (words[:, 1].contiguous().view(torch.float32),
+            words[:, 0].contiguous())
+
+
 def cluster_intersect_padded(rays, counts, ids, tconst, tile: int,
                              mt: bool = False):
     """Nearest hit per ray over its subtile's candidate clusters; see
@@ -373,18 +410,17 @@ def cluster_intersect_padded(rays, counts, ids, tconst, tile: int,
                          "(n_subtiles, C)")
     if not 1 <= tile <= 1024 or width > 512:
         raise ValueError("cluster_intersect: tile in [1, 1024], width <= 512")
-    out_t = torch.empty((n_sub * tile,), dtype=torch.float32, device=dev)
-    out_i = torch.empty((n_sub * tile,), dtype=torch.int32, device=dev)
+    n_split = max(1, min(INTERSECT_SPLIT, tconst.shape[0]))
+    packed, out_t, out_i = _kernel_outputs(n_split, (n_sub * tile,), dev)
     fn = load("cluster_intersect")
     with torch.cuda.device(dev):
         err = fn(_ptr(rays), rays.shape[1], n_sub, tile, _ptr(counts), _ptr(ids),
-                 tconst.shape[0], _ptr(tconst), width, int(mt), _ptr(out_t),
-                 _ptr(out_i),
-                 _stream(dev))
+                 tconst.shape[0], _ptr(tconst), width, int(mt), n_split,
+                 _ptr(packed), _ptr(out_t), _ptr(out_i), _stream(dev))
     if err != 0:
         raise RuntimeError(f"cluster_intersect launch failed: CUDA error {err}")
     cluster_intersect_padded.launches += 1
-    return out_t, out_i
+    return (out_t, out_i) if packed is None else _unpack_hits(packed)
 
 
 cluster_intersect_padded.launches = 0
@@ -562,6 +598,26 @@ def cluster_intersect_ftb_plain(rays, counts, order, qkeys, tconst, tile: int,
     return torch.stack(out_t), torch.stack(out_i)
 
 
+# Blocks a row's 128-column pieces are dealt out to, front to back in turn,
+# by the chunked kernel (a cluster is one piece) and the supergroup kernel (a
+# supergroup of 4 clusters is four, so 16 blocks take the quarters of 4
+# candidates at a time).  The blocks of a row share their rays' best hits,
+# and with them the exit bound, through the join words.
+FTB_SPLIT = 1
+HBM_SPLIT = 16
+
+
+# Whether the front-to-back kernels start their rows longest list first
+# (false: in row order; a switch for measurements, the results are the same).
+FTB_LONGEST_FIRST = True
+
+
+def _rows_longest_first(counts):
+    """(rows,) i32: the rows by falling candidate count (equal counts in row
+    order), the order in which the front-to-back kernels start them."""
+    return torch.argsort(counts, descending=True, stable=True).to(torch.int32)
+
+
 def _check_ftb_inputs(name, rays, counts, order, qkeys, tconst, tile, mt,
                       k_n, counter, **more):
     dev = _check_cuda_inputs(name, rays=rays, counts=counts, order=order,
@@ -615,18 +671,22 @@ def cluster_intersect_ftb(rays, counts, order, qkeys, tconst, tile: int,
                                   or k_n > 65535):
         raise ValueError("cluster_intersect_ftb: chunk_cap must be (K <= 65535, "
                          "R) float32")
-    out_t = torch.empty((k_n, r), dtype=torch.float32, device=dev)
-    out_i = torch.empty((k_n, r), dtype=torch.int32, device=dev)
+    packed, out_t, out_i = _kernel_outputs(FTB_SPLIT, (k_n, r), dev)
+    perm = _rows_longest_first(counts) if FTB_LONGEST_FIRST else None
     fn = load("cluster_intersect_ftb")
     with torch.cuda.device(dev):
         err = fn(_ptr(rays), rays.shape[1], r // tile, tile, k_n,
                  _ptr(chunk_cap), _ptr(counts), _ptr(order), _ptr(qkeys),
-                 order.shape[1], _ptr(tconst), tconst.shape[2], int(mt),
-                 _ptr(out_t), _ptr(out_i), _ptr(counter), _stream(dev))
+                 _ptr(perm), order.shape[1], _ptr(tconst), tconst.shape[2],
+                 int(mt), FTB_SPLIT, _ptr(packed), _ptr(out_t), _ptr(out_i),
+                 _ptr(counter), _stream(dev))
     if err != 0:
         raise RuntimeError(f"cluster_intersect_ftb launch failed: CUDA error {err}")
     cluster_intersect_ftb.launches += 1
-    return out_t, out_i
+    if packed is None:
+        return out_t, out_i
+    bt, bi = _unpack_hits(packed)
+    return bt.reshape(k_n, r), bi.reshape(k_n, r)
 
 
 cluster_intersect_ftb.launches = 0
@@ -659,18 +719,19 @@ def cluster_intersect_hbm_padded(rays, counts, order, qkeys, tconst, tile: int,
     dev = _check_ftb_inputs("cluster_intersect_hbm", rays, counts, order, qkeys,
                             tconst, tile, mt, 1, counter)
     r = rays.shape[0]
-    out_t = torch.empty((r,), dtype=torch.float32, device=dev)
-    out_i = torch.empty((r,), dtype=torch.int32, device=dev)
+    packed, out_t, out_i = _kernel_outputs(HBM_SPLIT, (r,), dev)
+    perm = _rows_longest_first(counts) if FTB_LONGEST_FIRST else None
     fn = load("cluster_intersect_hbm")
     with torch.cuda.device(dev):
         err = fn(_ptr(rays), rays.shape[1], r // tile, tile, _ptr(counts),
-                 _ptr(order), _ptr(qkeys), order.shape[1], _ptr(tconst),
-                 tconst.shape[2], int(mt), _ptr(out_t), _ptr(out_i),
-                 _ptr(counter), _stream(dev))
+                 _ptr(order), _ptr(qkeys), _ptr(perm), order.shape[1],
+                 _ptr(tconst), tconst.shape[2], int(mt), HBM_SPLIT,
+                 _ptr(packed), _ptr(out_t), _ptr(out_i), _ptr(counter),
+                 _stream(dev))
     if err != 0:
         raise RuntimeError(f"cluster_intersect_hbm launch failed: CUDA error {err}")
     cluster_intersect_hbm_padded.launches += 1
-    return out_t, out_i
+    return (out_t, out_i) if packed is None else _unpack_hits(packed)
 
 
 cluster_intersect_hbm_padded.launches = 0

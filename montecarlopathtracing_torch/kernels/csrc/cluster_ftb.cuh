@@ -4,37 +4,67 @@
 // of the swizzled table).  On this card every table lies in device memory,
 // so the two differ only in the table layout and in what a unit is.
 //
-// One block per (ray subtile, chunk).  The subtile's candidate units arrive
-// sorted by their entry key (the subtile's least slab-entry distance,
-// quantised down), `qkeys` aligned with `order`.  The block walks them in
-// that order; before each unit it stops if
+// Replaces the bodies of montecarlopathtracing_tpu/kernels/cluster.py::
+// _intersect_kernel (ftb=True) and _intersect_hbm_kernel.
+//
+// A row is one (ray subtile, chunk).  Its candidate units arrive sorted by
+// their entry key (the subtile's least slab-entry distance, quantised down),
+// `qkeys` aligned with `order`.  They are walked in that order, and the walk
+// stops before a unit if
 //     qkeys[j] > max over the subtile's rays of min(best t, cap)
 // where cap is the ray's exit distance from the enclosing box (a chunk's
 // AABB), 1e30 for none, and -1 for a ray that does not touch the chunk.
 // The units come sorted, so every unit not tested has an entry beyond every
 // ray's bound: it can neither win nor tie.  The best is the order-independent
 // lexicographic (t, triangle id) minimum of cluster_tri.cuh, so the result
-// equals a scan of all candidates in any order.
+// equals a scan of all candidates in any order.  A best t that is out of
+// date only makes the bound larger: the walk then tests more and returns the
+// same result.
 //
-// The decision is block-wide: every thread reads the same bound from shared
-// memory after a barrier and takes the same branch, so the staging barriers
-// stay matched.
+// Bound on an H100: as cluster_intersect.cu, f32 instruction throughput
+// (about 34 fused operations per (ray, triangle) pair, twice that unfused)
+// against 64 table bytes per triangle and subtile.  What keeps a kernel far
+// below that here: a 4-byte shared-memory load per table word and test; per
+// 128-column piece two barriers around a copy through registers with
+// nothing in flight, plus a third barrier per unit for the exit bound; and
+// one block per row, so that a launch ends on its longest row (330
+// supergroups of 512 columns in one call of the 400k-triangle frame) while
+// the other SMs drain.
 //
-// Bound: as cluster_intersect.cu, about 34 f32 operations per (ray,
-// triangle) pair against 64 table bytes per triangle and subtile: by f32
-// operations at tile 64.  What this design does: rays in registers, a unit
-// staged in shared memory in pieces of at most 128 columns (so a supergroup
-// of any size fits), the columns of a piece split over the threads of a ray,
-// one shuffle reduction and one barrier per unit for the bound.  The table
-// fetch is a plain load (no cp.async / TMA pipeline yet).
+// The design:
+//   * a unit is cut into pieces of at most 128 columns (a supergroup of any
+//     size fits) that stream through the cp.async ring of cluster_tri.cuh and
+//     are tested on a register tile of 4 rays per thread; one barrier per
+//     piece;
+//   * a row's pieces, numbered front to back, are dealt out to the n_split
+//     blocks of the row in turn (block y takes pieces y, y + n_split, ...),
+//     so all of them advance front to back together: with four pieces to a
+//     supergroup and n_split = 16, each block takes one 128-column quarter of
+//     every fourth candidate.  The blocks share the rays' best hits through one
+//     64-bit word per ray in device memory (hit_word in cluster_tri.cuh):
+//     when a block finishes its share of a unit it atomicMins its bests into
+//     the words, and what the atomics return is the other blocks' progress,
+//     from which it takes its bound.  The words end as the row's result; the
+//     caller presets them to the miss and unpacks them.  With n_split = 1
+//     there are no words: the block keeps its bests and writes (t, id);
+//   * the copy runs ahead: while a piece is tested the block's next piece is
+//     in flight, fetched on the guess that the walk goes on (a wrong guess
+//     costs one unused 8 KB copy);
+//   * the exit bound costs no barrier of its own: each warp reduces min(best
+//     t, cap) over its rays (shuffles over the lanes of a ray group, then a
+//     max over the warp) into a slot of its own, and every thread reads the
+//     slots after the barrier that the next piece needs anyway.  The slots
+//     alternate with the piece's parity, so a warp that runs ahead never
+//     overwrites a slot still being read.  Every thread reads the same slots
+//     and takes the same branch;
+//   * `perm` lets the caller start the rows with the longest candidate lists
+//     first, so the launch does not end on one long row while SMs drain.
 
 #pragma once
 
 #include "cluster_tri.cuh"
 
 namespace mcpt {
-
-constexpr int kPieceCols = 128;  // table columns staged per pass (max)
 
 // Order-preserving map between float and int (and back: an involution).
 __device__ __forceinline__ int ordered_bits(int b) {
@@ -47,116 +77,187 @@ __device__ __forceinline__ int ordered_bits(int b) {
 //          chunk (origin moved to 1e9).  Null: the cap is ray column 6 (9
 //          with MT) and no ray is moved.
 // counts   (n_chunks * n_subtiles,) i32, order / qkeys (that, n_units)
-// tconst   (n_chunks * n_units, 16, unit_cols) f32
-// out_t / out_tri (n_chunks, n_subtiles * tile); tri = unit * unit_cols +
-//          column, local to the chunk
+// perm     null, or (n_chunks * n_subtiles,) i32: blocks (b, *) take row
+//          perm[b]
+// tconst   (n_chunks * n_units, 16, unit_cols) f32; unit_cols is a power of
+//          two, cut into 1 << pshift pieces
+// packed   (n_chunks, n_subtiles * tile) u64 preset to kMissWord, with a
+//          grid of (rows, n_split); or null with a grid of (rows, 1), and
+//          then out_t / out_tri (n_chunks, n_subtiles * tile) are written.
+//          The triangle id is unit * unit_cols + column, local to the chunk
 // tested   null, or one counter that receives the number of (subtile, unit)
-//          pairs tested
+//          pairs whose first piece was tested
 template <bool MT>
-__global__ void cluster_ftb_kernel(
-    const float* __restrict__ rays, int ray_stride, int tile,
+__global__ void __launch_bounds__(kMaxThreads, MCPT_MIN_BLOCKS)
+cluster_ftb_kernel(
+    const float* __restrict__ rays, int ray_stride, int n_subtiles, int tile,
     const float* __restrict__ chunk_cap, const int* __restrict__ counts,
     const int* __restrict__ order, const float* __restrict__ qkeys,
-    int n_units, const float* __restrict__ tconst, int unit_cols, int piece,
-    int split, float* __restrict__ out_t, int* __restrict__ out_tri,
-    unsigned long long* __restrict__ tested) {
-  extern __shared__ float s_tab[];  // [16][piece]
-  __shared__ int s_bound[32];       // one slot per warp
+    const int* __restrict__ perm, int n_units,
+    const float* __restrict__ tconst, int unit_cols, int pshift, int split,
+    unsigned long long* __restrict__ packed, float* __restrict__ out_t,
+    int* __restrict__ out_tri, unsigned long long* __restrict__ tested) {
+  extern __shared__ float4 s_ring[];            // [kStages][4 * pcols]
+  __shared__ int s_bound[2][kMaxThreads / 32];  // [piece parity][warp]
 
-  const int sub = blockIdx.x;
-  const int chunk = blockIdx.y;
-  const size_t n_rays = (size_t)gridDim.x * tile;
-  const size_t row = (size_t)chunk * gridDim.x + sub;
-  const int tid = threadIdx.x;
-  const int ray = tid / split;
-  const int part = tid - ray * split;
-  const size_t g = (size_t)sub * tile + ray;
-  const float* rp = rays + g * ray_stride;
-  Ray r = load_ray<MT>(rp);
-  float cap;
-  if (chunk_cap != nullptr) {
-    cap = chunk_cap[chunk * n_rays + g];
-    if (cap < 0.0f) park_ray<MT>(r);
-  } else {
-    cap = rp[MT ? 9 : 6];
+  const size_t row = perm != nullptr ? perm[blockIdx.x] : blockIdx.x;
+  const int n_split = gridDim.y;
+  const int npu = 1 << pshift;
+  const int total = counts[row] * npu;  // the row's pieces
+  // This block's pieces: blockIdx.y, blockIdx.y + n_split, ...
+  const int n_mine = (total - (int)blockIdx.y + n_split - 1) / n_split;
+  if (n_mine <= 0) {  // no candidate (or none left for this block): a miss
+    if (packed == nullptr) {
+      const size_t g0 = row * tile;
+      for (int k = threadIdx.x; k < tile; k += blockDim.x) {
+        out_t[g0 + k] = kBig;
+        out_tri[g0 + k] = -1;
+      }
+    }
+    return;  // with words, the preset miss stands
   }
 
-  const int n = counts[row];
+  const int chunk = (int)(row / n_subtiles);
+  const int sub = (int)(row - (size_t)chunk * n_subtiles);
+  const size_t ray0 = (size_t)chunk * n_subtiles * tile + (size_t)sub * tile;
   const int* cand = order + row * n_units;
   const float* qk = qkeys + row * n_units;
   const float* table = tconst + (size_t)chunk * n_units * 16 * unit_cols;
-  const unsigned mask = warp_mask();
-  const int n_warps = (blockDim.x + 31) >> 5;
+  const int pcols = min(unit_cols, kPieceCols);
 
-  float bt = kBig;
-  int bi = INT_MAX;
-  float bound = kBig;
-  int j = 0;
-  for (; j < n; ++j) {
-    if (qk[j] > bound) break;  // the same for every thread of the block
-    const int unit = cand[j];
-    const float* blk = table + (size_t)unit * 16 * unit_cols;
-    for (int p0 = 0; p0 < unit_cols; p0 += piece) {
-      __syncthreads();  // the previous piece is no longer read
-      for (int idx = tid; idx < 16 * piece; idx += blockDim.x) {
-        const int trow = idx / piece;
-        const int col = idx - trow * piece;
-        s_tab[idx] = blk[(size_t)trow * unit_cols + p0 + col];
-      }
-      __syncthreads();
-      for (int c = part; c < piece; c += split) {
-        float t;
-        if (tri_test<MT>(r, s_tab, piece, c, t))
-          lex_min(bt, bi, t, unit * unit_cols + p0 + c);
-      }
+  auto stage = [&](int i) {
+    const int q = blockIdx.y + i * n_split;
+    stage_cols(s_ring + (i % kStages) * 4 * pcols, 0,
+               table + (size_t)cand[q >> pshift] * 16 * unit_cols +
+                   (q & (npu - 1)) * kPieceCols,
+               unit_cols, pcols);
+    __pipeline_commit();
+  };
+  stage(0);
+
+  const int part = threadIdx.x % split;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  Ray r[kRaysPerThread];
+  float cap[kRaysPerThread];
+  float bt[kRaysPerThread];
+  int bi[kRaysPerThread];
+  int first;
+  load_ray_tile<MT>(rays + (size_t)sub * tile * ray_stride, ray_stride, tile,
+                    split, r, first);
+#pragma unroll
+  for (int i = 0; i < kRaysPerThread; ++i) {
+    const size_t in_sub = min(first + i, tile - 1);
+    if (chunk_cap != nullptr) {
+      cap[i] = chunk_cap[ray0 + in_sub];
+      if (cap[i] < 0.0f) park_ray<MT>(r[i]);
+    } else {
+      cap[i] = rays[((size_t)sub * tile + in_sub) * ray_stride + (MT ? 9 : 6)];
     }
-    // max over the subtile's rays of min(best t of the ray, cap).
-    float rb = bt;
-    for (int off = split >> 1; off > 0; off >>= 1)
-      rb = fminf(rb, __shfl_xor_sync(mask, rb, off));
-    const int wb = __reduce_max_sync(
-        mask, ordered_bits(__float_as_int(fminf(rb, cap))));
-    // s_bound was last read before this unit's staging barriers.
-    if ((tid & 31) == 0) s_bound[tid >> 5] = wb;
-    __syncthreads();
-    int b = s_bound[0];
-    for (int w = 1; w < n_warps; ++w) b = max(b, s_bound[w]);
-    bound = __int_as_float(ordered_bits(b));
+    bt[i] = kBig;
+    bi[i] = INT_MAX;
   }
-  if (tested != nullptr && tid == 0)
-    atomicAdd(tested, (unsigned long long)j);
 
-  lex_reduce(bt, bi, split, mask);
-  if (part == 0) {
-    out_t[chunk * n_rays + g] = bt;
-    out_tri[chunk * n_rays + g] = bt < kBig ? bi : -1;
+  int done = 0;  // units whose first piece this block tested
+  for (int i = 0; i < n_mine; ++i) {
+    const int q = blockIdx.y + i * n_split;
+    const int j = q >> pshift;
+    const int p = q & (npu - 1);
+    if (i + 1 < n_mine)
+      stage(i + 1);  // a guess that the walk goes on
+    else
+      __pipeline_commit();  // an empty group keeps the wait below uniform
+    __pipeline_wait_prior(1);  // this thread's share of the piece has landed
+    __syncthreads();  // everyone's has; the piece before is no longer read;
+                      // the bound slots written after it are complete
+    if (i > 0 && j != (q - n_split) >> pshift) {  // a new unit: may we stop?
+      const int* slots = s_bound[(i - 1) & 1];
+      int b = slots[0];
+      for (int w = 1; w < n_warps; ++w) b = max(b, slots[w]);
+      if (qk[j] > __int_as_float(ordered_bits(b))) break;  // block-wide
+    }
+    if (p == 0) ++done;
+    const int base = cand[j] * unit_cols + p * kPieceCols;
+    test_piece<MT>(r, s_ring + (i % kStages) * 4 * pcols, pcols, part, split,
+                   bt, bi, [&](int c) { return base + c; });
+    if (i + 1 < n_mine && j != (q + n_split) >> pshift) {
+      // This block's share of unit j is done: the bound for its next unit,
+      // max over this warp's rays of min(best t of the ray, cap).
+      int m = INT_MIN;
+#pragma unroll
+      for (int k = 0; k < kRaysPerThread; ++k) {
+        float rt = bt[k];
+        if (packed == nullptr) {
+          for (int off = split >> 1; off > 0; off >>= 1)
+            rt = fminf(rt, __shfl_xor_sync(0xffffffffu, rt, off));
+        } else {
+          // Publish the group's best for the ray; what the atomic returns
+          // tells how far the row's other blocks have come.
+          int ri = bi[k];
+          lex_reduce(rt, ri, split);
+          if (part == 0) {
+            const unsigned long long mine = hit_word(rt, ri);
+            const unsigned long long old = atomicMin(
+                packed + ray0 + min(first + k, tile - 1), mine);
+            rt = __uint_as_float((unsigned)(min(old, mine) >> 32));
+          }
+        }
+        if (part == 0)
+          m = max(m, ordered_bits(__float_as_int(fminf(rt, cap[k]))));
+      }
+      m = __reduce_max_sync(0xffffffffu, m);
+      if ((threadIdx.x & 31) == 0) s_bound[i & 1][warp] = m;
+    }
+  }
+  __pipeline_wait_prior(0);  // a guessed copy may still be in flight
+  if (tested != nullptr && threadIdx.x == 0)
+    atomicAdd(tested, (unsigned long long)done);
+
+#pragma unroll
+  for (int i = 0; i < kRaysPerThread; ++i) {
+    lex_reduce(bt[i], bi[i], split);
+    if (part != 0 || first + i >= tile) continue;
+    const size_t g = ray0 + first + i;
+    if (packed == nullptr) {
+      out_t[g] = bt[i];
+      out_tri[g] = bt[i] < kBig ? bi[i] : -1;
+    } else if (bt[i] < kBig) {
+      atomicMin(packed + g, hit_word(bt[i], bi[i]));
+    }
   }
 }
 
-// Launch over (n_subtiles, n_chunks) blocks on `stream`; returns the CUDA
-// error of the launch.
+// Launch (rows, n_split) blocks on `stream`, one row per (chunk, subtile);
+// returns the CUDA error of the launch.
 inline int launch_cluster_ftb(const float* rays, int ray_stride,
                               int n_subtiles, int tile, int n_chunks,
                               const float* chunk_cap, const int* counts,
                               const int* order, const float* qkeys,
-                              int n_units, const float* tconst, int unit_cols,
-                              int mt, float* out_t, int* out_tri,
+                              const int* perm, int n_units,
+                              const float* tconst, int unit_cols, int mt,
+                              int n_split, unsigned long long* packed,
+                              float* out_t, int* out_tri,
                               unsigned long long* tested, void* stream) {
   if (n_subtiles <= 0 || n_chunks <= 0) return (int)cudaGetLastError();
-  const int split = ray_split(tile);
-  const int threads = tile * split;
-  const int piece = unit_cols < kPieceCols ? unit_cols : kPieceCols;
-  const size_t smem = sizeof(float) * 16 * (size_t)piece;
-  const dim3 grid(n_subtiles, n_chunks);
+  if (n_split < 1 || (packed == nullptr) != (n_split == 1))
+    return (int)cudaErrorInvalidValue;
+  const int pcols = unit_cols < kPieceCols ? unit_cols : kPieceCols;
+  const BlockShape shape = block_shape(tile, pcols);
+  const size_t smem = ring_bytes(pcols);
+  int pshift = 0;
+  while ((kPieceCols << pshift) < unit_cols) ++pshift;
+  const dim3 grid((unsigned)n_subtiles * (unsigned)n_chunks, n_split);
   cudaStream_t s = (cudaStream_t)stream;
   if (mt) {
-    cluster_ftb_kernel<true><<<grid, threads, smem, s>>>(
-        rays, ray_stride, tile, chunk_cap, counts, order, qkeys, n_units,
-        tconst, unit_cols, piece, split, out_t, out_tri, tested);
+    cluster_ftb_kernel<true><<<grid, shape.threads, smem, s>>>(
+        rays, ray_stride, n_subtiles, tile, chunk_cap, counts, order, qkeys,
+        perm, n_units, tconst, unit_cols, pshift, shape.split, packed, out_t,
+        out_tri, tested);
   } else {
-    cluster_ftb_kernel<false><<<grid, threads, smem, s>>>(
-        rays, ray_stride, tile, chunk_cap, counts, order, qkeys, n_units,
-        tconst, unit_cols, piece, split, out_t, out_tri, tested);
+    cluster_ftb_kernel<false><<<grid, shape.threads, smem, s>>>(
+        rays, ray_stride, n_subtiles, tile, chunk_cap, counts, order, qkeys,
+        perm, n_units, tconst, unit_cols, pshift, shape.split, packed, out_t,
+        out_tri, tested);
   }
   return (int)cudaGetLastError();
 }

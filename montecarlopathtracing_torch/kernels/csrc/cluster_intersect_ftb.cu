@@ -13,17 +13,26 @@
 // TPU version kept in K copies of the ray rows (the cap column, and the
 // origin moved to 1e9 for a ray that misses the chunk's AABB).  The TPU
 // kernel checks its exit every 4 panels of `group` clusters; this one checks
-// before every cluster.  Kernel, bound and design: cluster_ftb.cuh.
+// before every cluster.  `perm` (null, or one block-to-row index per row)
+// sets the order in which the rows start; n_split > 1 deals a row's clusters
+// out to that many blocks, which meet in `packed` (cluster_ftb.cuh).
+//
+// The kernel, what bounds it on an H100 (f32 throughput, contraction off) and
+// what its design does about that (a register tile of 4 rays per thread over
+// a cp.async ring of column-major pieces, the exit bound folded into the
+// ring's barrier) are in cluster_ftb.cuh, shared with the supergroup kernel;
+// at W = 128 a cluster is one piece.
 
 #include "cluster_ftb.cuh"
 
 extern "C" int mcpt_cluster_intersect_ftb(
     const float* rays, int ray_stride, int n_subtiles, int tile, int n_chunks,
     const float* chunk_cap, const int* counts, const int* order,
-    const float* qkeys, int n_clusters, const float* tconst, int width, int mt,
-    float* out_t, int* out_tri, unsigned long long* tested, void* stream) {
+    const float* qkeys, const int* perm, int n_clusters, const float* tconst,
+    int width, int mt, int n_split, unsigned long long* packed, float* out_t,
+    int* out_tri, unsigned long long* tested, void* stream) {
   return mcpt::launch_cluster_ftb(rays, ray_stride, n_subtiles, tile, n_chunks,
-                                  chunk_cap, counts, order, qkeys, n_clusters,
-                                  tconst, width, mt, out_t, out_tri, tested,
-                                  stream);
+                                  chunk_cap, counts, order, qkeys, perm,
+                                  n_clusters, tconst, width, mt, n_split,
+                                  packed, out_t, out_tri, tested, stream);
 }

@@ -10,19 +10,32 @@
 // clusters per contiguous block with (cluster, column) lexicographic in the
 // columns, so the triangle id written is supergroup * sg * W + column: a
 // global id.  The candidate and exit unit is the supergroup, whatever its
-// size (32 KB at sg 4, 256 KB at sg 32): the block stages it in pieces of
-// 128 columns.  The cap is ray column 6 (9 with Moller-Trumbore).  Kernel,
-// bound and design: cluster_ftb.cuh.
+// size (32 KB at sg 4, 256 KB at sg 32).  The cap is ray column 6 (9 with
+// Moller-Trumbore).  `perm` (null, or one block-to-row index per subtile)
+// sets the order in which the subtiles start; n_split > 1 deals a subtile's
+// 128-column pieces out to that many blocks, which meet in `packed`.
+//
+// Where the TPU kernel double-buffers whole supergroup blocks in VMEM, this
+// one streams a supergroup as 128-column pieces (8 KB) through a three-slot
+// cp.async ring that runs ahead into the next candidate, tests each piece on
+// a register tile of 4 rays per thread, and deals the 128-column quarters
+// of a subtile's candidates out to several blocks; the blocks of a subtile
+// share their rays' best hits, and so the exit bound, through 64-bit
+// atomics.  On
+// an H100 it is bound by f32 throughput with contraction off; the kernel, its
+// bound and its design are in cluster_ftb.cuh, shared with the chunked
+// kernel.
 
 #include "cluster_ftb.cuh"
 
 extern "C" int mcpt_cluster_intersect_hbm(
     const float* rays, int ray_stride, int n_subtiles, int tile,
-    const int* counts, const int* order, const float* qkeys, int n_super,
-    const float* tconst, int super_cols, int mt, float* out_t, int* out_tri,
+    const int* counts, const int* order, const float* qkeys, const int* perm,
+    int n_super, const float* tconst, int super_cols, int mt, int n_split,
+    unsigned long long* packed, float* out_t, int* out_tri,
     unsigned long long* tested, void* stream) {
   return mcpt::launch_cluster_ftb(rays, ray_stride, n_subtiles, tile, 1,
-                                  nullptr, counts, order, qkeys, n_super,
-                                  tconst, super_cols, mt, out_t, out_tri,
-                                  tested, stream);
+                                  nullptr, counts, order, qkeys, perm, n_super,
+                                  tconst, super_cols, mt, n_split, packed,
+                                  out_t, out_tri, tested, stream);
 }

@@ -1,0 +1,217 @@
+"""The glue between the port's Python wrappers and its CUDA sources.
+
+Nothing here can compile CUDA, so these tests hold what the CPU can see:
+
+* every ``extern "C"`` prototype in ``kernels/csrc/*.cu``, parsed from the
+  source, against the ctypes signature ``kernels/build.py`` declares for it
+  (argument count, pointer or int per argument);
+* the 64-bit join word of the single-table intersect kernel: a subtile's
+  candidate list cut into runs as the kernel cuts it, each run's plain
+  result packed as (float bits of t) << 32 | triangle id, the runs joined by
+  an integer minimum and unpacked by the wrapper's ``_unpack_hits``, must
+  equal the plain version over the whole list exactly, with a subtile that
+  has no candidate, rays that miss everything, and ties at equal t;
+* the order in which the front-to-back kernels start their rows;
+* the note at the head of every kernel source.
+
+All comparisons are exact (integer work and bit patterns).
+"""
+
+import ctypes
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from montecarlopathtracing_torch.kernels import build as B
+from montecarlopathtracing_torch.kernels import cluster as K
+from montecarlopathtracing_torch.scene.builtin import load_builtin_large
+
+torch.set_num_threads(2)
+
+TILE = 64
+
+
+# --------------------------------------------------------------------------
+# C prototypes against the ctypes signatures.
+# --------------------------------------------------------------------------
+
+def _prototype(source: str, symbol: str):
+    """Kinds ('p' pointer, 'i' int) of the arguments of ``extern "C" int
+    symbol(...)`` in csrc/<source>.cu."""
+    text = open(os.path.join(B.CSRC_DIR, source + ".cu")).read()
+    m = re.search(r'extern\s+"C"\s+int\s+' + re.escape(symbol)
+                  + r"\s*\(([^)]*)\)\s*\{", text)
+    assert m, f"{symbol} not found in {source}.cu"
+    kinds = []
+    for arg in m.group(1).split(","):
+        arg = " ".join(arg.split())
+        if "*" in arg:
+            kinds.append("p")
+        else:
+            assert re.fullmatch(r"int \w+", arg), f"{symbol}: argument {arg!r}"
+            kinds.append("i")
+    return kinds
+
+
+@pytest.mark.parametrize("name", sorted(B._SIGNATURES))
+def test_c_prototype_matches_ctypes_signature(name):
+    source, symbol, argtypes = B._SIGNATURES[name]
+    assert source in B.KERNELS
+    declared = ["p" if t is ctypes.c_void_p else "i" for t in argtypes]
+    assert all(t in (ctypes.c_void_p, ctypes.c_int) for t in argtypes)
+    assert _prototype(source, symbol) == declared
+    assert declared[-1] == "p"  # the stream
+
+
+def test_every_entry_point_has_a_signature():
+    found = set()
+    for fname in os.listdir(B.CSRC_DIR):
+        if fname.endswith(".cu"):
+            text = open(os.path.join(B.CSRC_DIR, fname)).read()
+            for sym in re.findall(r'extern\s+"C"\s+int\s+(\w+)\s*\(', text):
+                found.add((fname[:-3], sym))
+    assert found == {(src, sym) for src, sym, _ in B._SIGNATURES.values()}
+    assert set(K._WRAPPERS) == set(B._SIGNATURES)
+
+
+@pytest.mark.parametrize("fname", sorted(
+    f for f in os.listdir(B.CSRC_DIR) if f.endswith((".cu", ".cuh"))))
+def test_source_note_names_what_it_replaces_and_its_bound(fname):
+    head = open(os.path.join(B.CSRC_DIR, fname)).read().split("#include")[0]
+    assert "montecarlopathtracing_tpu/kernels/cluster.py" in head
+    assert "ound" in head  # what bounds it on the card
+    assert "no cp.async" not in head
+
+
+# --------------------------------------------------------------------------
+# The join word.
+# --------------------------------------------------------------------------
+
+def _pack_hits(t, tri):
+    """The kernel's word for an accepted hit, the preset miss otherwise."""
+    word = (t.contiguous().view(torch.int32).to(torch.int64) << 32) | (
+        tri.to(torch.int64) & 0xFFFFFFFF)
+    return torch.where(tri >= 0, word, K._PACKED_MISS)
+
+
+MIN_PER = 2  # kMinPer of cluster_intersect.cu
+
+
+def _runs(counts, n_split: int):
+    """(start, length) per subtile of each of the n_split runs the kernel
+    cuts a candidate list into: per = max(MIN_PER, ceil(count / n_split))."""
+    per = torch.clamp((counts + n_split - 1) // n_split, min=MIN_PER)
+    for y in range(n_split):
+        lo = y * per
+        yield lo, torch.clamp(counts - lo, min=0, max=None).minimum(per)
+
+
+@pytest.fixture(scope="module")
+def doubled_interior():
+    """The 2k-triangle interior's single table followed by a copy of itself:
+    cluster c + C repeats cluster c, so every hit ties at equal t with
+    triangle id + T, and the lower id must win."""
+    scene, _ = load_builtin_large(n_tris=2000, width=16, height=16,
+                                  n_textures=1, device="cpu")
+    out = {}
+    for mt in (False, True):
+        acc = K.build_cluster_accel(scene, width=32, mt=mt)
+        out[mt] = K.ClusterAccel(tconst=torch.cat([acc.tconst, acc.tconst]),
+                                 cmin=torch.cat([acc.cmin, acc.cmin]),
+                                 cmax=torch.cat([acc.cmax, acc.cmax]))
+    return scene, out
+
+
+def _rays(n, seed):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(0.1, 2.9, (n, 3)).astype(np.float32)
+    # Aimed at the props in the middle of the room, whose clusters are small,
+    # so that a subtile meets many of them.
+    target = rng.uniform([0.6, 0.0, 0.6], [2.4, 1.3, 1.6], (n, 3))
+    d = (target - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o[TILE:2 * TILE] = 1e9          # a parked subtile: no candidate
+    o[2 * TILE:2 * TILE + 4] = 50.0  # outside the room, pointing away:
+    d[2 * TILE:2 * TILE + 4] = [1.0, 0.0, 0.0]  # rays that miss everything
+    return torch.as_tensor(o), torch.as_tensor(d)
+
+
+def test_packed_miss_is_the_largest_word_and_unpacks_to_the_miss():
+    miss = torch.tensor([K._PACKED_MISS], dtype=torch.int64)
+    t, tri = K._unpack_hits(miss)
+    assert t.dtype == torch.float32 and tri.dtype == torch.int32
+    assert t.item() == np.float32(1e30) and tri.item() == -1
+    # Any accepted hit (0 < t < 1e30, id >= 0) packs below it, and words
+    # order as (t, id) does.
+    ts = torch.tensor([1e-30, 0.5, 0.5, 0.5, 2.0, 9.9e29], dtype=torch.float32)
+    ids = torch.tensor([7, 3, 4, 2 ** 31 - 1, 0, 5], dtype=torch.int32)
+    words = _pack_hits(ts, ids)
+    assert bool((words < K._PACKED_MISS).all())
+    assert words.tolist() == sorted(words.tolist())
+    back_t, back_i = K._unpack_hits(words)
+    assert torch.equal(back_t, ts) and torch.equal(back_i, ids)
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 8])
+@pytest.mark.parametrize("mt", [False, True], ids=["compat", "mt"])
+def test_joined_runs_equal_the_plain_version(doubled_interior, mt, n_split):
+    _, accels = doubled_interior
+    acc = accels[mt]
+    o, d = _rays(6 * TILE + 5, seed=5)
+    o, d, _, tile = K._shape_and_pad(o, d, TILE, 2)
+    rays8 = K.pack_rays(o, d)
+    _, counts, ids = K.cluster_keys_plain(rays8, K._caabb(acc.cmin, acc.cmax),
+                                          tile)
+    rays = K.pack_rays(o, d, mt=True) if mt else rays8
+    want_t, want_i = K.cluster_intersect_padded_plain(rays, counts, ids,
+                                                      acc.tconst, tile, mt)
+    # The inputs hold what the cases are about.
+    assert int(counts[1]) == 0
+    assert n_split == 1 or int(counts.max()) > 2 * MIN_PER  # lists are cut
+    hit = want_i >= 0
+    assert bool(hit.any()) and bool((~hit[2 * TILE:2 * TILE + 4]).all())
+    assert bool((want_i[hit] < acc.tconst.shape[0] // 2 * acc.width).all())
+
+    joined = torch.full((rays.shape[0],), K._PACKED_MISS, dtype=torch.int64)
+    c = ids.shape[1]
+    col = torch.arange(c)[None, :]
+    covered = torch.zeros_like(counts)
+    for lo, length in _runs(counts, n_split):
+        # The run's candidates moved to the front of each row.
+        run_ids = torch.gather(ids, 1, (col + lo[:, None].long()) % c)
+        t, tri = K.cluster_intersect_padded_plain(
+            rays, length.to(torch.int32), run_ids, acc.tconst, tile, mt)
+        joined = torch.minimum(joined, _pack_hits(t, tri))
+        covered += length
+    assert torch.equal(covered, counts)  # the runs cover every candidate once
+    got_t, got_i = K._unpack_hits(joined)
+    assert torch.equal(got_t, want_t) and torch.equal(got_i, want_i)
+
+
+def test_rows_longest_first_is_a_stable_descending_permutation():
+    rng = np.random.default_rng(9)
+    counts = torch.as_tensor(rng.integers(0, 6, 200).astype(np.int32))
+    perm = K._rows_longest_first(counts)
+    assert perm.dtype == torch.int32 and perm.shape == counts.shape
+    assert sorted(perm.tolist()) == list(range(200))
+    by = counts[perm.long()]
+    assert bool((by[:-1] >= by[1:]).all())
+    same = by[:-1] == by[1:]
+    assert bool((perm[1:][same] > perm[:-1][same]).all())
+
+
+def test_front_to_back_ties_go_to_the_lowest_id(doubled_interior):
+    """On the doubled table every hit ties with its copy: the front-to-back
+    entry and the plain scan both keep the lower triangle id."""
+    _, accels = doubled_interior
+    acc = accels[False]
+    o, d = _rays(4 * TILE, seed=6)
+    ftb = K.cluster_intersect(acc, o, d, tile=TILE, mega=2, ftb=True)
+    ref = K.cluster_intersect(acc, o, d, tile=TILE, mega=2)
+    assert all(torch.equal(a, b) for a, b in zip(ftb, ref))
+    hit, _, tri = ftb
+    assert bool(hit.any())
+    assert bool((tri[hit] < acc.tconst.shape[0] // 2 * acc.width).all())

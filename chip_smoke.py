@@ -20,7 +20,12 @@ exits non-zero):
             rays (ragged, a parked subtile), rays from a corner that leave
             whole chunks parked, camera and shadow rays at the main path's
             shape, and the front-to-back kernel against the single-table
-            kernel on one candidate set;
+            kernel on one candidate set; (d) the key kernel on narrow tables
+            (1, 2, 7 and 33 clusters) and the 400k tables with adversarial
+            rays (0.0, -0.0 and denormal direction components, origins on a
+            box face, parked rays, an all-parked subtile), single and over a
+            chunk axis, keys, counts, ids, the fused front-to-back list and
+            the row list all exact;
 4. box      api.render_scene on the built-in box at 1024 x 1024, spp 16;
 5. large    the 100k-triangle interior at 1280 x 720, spp 4, through
             render_image_host_chunked (single-table plan);
@@ -39,7 +44,14 @@ exits non-zero):
             its bound with contraction off (bound_unfused_ms: the kernels are
             built with -fmad=false, so a multiply-add is two instructions
             and the card does half its f32 peak at most), and
-            the ratio of the frame's slowest launch to the mean;
+            the ratio of the frame's slowest launch to the mean; on the 400k
+            frames the key kernel's fused front-to-back list is held to the
+            first ``count`` entries of the sorted list (_ftb_candidates) and
+            its row list to exactly the rows with candidates on every call,
+            the intersect kernels fed by the fused list to the same kernels
+            fed by the sorted list, and the key kernel is timed with and
+            without the list beside ``torch.sort`` on the same packed words
+            (library_ms: the library call for the ordering part);
             for the front-to-back kernels also the (subtile, candidate) pairs
             tested, against all candidate pairs and against the pairs no
             exact exit could skip;
@@ -325,7 +337,9 @@ def aggregate(rows):
     _, by = bound_of(sum(r["bytes"] for r in rows), sum(r["ops"] for r in rows))
     ms = sum(r["ms"] for r in rows) / n
     ms_max = max(r["ms"] for r in rows)
-    return {"ms": ms, "ms_max": ms_max, "ms_max_over_mean": ms_max / ms,
+    extra = {k: sum(r[k] for r in rows) / n
+             for k in ("ms_keys_only", "library_ms") if k in rows[0]}
+    return {**extra, "ms": ms, "ms_max": ms_max, "ms_max_over_mean": ms_max / ms,
             "plain_ms": sum(r["plain_ms"] for r in rows) / n,
             "bound_ms": sum(bound_of(r["bytes"], r["ops"])[0] for r in rows) / n,
             "bound_unfused_ms": sum(bound_of(r["bytes"], 2 * r["ops"])[0]
@@ -338,6 +352,105 @@ def max_err(a, b) -> float:
     """Largest |a - b| over the finite entries (0.0 when exactly equal)."""
     ok = (a < 1e30) & (b < 1e30)
     return float(torch.abs(a - b)[ok].max()) if bool(ok.any()) else 0.0
+
+
+def check_fused_list(keys, counts, cand, label: str):
+    """The key kernel's fused outputs against the sorted list and the counts:
+    order and qkeys equal _ftb_candidates(keys) on each row's first ``count``
+    entries (bit for bit), the row list holds exactly the rows with
+    candidates, each in its bucket, and the consumer's counters are zero."""
+    from montecarlopathtracing_torch.kernels import cluster as K
+
+    order_s, qkeys_s = K._ftb_candidates(keys)
+    used = (torch.arange(keys.shape[1], device=keys.device)[None, :]
+            < counts[:, None])
+    check(torch.equal(torch.where(used, cand.order, -1),
+                      torch.where(used, order_s, -1)),
+          f"{label}: fused front-to-back order differs from the sorted list")
+    check(torch.equal(torch.where(used, cand.qkeys, 0.0).view(torch.int32),
+                      torch.where(used, qkeys_s, 0.0).view(torch.int32)),
+          f"{label}: fused quantised keys differ from the sorted list")
+    heads = cand.heads.tolist()
+    listed = K.listed_rows(cand.heads, cand.rows)
+    want = torch.nonzero(counts > 0)[:, 0]
+    check(torch.equal(torch.sort(listed).values, want),
+          f"{label}: the row list is not the set of rows with candidates")
+    hi = None
+    for b, lo in enumerate(K._BUCKET_MIN):
+        cnt = counts[cand.rows[b, :heads[b]].long()]
+        check(bool((cnt >= lo).all()) and (hi is None or bool((cnt < hi).all())),
+              f"{label}: a row sits in the wrong bucket of the row list")
+        hi = lo
+    check(heads[K.FTB_BUCKETS:] == [0, 0, 0],
+          f"{label}: the row list's consumer counters are not zero: {heads}")
+    return order_s, qkeys_s
+
+
+def adversarial_keys(dev, label: str, caabb, tile: int, seed: int):
+    """Phase 3 (d): the key kernel against its plain version on rays made to
+    hit every special case of the slab test, on ``caabb`` ((8, C), or
+    (K, 8, C) with random chunk caps, a third of them parking the ray)."""
+    from montecarlopathtracing_torch.kernels import cluster as K
+
+    rng = np.random.default_rng(seed)
+    flat = caabb.reshape(-1, 8, caabb.shape[-1])
+    real = flat[0, 0] < 1e29
+    lo = flat[0, 0:3][:, real].min(dim=1).values.cpu().numpy()
+    hi = flat[0, 3:6][:, real].max(dim=1).values.cpu().numpy()
+    n = 24 * tile
+    o = rng.uniform(lo - 0.3, hi + 0.3, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d[0::7, 0] = 0.0
+    d[1::7, 1] = -0.0
+    d[2::7, 2] = np.float32(1e-40)    # denormal: 1 / d overflows to inf
+    d[3::11, 0] = np.float32(-1e-41)
+    d[5::19] = [0.0, -0.0, 1.0]
+    o[4::13, 0] = lo[0]               # on a box face, some with d.x = 0
+    o[0::21, 1] = hi[1]
+    o[6::17] = 1e9                    # parked rays in live subtiles
+    o[tile:2 * tile] = 1e9            # an all-parked subtile
+    rays = K.pack_rays(torch.as_tensor(o, device=dev),
+                       torch.as_tensor(d, device=dev))
+    if caabb.dim() == 3:
+        cap = torch.as_tensor(
+            rng.uniform(-1.0, 2.0, (caabb.shape[0], n)).astype(np.float32),
+            device=dev)
+        cap[0, 2 * tile:3 * tile] = -1.0  # a subtile parked for one chunk
+        keys, counts = K.cluster_keys_chunked(rays, cap, caabb, tile)
+        keys_p, counts_p = K.cluster_keys_chunked_plain(rays, cap, caabb, tile)
+        keys_f, counts_f, cand = K.cluster_keys_chunked_ftb(rays, cap, caabb,
+                                                            tile, with_keys=True)
+    else:
+        keys, counts, ids = K.cluster_keys(rays, caabb, tile)
+        keys_p, counts_p, ids_p = K.cluster_keys_plain(rays, caabb, tile)
+        used = (torch.arange(ids.shape[1], device=dev)[None, :] < counts[:, None])
+        check(torch.equal(torch.where(used, ids, -1), torch.where(used, ids_p, -1)),
+              f"{label}: candidate lists differ on adversarial rays")
+        keys_f, counts_f, cand = K.cluster_keys_ftb(rays, caabb, tile,
+                                                    with_keys=True)
+    check(torch.equal(keys.view(torch.int32), keys_p.view(torch.int32))
+          and torch.equal(counts, counts_p),
+          f"{label}: keys differ from the plain version on adversarial rays")
+    check(torch.equal(keys_f.view(torch.int32), keys_p.view(torch.int32))
+          and torch.equal(counts_f, counts_p),
+          f"{label}: keys of the fused-list launch differ")
+    check_fused_list(keys_p, counts_p, cand, label)
+    return {"case": label, "clusters": int(caabb.shape[-1]),
+            "chunks": int(flat.shape[0]), "rows": int(counts.shape[0]),
+            "rows_with_candidates": int((counts > 0).sum()),
+            "candidates": int(counts.sum()),
+            "inf_keys": int(torch.isinf(keys).sum())}
+
+
+def sort_ms(keys, sleep: float) -> float:
+    """Device ms of the one torch.sort that orders a call's packed words
+    (_ftb_order): the library call for the ordering part of the key kernel."""
+    c = keys.shape[1]
+    mask = (1 << max(1, (c - 1).bit_length())) - 1
+    words = ((keys.view(torch.int32) & ~mask)
+             | torch.arange(c, dtype=torch.int32, device=keys.device))
+    return timed(lambda: torch.sort(words, dim=1), sleep)[0]
 
 
 def ftb_pairs(bt, cap, counts, qkeys, tile: int, counter):
@@ -368,18 +481,45 @@ def chunked_call(acc, origin, direction, mt: bool, tile: int, sleep: float,
         lambda: K.cluster_keys_chunked_plain(rays, cap, acc.caabb, tile), sleep)
     check(torch.equal(keys, keys_p) and torch.equal(counts, counts_p),
           f"{label}: chunk-axis keys differ from the plain version")
-    order, qkeys = K._ftb_candidates(keys)
+    # The main path's launch: the list fused in, no keys written.
+    msl, latel, (_, counts_f, fused) = timed(
+        lambda: K.cluster_keys_chunked_ftb(rays, cap, acc.caabb, tile), sleep)
+    check(torch.equal(counts_f, counts_p),
+          f"{label}: counts of the fused-list launch differ")
+    order, qkeys = check_fused_list(keys_p, counts_p, fused, label)
+    lib_ms = sort_ms(keys, sleep)
     ms2, late2, (bt, bi) = timed(lambda: K.cluster_intersect_ftb(
-        rays, counts, order, qkeys, acc.tconst, tile, mt, chunk_cap=cap), sleep)
+        rays, counts, fused.order, fused.qkeys, acc.tconst, tile, mt,
+        chunk_cap=cap, row_list=fused.row_list), sleep)
     pm2, _, (bt_p, bi_p) = timed(lambda: K.cluster_intersect_ftb_plain(
         rays, counts, order, qkeys, acc.tconst, tile, mt, chunk_cap=cap), sleep)
     check(torch.equal(bt, bt_p) and torch.equal(bi, bi_p),
           f"{label}: front-to-back intersect differs from the plain version")
+    bt_s, bi_s = K.cluster_intersect_ftb(rays, counts, order, qkeys, acc.tconst,
+                                         tile, mt, chunk_cap=cap)
+    check(torch.equal(bt, bt_s) and torch.equal(bi, bi_s),
+          f"{label}: the kernel fed by the fused list differs from the kernel "
+          "fed by the sorted list")
+    # The kernel's other launch scheme over the same list (persistent blocks;
+    # measured slower, kept for kernel_experiments.py) gives the same result.
+    mode, K.FTB_USE_ROW_LIST = K.FTB_USE_ROW_LIST, "persistent"
+    try:
+        bt_r, bi_r = K.cluster_intersect_ftb(
+            rays, counts, fused.order, fused.qkeys, acc.tconst, tile, mt,
+            chunk_cap=cap, row_list=fused.row_list)
+    finally:
+        K.FTB_USE_ROW_LIST = mode
+    check(torch.equal(bt, bt_r) and torch.equal(bi, bi_r),
+          f"{label}: the persistent launch differs from the block-per-row one")
     counter = torch.zeros(1, dtype=torch.int64, device=rays.device)
-    bt_c, bi_c = K.cluster_intersect_ftb(rays, counts, order, qkeys, acc.tconst,
-                                         tile, mt, chunk_cap=cap, counter=counter)
+    bt_c, bi_c = K.cluster_intersect_ftb(rays, counts, fused.order, fused.qkeys,
+                                         acc.tconst, tile, mt, chunk_cap=cap,
+                                         counter=counter,
+                                         row_list=fused.row_list)
     check(torch.equal(bt, bt_c) and torch.equal(bi, bi_c),
           f"{label}: the pair counter changed the result")
+    check(fused.heads.tolist()[K.FTB_BUCKETS:] == [0, 0, 0],
+          f"{label}: the intersect kernel left its tickets behind")
     cand, tested, needed = ftb_pairs(bt, cap, counts, qkeys, tile, counter)
     check(needed <= tested <= cand, f"{label}: pairs {needed} <= {tested} <= {cand}")
     k_n, c, w = acc.num_chunks, acc.clusters_per_chunk, acc.width
@@ -388,8 +528,11 @@ def chunked_call(acc, origin, direction, mt: bool, tile: int, sleep: float,
     live = int(((cap.reshape(n_rows, tile) >= 0)
                 & (rays[:, 0].reshape(-1, tile).repeat(k_n, 1) <= 5e8))
                .any(dim=1).sum())
-    key_row = {"ms": ms1, "plain_ms": pm1, "late": late1,
-               "bytes": 4 * (r * 8 + k_n * r + k_n * 8 * c + n_rows * c + n_rows),
+    # Out: counts, order and qkeys of the candidates, one int per listed row.
+    key_row = {"ms": msl, "plain_ms": pm1, "late": latel,
+               "ms_keys_only": ms1, "library_ms": lib_ms,
+               "bytes": 4 * (r * 8 + k_n * r + k_n * 8 * c + n_rows + 2 * cand
+                             + int((counts > 0).sum())),
                "ops": OPS_KEY_PAIR * live * tile * c}
     isect_row = {"ms": ms2, "plain_ms": pm2, "late": late2,
                  "bytes": 4 * (r * rays.shape[1] + k_n * r + n_rows + 2 * needed
@@ -416,18 +559,30 @@ def hbm_call(acc, origin, direction, mt: bool, tile: int, sleep: float,
         lambda: K.cluster_keys_plain(rays8, acc.caabb, tile), sleep)
     check(torch.equal(keys, keys_p) and torch.equal(counts, counts_p),
           f"{label}: supergroup keys differ from the plain version")
-    order, qkeys = K._ftb_candidates(keys)
+    msl, latel, (_, counts_f, fused) = timed(
+        lambda: K.cluster_keys_ftb(rays8, acc.caabb, tile), sleep)
+    check(torch.equal(counts_f, counts_p),
+          f"{label}: counts of the fused-list launch differ")
+    order, qkeys = check_fused_list(keys_p, counts_p, fused, label)
+    lib_ms = sort_ms(keys, sleep)
     rays = K.pack_rays(o, d, mt=True) if mt else rays8
     ms2, late2, (bt, bi) = timed(lambda: K.cluster_intersect_hbm_padded(
-        rays, counts, order, qkeys, acc.tconst, tile, mt), sleep)
+        rays, counts, fused.order, fused.qkeys, acc.tconst, tile, mt,
+        row_list=fused.row_list), sleep)
     pm2, _, (bt_p, bi_p) = timed(lambda: K.cluster_intersect_hbm_plain(
         rays, counts, order, qkeys, acc.tconst, tile, mt), sleep)
     check(torch.equal(bt, bt_p) and torch.equal(bi, bi_p),
           f"{label}: supergroup intersect differs from the plain version")
+    bt_s, bi_s = K.cluster_intersect_hbm_padded(rays, counts, order, qkeys,
+                                                acc.tconst, tile, mt)
+    check(torch.equal(bt, bt_s) and torch.equal(bi, bi_s),
+          f"{label}: the kernel fed by the fused list differs from the kernel "
+          "fed by the sorted list")
     counter = torch.zeros(1, dtype=torch.int64, device=rays.device)
-    bt_c, bi_c = K.cluster_intersect_hbm_padded(rays, counts, order, qkeys,
-                                                acc.tconst, tile, mt,
-                                                counter=counter)
+    bt_c, bi_c = K.cluster_intersect_hbm_padded(rays, counts, fused.order,
+                                                fused.qkeys, acc.tconst, tile,
+                                                mt, counter=counter,
+                                                row_list=fused.row_list)
     check(torch.equal(bt, bt_c) and torch.equal(bi, bi_c),
           f"{label}: the pair counter changed the result")
     cap = rays[:, 9 if mt else 6]
@@ -437,8 +592,10 @@ def hbm_call(acc, origin, direction, mt: bool, tile: int, sleep: float,
     r = rays.shape[0]
     n_rows = counts.shape[0]
     live = int((torch.amin(rays8[:, 0].reshape(-1, tile), dim=1) <= 5e8).sum())
-    key_row = {"ms": ms1, "plain_ms": pm1, "late": late1,
-               "bytes": 4 * (r * 8 + 8 * s_n + n_rows * s_n + n_rows),
+    key_row = {"ms": msl, "plain_ms": pm1, "late": latel,
+               "ms_keys_only": ms1, "library_ms": lib_ms,
+               "bytes": 4 * (r * 8 + 8 * s_n + n_rows + 2 * cand
+                             + int((counts > 0).sum())),
                "ops": OPS_KEY_PAIR * live * tile * s_n}
     isect_row = {"ms": ms2, "plain_ms": pm2, "late": late2,
                  "bytes": 4 * (r * rays.shape[1] + n_rows + 2 * needed
@@ -527,7 +684,22 @@ def phase_kernels(dev, state):
         # Kernel vs plain at the full main-path shape as well.
         results.append(exact_match(acc, o_l, d_l, mt, tile,
                                    "large_camera_shadow" + ("_mt" if mt else "")))
-    emit({"phase": "kernels", "ok": True, "cases": results})
+    # (d) narrow tables: random boxes, the last cluster an inverted-empty
+    # padding one; single and over a chunk axis of 3.
+    adversarial = []
+    for c in (1, 2, 7, 33):
+        cmin = rng.uniform(0.0, 2.0, (3, c, 3)).astype(np.float32)
+        cmax = cmin + rng.uniform(0.05, 1.0, (3, c, 3)).astype(np.float32)
+        if c > 1:
+            cmin[:, -1], cmax[:, -1] = 1e30, -1e30
+        cmin_t, cmax_t = (torch.as_tensor(x, device=dev) for x in (cmin, cmax))
+        chunked = torch.stack([K._caabb(cmin_t[k], cmax_t[k]) for k in range(3)])
+        adversarial.append(adversarial_keys(dev, f"narrow_c{c}", chunked[0],
+                                            tile, seed=10 + c))
+        adversarial.append(adversarial_keys(dev, f"narrow_c{c}_chunked",
+                                            chunked, tile, seed=20 + c))
+    emit({"phase": "kernels", "ok": True, "cases": results,
+          "adversarial": adversarial})
     state["max_abs_err"] = {
         "cluster_keys": max(r["keys_max_abs_err"] for r in results),
         "cluster_intersect": max(r["t_max_abs_err"] for r in results)}
@@ -749,9 +921,15 @@ def phase_kernels_large400(dev, state):
                 "hbm_pairs": [rec_h["cand"], rec_h["tested"], rec_h["needed"]],
                 "keys_max_abs_err": max(rec["err_keys"], rec_h["err_keys"]),
                 "t_max_abs_err": max(rec["err_t"], rec_h["err_t"]), **extra})
+        if not mt:
+            adversarial = [
+                adversarial_keys(dev, "large400_chunked_adversarial",
+                                 chunked.caabb, tile, seed=31),
+                adversarial_keys(dev, "large400_hbm_adversarial", hbm.caabb,
+                                 tile, seed=32)]
         del single, chunked, hbm
         torch.cuda.empty_cache()
-    emit({"phase": "kernels_large400", "ok": True,
+    emit({"phase": "kernels_large400", "ok": True, "adversarial": adversarial,
           "load_seconds": state["large400_load_s"],
           "tris_padded": scene.num_tris_padded, "cases": results})
     state["max_abs_err_400"] = {
@@ -911,7 +1089,8 @@ def main() -> int:
             "replaces": tpu + site, "launches": by_frame[frame],
             "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None, "frame": frame, "ms_max": t["ms_max"],
+            "library_ms": t.get("library_ms"), "frame": frame,
+            "ms_max": t["ms_max"],
             "ms_max_over_mean": t["ms_max_over_mean"],
             "bound_unfused_ms": t["bound_unfused_ms"],
             "launches_by_frame": by_frame,
@@ -924,9 +1103,13 @@ def main() -> int:
         if name == "cluster_keys":
             th = t400h[name]
             row.update(ms_large400_hbm=th["ms"],
+                       ms_keys_only_large400_hbm=th["ms_keys_only"],
+                       library_ms_large400_hbm=th["library_ms"],
                        plain_ms_large400_hbm=th["plain_ms"],
                        bound_ms_large400_hbm=th["bound_ms"],
                        bound_unfused_ms_large400_hbm=th["bound_unfused_ms"])
+        if "ms_keys_only" in t:
+            row["ms_keys_only"] = t["ms_keys_only"]
         if "pairs" in stats and name.startswith("cluster_intersect"):
             row.update(stats["pairs"])
         rows.append(row)

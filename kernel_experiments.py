@@ -1,21 +1,29 @@
 #!/usr/bin/env python3
-"""Time the three intersect kernels on the calls of real frames, under
-measurement builds and launch settings, on one CUDA card.
+"""Time the key kernel and the three intersect kernels on the calls of real
+frames, under measurement builds and launch settings, on one CUDA card.
 
     python3 kernel_experiments.py
     python3 kernel_experiments.py --frames large,large400_hbm --spp 2
+    python3 kernel_experiments.py --kernels keys --variants default,keys_cpt1
     python3 kernel_experiments.py --pkg-root DIR --variants default
 
 Renders each frame once with its intersect calls recorded (the frames of
 chip_smoke.py: the 100k-triangle interior under the single-table plan, the
 400k-triangle interior under the chunked and the supergroup plan, and with
 ``--frames box`` the built-in box at 1024 x 1024, spp 16), prepares
-every call's kernel inputs once, and then replays the intersect kernel alone
-over all calls of the frame once per variant, each launch timed by CUDA
-events with the stream asleep while the host enqueues.  Prints one JSON line
-per (frame, variant): mean, slowest and total ms, slowest over mean.  The
-first ``--check`` calls of each frame are also held exactly equal to the
-plain version, under every variant that computes results.
+every call's kernel inputs once, and then replays one kernel's step alone
+over all calls of the frame once per variant, each call timed by CUDA
+events with the stream asleep while the host enqueues.  ``--kernels`` names
+the steps: ``intersect`` (the intersect wrapper: kernel plus whatever the
+wrapper does around it, a sort of the rows in older checkouts) and ``keys``
+(the key wrapper as the frame's path calls it; ``ms_mean`` is that launch,
+``ms_order_mean`` the whole step up to an ordered candidate list, which
+includes ``torch.sort`` where the package sorts outside the kernel).  Prints
+one JSON line per (frame, kernel, variant): mean, median, slowest and total
+ms, slowest over mean.  The first ``--check`` calls of each frame are also held
+exactly equal to the plain version, under every variant that computes
+results.  ``--sass FILE`` writes ``cuobjdump -sass`` of the key kernel's
+library to FILE (to count the instructions of its inner loop).
 
 Variants, joined by "+" to combine two (each answers what one cause of lost time is worth):
 
@@ -40,7 +48,28 @@ Variants, joined by "+" to combine two (each answers what one cause of lost time
   ftb_split2, ftb_split4   chunked kernel with a row's clusters dealt out
                  to 2 / 4 blocks instead of 1
   row_order      front-to-back kernels started in row order, not longest
-                 candidate list first (FTB_LONGEST_FIRST = False)
+                 candidate list first (FTB_LONGEST_FIRST = False; applies to
+                 launches without the row list)
+  ftb_all_rows   chunked kernel with a block for every row, rows sorted by
+                 count in the wrapper, not a block per row of the key
+                 kernel's list (FTB_USE_ROW_LIST = None)
+  ftb_persistent chunked kernel as a fixed grid of persistent blocks that
+                 take rows from the list by ticket and carry the copy ring
+                 from row to row (FTB_USE_ROW_LIST = "persistent")
+  ftb_claim_all  ftb_persistent built with -DMCPT_ROWS_CLAIM_ALL: every row
+                 claimed one at a time when the block is free, none ahead
+  ftb_no_carry   ftb_persistent, a row's first copy started only when the
+                 row begins (FTB_CARRY_RING = False)
+  hbm_sorted_rows  supergroup kernel's rows sorted by count in the wrapper,
+                 not read from the row list (HBM_USE_ROW_LIST = False)
+  keys_no_octant   key kernel built with -DMCPT_KEYS_NO_OCTANT: near and far
+                 plane by select per pair, as before the octant bodies
+  keys_always_repair  built with -DMCPT_KEYS_ALWAYS_REPAIR: selects and the
+                 NaN repair on every pair
+  keys_cpt1, keys_cpt2  built with -DMCPT_KEYS_CLUSTERS_PER_THREAD=1 / 2
+                 instead of 4
+  list_unfused   key kernel writes keys, torch.sort orders them
+                 (FTB_FUSED_LIST = False)
 
 ``--pkg-root DIR`` imports montecarlopathtracing_torch from DIR (a checkout
 of another commit), to compare two commits on one card in one call; a
@@ -72,7 +101,8 @@ FRAMES = {
     "large400_hbm": (400_000, "hbm_always", "cluster_intersect_hbm"),
 }
 
-# The source each frame's intersect kernel is built from.
+# The source each frame's intersect kernel is built from (its key kernel:
+# cluster_keys).
 SOURCES = {"box": "cluster_intersect", "large": "cluster_intersect",
            "large400_chunked": "cluster_intersect_ftb",
            "large400_hbm": "cluster_intersect_hbm"}
@@ -97,6 +127,18 @@ VARIANTS = {
     "hbm_split32": ((), {"HBM_SPLIT": 32}, True),
     "ftb_split2": ((), {"FTB_SPLIT": 2}, True),
     "ftb_split4": ((), {"FTB_SPLIT": 4}, True),
+    "ftb_all_rows": ((), {"FTB_USE_ROW_LIST": None}, True),
+    "ftb_persistent": ((), {"FTB_USE_ROW_LIST": "persistent"}, True),
+    "ftb_claim_all": (("-DMCPT_ROWS_CLAIM_ALL",),
+                      {"FTB_USE_ROW_LIST": "persistent"}, True),
+    "ftb_no_carry": ((), {"FTB_USE_ROW_LIST": "persistent",
+                          "FTB_CARRY_RING": False}, True),
+    "hbm_sorted_rows": ((), {"HBM_USE_ROW_LIST": False}, True),
+    "keys_no_octant": (("-DMCPT_KEYS_NO_OCTANT",), {}, True),
+    "keys_always_repair": (("-DMCPT_KEYS_ALWAYS_REPAIR",), {}, True),
+    "keys_cpt1": (("-DMCPT_KEYS_CLUSTERS_PER_THREAD=1",), {}, True),
+    "keys_cpt2": (("-DMCPT_KEYS_CLUSTERS_PER_THREAD=2",), {}, True),
+    "list_unfused": ((), {"FTB_FUSED_LIST": False}, True),
 }
 
 
@@ -150,22 +192,180 @@ def prepare(K, label, acc, origin, direction, mt):
         args = (rays_i, counts, ids, acc.tconst, tile, mt)
         return (lambda: K.cluster_intersect_padded(*args),
                 lambda: K.cluster_intersect_padded_plain(*args), counts)
+    fused = hasattr(K, "cluster_keys_ftb")  # the key kernel orders and lists
     if label == "large400_chunked":
         cap = K.chunk_caps(acc, o, d)
         rays = K.pack_rays(o, d, mt=mt)
         keys, counts = K.cluster_keys_chunked(rays, cap, acc.caabb, tile)
         order, qkeys = K._ftb_candidates(keys)
         args = (rays, counts, order, qkeys, acc.tconst, tile, mt)
-        return (lambda: K.cluster_intersect_ftb(*args, chunk_cap=cap),
-                lambda: K.cluster_intersect_ftb_plain(*args, chunk_cap=cap),
-                counts)
+        plain = lambda: K.cluster_intersect_ftb_plain(*args, chunk_cap=cap)
+        if not fused:
+            return (lambda: K.cluster_intersect_ftb(*args, chunk_cap=cap),
+                    plain, counts)
+        cand = K.cluster_keys_chunked_ftb(rays, cap, acc.caabb, tile)[2]
+        return (lambda: K.cluster_intersect_ftb(
+            rays, counts, cand.order, cand.qkeys, acc.tconst, tile, mt,
+            chunk_cap=cap, row_list=cand.row_list), plain, counts)
     rays8 = K.pack_rays(o, d)
     keys, counts, _ = K.cluster_keys(rays8, acc.caabb, tile, with_ids=False)
     order, qkeys = K._ftb_candidates(keys)
     rays = K.pack_rays(o, d, mt=True) if mt else rays8
     args = (rays, counts, order, qkeys, acc.tconst, tile, mt)
-    return (lambda: K.cluster_intersect_hbm_padded(*args),
-            lambda: K.cluster_intersect_hbm_plain(*args), counts)
+    plain = lambda: K.cluster_intersect_hbm_plain(*args)
+    if not fused:
+        return lambda: K.cluster_intersect_hbm_padded(*args), plain, counts
+    cand = K.cluster_keys_ftb(rays8, acc.caabb, tile)[2]
+    return (lambda: K.cluster_intersect_hbm_padded(
+        rays, counts, cand.order, cand.qkeys, acc.tconst, tile, mt,
+        row_list=cand.row_list), plain, counts)
+
+
+def prepare_keys(K, label, acc, origin, direction, mt):
+    """(key launch closure, closure of the whole step up to an ordered
+    candidate list, check of that step's result against the plain version)
+    on one recorded call's inputs."""
+    o, d, _, tile = K._shape_and_pad(origin, direction, TILE, MEGA)
+    fused = hasattr(K, "cluster_keys_ftb")
+
+    def prefix_equal(counts, a, b):
+        used = (torch.arange(a.shape[1], device=a.device)[None, :]
+                < counts[:, None])
+        return torch.equal(torch.where(used, a, 0), torch.where(used, b, 0))
+
+    if label in ("box", "large"):
+        rays = K.pack_rays(o, d)
+        caabb = K._caabb(acc.cmin, acc.cmax)
+        launch = lambda: K.cluster_keys(rays, caabb, tile)
+
+        def check(got):
+            keys, counts, ids = got
+            keys_p, counts_p, ids_p = K.cluster_keys_plain(rays, caabb, tile)
+            return (torch.equal(keys, keys_p) and torch.equal(counts, counts_p)
+                    and prefix_equal(counts, ids, ids_p))
+        return launch, launch, check
+    if label == "large400_chunked":
+        cap = K.chunk_caps(acc, o, d)
+        rays = K.pack_rays(o, d, mt=mt)
+        plain = lambda: K.cluster_keys_chunked_plain(rays, cap, acc.caabb, tile)
+        if fused:
+            launch = lambda: K.cluster_keys_chunked_ftb(rays, cap, acc.caabb, tile)
+        else:
+            launch = lambda: K.cluster_keys_chunked(rays, cap, acc.caabb, tile)
+    else:
+        rays = K.pack_rays(o, d)
+        plain = lambda: K.cluster_keys_plain(rays, acc.caabb, tile)[:2]
+        if fused:
+            launch = lambda: K.cluster_keys_ftb(rays, acc.caabb, tile)
+        else:
+            launch = lambda: K.cluster_keys(rays, acc.caabb, tile,
+                                            with_ids=False)[:2]
+    if fused:
+        def step():
+            _, counts, cand = launch()
+            return counts, cand.order, cand.qkeys
+    else:
+        def step():
+            keys, counts = launch()
+            return (counts,) + tuple(K._ftb_candidates(keys))
+
+    def check(got):
+        counts, order, qkeys = got
+        keys_p, counts_p = plain()
+        order_p, qkeys_p = K._ftb_candidates(keys_p)
+        return (torch.equal(counts, counts_p)
+                and prefix_equal(counts, order, order_p)
+                and prefix_equal(counts, qkeys.view(torch.int32),
+                                 qkeys_p.view(torch.int32)))
+    return launch, step, check
+
+
+def write_sass(B, dest: str) -> None:
+    """cuobjdump -sass of the key kernel's library into the file ``dest``."""
+    path = B.build(["cluster_keys"])["cluster_keys"]["path"]
+    tool = os.path.join(os.path.dirname(B.find_nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", path], check=True,
+                         capture_output=True, text=True, timeout=300).stdout
+    os.makedirs(os.path.dirname(os.path.abspath(dest)), exist_ok=True)
+    with open(dest, "w") as fh:
+        fh.write(out)
+
+
+def run_variants(args, B, K, label, kernel, calls, spp) -> None:
+    """Replay one kernel's step over a frame's recorded calls, once per
+    variant; one JSON line each."""
+    extra = {}
+    if kernel == "keys":
+        prepared = [prepare_keys(K, label, *call) for call in calls]
+        src = "cluster_keys"
+    else:
+        prepared = [prepare(K, label, *call) for call in calls]
+        src = SOURCES[label]
+        pairs = [int(p[2].sum()) for p in prepared]
+        # The longest candidate list of any row, and of the mean call's rows.
+        extra = {"pairs_mean": sum(pairs) / len(pairs), "pairs_max": max(pairs),
+                 "pairs_max_over_mean": max(pairs) * len(pairs) / sum(pairs),
+                 "row_candidates_max": max(int(p[2].max()) for p in prepared),
+                 "row_candidates_mean":
+                     sum(pairs) / sum(p[2].numel() for p in prepared)}
+    for variant in args.variants.split(","):
+        flags, switches, checked = (), {}, True
+        for part in variant.split("+"):  # "a+b" combines two variants
+            f, sw, ch = VARIANTS[part]
+            flags, switches, checked = flags + f, {**switches, **sw}, checked and ch
+        if (flags and not hasattr(B, "EXTRA_FLAGS")) or any(
+                not hasattr(K, k) for k in switches):
+            emit({"frame": label, "kernel": kernel, "variant": variant,
+                  "skipped": "this package has no such switch", "tag": args.tag})
+            continue
+        saved = {k: getattr(K, k) for k in switches}
+        if hasattr(B, "EXTRA_FLAGS"):
+            B.EXTRA_FLAGS = tuple(flags)
+            B.load.cache_clear()
+        for k, v in switches.items():
+            setattr(K, k, v)
+        t0 = time.perf_counter()
+        prepared[0][1 if kernel == "keys" else 0]()  # build, warm up
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        ptxas = [ln.split(":", 1)[-1].strip()
+                 for ln in B.build([src])[src]["log"].splitlines()
+                 if "registers" in ln]
+        ms, ms_order = [], []
+        for i, prep in enumerate(prepared):
+            if kernel == "keys":
+                launch, step, ok = prep
+                ms.append(timed(launch)[0])
+                t, got = timed(step)
+                ms_order.append(t)
+                if checked and i < args.check and not ok(got):
+                    raise AssertionError(f"{label}/keys/{variant}: call {i} "
+                                         "differs from the plain version")
+                continue
+            launch, plain, _ = prep
+            t, got = timed(launch)
+            ms.append(t)
+            if checked and i < args.check:
+                want = plain()
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(
+                        f"{label}/{variant}: call {i} differs from the "
+                        "plain version")
+        for k, v in saved.items():
+            setattr(K, k, v)
+        mean = sum(ms) / len(ms)
+        extra["ms_median"] = sorted(ms)[len(ms) // 2]
+        if ms_order:
+            extra["ms_order_mean"] = sum(ms_order) / len(ms_order)
+        emit({"frame": label, "kernel": kernel, "variant": variant,
+              "calls": len(ms), "ms_mean": mean, "ms_max": max(ms),
+              "ms_total": sum(ms), "ms_max_over_mean": max(ms) / mean, **extra,
+              "checked_calls": min(args.check, len(ms)) if checked else 0,
+              "first_call_s": build_s, "ptxas": ptxas, "spp": spp,
+              "tag": args.tag})
+    if hasattr(B, "EXTRA_FLAGS"):
+        B.EXTRA_FLAGS = ()
+        B.load.cache_clear()
 
 
 def main(argv=None) -> int:
@@ -177,6 +377,10 @@ def main(argv=None) -> int:
                     help="samples per pixel (default 16 box, 4 interiors)")
     ap.add_argument("--check", type=int, default=3,
                     help="calls per frame held against the plain version")
+    ap.add_argument("--kernels", default="intersect",
+                    help="steps to replay: intersect, keys or both (a,b)")
+    ap.add_argument("--sass", default="", metavar="FILE",
+                    help="write the key kernel's SASS to FILE")
     ap.add_argument("--tag", default="", help="copied into every line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -195,6 +399,8 @@ def main(argv=None) -> int:
         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
     emit({"phase": "device", "nvidia_smi": smi, "pkg_root": args.pkg_root,
           "tag": args.tag})
+    if args.sass:
+        write_sass(B, args.sass)
     scenes = {}
     for label in args.frames.split(","):
         n_tris, mode, name = FRAMES[label]
@@ -210,61 +416,11 @@ def main(argv=None) -> int:
             wavefront.render_image_host_chunked(scenes[n_tris], None, opts,
                                                 device="cuda")
         torch.cuda.synchronize()
-        prepared = [prepare(K, label, *call) for call in cap.calls]
+        calls = cap.calls
         del cap
-        pairs = [int(p[2].sum()) for p in prepared]
-        # The longest candidate list of any row, and of the mean call's rows.
-        row_max = max(int(p[2].max()) for p in prepared)
-        row_mean = sum(pairs) / sum(p[2].numel() for p in prepared)
-        for variant in args.variants.split(","):
-            flags, switches, checked = (), {}, True
-            for part in variant.split("+"):  # "a+b" combines two variants
-                f, sw, ch = VARIANTS[part]
-                flags, switches, checked = flags + f, {**switches, **sw}, checked and ch
-            if (flags and not hasattr(B, "EXTRA_FLAGS")) or any(
-                    not hasattr(K, k) for k in switches):
-                emit({"frame": label, "variant": variant, "skipped":
-                      "this package has no such switch", "tag": args.tag})
-                continue
-            saved = {k: getattr(K, k) for k in switches}
-            if hasattr(B, "EXTRA_FLAGS"):
-                B.EXTRA_FLAGS = tuple(flags)
-                B.load.cache_clear()
-            for k, v in switches.items():
-                setattr(K, k, v)
-            t0 = time.perf_counter()
-            prepared[0][0]()  # build, warm up
-            torch.cuda.synchronize()
-            build_s = time.perf_counter() - t0
-            src = SOURCES[label]
-            ptxas = [ln.split(":", 1)[-1].strip()
-                     for ln in B.build([src])[src]["log"].splitlines()
-                     if "registers" in ln]
-            ms = []
-            for i, (launch, plain, _) in enumerate(prepared):
-                t, got = timed(launch)
-                ms.append(t)
-                if checked and i < args.check:
-                    want = plain()
-                    if not all(torch.equal(a, b) for a, b in zip(got, want)):
-                        raise AssertionError(
-                            f"{label}/{variant}: call {i} differs from the "
-                            "plain version")
-            for k, v in saved.items():
-                setattr(K, k, v)
-            mean = sum(ms) / len(ms)
-            emit({"frame": label, "variant": variant, "calls": len(ms),
-                  "ms_mean": mean, "ms_max": max(ms), "ms_total": sum(ms),
-                  "ms_max_over_mean": max(ms) / mean,
-                  "pairs_mean": sum(pairs) / len(pairs), "pairs_max": max(pairs),
-                  "pairs_max_over_mean": max(pairs) * len(pairs) / sum(pairs),
-                  "row_candidates_max": row_max, "row_candidates_mean": row_mean,
-                  "checked_calls": min(args.check, len(ms)) if checked else 0,
-                  "first_call_s": build_s, "ptxas": ptxas, "spp": spp, "tag": args.tag})
-        if hasattr(B, "EXTRA_FLAGS"):
-            B.EXTRA_FLAGS = ()
-            B.load.cache_clear()
-        del prepared
+        for kernel in args.kernels.split(","):
+            run_variants(args, B, K, label, kernel, calls, spp)
+        del calls
         torch.cuda.empty_cache()
     print(smi, flush=True)
     return 0

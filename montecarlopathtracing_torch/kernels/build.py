@@ -47,20 +47,26 @@ _I = ctypes.c_int
 # CUDA error of its launch as an int.
 _SIGNATURES = {
     "cluster_keys": ("cluster_keys", "mcpt_cluster_keys",
-                     [_P, _I, _I, _I, _P, _I, _P, _P, _P, _P]),
+                     [_P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P]),
     "cluster_keys_chunked": ("cluster_keys", "mcpt_cluster_keys_chunked",
-                             [_P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P]),
+                             [_P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P,
+                              _P, _P, _P]),
     "cluster_intersect": ("cluster_intersect", "mcpt_cluster_intersect",
                           [_P, _I, _I, _I, _P, _P, _I, _P, _I, _I, _I, _P,
                            _P, _P, _P]),
     "cluster_intersect_ftb": ("cluster_intersect_ftb",
                               "mcpt_cluster_intersect_ftb",
-                              [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P,
-                               _I, _I, _I, _P, _P, _P, _P, _P]),
+                              [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
+                               _P, _I, _I, _I, _P, _P, _P, _P, _P]),
+    # The same kernel function over the key kernel's row list.
+    "cluster_intersect_ftb_rows": ("cluster_intersect_ftb",
+                                   "mcpt_cluster_intersect_ftb_rows",
+                                   [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                                    _I, _P, _I, _I, _I, _P, _P, _P, _P]),
     "cluster_intersect_hbm": ("cluster_intersect_hbm",
                               "mcpt_cluster_intersect_hbm",
-                              [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I,
-                               _I, _P, _P, _P, _P, _P]),
+                              [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I,
+                               _I, _I, _P, _P, _P, _P, _P]),
 }
 
 

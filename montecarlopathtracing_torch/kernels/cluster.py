@@ -28,11 +28,12 @@ front to back with an early exit:
 * ``cluster_intersect_chunked``: the triangle range cut into K chunks with a
   table each.  A routing slab pass against the K chunk AABBs gives every
   (chunk, ray) an exit cap, -1 where the ray misses the chunk; the key kernel
-  runs over all chunks in one launch (``cluster_keys_chunked``), one packed
-  sort orders each (chunk, subtile)'s candidates by entry key
-  (``_ftb_order``), ``cluster_intersect_ftb`` tests them until the next
-  key is past every ray's min(best t, cap), and the K results merge
-  lexicographically on (t, global triangle id).
+  runs over all chunks in one launch (``cluster_keys_chunked_ftb``) and
+  itself orders each (chunk, subtile)'s candidates by entry key (the packed
+  words of ``_ftb_order``, the hits only) and lists the rows that have any;
+  ``cluster_intersect_ftb`` starts a block per listed row and tests a row's
+  candidates until the next key is past every ray's min(best t, cap), and
+  the K results merge lexicographically on (t, global triangle id).
 * ``cluster_intersect_hbm``: one table, swizzled into supergroups of ``sg``
   clusters; candidates and the exit work per supergroup.
 
@@ -40,7 +41,8 @@ front to back with an early exit:
 front-to-back kernel.  The supergroup kernel deals a subtile's 128-column
 pieces out to ``HBM_SPLIT`` blocks that share the rays' best hits (and so
 the exit bound) through the same join words as the single-table kernel; both
-front-to-back kernels start their rows longest candidate list first.  The
+front-to-back kernels start their rows longest candidate list first (the key
+kernel's row list is bucketed by count).  The
 exit never changes a result: the best hit is an
 order-independent lexicographic minimum and a skipped candidate's entry is
 beyond every ray's bound.
@@ -220,7 +222,10 @@ def cluster_keys_plain(rays, caabb, tile: int):
         enter = torch.maximum(torch.maximum(tn[..., 0], tn[..., 1]), tn[..., 2])
         exit_ = torch.minimum(torch.minimum(tf[..., 0], tf[..., 1]), tf[..., 2])
         hit = (enter <= exit_) & (exit_ >= 0)
-        key = torch.where(hit, torch.clamp(enter, min=0.0), BIG)
+        # "+ 0.0" turns a clamped -0.0 into +0.0 (what a maximum that orders
+        # -0 < +0 returns, on the card and in the JAX package), so a key's
+        # bits are never negative.
+        key = torch.where(hit, torch.clamp(enter, min=0.0) + 0.0, BIG)
         keys[s0:s0 + step] = torch.amin(key, dim=1)
     parked = torch.amin(sub[..., 0], dim=1) > 5e8
     keys = torch.where(parked[:, None], BIG, keys)
@@ -232,41 +237,189 @@ def cluster_keys_plain(rays, caabb, tile: int):
     return keys, counts, ids
 
 
+# Tables up to this many clusters get their front-to-back order from the key
+# kernel (a row's hit words are sorted in shared memory); a wider table's
+# keys go through ``torch.sort`` (_ftb_candidates).  kSortMax of
+# csrc/cluster_keys.cu.
+FUSED_SORT_MAX_CLUSTERS = 2048
+
+# Buckets of the row list (kBuckets of csrc/cluster_rows.cuh), by the least
+# candidate count of each: 128 and more, 64-127, ..., 2-3, 1.
+_BUCKET_MIN = (128, 64, 32, 16, 8, 4, 2, 1)
+FTB_BUCKETS = len(_BUCKET_MIN)
+
+# Whether the front-to-back paths take their order from the key kernel
+# (false: keys out, then torch.sort; a switch for measurements, the results
+# are the same).
+FTB_FUSED_LIST = True
+
+
+@dataclasses.dataclass(frozen=True)
+class FtbCandidates:
+    """What the key kernel hands the front-to-back intersect kernels.
+
+    order (rows, C) i32, qkeys (rows, C) f32: each row's first ``count``
+        entries are its hit clusters front to back and their quantised-down
+        keys, equal to the same entries of _ftb_candidates(keys); the rest
+        of a row is unspecified.
+    heads (FTB_BUCKETS + 3,) i32, rows (FTB_BUCKETS, n_rows) i32: the row
+        list.  rows[b, :heads[b]] are the rows whose count falls in bucket b
+        (128 and more, 64-127, ..., 4-7, 2-3, 1), in no particular order;
+        together exactly the rows with count > 0.  heads[FTB_BUCKETS:] are
+        three counters of the consuming kernel, zero between launches.
+    """
+
+    order: Any
+    qkeys: Any
+    heads: Any
+    rows: Any
+
+    @property
+    def row_list(self):
+        return self.heads, self.rows
+
+
+def ftb_compact_plain(keys):
+    """Plain PyTorch version of the key kernel's fused front-to-back list.
+
+    keys (rows, C) f32 as cluster_keys_plain returns them.  Returns (order
+    (rows, C) i32, qkeys (rows, C) f32): only the hits' packed words
+    (key bits & ~mask) | id are sorted (a miss takes the largest int); past a
+    row's count order is 0 and qkeys 1e30.  The first ``count`` entries of a
+    row equal those of _ftb_candidates(keys).
+    """
+    c = keys.shape[1]
+    idb = max(1, (c - 1).bit_length())
+    mask = (1 << idb) - 1
+    hit = keys < BIG
+    iota = torch.arange(c, dtype=torch.int32, device=keys.device)
+    words = (keys.contiguous().view(torch.int32) & ~mask) | iota
+    packed = torch.sort(torch.where(hit, words, _INT_MAX), dim=1).values
+    used = iota[None, :] < hit.sum(dim=1, dtype=torch.int32)[:, None]
+    order = torch.where(used, packed & mask, 0)
+    qkeys = torch.where(used, (packed & ~mask).view(torch.float32), BIG)
+    return order, qkeys
+
+
+def ftb_row_list_plain(counts):
+    """Plain PyTorch version of the key kernel's row list: (heads, rows) as
+    FtbCandidates describes them, each bucket's rows ascending."""
+    n = counts.shape[0]
+    heads = torch.zeros(FTB_BUCKETS + 3, dtype=torch.int32, device=counts.device)
+    rows = torch.zeros((FTB_BUCKETS, n), dtype=torch.int32, device=counts.device)
+    upper = None
+    for b, least in enumerate(_BUCKET_MIN):
+        member = counts >= least
+        if upper is not None:
+            member &= counts < upper
+        upper = least
+        idx = torch.nonzero(member)[:, 0].to(torch.int32)
+        heads[b] = idx.shape[0]
+        rows[b, :idx.shape[0]] = idx
+    return heads, rows
+
+
+def listed_rows(heads, rows):
+    """The rows of a row list in the order a consumer takes them (bucket by
+    bucket), as one (n,) int64 tensor."""
+    return torch.cat([rows[b, :int(heads[b])] for b in range(FTB_BUCKETS)]).long()
+
+
+def _launch_keys(name, rays, chunk_cap, caabb, tile: int, with_keys: bool,
+                 with_ids: bool, with_list: bool):
+    """Launch the key kernel (entry point ``name``) on CUDA tensors.
+    Returns (keys, counts, ids, FtbCandidates), None for what was not asked
+    for.  A table past FUSED_SORT_MAX_CLUSTERS (or FTB_FUSED_LIST false)
+    gets its row list from the kernel and its order from torch.sort over the
+    keys: the rule looks at C alone."""
+    from .build import load
+
+    more = {} if chunk_cap is None else {"chunk_cap": chunk_cap}
+    dev = _check_cuda_inputs(name, rays=rays, caabb=caabb, **more)
+    if any(t.dtype != torch.float32 for t in (rays, caabb, *more.values())):
+        raise TypeError(f"{name}: inputs must be float32")
+    if rays.dim() != 2 or rays.shape[1] < 6 or rays.shape[0] % tile:
+        raise ValueError(f"{name}: rays {tuple(rays.shape)} must be (R, >=6) "
+                         f"with R a multiple of tile={tile}")
+    if not 1 <= tile <= 1024:
+        raise ValueError(f"{name}: tile in [1, 1024]")
+    chunked = chunk_cap is not None
+    if chunked:
+        if (caabb.dim() != 3 or caabb.shape[1] != 8 or caabb.shape[0] > 65535
+                or chunk_cap.shape != (caabb.shape[0], rays.shape[0])):
+            raise ValueError(f"{name}: caabb must be (K <= 65535, 8, C), "
+                             "chunk_cap (K, R)")
+        k_n = caabb.shape[0]
+    else:
+        if caabb.dim() != 2 or caabb.shape[0] != 8:
+            raise ValueError(f"{name}: caabb must be (8, C)")
+        k_n = 1
+    c = caabb.shape[-1]
+    n_sub = rays.shape[0] // tile
+    n_rows = k_n * n_sub
+    fused = with_list and FTB_FUSED_LIST and c <= FUSED_SORT_MAX_CLUSTERS
+    keys = (torch.empty((n_rows, c), dtype=torch.float32, device=dev)
+            if with_keys or (with_list and not fused) else None)
+    counts = torch.empty((n_rows,), dtype=torch.int32, device=dev)
+    ids = (torch.empty((n_rows, c), dtype=torch.int32, device=dev)
+           if with_ids else None)
+    order = qkeys = heads = wrows = None
+    if with_list:
+        heads = torch.zeros(FTB_BUCKETS + 3, dtype=torch.int32, device=dev)
+        wrows = torch.empty((FTB_BUCKETS, n_rows), dtype=torch.int32, device=dev)
+    if fused:
+        order = torch.empty((n_rows, c), dtype=torch.int32, device=dev)
+        qkeys = torch.empty((n_rows, c), dtype=torch.float32, device=dev)
+    fn = load(name)
+    outs = (_ptr(order), _ptr(qkeys), _ptr(heads), _ptr(wrows), _stream(dev))
+    with torch.cuda.device(dev):
+        if chunked:
+            err = fn(_ptr(rays), rays.shape[1], n_sub, tile, k_n,
+                     _ptr(chunk_cap), _ptr(caabb), c, _ptr(keys), _ptr(counts),
+                     *outs)
+        else:
+            err = fn(_ptr(rays), rays.shape[1], n_sub, tile, _ptr(caabb), c,
+                     _ptr(keys), _ptr(counts), _ptr(ids), *outs)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    _WRAPPERS[name].launches += 1
+    cand = None
+    if with_list:
+        if not fused:
+            order, qkeys = _ftb_candidates(keys)
+        cand = FtbCandidates(order, qkeys, heads, wrows)
+    return (keys if with_keys else None), counts, ids, cand
+
+
+def _plain_candidates(keys, counts):
+    return FtbCandidates(*ftb_compact_plain(keys), *ftb_row_list_plain(counts))
+
+
 def cluster_keys(rays, caabb, tile: int, with_ids: bool = True):
     """Candidate keys and lists per ray subtile; see cluster_keys_plain for
     the contract (on the card, ids past each row's count are unwritten, and
-    ids is None when ``with_ids`` is false: the front-to-back paths order
-    the candidates by key themselves)."""
+    ids is None when ``with_ids`` is false)."""
     if rays.device.type == "cpu":
         return cluster_keys_plain(rays, caabb, tile)
-    from .build import load
-
-    dev = _check_cuda_inputs("cluster_keys", rays=rays, caabb=caabb)
-    if rays.dtype != torch.float32 or caabb.dtype != torch.float32:
-        raise TypeError("cluster_keys: rays and caabb must be float32")
-    if rays.dim() != 2 or rays.shape[1] < 6 or rays.shape[0] % tile:
-        raise ValueError(f"cluster_keys: rays {tuple(rays.shape)} must be "
-                         f"(R, >=6) with R a multiple of tile={tile}")
-    if caabb.shape[0] != 8 or not 1 <= tile <= 1024:
-        raise ValueError("cluster_keys: caabb must be (8, C), tile in [1, 1024]")
-    n_sub = rays.shape[0] // tile
-    c = caabb.shape[1]
-    keys = torch.empty((n_sub, c), dtype=torch.float32, device=dev)
-    counts = torch.empty((n_sub,), dtype=torch.int32, device=dev)
-    ids = (torch.empty((n_sub, c), dtype=torch.int32, device=dev)
-           if with_ids else None)
-    fn = load("cluster_keys")
-    with torch.cuda.device(dev):
-        err = fn(_ptr(rays), rays.shape[1], n_sub, tile, _ptr(caabb), c,
-                 _ptr(keys), _ptr(counts), _ptr(ids),
-                 _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"cluster_keys launch failed: CUDA error {err}")
-    cluster_keys.launches += 1
-    return keys, counts, ids
+    return _launch_keys("cluster_keys", rays, None, caabb, tile, True,
+                        with_ids, False)[:3]
 
 
 cluster_keys.launches = 0
+
+
+def cluster_keys_ftb(rays, caabb, tile: int, with_keys: bool = False):
+    """The key kernel with the front-to-back list fused in: (keys or None,
+    counts, FtbCandidates).  On the CPU the plain versions
+    (cluster_keys_plain, ftb_compact_plain, ftb_row_list_plain).  A table of
+    more than FUSED_SORT_MAX_CLUSTERS clusters is ordered by torch.sort over
+    the kernel's keys instead; nothing else decides that."""
+    if rays.device.type == "cpu":
+        keys, counts, _ = cluster_keys_plain(rays, caabb, tile)
+        return (keys if with_keys else None), counts, _plain_candidates(keys, counts)
+    keys, counts, _, cand = _launch_keys("cluster_keys", rays, None, caabb,
+                                         tile, with_keys, False, True)
+    return keys, counts, cand
 
 
 # --------------------------------------------------------------------------
@@ -514,35 +667,24 @@ def cluster_keys_chunked(rays, chunk_cap, caabb, tile: int):
     cluster_keys_chunked_plain for the contract."""
     if rays.device.type == "cpu":
         return cluster_keys_chunked_plain(rays, chunk_cap, caabb, tile)
-    from .build import load
-
-    dev = _check_cuda_inputs("cluster_keys_chunked", rays=rays,
-                             chunk_cap=chunk_cap, caabb=caabb)
-    if any(t.dtype != torch.float32 for t in (rays, chunk_cap, caabb)):
-        raise TypeError("cluster_keys_chunked: inputs must be float32")
-    if rays.dim() != 2 or rays.shape[1] < 6 or rays.shape[0] % tile:
-        raise ValueError(f"cluster_keys_chunked: rays {tuple(rays.shape)} must "
-                         f"be (R, >=6) with R a multiple of tile={tile}")
-    if (caabb.dim() != 3 or caabb.shape[1] != 8 or not 1 <= tile <= 1024
-            or chunk_cap.shape != (caabb.shape[0], rays.shape[0])
-            or caabb.shape[0] > 65535):
-        raise ValueError("cluster_keys_chunked: caabb must be (K <= 65535, 8, "
-                         "C), chunk_cap (K, R), tile in [1, 1024]")
-    k_n, _, c = caabb.shape
-    n_sub = rays.shape[0] // tile
-    keys = torch.empty((k_n * n_sub, c), dtype=torch.float32, device=dev)
-    counts = torch.empty((k_n * n_sub,), dtype=torch.int32, device=dev)
-    fn = load("cluster_keys_chunked")
-    with torch.cuda.device(dev):
-        err = fn(_ptr(rays), rays.shape[1], n_sub, tile, k_n, _ptr(chunk_cap),
-                 _ptr(caabb), c, _ptr(keys), _ptr(counts), _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"cluster_keys_chunked launch failed: CUDA error {err}")
-    cluster_keys_chunked.launches += 1
-    return keys, counts
+    return _launch_keys("cluster_keys_chunked", rays, chunk_cap, caabb, tile,
+                        True, False, False)[:2]
 
 
 cluster_keys_chunked.launches = 0
+
+
+def cluster_keys_chunked_ftb(rays, chunk_cap, caabb, tile: int,
+                             with_keys: bool = False):
+    """cluster_keys_chunked with the front-to-back list fused in: (keys or
+    None, counts, FtbCandidates); see cluster_keys_ftb."""
+    if rays.device.type == "cpu":
+        keys, counts = cluster_keys_chunked_plain(rays, chunk_cap, caabb, tile)
+        return (keys if with_keys else None), counts, _plain_candidates(keys, counts)
+    keys, counts, _, cand = _launch_keys("cluster_keys_chunked", rays,
+                                         chunk_cap, caabb, tile, with_keys,
+                                         False, True)
+    return keys, counts, cand
 
 
 # --------------------------------------------------------------------------
@@ -566,7 +708,8 @@ def _ftb_plain(rays, cap, counts, order, qkeys, tconst, tile: int, mt: bool):
 
 
 def cluster_intersect_ftb_plain(rays, counts, order, qkeys, tconst, tile: int,
-                                mt: bool = False, chunk_cap=None, counter=None):
+                                mt: bool = False, chunk_cap=None, counter=None,
+                                row_list=None):
     """Plain PyTorch version of the front-to-back intersect kernel.
 
     rays (R, 8) [o d cap 0] or, with ``mt``, (R, 16) [o d w cap 0...] f32,
@@ -577,7 +720,8 @@ def cluster_intersect_ftb_plain(rays, counts, order, qkeys, tconst, tile: int,
     K = 1, the cap is the rays' cap column and no ray is moved.
     Returns (t (K, R) f32, tri (K, R) i32), tri local to the chunk:
     cluster_intersect_padded_plain's result over each row's first
-    ``counts`` candidates.  ``counter`` is the kernel's and is left alone.
+    ``counts`` candidates.  ``counter`` and ``row_list`` are the kernel's
+    and are left alone.
     """
     r = rays.shape[0]
     n_sub = r // tile
@@ -609,13 +753,40 @@ HBM_SPLIT = 16
 
 # Whether the front-to-back kernels start their rows longest list first
 # (false: in row order; a switch for measurements, the results are the same).
+# It applies to a call without a row list.
 FTB_LONGEST_FIRST = True
+
+# How the chunked kernel uses a row list: "blocks", one block per listed row
+# with the list as the block order (blocks past its end leave at once);
+# "persistent", a fixed grid of blocks that take rows from the list by
+# ticket and carry the copy ring from row to row (measured slower on an
+# H100: 0.69 against 0.60 ms per launch on the 400k-triangle frame; kept for
+# measurements); None, one block per row, rows sorted by count here.  The
+# results are the same.  Further switches for measurements: whether the
+# persistent blocks carry the ring from a row into the next; whether the
+# supergroup kernel takes its rows from the list (false: sorted by count
+# here).
+FTB_USE_ROW_LIST = "blocks"
+FTB_CARRY_RING = True
+HBM_USE_ROW_LIST = True
 
 
 def _rows_longest_first(counts):
     """(rows,) i32: the rows by falling candidate count (equal counts in row
     order), the order in which the front-to-back kernels start them."""
     return torch.argsort(counts, descending=True, stable=True).to(torch.int32)
+
+
+def _check_row_list(name, row_list, n_rows: int, dev):
+    heads, wrows = row_list
+    if (heads.dtype != torch.int32 or wrows.dtype != torch.int32
+            or heads.device != dev or wrows.device != dev
+            or heads.shape != (FTB_BUCKETS + 3,)
+            or wrows.shape != (FTB_BUCKETS, n_rows)
+            or not wrows.is_contiguous()):
+        raise ValueError(f"{name}: row_list must be (heads ({FTB_BUCKETS + 3},)"
+                         f", rows ({FTB_BUCKETS}, {n_rows})) int32 on {dev}")
+    return heads, wrows
 
 
 def _check_ftb_inputs(name, rays, counts, order, qkeys, tconst, tile, mt,
@@ -650,12 +821,17 @@ def _check_ftb_inputs(name, rays, counts, order, qkeys, tconst, tile, mt,
 
 
 def cluster_intersect_ftb(rays, counts, order, qkeys, tconst, tile: int,
-                          mt: bool = False, chunk_cap=None, counter=None):
+                          mt: bool = False, chunk_cap=None, counter=None,
+                          row_list=None):
     """Nearest hit per (chunk, ray) over front-to-back candidate clusters,
     stopping once the next candidate's key is past every ray's min(best t,
     cap); see cluster_intersect_ftb_plain for the contract.  ``counter`` (one
     int64 on the card, or None) receives the number of (subtile, candidate)
-    pairs tested."""
+    pairs tested.  ``row_list`` (FtbCandidates.row_list, from the key kernel
+    that made ``counts``) names the rows with candidates, longest lists
+    first: it is the order in which blocks start, and no row is sorted here
+    (FTB_USE_ROW_LIST); without it every row gets a block, rows sorted by
+    count."""
     if rays.device.type == "cpu":
         return cluster_intersect_ftb_plain(rays, counts, order, qkeys, tconst,
                                            tile, mt, chunk_cap)
@@ -671,13 +847,42 @@ def cluster_intersect_ftb(rays, counts, order, qkeys, tconst, tile: int,
                                   or k_n > 65535):
         raise ValueError("cluster_intersect_ftb: chunk_cap must be (K <= 65535, "
                          "R) float32")
+    heads = wrows = None
+    if row_list is not None and FTB_USE_ROW_LIST:
+        heads, wrows = _check_row_list("cluster_intersect_ftb", row_list,
+                                       counts.shape[0], dev)
+    if heads is not None and FTB_USE_ROW_LIST == "persistent":
+        if rays.data_ptr() % 16:
+            raise ValueError("cluster_intersect_ftb: rays must be 16-byte "
+                             "aligned")
+        out_t = torch.full((k_n, r), BIG, dtype=torch.float32, device=dev)
+        out_i = torch.full((k_n, r), -1, dtype=torch.int32, device=dev)
+        fn = load("cluster_intersect_ftb_rows")
+        with torch.cuda.device(dev):
+            err = fn(_ptr(rays), rays.shape[1], r // tile, tile, k_n,
+                     _ptr(chunk_cap), _ptr(counts), _ptr(order), _ptr(qkeys),
+                     _ptr(heads), _ptr(wrows), order.shape[1], _ptr(tconst),
+                     tconst.shape[2], int(mt), int(FTB_CARRY_RING),
+                     _ptr(out_t), _ptr(out_i), _ptr(counter), _stream(dev))
+        if err != 0:
+            raise RuntimeError("cluster_intersect_ftb launch failed: CUDA "
+                               f"error {err}")
+        cluster_intersect_ftb.launches += 1
+        return out_t, out_i
     packed, out_t, out_i = _kernel_outputs(FTB_SPLIT, (k_n, r), dev)
-    perm = _rows_longest_first(counts) if FTB_LONGEST_FIRST else None
+    if heads is not None:  # blocks past the list write nothing
+        perm = wrows
+        if packed is None:
+            out_t.fill_(BIG)
+            out_i.fill_(-1)
+    else:
+        perm = _rows_longest_first(counts) if FTB_LONGEST_FIRST else None
     fn = load("cluster_intersect_ftb")
     with torch.cuda.device(dev):
         err = fn(_ptr(rays), rays.shape[1], r // tile, tile, k_n,
                  _ptr(chunk_cap), _ptr(counts), _ptr(order), _ptr(qkeys),
-                 _ptr(perm), order.shape[1], _ptr(tconst), tconst.shape[2],
+                 _ptr(perm), _ptr(heads), order.shape[1], _ptr(tconst),
+                 tconst.shape[2],
                  int(mt), FTB_SPLIT, _ptr(packed), _ptr(out_t), _ptr(out_i),
                  _ptr(counter), _stream(dev))
     if err != 0:
@@ -693,7 +898,7 @@ cluster_intersect_ftb.launches = 0
 
 
 def cluster_intersect_hbm_plain(rays, counts, order, qkeys, tconst, tile: int,
-                                mt: bool = False, counter=None):
+                                mt: bool = False, counter=None, row_list=None):
     """Plain PyTorch version of the supergroup intersect kernel.
 
     rays (R, 8 | 16) with the cap in column 6 (9 with ``mt``); counts
@@ -707,10 +912,12 @@ def cluster_intersect_hbm_plain(rays, counts, order, qkeys, tconst, tile: int,
 
 
 def cluster_intersect_hbm_padded(rays, counts, order, qkeys, tconst, tile: int,
-                                 mt: bool = False, counter=None):
+                                 mt: bool = False, counter=None, row_list=None):
     """Nearest hit per ray over front-to-back candidate supergroups, the exit
     checked before each supergroup; see cluster_intersect_hbm_plain for the
-    contract and cluster_intersect_ftb for ``counter``."""
+    contract and cluster_intersect_ftb for ``counter``.  With ``row_list``
+    the blocks take their rows from the key kernel's list (longest buckets
+    first); without it the rows are sorted by count here."""
     if rays.device.type == "cpu":
         return cluster_intersect_hbm_plain(rays, counts, order, qkeys, tconst,
                                            tile, mt)
@@ -720,14 +927,19 @@ def cluster_intersect_hbm_padded(rays, counts, order, qkeys, tconst, tile: int,
                             tconst, tile, mt, 1, counter)
     r = rays.shape[0]
     packed, out_t, out_i = _kernel_outputs(HBM_SPLIT, (r,), dev)
-    perm = _rows_longest_first(counts) if FTB_LONGEST_FIRST else None
+    perm = heads = None
+    if row_list is not None and HBM_USE_ROW_LIST and packed is not None:
+        heads, perm = _check_row_list("cluster_intersect_hbm", row_list,
+                                      counts.shape[0], dev)
+    elif FTB_LONGEST_FIRST:
+        perm = _rows_longest_first(counts)
     fn = load("cluster_intersect_hbm")
     with torch.cuda.device(dev):
         err = fn(_ptr(rays), rays.shape[1], r // tile, tile, _ptr(counts),
-                 _ptr(order), _ptr(qkeys), _ptr(perm), order.shape[1],
-                 _ptr(tconst), tconst.shape[2], int(mt), HBM_SPLIT,
-                 _ptr(packed), _ptr(out_t), _ptr(out_i), _ptr(counter),
-                 _stream(dev))
+                 _ptr(order), _ptr(qkeys), _ptr(perm), _ptr(heads),
+                 order.shape[1], _ptr(tconst), tconst.shape[2], int(mt),
+                 HBM_SPLIT, _ptr(packed), _ptr(out_t), _ptr(out_i),
+                 _ptr(counter), _stream(dev))
     if err != 0:
         raise RuntimeError(f"cluster_intersect_hbm launch failed: CUDA error {err}")
     cluster_intersect_hbm_padded.launches += 1
@@ -820,15 +1032,15 @@ def cluster_intersect(accel: ClusterAccel, origin, direction,
     rays = pack_rays(origin, direction, t_cap=t_cap)
     caabb = _caabb(accel.cmin, accel.cmax)
     if ftb:
-        keys, counts, _ = cluster_keys(rays, caabb, tile, with_ids=False)
-        order, qkeys = _ftb_candidates(keys)
+        _, counts, cand = cluster_keys_ftb(rays, caabb, tile)
     else:
         _, counts, ids = cluster_keys(rays, caabb, tile)
     if mt:
         rays = pack_rays(origin, direction, mt=True, t_cap=t_cap)
     if ftb:
-        bt, bi = cluster_intersect_ftb(rays, counts, order, qkeys, accel.tconst,
-                                       tile, mt)
+        bt, bi = cluster_intersect_ftb(rays, counts, cand.order, cand.qkeys,
+                                       accel.tconst, tile, mt,
+                                       row_list=cand.row_list)
         bt, bi = bt[0], bi[0]
     else:
         bt, bi = cluster_intersect_padded(rays, counts, ids, accel.tconst, tile,
@@ -936,7 +1148,8 @@ def cluster_intersect_chunked(accel: ChunkedClusterAccel, offsets, origin,
                               direction, tile: int = 256, mega: int = 16,
                               group: int = 4, mt: bool = False):
     """Nearest hit over a chunked accel in two kernel launches (one key
-    kernel, one test kernel, each over all K chunks), merged lexicographically
+    kernel that also orders the candidates and lists the rows that have any,
+    one test kernel, each over all K chunks), merged lexicographically
     on (t, global triangle id): the single-table contract (chunks ascend in
     triangle id).  ``offsets`` is accepted for the JAX package's signature;
     ``accel.offsets`` is what is used.
@@ -953,10 +1166,10 @@ def cluster_intersect_chunked(accel: ChunkedClusterAccel, offsets, origin,
     origin, direction, _, tile = _shape_and_pad(origin, direction, tile, mega)
     cap = chunk_caps(accel, origin, direction)
     rays = pack_rays(origin, direction, mt=mt)
-    keys, counts = cluster_keys_chunked(rays, cap, accel.caabb, tile)
-    order, qkeys = _ftb_candidates(keys)
-    bt, bi = cluster_intersect_ftb(rays, counts, order, qkeys, accel.tconst,
-                                   tile, mt, chunk_cap=cap)
+    _, counts, cand = cluster_keys_chunked_ftb(rays, cap, accel.caabb, tile)
+    bt, bi = cluster_intersect_ftb(rays, counts, cand.order, cand.qkeys,
+                                   accel.tconst, tile, mt, chunk_cap=cap,
+                                   row_list=cand.row_list)
     # Lexicographic (t, global tri) minimum across the chunks.
     hit_k = bi >= 0
     tri_g = torch.where(hit_k, bi + accel.offsets[:, None], _INT_MAX)
@@ -1032,10 +1245,10 @@ def cluster_intersect_hbm(accel, origin, direction, tile: int = 64,
     origin, direction, t_cap, tile = _shape_and_pad(origin, direction, tile,
                                                     mega, t_cap)
     rays = pack_rays(origin, direction, t_cap=t_cap)
-    keys, counts, _ = cluster_keys(rays, accel.caabb, tile, with_ids=False)
-    order, qkeys = _ftb_candidates(keys)
+    _, counts, cand = cluster_keys_ftb(rays, accel.caabb, tile)
     if mt:
         rays = pack_rays(origin, direction, mt=True, t_cap=t_cap)
-    bt, bi = cluster_intersect_hbm_padded(rays, counts, order, qkeys,
-                                          accel.tconst, tile, mt)
+    bt, bi = cluster_intersect_hbm_padded(rays, counts, cand.order, cand.qkeys,
+                                          accel.tconst, tile, mt,
+                                          row_list=cand.row_list)
     return _result(bt, bi, r)

@@ -62,6 +62,7 @@
 
 #pragma once
 
+#include "cluster_rows.cuh"
 #include "cluster_tri.cuh"
 
 namespace mcpt {
@@ -78,7 +79,10 @@ __device__ __forceinline__ int ordered_bits(int b) {
 //          with MT) and no ray is moved.
 // counts   (n_chunks * n_subtiles,) i32, order / qkeys (that, n_units)
 // perm     null, or (n_chunks * n_subtiles,) i32: blocks (b, *) take row
-//          perm[b]
+//          perm[b]; with perm_heads, perm is the row list of
+//          cluster_rows.cuh and perm_heads its heads: blocks (b, *) take the
+//          list's entry b, and those past its end leave: the caller presets
+//          `packed`, or out_t / out_tri, to the miss for the rows not listed
 // tconst   (n_chunks * n_units, 16, unit_cols) f32; unit_cols is a power of
 //          two, cut into 1 << pshift pieces
 // packed   (n_chunks, n_subtiles * tile) u64 preset to kMissWord, with a
@@ -93,14 +97,21 @@ cluster_ftb_kernel(
     const float* __restrict__ rays, int ray_stride, int n_subtiles, int tile,
     const float* __restrict__ chunk_cap, const int* __restrict__ counts,
     const int* __restrict__ order, const float* __restrict__ qkeys,
-    const int* __restrict__ perm, int n_units,
+    const int* __restrict__ perm, const int* perm_heads, int n_units,
     const float* __restrict__ tconst, int unit_cols, int pshift, int split,
     unsigned long long* __restrict__ packed, float* __restrict__ out_t,
     int* __restrict__ out_tri, unsigned long long* __restrict__ tested) {
   extern __shared__ float4 s_ring[];            // [kStages][4 * pcols]
   __shared__ int s_bound[2][kMaxThreads / 32];  // [piece parity][warp]
 
-  const size_t row = perm != nullptr ? perm[blockIdx.x] : blockIdx.x;
+  size_t row = blockIdx.x;
+  if (perm_heads != nullptr) {
+    const int listed = list_row(perm_heads, perm, gridDim.x, blockIdx.x);
+    if (listed < 0) return;  // past the list: the preset misses stand
+    row = listed;
+  } else if (perm != nullptr) {
+    row = perm[blockIdx.x];
+  }
   const int n_split = gridDim.y;
   const int npu = 1 << pshift;
   const int total = counts[row] * npu;  // the row's pieces
@@ -233,13 +244,15 @@ inline int launch_cluster_ftb(const float* rays, int ray_stride,
                               int n_subtiles, int tile, int n_chunks,
                               const float* chunk_cap, const int* counts,
                               const int* order, const float* qkeys,
-                              const int* perm, int n_units,
-                              const float* tconst, int unit_cols, int mt,
+                              const int* perm, const int* perm_heads,
+                              int n_units, const float* tconst,
+                              int unit_cols, int mt,
                               int n_split, unsigned long long* packed,
                               float* out_t, int* out_tri,
                               unsigned long long* tested, void* stream) {
   if (n_subtiles <= 0 || n_chunks <= 0) return (int)cudaGetLastError();
-  if (n_split < 1 || (packed == nullptr) != (n_split == 1))
+  if (n_split < 1 || (packed == nullptr) != (n_split == 1) ||
+      (perm_heads != nullptr && perm == nullptr))
     return (int)cudaErrorInvalidValue;
   const int pcols = unit_cols < kPieceCols ? unit_cols : kPieceCols;
   const BlockShape shape = block_shape(tile, pcols);
@@ -251,13 +264,13 @@ inline int launch_cluster_ftb(const float* rays, int ray_stride,
   if (mt) {
     cluster_ftb_kernel<true><<<grid, shape.threads, smem, s>>>(
         rays, ray_stride, n_subtiles, tile, chunk_cap, counts, order, qkeys,
-        perm, n_units, tconst, unit_cols, pshift, shape.split, packed, out_t,
-        out_tri, tested);
+        perm, perm_heads, n_units, tconst, unit_cols, pshift, shape.split,
+        packed, out_t, out_tri, tested);
   } else {
     cluster_ftb_kernel<false><<<grid, shape.threads, smem, s>>>(
         rays, ray_stride, n_subtiles, tile, chunk_cap, counts, order, qkeys,
-        perm, n_units, tconst, unit_cols, pshift, shape.split, packed, out_t,
-        out_tri, tested);
+        perm, perm_heads, n_units, tconst, unit_cols, pshift, shape.split,
+        packed, out_t, out_tri, tested);
   }
   return (int)cudaGetLastError();
 }

@@ -10,7 +10,8 @@ Renders the frame once unprofiled (wall time), then once under
 torch.profiler, and prints one JSON line: wall seconds, wavefront
 iterations, device busy time (sum of kernel times) and the idle share of
 the unprofiled wall time, CUDA kernel launches per iteration, the ported
-kernels' device time, the intersector plan, and the 12 top kernels and host
+kernels' device time, the library sort kernels' device time, the
+intersector plan, and the 12 top kernels and host
 ops by time.  ``--large-mode`` is RenderOptions.large_mode: the default
 "hbm" renders the 400k interior under the chunked plan, "hbm_always" under
 the supergroup plan.
@@ -95,9 +96,12 @@ def main(argv=None) -> int:
     n_kernels = sum(k[2] for k in kernels)
     kernels.sort(key=lambda k: -k[1])
     host_ops.sort(key=lambda k: -k[1])
+    # By kernel-name prefix: both key kernels, the single-table intersect
+    # kernel, both front-to-back kernels; and every library sort kernel.
     ported = {name: sum(k[1] for k in kernels if name in k[0]) / 1e3
-              for name in ("cluster_keys_kernel", "cluster_intersect_kernel",
-                           "cluster_ftb_kernel")}
+              for name in ("cluster_keys", "cluster_intersect_kernel",
+                           "cluster_ftb")}
+    sort_ms = sum(k[1] for k in kernels if "sort" in k[0].lower()) / 1e3
     print(json.dumps({
         "scene": args.scene, "spp": spp, "device": torch.cuda.get_device_name(0),
         "tris_padded": scene.num_tris_padded, "plan": list(plan),
@@ -108,7 +112,7 @@ def main(argv=None) -> int:
         "cuda_kernels_per_iteration": n_kernels / max(iters, 1),
         "ms_per_iteration": wall_plain * 1e3 / max(iters, 1),
         "device_ms_per_iteration": busy_us / 1e3 / max(iters, 1),
-        "ported_kernels_ms": ported,
+        "ported_kernels_ms": ported, "sort_kernels_ms": sort_ms,
         "top_kernels_ms": [(k[0][:80], k[1] / 1e3, k[2]) for k in kernels[:TOP]],
         "top_host_ops_ms": [(k[0], k[1] / 1e3, k[2]) for k in host_ops[:TOP]],
     }), flush=True)

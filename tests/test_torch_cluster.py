@@ -6,7 +6,10 @@ kernels are held to those bit for bit on the card by chip_smoke.py).
 Contract, as tests/test_cluster_kernel.py: the hit mask matches exactly, t
 within rtol 1e-4 / atol 1e-5, and triangle ids agree except where two
 triangles tie at equal t (>= 99% of hits).  Candidate keys and candidate
-sets against the JAX key kernel are exact.
+sets against the JAX key kernel are exact, on adversarial rays too (zero,
+negative-zero and denormal direction components, origins on a box face,
+parked rays), and so is the compact front-to-back list against the JAX
+package's packed sort (integer work).
 """
 
 import jax.numpy as jnp
@@ -155,3 +158,99 @@ def test_brute_force_matches_jax(scenes, compat):
     tr = tbrute(ts, torch.as_tensor(o), torch.as_tensor(d), compat=compat)
     _check_contract(*jr, *tr)
 
+
+
+# --------------------------------------------------------------------------
+# What the key kernel fuses in for the front-to-back paths.
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("c", [1, 24, 592, 1024])
+def test_compact_list_matches_jax_ftb_order(c):
+    """Exact: each row's first ``count`` entries of ftb_compact_plain equal
+    the JAX _ftb_order (ids and quantised keys), with an all-miss row, a full
+    row and equal quantised keys."""
+    rng = np.random.default_rng(100 + c)
+    key = rng.uniform(0.0, 40.0, (6, c)).astype(np.float32)
+    key[rng.uniform(size=key.shape) < 0.5] = 1e30
+    key[0] = 1e30
+    key[1] = rng.uniform(0.0, 40.0, c)
+    key[2] = 5.5
+    key[3] = np.float32(9.0) + np.arange(c, dtype=np.float32) * np.float32(1e-7)
+    jorder, jq = jcl._ftb_order(jnp.asarray(key), c, 1, 1)
+    jorder, jq = np.asarray(jorder), np.asarray(jq).reshape(-1, c)
+    order, qkeys = tcl.ftb_compact_plain(torch.as_tensor(key))
+    counts = (key < 1e30).sum(axis=1)
+    assert counts[0] == 0 and counts[1] == c
+    used = np.arange(c)[None, :] < counts[:, None]
+    np.testing.assert_array_equal(order.numpy()[used], jorder[used])
+    np.testing.assert_array_equal(qkeys.numpy()[used].view(np.int32),
+                                  jq[used].view(np.int32))
+
+
+def _adversarial_rays(case, lo, hi, n=128, tile=16):
+    rng = np.random.default_rng(17)
+    o = rng.uniform(lo - 0.3, hi + 0.3, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    if case == "zero_dir":
+        d[0::3, 0] = 0.0
+        d[1::5, 1] = 0.0
+        d[2::7] = [0.0, 0.0, 1.0]
+    elif case == "neg_zero_dir":
+        d[0::3, 0] = -0.0
+        d[1::5, 2] = -0.0
+        d[2::7] = [-0.0, 0.0, -1.0]
+    elif case == "denormal_dir":  # 1 / d overflows to +-inf
+        d[0::3, 0] = np.float32(1e-40)
+        d[1::5, 1] = np.float32(-1e-41)
+    elif case == "on_face":  # 0 * inf: origin on a box plane, d = 0 there
+        o[0::2, 0] = lo[0]
+        o[1::2, 1] = hi[1]
+        d[0::4, 0] = 0.0
+        d[1::4, 1] = -0.0
+    elif case == "parked":
+        o[5:9] = 1e9            # parked rays in a live subtile
+        o[tile:2 * tile] = 1e9  # an all-parked subtile
+        d[6] = [-1.0, -1.0, -1.0] / np.sqrt(np.float32(3.0))
+    return o, d
+
+
+@pytest.mark.parametrize("case", ["zero_dir", "neg_zero_dir", "denormal_dir",
+                                  "on_face", "parked"])
+def test_candidate_keys_match_jax_on_adversarial_rays(large_scenes, case):
+    """Exact (bit patterns): cluster_keys_plain == the JAX key kernel in
+    interpret mode where the slab test meets 0 * inf, -inf and parked rays."""
+    js, _ = large_scenes
+    tile, mega = 16, 2
+    ja = jcl.build_cluster_accel(js, width=32)
+    cmin, cmax = np.asarray(ja.cmin), np.asarray(ja.cmax)
+    real = cmin[:, 0] < 1e29
+    o, d = _adversarial_rays(case, cmin[real].min(axis=0), cmax[real].max(axis=0),
+                             tile=tile)
+    n = o.shape[0]
+    rays = np.concatenate([o, d, np.full((n, 1), 1e30, np.float32),
+                           np.zeros((n, 1), np.float32)], axis=1)
+    caabb = np.concatenate([cmin.T, cmax.T,
+                            np.zeros((2, ja.num_clusters), np.float32)])
+    with np.errstate(divide="ignore"):
+        jkeys = np.asarray(jcl._candidate_keys(jnp.asarray(rays),
+                                               jnp.asarray(caabb), tile, mega,
+                                               True))
+    tkeys, counts, ids = tcl.cluster_keys_plain(torch.as_tensor(rays),
+                                                torch.as_tensor(caabb), tile)
+    np.testing.assert_array_equal(jkeys.view(np.int32),
+                                  tkeys.numpy().view(np.int32))
+    assert int(counts.sum()) > 0
+    if case == "parked":
+        assert counts[1] == 0 and bool((tkeys[1] == 1e30).all())
+    # The fused list of these keys is the sorted list's prefix.
+    keys_f, counts_f, cand = tcl.cluster_keys_ftb(torch.as_tensor(rays),
+                                                  torch.as_tensor(caabb), tile,
+                                                  with_keys=True)
+    assert torch.equal(keys_f, tkeys) and torch.equal(counts_f, counts)
+    jorder, _ = jcl._ftb_order(jnp.asarray(jkeys), ja.num_clusters, 1, 1)
+    used = np.arange(ja.num_clusters)[None, :] < counts.numpy()[:, None]
+    np.testing.assert_array_equal(cand.order.numpy()[used],
+                                  np.asarray(jorder)[used])
+    listed = tcl.listed_rows(*cand.row_list)
+    assert sorted(listed.tolist()) == np.nonzero(counts.numpy() > 0)[0].tolist()

@@ -12,6 +12,11 @@ Nothing here can compile CUDA, so these tests hold what the CPU can see:
   equal the plain version over the whole list exactly, with a subtile that
   has no candidate, rays that miss everything, and ties at equal t;
 * the order in which the front-to-back kernels start their rows;
+* the plain versions of what the key kernel fuses in for the front-to-back
+  paths: the compact list (only a row's hits sorted) against the first
+  ``count`` entries of the full-width sort, and the row list against the
+  counts; and whole chunked and supergroup intersects fed by them against
+  the same intersects fed by the full-width sort;
 * the note at the head of every kernel source.
 
 All comparisons are exact (integer work and bit patterns).
@@ -74,7 +79,9 @@ def test_every_entry_point_has_a_signature():
             for sym in re.findall(r'extern\s+"C"\s+int\s+(\w+)\s*\(', text):
                 found.add((fname[:-3], sym))
     assert found == {(src, sym) for src, sym, _ in B._SIGNATURES.values()}
-    assert set(K._WRAPPERS) == set(B._SIGNATURES)
+    # One wrapper per entry point; the row-list entry of the chunked
+    # intersect kernel ("..._rows") belongs to that kernel's wrapper.
+    assert set(K._WRAPPERS) == {n.removesuffix("_rows") for n in B._SIGNATURES}
 
 
 @pytest.mark.parametrize("fname", sorted(
@@ -215,3 +222,110 @@ def test_front_to_back_ties_go_to_the_lowest_id(doubled_interior):
     hit, _, tri = ftb
     assert bool(hit.any())
     assert bool((tri[hit] < acc.tconst.shape[0] // 2 * acc.width).all())
+
+
+# --------------------------------------------------------------------------
+# The front-to-back list and the row list that the key kernel fuses in.
+# --------------------------------------------------------------------------
+
+def _seeded_keys(c: int, seed: int):
+    """(rows, c) keys: random hits and misses, an all-miss row, a full row,
+    a row of equal keys, a row of keys that differ only below the id bits
+    (equal once quantised), zeros."""
+    rng = np.random.default_rng(seed)
+    key = rng.uniform(0.0, 40.0, (9, c)).astype(np.float32)
+    key[rng.uniform(size=key.shape) < 0.6] = 1e30
+    key[0] = 1e30                                    # all miss
+    key[1] = rng.uniform(0.0, 40.0, c)               # full
+    key[2] = 3.25                                    # all equal
+    key[3] = np.float32(7.0) + np.arange(c, dtype=np.float32) * np.float32(1e-7)
+    key[4, : max(1, c // 3)] = 0.0
+    return torch.as_tensor(key)
+
+
+@pytest.mark.parametrize("c", [1, 24, 592, 1024])
+def test_compact_list_equals_the_sorted_prefix(c):
+    """Exact: ftb_compact_plain == _ftb_candidates on each row's first count
+    entries, ties (equal quantised keys) included; past the count 0 / 1e30."""
+    keys = _seeded_keys(c, seed=c)
+    counts = (keys < 1e30).sum(dim=1)
+    assert int(counts[0]) == 0 and int(counts[1]) == c
+    order, qkeys = K.ftb_compact_plain(keys)
+    order_s, qkeys_s = K._ftb_candidates(keys)
+    assert order.dtype == torch.int32 and qkeys.dtype == torch.float32
+    used = torch.arange(c)[None, :] < counts[:, None]
+    assert torch.equal(order[used], order_s[used])
+    assert torch.equal(qkeys[used].view(torch.int32),
+                       qkeys_s[used].view(torch.int32))
+    assert bool((order[~used] == 0).all()) and bool((qkeys[~used] == 1e30).all())
+    if c > 1:  # the equal keys of row 2 come out in id order
+        assert order[2].tolist() == list(range(c))
+
+
+@pytest.mark.parametrize("n", [1, 200])
+def test_row_list_plain_is_the_rows_with_candidates(n):
+    rng = np.random.default_rng(n)
+    counts = torch.as_tensor(rng.integers(0, 300, n).astype(np.int32))
+    counts[rng.uniform(size=n) < 0.5] = 0
+    counts[rng.uniform(size=n) < 0.3] = 1
+    heads, rows = K.ftb_row_list_plain(counts)
+    assert heads.dtype == torch.int32 and heads.shape == (K.FTB_BUCKETS + 3,)
+    assert rows.dtype == torch.int32 and rows.shape == (K.FTB_BUCKETS, n)
+    assert heads[K.FTB_BUCKETS:].tolist() == [0, 0, 0]  # the consumer's counters
+    listed = K.listed_rows(heads, rows)
+    assert sorted(listed.tolist()) == torch.nonzero(counts > 0)[:, 0].tolist()
+    # Longest buckets first, by powers of two: 128 and more, 64-127, ..., 1.
+    assert K._BUCKET_MIN == (128, 64, 32, 16, 8, 4, 2, 1)
+    for b, least in enumerate(K._BUCKET_MIN):
+        got = counts[rows[b, :int(heads[b])].long()]
+        assert bool((got >= least).all())
+        assert b == 0 or bool((got < K._BUCKET_MIN[b - 1]).all())
+
+
+def test_fused_sort_limit_is_a_rule_on_the_table_size():
+    assert K.FUSED_SORT_MAX_CLUSTERS == 2048
+    text = open(os.path.join(B.CSRC_DIR, "cluster_keys.cu")).read()
+    assert re.search(r"kSortMax\s*=\s*2048\b", text)
+    rows = open(os.path.join(B.CSRC_DIR, "cluster_rows.cuh")).read()
+    assert re.search(r"kBuckets\s*=\s*%d\b" % K.FTB_BUCKETS, rows)
+    # The largest supergroup table the plans make stays inside the limit.
+    assert -(-(1 << 24) // 128 // K.supergroup_size((1 << 24) // 128)) <= 2048
+
+
+@pytest.mark.parametrize("mt", [False, True], ids=["compat", "mt"])
+@pytest.mark.parametrize("path", ["chunked", "hbm", "single"])
+def test_fused_list_route_equals_the_sorted_route(doubled_interior, path, mt):
+    """Whole front-to-back intersects, exact: the key wrapper's candidates
+    (compact list, row list) against keys -> _ftb_candidates -> the same
+    plain intersect."""
+    scene, accels = doubled_interior
+    o, d = _rays(5 * TILE + 3, seed=8)
+    o, d, _, tile = K._shape_and_pad(o, d, TILE, 2)
+    if path == "chunked":
+        acc, _ = K.build_cluster_accel_chunked(scene, width=32, n_chunks=3, mt=mt)
+        cap = K.chunk_caps(acc, o, d)
+        rays = K.pack_rays(o, d, mt=mt)
+        keys, counts = K.cluster_keys_chunked(rays, cap, acc.caabb, tile)
+        none, counts_f, cand = K.cluster_keys_chunked_ftb(rays, cap, acc.caabb, tile)
+        run = lambda order, qkeys, **kw: K.cluster_intersect_ftb(
+            rays, counts, order, qkeys, acc.tconst, tile, mt, chunk_cap=cap, **kw)
+    else:
+        single = accels[mt]
+        rays8 = K.pack_rays(o, d)
+        rays = K.pack_rays(o, d, mt=True) if mt else rays8
+        if path == "hbm":
+            acc = K.build_hbm_accel(single, 4)
+            caabb, table, fn = acc.caabb, acc.tconst, K.cluster_intersect_hbm_padded
+        else:
+            caabb = K._caabb(single.cmin, single.cmax)
+            table, fn = single.tconst, K.cluster_intersect_ftb
+        keys, counts, _ = K.cluster_keys(rays8, caabb, tile)
+        none, counts_f, cand = K.cluster_keys_ftb(rays8, caabb, tile)
+        run = lambda order, qkeys, **kw: fn(rays, counts, order, qkeys, table,
+                                            tile, mt, **kw)
+    assert none is None and torch.equal(counts_f, counts)
+    assert int(counts.max()) > 2 and int(counts.min()) == 0
+    want = run(*K._ftb_candidates(keys))
+    got = run(cand.order, cand.qkeys, row_list=cand.row_list)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert bool((want[1] >= 0).any())

@@ -47,21 +47,6 @@ Variants, joined by "+" to combine two (each answers what one cause of lost time
                  32 blocks instead of 16
   ftb_split2, ftb_split4   chunked kernel with a row's clusters dealt out
                  to 2 / 4 blocks instead of 1
-  row_order      front-to-back kernels started in row order, not longest
-                 candidate list first (FTB_LONGEST_FIRST = False; applies to
-                 launches without the row list)
-  ftb_all_rows   chunked kernel with a block for every row, rows sorted by
-                 count in the wrapper, not a block per row of the key
-                 kernel's list (FTB_USE_ROW_LIST = None)
-  ftb_persistent chunked kernel as a fixed grid of persistent blocks that
-                 take rows from the list by ticket and carry the copy ring
-                 from row to row (FTB_USE_ROW_LIST = "persistent")
-  ftb_claim_all  ftb_persistent built with -DMCPT_ROWS_CLAIM_ALL: every row
-                 claimed one at a time when the block is free, none ahead
-  ftb_no_carry   ftb_persistent, a row's first copy started only when the
-                 row begins (FTB_CARRY_RING = False)
-  hbm_sorted_rows  supergroup kernel's rows sorted by count in the wrapper,
-                 not read from the row list (HBM_USE_ROW_LIST = False)
   keys_no_octant   key kernel built with -DMCPT_KEYS_NO_OCTANT: near and far
                  plane by select per pair, as before the octant bodies
   keys_always_repair  built with -DMCPT_KEYS_ALWAYS_REPAIR: selects and the
@@ -69,11 +54,14 @@ Variants, joined by "+" to combine two (each answers what one cause of lost time
   keys_cpt1, keys_cpt2  built with -DMCPT_KEYS_CLUSTERS_PER_THREAD=1 / 2
                  instead of 4
   list_unfused   key kernel writes keys, torch.sort orders them
-                 (FTB_FUSED_LIST = False)
+                 (FUSED_SORT_MAX_CLUSTERS = 0: every table counts as past the
+                 fused sort's limit)
 
 ``--pkg-root DIR`` imports montecarlopathtracing_torch from DIR (a checkout
 of another commit), to compare two commits on one card in one call; a
-package without a variant's switch skips that variant.
+package without a variant's switch skips that variant.  A package from
+before the key kernel made the front-to-back list is driven as it was: its
+intersect wrappers sort the rows themselves and take no row list.
 Imports only torch and montecarlopathtracing_torch.
 """
 
@@ -116,7 +104,6 @@ VARIANTS = {
     "blocks4": (("-DMCPT_MIN_BLOCKS=4",), {}, True),
     "split1": ((), {"INTERSECT_SPLIT": 1}, True),
     "split16": ((), {"INTERSECT_SPLIT": 16}, True),
-    "row_order": ((), {"FTB_LONGEST_FIRST": False}, True),
     "blocks1": (("-DMCPT_MIN_BLOCKS=1",), {}, True),
     "lane_cols2": (("-DMCPT_COLS_PER_LANE=2",), {}, True),
     "lane_cols8": (("-DMCPT_COLS_PER_LANE=8",), {}, True),
@@ -127,18 +114,11 @@ VARIANTS = {
     "hbm_split32": ((), {"HBM_SPLIT": 32}, True),
     "ftb_split2": ((), {"FTB_SPLIT": 2}, True),
     "ftb_split4": ((), {"FTB_SPLIT": 4}, True),
-    "ftb_all_rows": ((), {"FTB_USE_ROW_LIST": None}, True),
-    "ftb_persistent": ((), {"FTB_USE_ROW_LIST": "persistent"}, True),
-    "ftb_claim_all": (("-DMCPT_ROWS_CLAIM_ALL",),
-                      {"FTB_USE_ROW_LIST": "persistent"}, True),
-    "ftb_no_carry": ((), {"FTB_USE_ROW_LIST": "persistent",
-                          "FTB_CARRY_RING": False}, True),
-    "hbm_sorted_rows": ((), {"HBM_USE_ROW_LIST": False}, True),
     "keys_no_octant": (("-DMCPT_KEYS_NO_OCTANT",), {}, True),
     "keys_always_repair": (("-DMCPT_KEYS_ALWAYS_REPAIR",), {}, True),
     "keys_cpt1": (("-DMCPT_KEYS_CLUSTERS_PER_THREAD=1",), {}, True),
     "keys_cpt2": (("-DMCPT_KEYS_CLUSTERS_PER_THREAD=2",), {}, True),
-    "list_unfused": ((), {"FTB_FUSED_LIST": False}, True),
+    "list_unfused": ((), {"FUSED_SORT_MAX_CLUSTERS": 0}, True),
 }
 
 

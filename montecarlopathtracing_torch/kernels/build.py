@@ -58,11 +58,6 @@ _SIGNATURES = {
                               "mcpt_cluster_intersect_ftb",
                               [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
                                _P, _I, _I, _I, _P, _P, _P, _P, _P]),
-    # The same kernel function over the key kernel's row list.
-    "cluster_intersect_ftb_rows": ("cluster_intersect_ftb",
-                                   "mcpt_cluster_intersect_ftb_rows",
-                                   [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                                    _I, _P, _I, _I, _I, _P, _P, _P, _P]),
     "cluster_intersect_hbm": ("cluster_intersect_hbm",
                               "mcpt_cluster_intersect_hbm",
                               [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I,

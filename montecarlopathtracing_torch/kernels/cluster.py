@@ -248,11 +248,6 @@ FUSED_SORT_MAX_CLUSTERS = 2048
 _BUCKET_MIN = (128, 64, 32, 16, 8, 4, 2, 1)
 FTB_BUCKETS = len(_BUCKET_MIN)
 
-# Whether the front-to-back paths take their order from the key kernel
-# (false: keys out, then torch.sort; a switch for measurements, the results
-# are the same).
-FTB_FUSED_LIST = True
-
 
 @dataclasses.dataclass(frozen=True)
 class FtbCandidates:
@@ -262,11 +257,10 @@ class FtbCandidates:
         entries are its hit clusters front to back and their quantised-down
         keys, equal to the same entries of _ftb_candidates(keys); the rest
         of a row is unspecified.
-    heads (FTB_BUCKETS + 3,) i32, rows (FTB_BUCKETS, n_rows) i32: the row
-        list.  rows[b, :heads[b]] are the rows whose count falls in bucket b
-        (128 and more, 64-127, ..., 4-7, 2-3, 1), in no particular order;
-        together exactly the rows with count > 0.  heads[FTB_BUCKETS:] are
-        three counters of the consuming kernel, zero between launches.
+    heads (FTB_BUCKETS,) i32, rows (FTB_BUCKETS, n_rows) i32: the row list.
+        rows[b, :heads[b]] are the rows whose count falls in bucket b (128
+        and more, 64-127, ..., 4-7, 2-3, 1), in no particular order; together
+        exactly the rows with count > 0.
     """
 
     order: Any
@@ -305,7 +299,7 @@ def ftb_row_list_plain(counts):
     """Plain PyTorch version of the key kernel's row list: (heads, rows) as
     FtbCandidates describes them, each bucket's rows ascending."""
     n = counts.shape[0]
-    heads = torch.zeros(FTB_BUCKETS + 3, dtype=torch.int32, device=counts.device)
+    heads = torch.zeros(FTB_BUCKETS, dtype=torch.int32, device=counts.device)
     rows = torch.zeros((FTB_BUCKETS, n), dtype=torch.int32, device=counts.device)
     upper = None
     for b, least in enumerate(_BUCKET_MIN):
@@ -329,9 +323,9 @@ def _launch_keys(name, rays, chunk_cap, caabb, tile: int, with_keys: bool,
                  with_ids: bool, with_list: bool):
     """Launch the key kernel (entry point ``name``) on CUDA tensors.
     Returns (keys, counts, ids, FtbCandidates), None for what was not asked
-    for.  A table past FUSED_SORT_MAX_CLUSTERS (or FTB_FUSED_LIST false)
-    gets its row list from the kernel and its order from torch.sort over the
-    keys: the rule looks at C alone."""
+    for.  A table past FUSED_SORT_MAX_CLUSTERS gets its row list from the
+    kernel and its order from torch.sort over the keys: the rule looks at C
+    alone."""
     from .build import load
 
     more = {} if chunk_cap is None else {"chunk_cap": chunk_cap}
@@ -357,7 +351,7 @@ def _launch_keys(name, rays, chunk_cap, caabb, tile: int, with_keys: bool,
     c = caabb.shape[-1]
     n_sub = rays.shape[0] // tile
     n_rows = k_n * n_sub
-    fused = with_list and FTB_FUSED_LIST and c <= FUSED_SORT_MAX_CLUSTERS
+    fused = with_list and c <= FUSED_SORT_MAX_CLUSTERS
     keys = (torch.empty((n_rows, c), dtype=torch.float32, device=dev)
             if with_keys or (with_list and not fused) else None)
     counts = torch.empty((n_rows,), dtype=torch.int32, device=dev)
@@ -365,7 +359,7 @@ def _launch_keys(name, rays, chunk_cap, caabb, tile: int, with_keys: bool,
            if with_ids else None)
     order = qkeys = heads = wrows = None
     if with_list:
-        heads = torch.zeros(FTB_BUCKETS + 3, dtype=torch.int32, device=dev)
+        heads = torch.zeros(FTB_BUCKETS, dtype=torch.int32, device=dev)
         wrows = torch.empty((FTB_BUCKETS, n_rows), dtype=torch.int32, device=dev)
     if fused:
         order = torch.empty((n_rows, c), dtype=torch.int32, device=dev)
@@ -708,8 +702,7 @@ def _ftb_plain(rays, cap, counts, order, qkeys, tconst, tile: int, mt: bool):
 
 
 def cluster_intersect_ftb_plain(rays, counts, order, qkeys, tconst, tile: int,
-                                mt: bool = False, chunk_cap=None, counter=None,
-                                row_list=None):
+                                mt: bool = False, chunk_cap=None):
     """Plain PyTorch version of the front-to-back intersect kernel.
 
     rays (R, 8) [o d cap 0] or, with ``mt``, (R, 16) [o d w cap 0...] f32,
@@ -720,8 +713,7 @@ def cluster_intersect_ftb_plain(rays, counts, order, qkeys, tconst, tile: int,
     K = 1, the cap is the rays' cap column and no ray is moved.
     Returns (t (K, R) f32, tri (K, R) i32), tri local to the chunk:
     cluster_intersect_padded_plain's result over each row's first
-    ``counts`` candidates.  ``counter`` and ``row_list`` are the kernel's
-    and are left alone.
+    ``counts`` candidates.
     """
     r = rays.shape[0]
     n_sub = r // tile
@@ -751,42 +743,27 @@ FTB_SPLIT = 1
 HBM_SPLIT = 16
 
 
-# Whether the front-to-back kernels start their rows longest list first
-# (false: in row order; a switch for measurements, the results are the same).
-# It applies to a call without a row list.
-FTB_LONGEST_FIRST = True
-
-# How the chunked kernel uses a row list: "blocks", one block per listed row
-# with the list as the block order (blocks past its end leave at once);
-# "persistent", a fixed grid of blocks that take rows from the list by
-# ticket and carry the copy ring from row to row (measured slower on an
-# H100: 0.69 against 0.60 ms per launch on the 400k-triangle frame; kept for
-# measurements); None, one block per row, rows sorted by count here.  The
-# results are the same.  Further switches for measurements: whether the
-# persistent blocks carry the ring from a row into the next; whether the
-# supergroup kernel takes its rows from the list (false: sorted by count
-# here).
-FTB_USE_ROW_LIST = "blocks"
-FTB_CARRY_RING = True
-HBM_USE_ROW_LIST = True
-
-
-def _rows_longest_first(counts):
-    """(rows,) i32: the rows by falling candidate count (equal counts in row
-    order), the order in which the front-to-back kernels start them."""
-    return torch.argsort(counts, descending=True, stable=True).to(torch.int32)
-
-
 def _check_row_list(name, row_list, n_rows: int, dev):
     heads, wrows = row_list
     if (heads.dtype != torch.int32 or wrows.dtype != torch.int32
             or heads.device != dev or wrows.device != dev
-            or heads.shape != (FTB_BUCKETS + 3,)
+            or heads.shape != (FTB_BUCKETS,)
             or wrows.shape != (FTB_BUCKETS, n_rows)
             or not wrows.is_contiguous()):
-        raise ValueError(f"{name}: row_list must be (heads ({FTB_BUCKETS + 3},)"
+        raise ValueError(f"{name}: row_list must be (heads ({FTB_BUCKETS},)"
                          f", rows ({FTB_BUCKETS}, {n_rows})) int32 on {dev}")
     return heads, wrows
+
+
+def _listed_outputs(n_split: int, shape, dev):
+    """_kernel_outputs for a launch over a row list: the rows that the list
+    leaves out get no block, so the output arrays are preset to the miss
+    too."""
+    packed, out_t, out_i = _kernel_outputs(n_split, shape, dev)
+    if packed is None:
+        out_t.fill_(BIG)
+        out_i.fill_(-1)
+    return packed, out_t, out_i
 
 
 def _check_ftb_inputs(name, rays, counts, order, qkeys, tconst, tile, mt,
@@ -821,17 +798,16 @@ def _check_ftb_inputs(name, rays, counts, order, qkeys, tconst, tile, mt,
 
 
 def cluster_intersect_ftb(rays, counts, order, qkeys, tconst, tile: int,
-                          mt: bool = False, chunk_cap=None, counter=None,
-                          row_list=None):
+                          mt: bool = False, chunk_cap=None, counter=None, *,
+                          row_list):
     """Nearest hit per (chunk, ray) over front-to-back candidate clusters,
     stopping once the next candidate's key is past every ray's min(best t,
-    cap); see cluster_intersect_ftb_plain for the contract.  ``counter`` (one
-    int64 on the card, or None) receives the number of (subtile, candidate)
-    pairs tested.  ``row_list`` (FtbCandidates.row_list, from the key kernel
-    that made ``counts``) names the rows with candidates, longest lists
-    first: it is the order in which blocks start, and no row is sorted here
-    (FTB_USE_ROW_LIST); without it every row gets a block, rows sorted by
-    count."""
+    cap); see cluster_intersect_ftb_plain for the contract.  ``row_list``
+    (FtbCandidates.row_list, from the key kernel that made ``counts``) names
+    the rows with candidates, longest lists first: it is the order in which
+    blocks start, and no row is sorted here.  ``counter`` (one int64 on the
+    card, or None) receives the number of (subtile, candidate) pairs
+    tested."""
     if rays.device.type == "cpu":
         return cluster_intersect_ftb_plain(rays, counts, order, qkeys, tconst,
                                            tile, mt, chunk_cap)
@@ -847,44 +823,16 @@ def cluster_intersect_ftb(rays, counts, order, qkeys, tconst, tile: int,
                                   or k_n > 65535):
         raise ValueError("cluster_intersect_ftb: chunk_cap must be (K <= 65535, "
                          "R) float32")
-    heads = wrows = None
-    if row_list is not None and FTB_USE_ROW_LIST:
-        heads, wrows = _check_row_list("cluster_intersect_ftb", row_list,
-                                       counts.shape[0], dev)
-    if heads is not None and FTB_USE_ROW_LIST == "persistent":
-        if rays.data_ptr() % 16:
-            raise ValueError("cluster_intersect_ftb: rays must be 16-byte "
-                             "aligned")
-        out_t = torch.full((k_n, r), BIG, dtype=torch.float32, device=dev)
-        out_i = torch.full((k_n, r), -1, dtype=torch.int32, device=dev)
-        fn = load("cluster_intersect_ftb_rows")
-        with torch.cuda.device(dev):
-            err = fn(_ptr(rays), rays.shape[1], r // tile, tile, k_n,
-                     _ptr(chunk_cap), _ptr(counts), _ptr(order), _ptr(qkeys),
-                     _ptr(heads), _ptr(wrows), order.shape[1], _ptr(tconst),
-                     tconst.shape[2], int(mt), int(FTB_CARRY_RING),
-                     _ptr(out_t), _ptr(out_i), _ptr(counter), _stream(dev))
-        if err != 0:
-            raise RuntimeError("cluster_intersect_ftb launch failed: CUDA "
-                               f"error {err}")
-        cluster_intersect_ftb.launches += 1
-        return out_t, out_i
-    packed, out_t, out_i = _kernel_outputs(FTB_SPLIT, (k_n, r), dev)
-    if heads is not None:  # blocks past the list write nothing
-        perm = wrows
-        if packed is None:
-            out_t.fill_(BIG)
-            out_i.fill_(-1)
-    else:
-        perm = _rows_longest_first(counts) if FTB_LONGEST_FIRST else None
+    heads, wrows = _check_row_list("cluster_intersect_ftb", row_list,
+                                   counts.shape[0], dev)
+    packed, out_t, out_i = _listed_outputs(FTB_SPLIT, (k_n, r), dev)
     fn = load("cluster_intersect_ftb")
     with torch.cuda.device(dev):
         err = fn(_ptr(rays), rays.shape[1], r // tile, tile, k_n,
                  _ptr(chunk_cap), _ptr(counts), _ptr(order), _ptr(qkeys),
-                 _ptr(perm), _ptr(heads), order.shape[1], _ptr(tconst),
-                 tconst.shape[2],
-                 int(mt), FTB_SPLIT, _ptr(packed), _ptr(out_t), _ptr(out_i),
-                 _ptr(counter), _stream(dev))
+                 _ptr(heads), _ptr(wrows), order.shape[1], _ptr(tconst),
+                 tconst.shape[2], int(mt), FTB_SPLIT, _ptr(packed), _ptr(out_t),
+                 _ptr(out_i), _ptr(counter), _stream(dev))
     if err != 0:
         raise RuntimeError(f"cluster_intersect_ftb launch failed: CUDA error {err}")
     cluster_intersect_ftb.launches += 1
@@ -898,7 +846,7 @@ cluster_intersect_ftb.launches = 0
 
 
 def cluster_intersect_hbm_plain(rays, counts, order, qkeys, tconst, tile: int,
-                                mt: bool = False, counter=None, row_list=None):
+                                mt: bool = False):
     """Plain PyTorch version of the supergroup intersect kernel.
 
     rays (R, 8 | 16) with the cap in column 6 (9 with ``mt``); counts
@@ -912,12 +860,10 @@ def cluster_intersect_hbm_plain(rays, counts, order, qkeys, tconst, tile: int,
 
 
 def cluster_intersect_hbm_padded(rays, counts, order, qkeys, tconst, tile: int,
-                                 mt: bool = False, counter=None, row_list=None):
+                                 mt: bool = False, counter=None, *, row_list):
     """Nearest hit per ray over front-to-back candidate supergroups, the exit
     checked before each supergroup; see cluster_intersect_hbm_plain for the
-    contract and cluster_intersect_ftb for ``counter``.  With ``row_list``
-    the blocks take their rows from the key kernel's list (longest buckets
-    first); without it the rows are sorted by count here."""
+    contract and cluster_intersect_ftb for ``row_list`` and ``counter``."""
     if rays.device.type == "cpu":
         return cluster_intersect_hbm_plain(rays, counts, order, qkeys, tconst,
                                            tile, mt)
@@ -926,17 +872,13 @@ def cluster_intersect_hbm_padded(rays, counts, order, qkeys, tconst, tile: int,
     dev = _check_ftb_inputs("cluster_intersect_hbm", rays, counts, order, qkeys,
                             tconst, tile, mt, 1, counter)
     r = rays.shape[0]
-    packed, out_t, out_i = _kernel_outputs(HBM_SPLIT, (r,), dev)
-    perm = heads = None
-    if row_list is not None and HBM_USE_ROW_LIST and packed is not None:
-        heads, perm = _check_row_list("cluster_intersect_hbm", row_list,
-                                      counts.shape[0], dev)
-    elif FTB_LONGEST_FIRST:
-        perm = _rows_longest_first(counts)
+    heads, wrows = _check_row_list("cluster_intersect_hbm", row_list,
+                                   counts.shape[0], dev)
+    packed, out_t, out_i = _listed_outputs(HBM_SPLIT, (r,), dev)
     fn = load("cluster_intersect_hbm")
     with torch.cuda.device(dev):
         err = fn(_ptr(rays), rays.shape[1], r // tile, tile, _ptr(counts),
-                 _ptr(order), _ptr(qkeys), _ptr(perm), _ptr(heads),
+                 _ptr(order), _ptr(qkeys), _ptr(heads), _ptr(wrows),
                  order.shape[1], _ptr(tconst), tconst.shape[2], int(mt),
                  HBM_SPLIT, _ptr(packed), _ptr(out_t), _ptr(out_i),
                  _ptr(counter), _stream(dev))

@@ -57,8 +57,10 @@
 //     alternate with the piece's parity, so a warp that runs ahead never
 //     overwrites a slot still being read.  Every thread reads the same slots
 //     and takes the same branch;
-//   * `perm` lets the caller start the rows with the longest candidate lists
-//     first, so the launch does not end on one long row while SMs drain.
+//   * the blocks take their rows from the key kernel's row list
+//     (cluster_rows.cuh), longest candidate lists first, so the launch does
+//     not end on one long row while SMs drain, and a row without candidates
+//     gets no block that does anything.
 
 #pragma once
 
@@ -78,11 +80,10 @@ __device__ __forceinline__ int ordered_bits(int b) {
 //          chunk (origin moved to 1e9).  Null: the cap is ray column 6 (9
 //          with MT) and no ray is moved.
 // counts   (n_chunks * n_subtiles,) i32, order / qkeys (that, n_units)
-// perm     null, or (n_chunks * n_subtiles,) i32: blocks (b, *) take row
-//          perm[b]; with perm_heads, perm is the row list of
-//          cluster_rows.cuh and perm_heads its heads: blocks (b, *) take the
-//          list's entry b, and those past its end leave: the caller presets
-//          `packed`, or out_t / out_tri, to the miss for the rows not listed
+// heads, wrows  the row list of cluster_rows.cuh over these counts: blocks
+//          (b, *) take the list's entry b, and those past its end leave: the
+//          caller presets `packed`, or out_t / out_tri, to the miss for the
+//          rows not listed
 // tconst   (n_chunks * n_units, 16, unit_cols) f32; unit_cols is a power of
 //          two, cut into 1 << pshift pieces
 // packed   (n_chunks, n_subtiles * tile) u64 preset to kMissWord, with a
@@ -97,36 +98,23 @@ cluster_ftb_kernel(
     const float* __restrict__ rays, int ray_stride, int n_subtiles, int tile,
     const float* __restrict__ chunk_cap, const int* __restrict__ counts,
     const int* __restrict__ order, const float* __restrict__ qkeys,
-    const int* __restrict__ perm, const int* perm_heads, int n_units,
-    const float* __restrict__ tconst, int unit_cols, int pshift, int split,
+    const int* __restrict__ heads, const int* __restrict__ wrows,
+    int n_units, const float* __restrict__ tconst, int unit_cols, int pshift,
+    int split,
     unsigned long long* __restrict__ packed, float* __restrict__ out_t,
     int* __restrict__ out_tri, unsigned long long* __restrict__ tested) {
   extern __shared__ float4 s_ring[];            // [kStages][4 * pcols]
   __shared__ int s_bound[2][kMaxThreads / 32];  // [piece parity][warp]
 
-  size_t row = blockIdx.x;
-  if (perm_heads != nullptr) {
-    const int listed = list_row(perm_heads, perm, gridDim.x, blockIdx.x);
-    if (listed < 0) return;  // past the list: the preset misses stand
-    row = listed;
-  } else if (perm != nullptr) {
-    row = perm[blockIdx.x];
-  }
+  const int listed = list_row(heads, wrows, gridDim.x, blockIdx.x);
+  if (listed < 0) return;  // past the list: the preset misses stand
+  const size_t row = listed;
   const int n_split = gridDim.y;
   const int npu = 1 << pshift;
   const int total = counts[row] * npu;  // the row's pieces
   // This block's pieces: blockIdx.y, blockIdx.y + n_split, ...
   const int n_mine = (total - (int)blockIdx.y + n_split - 1) / n_split;
-  if (n_mine <= 0) {  // no candidate (or none left for this block): a miss
-    if (packed == nullptr) {
-      const size_t g0 = row * tile;
-      for (int k = threadIdx.x; k < tile; k += blockDim.x) {
-        out_t[g0 + k] = kBig;
-        out_tri[g0 + k] = -1;
-      }
-    }
-    return;  // with words, the preset miss stands
-  }
+  if (n_mine <= 0) return;  // fewer pieces than blocks: nothing for this one
 
   const int chunk = (int)(row / n_subtiles);
   const int sub = (int)(row - (size_t)chunk * n_subtiles);
@@ -244,7 +232,7 @@ inline int launch_cluster_ftb(const float* rays, int ray_stride,
                               int n_subtiles, int tile, int n_chunks,
                               const float* chunk_cap, const int* counts,
                               const int* order, const float* qkeys,
-                              const int* perm, const int* perm_heads,
+                              const int* heads, const int* wrows,
                               int n_units, const float* tconst,
                               int unit_cols, int mt,
                               int n_split, unsigned long long* packed,
@@ -252,7 +240,7 @@ inline int launch_cluster_ftb(const float* rays, int ray_stride,
                               unsigned long long* tested, void* stream) {
   if (n_subtiles <= 0 || n_chunks <= 0) return (int)cudaGetLastError();
   if (n_split < 1 || (packed == nullptr) != (n_split == 1) ||
-      (perm_heads != nullptr && perm == nullptr))
+      heads == nullptr || wrows == nullptr)
     return (int)cudaErrorInvalidValue;
   const int pcols = unit_cols < kPieceCols ? unit_cols : kPieceCols;
   const BlockShape shape = block_shape(tile, pcols);
@@ -264,12 +252,12 @@ inline int launch_cluster_ftb(const float* rays, int ray_stride,
   if (mt) {
     cluster_ftb_kernel<true><<<grid, shape.threads, smem, s>>>(
         rays, ray_stride, n_subtiles, tile, chunk_cap, counts, order, qkeys,
-        perm, perm_heads, n_units, tconst, unit_cols, pshift, shape.split,
+        heads, wrows, n_units, tconst, unit_cols, pshift, shape.split,
         packed, out_t, out_tri, tested);
   } else {
     cluster_ftb_kernel<false><<<grid, shape.threads, smem, s>>>(
         rays, ray_stride, n_subtiles, tile, chunk_cap, counts, order, qkeys,
-        perm, perm_heads, n_units, tconst, unit_cols, pshift, shape.split,
+        heads, wrows, n_units, tconst, unit_cols, pshift, shape.split,
         packed, out_t, out_tri, tested);
   }
   return (int)cudaGetLastError();

@@ -13,18 +13,13 @@
 // TPU version kept in K copies of the ray rows (the cap column, and the
 // origin moved to 1e9 for a ray that misses the chunk's AABB).  The TPU
 // kernel checks its exit every 4 panels of `group` clusters; this one checks
-// before every cluster.  `perm` (null, or one block-to-row index per row; or,
-// with `perm_heads`, the key kernel's row list of cluster_rows.cuh)
-// sets the order in which the rows start; n_split > 1 deals a row's clusters
-// out to that many blocks, which meet in `packed` (cluster_ftb.cuh).
-//
-// The render path launches mcpt_cluster_intersect_ftb with the key kernel's
-// row list as `perm`: a block per row that has candidates, longest lists
-// first, no sort of the rows and nothing to do for the others (at W = 128 a
-// chunked call of the 400k-triangle frame has 14,336 rows and 1.2 candidates
-// per row).  mcpt_cluster_intersect_ftb_rows walks the same list with
-// persistent blocks; it measured slower and is launched only for
-// measurements (cluster_ftb_rows.cuh).
+// before every cluster.  `heads` and `wrows`, the key kernel's row list of
+// cluster_rows.cuh, name the rows that have candidates, longest lists first:
+// block b takes the list's entry b, so no row is sorted and a block past the
+// list's end has nothing to do (at W = 128 a chunked call of the
+// 400k-triangle frame has 14,336 rows and 1.2 candidates per row).
+// n_split > 1 deals a row's clusters out to that many blocks, which meet in
+// `packed` (cluster_ftb.cuh).
 //
 // The kernel, what bounds it on an H100 (f32 throughput, contraction off) and
 // what its design does about that (a register tile of 4 rays per thread over
@@ -33,35 +28,17 @@
 // at W = 128 a cluster is one piece.
 
 #include "cluster_ftb.cuh"
-#include "cluster_ftb_rows.cuh"
 
 extern "C" int mcpt_cluster_intersect_ftb(
     const float* rays, int ray_stride, int n_subtiles, int tile, int n_chunks,
     const float* chunk_cap, const int* counts, const int* order,
-    const float* qkeys, const int* perm, const int* perm_heads, int n_clusters,
+    const float* qkeys, const int* heads, const int* wrows, int n_clusters,
     const float* tconst, int width, int mt, int n_split,
     unsigned long long* packed, float* out_t, int* out_tri,
     unsigned long long* tested, void* stream) {
   return mcpt::launch_cluster_ftb(rays, ray_stride, n_subtiles, tile, n_chunks,
-                                  chunk_cap, counts, order, qkeys, perm,
-                                  perm_heads, n_clusters, tconst, width, mt,
+                                  chunk_cap, counts, order, qkeys, heads,
+                                  wrows, n_clusters, tconst, width, mt,
                                   n_split, packed, out_t, out_tri, tested,
                                   stream);
-}
-
-// The same function over the key kernel's row list (heads, wrows of
-// cluster_rows.cuh) by persistent blocks that carry the copy ring from one
-// row into the next.  One block per row; out_t / out_tri arrive preset to
-// the miss.
-extern "C" int mcpt_cluster_intersect_ftb_rows(
-    const float* rays, int ray_stride, int n_subtiles, int tile, int n_chunks,
-    const float* chunk_cap, const int* counts, const int* order,
-    const float* qkeys, int* heads, const int* wrows, int n_clusters,
-    const float* tconst, int width, int mt, int carry, float* out_t,
-    int* out_tri, unsigned long long* tested, void* stream) {
-  return mcpt::launch_cluster_ftb_rows(rays, ray_stride, n_subtiles, tile,
-                                       n_chunks, chunk_cap, counts, order,
-                                       qkeys, heads, wrows, n_clusters, tconst,
-                                       width, mt, carry, out_t, out_tri,
-                                       tested, stream);
 }

@@ -11,9 +11,9 @@
 // columns, so the triangle id written is supergroup * sg * W + column: a
 // global id.  The candidate and exit unit is the supergroup, whatever its
 // size (32 KB at sg 4, 256 KB at sg 32).  The cap is ray column 6 (9 with
-// Moller-Trumbore).  `perm` (null, or one block-to-row index per subtile; or,
-// with `perm_heads`, the key kernel's row list of cluster_rows.cuh)
-// sets the order in which the subtiles start; n_split > 1 deals a subtile's
+// Moller-Trumbore).  `heads` and `wrows`, the key kernel's row list of
+// cluster_rows.cuh, name the subtiles that have candidates and the order in
+// which they start; n_split > 1 deals a subtile's
 // 128-column pieces out to that many blocks, which meet in `packed`.
 //
 // Where the TPU kernel double-buffers whole supergroup blocks in VMEM, this
@@ -31,13 +31,13 @@
 
 extern "C" int mcpt_cluster_intersect_hbm(
     const float* rays, int ray_stride, int n_subtiles, int tile,
-    const int* counts, const int* order, const float* qkeys, const int* perm,
-    const int* perm_heads, int n_super, const float* tconst, int super_cols,
+    const int* counts, const int* order, const float* qkeys, const int* heads,
+    const int* wrows, int n_super, const float* tconst, int super_cols,
     int mt, int n_split, unsigned long long* packed, float* out_t,
     int* out_tri, unsigned long long* tested, void* stream) {
   return mcpt::launch_cluster_ftb(rays, ray_stride, n_subtiles, tile, 1,
-                                  nullptr, counts, order, qkeys, perm,
-                                  perm_heads, n_super, tconst, super_cols, mt,
+                                  nullptr, counts, order, qkeys, heads,
+                                  wrows, n_super, tconst, super_cols, mt,
                                   n_split, packed, out_t, out_tri, tested,
                                   stream);
 }

@@ -293,6 +293,7 @@ cluster_keys_kernel(const Params p) {
         if (lane >= d) inc += up;
       }
       const int base = s_base;
+      __syncwarp();  // every lane has read s_base before lane 31 rewrites it
       if (lane < n) s_off[lane] = base + inc - v;
       if (lane == 31) s_base = base + inc;
     }

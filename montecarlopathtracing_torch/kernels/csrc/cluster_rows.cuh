@@ -14,12 +14,8 @@
 // key kernel one atomicAdd per row with candidates.
 //
 // Layout, shared by producer and consumers:
-//   heads (kBuckets + 3,) i32   [0, kBuckets): rows listed per bucket;
-//                               [kBuckets], [kBuckets + 1]: the consumer's
-//                               ticket counters (long rows, short rows);
-//                               [kBuckets + 2]: consumer blocks that are done.
-//                               Zeroed by the caller before the key kernel;
-//                               a consumer leaves the last three at zero again.
+//   heads (kBuckets,) i32         rows listed per bucket; zeroed by the
+//                               caller before the key kernel.
 //   rows  (kBuckets, n_rows) i32  bucket b's rows in rows[b, 0:heads[b]], in
 //                               no particular order.
 // Bucket 0 holds the longest lists, so a consumer that walks the buckets in
@@ -30,7 +26,6 @@
 namespace mcpt {
 
 constexpr int kBuckets = 8;
-constexpr int kLongBuckets = 6;  // buckets of rows with 4 candidates and more
 
 // Bucket of a row with `count` > 0 candidates, by its power of two: 128 and
 // more, 64-127, 32-63, 16-31, 8-15, 4-7, 2-3, 1.

@@ -79,9 +79,7 @@ def test_every_entry_point_has_a_signature():
             for sym in re.findall(r'extern\s+"C"\s+int\s+(\w+)\s*\(', text):
                 found.add((fname[:-3], sym))
     assert found == {(src, sym) for src, sym, _ in B._SIGNATURES.values()}
-    # One wrapper per entry point; the row-list entry of the chunked
-    # intersect kernel ("..._rows") belongs to that kernel's wrapper.
-    assert set(K._WRAPPERS) == {n.removesuffix("_rows") for n in B._SIGNATURES}
+    assert set(K._WRAPPERS) == set(B._SIGNATURES)  # one wrapper each
 
 
 @pytest.mark.parametrize("fname", sorted(
@@ -199,12 +197,16 @@ def test_joined_runs_equal_the_plain_version(doubled_interior, mt, n_split):
 
 
 def test_rows_longest_first_is_a_stable_descending_permutation():
+    """The order in which the front-to-back kernels start their rows (the
+    row list, bucket by bucket): the rows with candidates, each once, by
+    falling power of two of the count, rows of one bucket ascending."""
     rng = np.random.default_rng(9)
-    counts = torch.as_tensor(rng.integers(0, 6, 200).astype(np.int32))
-    perm = K._rows_longest_first(counts)
-    assert perm.dtype == torch.int32 and perm.shape == counts.shape
-    assert sorted(perm.tolist()) == list(range(200))
-    by = counts[perm.long()]
+    counts = torch.as_tensor(rng.integers(0, 300, 200).astype(np.int32))
+    counts[rng.uniform(size=200) < 0.4] = 0
+    perm = K.listed_rows(*K.ftb_row_list_plain(counts))
+    assert perm.dtype == torch.int64
+    assert sorted(perm.tolist()) == torch.nonzero(counts > 0)[:, 0].tolist()
+    by = torch.clamp(counts[perm], max=128).float().log2().floor()
     assert bool((by[:-1] >= by[1:]).all())
     same = by[:-1] == by[1:]
     assert bool((perm[1:][same] > perm[:-1][same]).all())
@@ -262,16 +264,15 @@ def test_compact_list_equals_the_sorted_prefix(c):
         assert order[2].tolist() == list(range(c))
 
 
-@pytest.mark.parametrize("n", [1, 200])
+@pytest.mark.parametrize("n", [1, 200, 4096])
 def test_row_list_plain_is_the_rows_with_candidates(n):
     rng = np.random.default_rng(n)
     counts = torch.as_tensor(rng.integers(0, 300, n).astype(np.int32))
     counts[rng.uniform(size=n) < 0.5] = 0
     counts[rng.uniform(size=n) < 0.3] = 1
     heads, rows = K.ftb_row_list_plain(counts)
-    assert heads.dtype == torch.int32 and heads.shape == (K.FTB_BUCKETS + 3,)
+    assert heads.dtype == torch.int32 and heads.shape == (K.FTB_BUCKETS,)
     assert rows.dtype == torch.int32 and rows.shape == (K.FTB_BUCKETS, n)
-    assert heads[K.FTB_BUCKETS:].tolist() == [0, 0, 0]  # the consumer's counters
     listed = K.listed_rows(heads, rows)
     assert sorted(listed.tolist()) == torch.nonzero(counts > 0)[:, 0].tolist()
     # Longest buckets first, by powers of two: 128 and more, 64-127, ..., 1.
@@ -280,6 +281,30 @@ def test_row_list_plain_is_the_rows_with_candidates(n):
         got = counts[rows[b, :int(heads[b])].long()]
         assert bool((got >= least).all())
         assert b == 0 or bool((got < K._BUCKET_MIN[b - 1]).all())
+
+
+def test_row_list_check_holds_the_layout_of_the_device_code():
+    """The intersect wrappers take (heads (buckets,), rows (buckets, n_rows))
+    int32 and nothing else: what cluster_rows.cuh indexes."""
+    cpu = torch.device("cpu")
+    good = K.ftb_row_list_plain(torch.tensor([0, 3, 200], dtype=torch.int32))
+    assert K._check_row_list("x", good, 3, cpu) == good
+    heads, rows = good
+    for bad in ((heads[:-1], rows), (heads, rows[:, :2]), (heads.long(), rows),
+                (heads, rows.T.contiguous().T), (torch.cat([heads, heads]), rows)):
+        with pytest.raises(ValueError, match="row_list"):
+            K._check_row_list("x", bad, 3, cpu)
+
+
+@pytest.mark.parametrize("fn", [K.cluster_intersect_ftb,
+                                K.cluster_intersect_hbm_padded],
+                         ids=["chunked", "hbm"])
+def test_front_to_back_wrappers_need_the_row_list(fn):
+    """There is one launch order, the key kernel's list: a call without it is
+    an error on any device, not a sort of the rows."""
+    empty = torch.zeros(0)
+    with pytest.raises(TypeError, match="row_list"):
+        fn(empty, empty, empty, empty, empty, TILE)
 
 
 def test_fused_sort_limit_is_a_rule_on_the_table_size():
@@ -307,8 +332,9 @@ def test_fused_list_route_equals_the_sorted_route(doubled_interior, path, mt):
         rays = K.pack_rays(o, d, mt=mt)
         keys, counts = K.cluster_keys_chunked(rays, cap, acc.caabb, tile)
         none, counts_f, cand = K.cluster_keys_chunked_ftb(rays, cap, acc.caabb, tile)
-        run = lambda order, qkeys, **kw: K.cluster_intersect_ftb(
-            rays, counts, order, qkeys, acc.tconst, tile, mt, chunk_cap=cap, **kw)
+        run = lambda order, qkeys: K.cluster_intersect_ftb(
+            rays, counts, order, qkeys, acc.tconst, tile, mt, chunk_cap=cap,
+            row_list=cand.row_list)
     else:
         single = accels[mt]
         rays8 = K.pack_rays(o, d)
@@ -321,11 +347,11 @@ def test_fused_list_route_equals_the_sorted_route(doubled_interior, path, mt):
             table, fn = single.tconst, K.cluster_intersect_ftb
         keys, counts, _ = K.cluster_keys(rays8, caabb, tile)
         none, counts_f, cand = K.cluster_keys_ftb(rays8, caabb, tile)
-        run = lambda order, qkeys, **kw: fn(rays, counts, order, qkeys, table,
-                                            tile, mt, **kw)
+        run = lambda order, qkeys: fn(rays, counts, order, qkeys, table, tile,
+                                      mt, row_list=cand.row_list)
     assert none is None and torch.equal(counts_f, counts)
     assert int(counts.max()) > 2 and int(counts.min()) == 0
     want = run(*K._ftb_candidates(keys))
-    got = run(cand.order, cand.qkeys, row_list=cand.row_list)
+    got = run(cand.order, cand.qkeys)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert bool((want[1] >= 0).any())

@@ -38,6 +38,24 @@ exits non-zero):
             with the intersect calls recorded for phase 8;
 7. parity   a 64 x 64 MODERN render on the card against the same render on
             the CPU (plain versions);
+   scan     render_pixels with refill=False (the scan over samples) against
+            refill=True on a 64 x 64 MODERN spec+glass box, spp 4, max_depth
+            8: identical ray counts, every value within rtol 1e-4 / atol 1e-5;
+   grad     (a) gradients of diff.gradients.image_loss on that box (MODERN,
+            ns_gradient on) on the card against the port on the CPU, every
+            SceneParams field within atol 1e-6 + 1e-4 of its largest
+            magnitude; (b) central finite differences on the card for the
+            White wall's kd[0] and light_radiance[0, 1] (eps and rtol of
+            tests/test_gradients.py); (c) the full-width gradient, bench.py's
+            backward configuration: the built-in box at 1024 x 1024, spp 16,
+            max_depth 32, 65,536 lanes, bwd_seg_per_sample 2.15, d mean(image)
+            / d SceneParams, once to warm up and once timed (forward and
+            backward seconds, fwd+bwd rays/s, peak memory), the key and
+            intersect launches counted in the forward pass (> 0) and in the
+            backward pass (must be 0); (d) five diff.gradients.train_step
+            calls at 256 x 256, spp 4, max_depth 8, from a grey red wall
+            toward a target rendered with the true kd: the loss must fall and
+            the red kd move toward the truth;
 8. timing   every intersect call of the four frames replayed: each kernel
             and its plain version on the call's inputs, checked exactly
             equal and timed (CUDA events, device time only), with its bound,
@@ -992,6 +1010,196 @@ def phase_large400(dev, state):
           "mean_rel_diff": mean_rel, "max_abs_diff": float(np.abs(a - b).max())})
 
 
+def phase_scan(dev):
+    """The scan over samples against the lane pool on the card: the same
+    estimator on the same RNG streams (tests/test_refill.py's contract)."""
+    from montecarlopathtracing_torch.config import MODERN, RenderOptions
+    from montecarlopathtracing_torch.integrator.wavefront import render_pixels
+    from montecarlopathtracing_torch.kernels import cluster as K
+    from montecarlopathtracing_torch.scene.builtin import load_builtin_box
+
+    scene, _ = load_builtin_box(width=64, height=64, with_specular=True,
+                                with_glass=True, device=dev)
+    opts = RenderOptions(spp=4, max_depth=8, compat=MODERN)
+    ids = torch.arange(64 * 64, dtype=torch.int32, device=dev)
+    out = {}
+    for name, refill in (("scan", False), ("refill", True)):
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        rad, rays = render_pixels(scene, None, opts.replace(refill=refill), ids)
+        torch.cuda.synchronize()
+        out[name] = (rad, int(rays), time.perf_counter() - t0, K.launch_counts())
+        check_launched(out[name][3], PATH_KERNELS["single"], f"scan {name}")
+    (a, ra, sa, la), (b, rb, sb, lb) = out["scan"], out["refill"]
+    check(ra == rb and ra > 0, f"scan: rays {ra} (scan) != {rb} (refill)")
+    check(bool(torch.isfinite(a).all()), "scan: non-finite radiance")
+    check(bool(torch.allclose(a, b, rtol=1e-4, atol=1e-5)),
+          "scan: radiance differs from the lane pool beyond rtol 1e-4 / atol 1e-5")
+    emit({"phase": "scan", "width": 64, "height": 64, "spp": 4, "max_depth": 8,
+          "rays": ra, "seconds_scan": sa, "seconds_refill": sb,
+          "max_abs_diff": float((a - b).abs().max()),
+          "launches_scan": la, "launches_refill": lb})
+
+
+def grad_errors(ref, got):
+    """{field: (max |ref - got|, largest |ref|)} over SceneParams fields, and
+    whether every element is within atol 1e-6 + 1e-4 x the largest |ref|."""
+    from montecarlopathtracing_torch.diff.gradients import PARAM_FIELDS
+
+    errs, ok = {}, True
+    for f in PARAM_FIELDS:
+        a, b = getattr(ref, f).cpu(), getattr(got, f).cpu()
+        if a.numel() == 0:
+            continue
+        scale = float(a.abs().max())
+        err = (a - b).abs()
+        ok = ok and bool((err <= 1e-6 + 1e-4 * scale).all())
+        errs[f] = (float(err.max()), scale)
+    return errs, ok
+
+
+def grads_finite(g) -> bool:
+    from montecarlopathtracing_torch.diff.gradients import PARAM_FIELDS
+
+    return all(bool(torch.isfinite(getattr(g, f)).all()) for f in PARAM_FIELDS)
+
+
+def phase_grad(dev, state):
+    """Phase grad (a)-(d), see the module docstring."""
+    import dataclasses
+
+    from montecarlopathtracing_torch.config import MODERN, RenderOptions
+    from montecarlopathtracing_torch.diff import gradients as G
+    from montecarlopathtracing_torch.integrator.wavefront import render_image_stats
+    from montecarlopathtracing_torch.kernels import cluster as K
+    from montecarlopathtracing_torch.scene.builtin import load_builtin_box
+
+    # (a) the card against the CPU.
+    opts = RenderOptions(spp=4, max_depth=8, compat=MODERN, ns_gradient=True)
+    target = np.random.default_rng(5).uniform(0.1, 0.6, (64, 64, 3)).astype(np.float32)
+    grads, secs = {}, {}
+    for name in ("cuda", "cpu"):
+        scene, meta = load_builtin_box(width=64, height=64, with_specular=True,
+                                       with_glass=True, device=name)
+        t0 = time.perf_counter()
+        _, grads[name] = G.loss_and_grad(G.SceneParams.from_scene(scene), scene,
+                                         None, opts, torch.as_tensor(target),
+                                         device=name)
+        if name == "cuda":
+            torch.cuda.synchronize()
+            box64 = scene
+        secs[name] = time.perf_counter() - t0
+    check(grads_finite(grads["cuda"]), "grad (a): non-finite gradients on the card")
+    errs, ok = grad_errors(grads["cpu"], grads["cuda"])
+    check(ok, f"grad (a): card gradients differ from the CPU's: {errs}")
+    emit({"phase": "grad_card_vs_cpu", "width": 64, "height": 64, "spp": 4,
+          "max_depth": 8, "tolerance": "atol 1e-6 + 1e-4 x field max",
+          "max_abs_err_and_scale": errs, "seconds_cuda": secs["cuda"],
+          "seconds_cpu": secs["cpu"]})
+
+    # (b) central finite differences on the card.
+    fd_opts = opts.replace(ns_gradient=False)
+    mi = meta.material_names.index("White")
+    params = G.SceneParams.from_scene(box64)
+
+    def image_sum(p):
+        return torch.sum(G.render_with_params(p, box64, None, fd_opts, device=dev))
+
+    leaves = params.leaves(dev)
+    g = G.param_grads(image_sum(leaves), leaves)
+    fds = []
+    for field, idx, eps, rtol in (("kd", (mi, 0), 1e-3, 2e-2),
+                                  ("light_radiance", (0, 1), 1e-2, 5e-3)):
+        sums = []
+        for sign in (1, -1):
+            t = getattr(params, field).clone()
+            t[idx] += sign * eps
+            with torch.no_grad():
+                sums.append(float(image_sum(dataclasses.replace(params, **{field: t}))))
+        fd = (sums[0] - sums[1]) / (2 * eps)
+        gval = float(getattr(g, field)[idx])
+        check(bool(np.isclose(gval, fd, rtol=rtol, atol=1e-3)) and gval > 0,
+              f"grad (b): {field}{list(idx)} autodiff {gval} vs FD {fd}")
+        fds.append({"field": field, "index": list(idx), "eps": eps, "rtol": rtol,
+                    "autodiff": gval, "fd": fd, "rel_err": abs(gval - fd) / abs(fd)})
+    emit({"phase": "grad_fd", "cases": fds})
+
+    # (c) the full-width gradient.
+    scene, meta = load_builtin_box(width=1024, height=1024, device=dev)
+    opts = RenderOptions(spp=16, max_depth=32, chunk_size=65536,
+                         bwd_seg_per_sample=2.15)
+    params = G.SceneParams.from_scene(scene)
+    for _ in range(2):  # a warm-up run, then the timed one
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        leaves = params.leaves(dev)
+        img, rays = render_image_stats(G.apply_params(scene, leaves), None, opts,
+                                       differentiable=True, device=dev)
+        loss = img.mean()
+        rays = int(rays)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fwd = K.launch_counts()
+        K.reset_launch_counts()
+        g = G.param_grads(loss, leaves)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        bwd = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        del img, loss, leaves
+    check(rays > 0, f"grad (c): the budget truncated the render (n_rays {rays})")
+    check(grads_finite(g), "grad (c): non-finite gradients")
+    check(float(g.kd[meta.material_names.index("White"), 0]) > 0,
+          "grad (c): the White kd gradient is not positive")
+    check_launched(fwd, PATH_KERNELS["single"], "grad (c) forward")
+    check(all(v == 0 for v in bwd.values()),
+          f"grad (c): the backward pass launched key or intersect kernels: {bwd}")
+    state["launches_grad_forward"], state["launches_grad_backward"] = fwd, bwd
+    emit({"phase": "grad_full_width", "width": 1024, "height": 1024, "spp": 16,
+          "max_depth": 32, "lanes": 65536, "bwd_seg_per_sample": 2.15,
+          "rays": rays, "forward_seconds": t1 - t0, "backward_seconds": t2 - t1,
+          "seconds": t2 - t0, "fwd_bwd_rays_per_s": rays / (t2 - t0),
+          "backward_over_forward": (t2 - t1) / (t1 - t0),
+          "peak_bytes_over_baseline": peak, "baseline_bytes": base,
+          "launches_forward": fwd, "launches_backward": bwd,
+          "kd_grad_white": float(g.kd[meta.material_names.index("White"), 0])})
+    del g
+    torch.cuda.empty_cache()
+
+    # (d) inverse rendering.
+    scene, meta = load_builtin_box(width=256, height=256, device=dev)
+    opts = RenderOptions(spp=4, max_depth=8)
+    mi = meta.material_names.index("Red")
+    truth = G.SceneParams.from_scene(scene)
+    with torch.no_grad():
+        target = G.render_with_params(truth, scene, None, opts, device=dev)
+    kd = truth.kd.clone()
+    kd[mi] = 0.5
+    params = dataclasses.replace(truth, kd=kd)
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(5):
+        params, loss = G.train_step(params, scene, None, opts, target, lr=0.9,
+                                    device=dev)
+        losses.append(float(loss))
+        emit({"phase": "grad_inverse_step", "step": len(losses) - 1,
+              "loss": losses[-1], "kd_red": params.kd[mi].tolist()})
+    secs = time.perf_counter() - t0
+    with torch.no_grad():
+        final = float(G.image_loss(params, scene, None, opts, target, device=dev))
+    err0 = float((kd[mi] - truth.kd[mi]).norm())
+    err1 = float((params.kd[mi] - truth.kd[mi]).norm())
+    check(final < losses[0], f"grad (d): loss {losses[0]} -> {final} did not fall")
+    check(err1 < err0, f"grad (d): red kd moved away from the truth ({err0} -> {err1})")
+    emit({"phase": "grad_inverse", "width": 256, "height": 256, "spp": 4,
+          "max_depth": 8, "lr": 0.9, "losses": losses, "final_loss": final,
+          "kd_red_true": truth.kd[mi].tolist(), "kd_red_error": [err0, err1],
+          "seconds": secs})
+
+
 def phase_parity(dev, state):
     from montecarlopathtracing_torch.config import MODERN, RenderOptions
     from montecarlopathtracing_torch.integrator.wavefront import render_image_stats
@@ -1048,6 +1256,8 @@ def main() -> int:
     phase_large(dev, state)
     phase_large400(dev, state)
     phase_parity(dev, state)
+    phase_scan(dev)
+    phase_grad(dev, state)
     phase_timing(state)
 
     csrc = "montecarlopathtracing_torch/kernels/csrc/"
@@ -1079,7 +1289,8 @@ def main() -> int:
     rows = []
     for name, (src, site, frame, stats, err) in table.items():
         t = stats[name]
-        by_frame = {f: state[f"launches_{f}"][name] for f in frames}
+        by_frame = {f: state[f"launches_{f}"][name]
+                    for f in frames + ("grad_forward", "grad_backward")}
         check(by_frame[frame] > 0, f"{name} was not launched on frame {frame}")
         row = {
             "name": name, "route": "cuda", "source": csrc + src,

@@ -87,10 +87,13 @@ class RenderOptions:
     # Wavefront sort by (hit cluster, direction bin).  None = on iff the
     # resolved intersector is "cluster".
     sort_rays: Optional[bool] = None
-    # Persistent lane-pool renderer (the only forward renderer ported).
+    # Persistent lane-pool renderer; False runs the scan over samples.
     refill: bool = True
-    # Gradient-only option; a forward render is unchanged by it.
+    # Phong-exponent gradients by a score-function surrogate; a forward
+    # render is unchanged by it.
     ns_gradient: bool = False
+    # Expected wavefront iterations per sample, which sizes the static
+    # budget of a differentiable lane-pool render (None: 1.2 / (1 - p_rr)).
     bwd_seg_per_sample: Optional[float] = None
     compat: CompatOptions = dataclasses.field(default_factory=CompatOptions)
 

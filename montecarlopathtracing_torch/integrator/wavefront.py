@@ -1,4 +1,4 @@
-"""Wavefront path-tracing integrator, forward path.
+"""Wavefront path-tracing integrator: forward and differentiable renders.
 
 Counterpart of ``montecarlopathtracing_tpu/integrator/wavefront.py``: the
 reference's recursive ``shade`` (``MTPC/pathTracing.cpp:137-266``) as a
@@ -11,13 +11,23 @@ termination predicate is read back only every ``check_every`` iterations:
 an iteration after the pool has drained changes nothing (no lane is active,
 none is refilled, nothing is staged), so the film does not depend on it.
 
+Two renderers: the lane pool (``render_pixels_refill``, the default) and the
+scan over samples (``render_pixels`` with ``refill=False``, a bounce loop at
+full width per sample, ``trace_paths``).  ``differentiable=True`` makes
+either a function of the scene's material and light tensors that autograd
+can take apart: traversal, visibility and the sampled directions are
+detached (the JAX package's ``stop_gradient`` points), the loop runs a
+static budget in blocks checkpointed with ``torch.utils.checkpoint``, and
+intersect results and sort permutations are recorded on the forward pass and
+replayed when a block is recomputed for backward (``_Replay``), so backward
+launches no intersect kernel.
+
 A scene whose triangle table is past the single-table budget renders through
 the chunked or the supergroup ("HBM") cluster intersector, as
 ``resolve_plan`` decides; their tables are built once per scene
 (``intersector_tables``).
 
-Not ported yet: the differentiable renderer (ROADMAP.md item A12), the
-scan-over-samples renderer ``refill=False`` (A8) and the LBVH walks (A11).
+Not ported yet: the LBVH walks (ROADMAP.md item A11).
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ import functools
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..accel.lbvh import brute_force_intersect
 from ..config import RenderOptions
@@ -48,7 +59,7 @@ from ..ops.sampling import (
     sample_triangle_point,
     schlick_fresnel,
 )
-from ..scene.types import SceneArrays
+from ..scene.types import SCENE_FIELDS, SceneArrays
 from ..utils.device import resolve_device
 from . import rng
 from .camera import primary_rays
@@ -199,7 +210,9 @@ def intersect_any(scene, bvh, origin, direction, opts: RenderOptions,
                   accel=None):
     """Nearest-hit dispatch: (hit (R,) bool, t (R,) f32, tri (R,) i32).
     ``bvh`` is unused (None) until the LBVH is ported; ``accel`` takes the
-    prebuilt tables (intersector_tables), built here when it is None."""
+    prebuilt tables (intersector_tables), built here when it is None.
+    Traversal is outside the gradient: the rays are detached."""
+    origin, direction = origin.detach(), direction.detach()
     compat_tri = opts.compat.plane_sign_triangle_test
     kind, _, group, n_chunks = resolve_plan(opts, scene.num_tris_padded)
     if kind == "brute":
@@ -216,13 +229,41 @@ def intersect_any(scene, bvh, origin, direction, opts: RenderOptions,
     return cluster_intersect(accel, origin, direction, group=group, **shape)
 
 
-def _permute_rows(perm, f32_fields, int_fields):
-    """Permute per-lane state with one row gather: every field is packed as
-    int32 columns (f32 by bit view, bool as 0/1, int64 as two words),
-    gathered by ``perm``, and unpacked to its own dtype and shape."""
+def inverse_permutation(perm):
+    """``inv`` with ``inv[perm] = arange``: one scatter, no second sort."""
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], dtype=perm.dtype, device=perm.device)
+    return inv
+
+
+class _PermutedTake(torch.autograd.Function):
+    """``mat[perm]`` for a full permutation ``perm``, whose backward is a row
+    gather of the cotangent by the inverse permutation, not the scatter-add
+    of index_select's backward (the JAX package's ``_permuted_take``).  The
+    inverse is computed once in the forward pass (or passed in) and saved."""
+
+    @staticmethod
+    def forward(ctx, mat, perm, inv):
+        ctx.save_for_backward(inverse_permutation(perm) if inv is None else inv)
+        return mat.index_select(0, perm)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (inv,) = ctx.saved_tensors
+        return ct.index_select(0, inv), None, None
+
+
+def _permute_rows(perm, f32_fields, int_fields, inv=None):
+    """Permute per-lane state with one row gather per payload: every int
+    field is packed as int32 columns (bool as 0/1, int64 as two words),
+    gathered by ``perm``, and unpacked to its own dtype and shape.  The f32
+    fields ride the same payload by bit view, unless one of them needs a
+    gradient: then they travel as a payload of their own through
+    _PermutedTake (``inv``: perm's inverse, if known)."""
     r = perm.shape[0]
+    grad = torch.is_grad_enabled() and any(f.requires_grad for f in f32_fields)
     specs, cols = [], []
-    for f in list(f32_fields) + list(int_fields):
+    for f in (list(int_fields) if grad else list(f32_fields) + list(int_fields)):
         if f.dtype == torch.bool:
             c = f.to(_I32)
         elif f.dtype in (torch.float32, torch.int64):
@@ -242,6 +283,15 @@ def _permute_rows(perm, f32_fields, int_fields):
         elif dtype in (torch.float32, torch.int64):
             c = c.contiguous().view(dtype)
         out.append(c.reshape(shape))
+    if grad:
+        payload = _PermutedTake.apply(
+            torch.cat([f.reshape(r, -1) for f in f32_fields], dim=1), perm, inv)
+        out_f, pos = [], 0
+        for f in f32_fields:
+            k = f.numel() // r
+            out_f.append(payload[:, pos:pos + k].reshape(f.shape))
+            pos += k
+        return out_f, out
     nf = len(f32_fields)
     return out[:nf], out[nf:]
 
@@ -275,24 +325,51 @@ def _shading_tables(scene):
     return tab, mtab
 
 
+class _TableRows(torch.autograd.Function):
+    """``table[idx]`` for a table of a few rows that every lane reads (the
+    materials).  The forward pass is the plain row gather; the backward
+    pass sums the cotangent rows per table row by a one-hot matrix product
+    (the JAX package's form for up to 64 materials), or by index_add past
+    64 rows, rather than by the indexing backward, which sorts the indices
+    and serialises on repeats: 6.7 ms a call at 65,536 lanes and six
+    materials (profile_torch.py --grad; NVIDIA H100 80GB HBM3, 700 W)."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, ct):
+        (idx,) = ctx.saved_tensors
+        if ctx.rows <= 64:
+            onehot = torch.nn.functional.one_hot(idx, ctx.rows).to(ct.dtype)
+            return onehot.T @ ct, None
+        return ct.new_zeros((ctx.rows,) + ct.shape[1:]).index_add_(0, idx, ct), None
+
+
 def _material_rows(mtab, mat):
-    """(R, 16) material fields: a plain row gather (exact in f32, so texture
-    offsets and extents survive unrounded)."""
-    return mtab[mat.long()]
+    """Rows of a per-material table (mtab (M, 16) material fields, or the
+    (M, 3) emission) by material id: a plain row gather in the forward pass
+    (exact in f32, so texture offsets and extents survive unrounded)."""
+    return _TableRows.apply(mtab, mat.long())
 
 
 def _gather_hit(scene, opts, origin, direction, t, tri, tables):
     """Hit record: (p (R,3), pn (R,3) shading normal, matf (R,16) material
-    fields, kd (R,3) with the texture applied)."""
+    fields, kd (R,3) with the texture applied).  t, the barycentrics and pn
+    are detached; matf and kd carry the material gradients."""
     tab, mtab = tables
     tri_c = torch.clamp(tri, min=0).long()
     rowt = tab[tri_c]
-    p = origin + direction * t[:, None]
-    bary = barycentric(p, rowt[:, 0:3], rowt[:, 3:6], rowt[:, 6:9])
+    p = origin + direction * t.detach()[:, None]
+    bary = barycentric(p, rowt[:, 0:3], rowt[:, 3:6], rowt[:, 6:9]).detach()
     pn = (rowt[:, 9:12] * bary[:, 0:1] + rowt[:, 12:15] * bary[:, 1:2]
           + rowt[:, 15:18] * bary[:, 2:3])
     if not opts.compat.unnormalized_shading_normal:
         pn = normalize(pn)
+    pn = pn.detach()
     matf = _material_rows(mtab, scene.mat_id[tri_c])
     kd = matf[:, _MF_KD]
 
@@ -399,7 +476,8 @@ def _nee_resolve(scene, opts: RenderOptions, contrib, ok, dist_real, smat,
 
 def _next_ray(scene, opts: RenderOptions, p, pn, matf, kd, incoming, u):
     """Lobe / event selection (nextRay, MTPC/pathTracing.cpp:66-134).
-    Returns (origin, direction, ray_type, weight)."""
+    Returns (origin, direction, ray_type, weight).  The direction and the
+    lobe test are detached; the weight (kd, ks or 1) carries gradients."""
     compat = opts.compat
     ni = matf[:, _MF_NI]
     ks = matf[:, _MF_KS]
@@ -416,8 +494,8 @@ def _next_ray(scene, opts: RenderOptions, p, pn, matf, kd, incoming, u):
     d_trans = torch.where(ok_refr[:, None], d_refr, d_tir)
     type_trans = torch.where(ok_refr, RAY_TRANSMISSION, RAY_SPECULAR).to(_I32)
 
-    kd_n = torch.linalg.vector_norm(kd, dim=-1)
-    ks_n = torch.linalg.vector_norm(ks, dim=-1)
+    kd_n = torch.linalg.vector_norm(kd.detach(), dim=-1)
+    ks_n = torch.linalg.vector_norm(ks.detach(), dim=-1)
     ratio = torch.where(ks_n > 0, kd_n / torch.clamp(ks_n, min=1e-30), torch.inf)
     spec = (ks_n != 0) & (ratio < u[:, 2])
     mirror = reflect(incoming, pn)
@@ -425,7 +503,7 @@ def _next_ray(scene, opts: RenderOptions, p, pn, matf, kd, incoming, u):
     d_lobe = sample_lobe(axis, u[:, 3], u[:, 4], ~spec, matf[:, _MF_NS])
     type_lobe = torch.where(spec, RAY_SPECULAR, RAY_DIFFUSE).to(_I32)
 
-    direction = torch.where(take_refract[:, None], d_trans, d_lobe)
+    direction = torch.where(take_refract[:, None], d_trans, d_lobe).detach()
     ray_type = torch.where(take_refract, type_trans, type_lobe)
     # Transmission / TIR rays leave with no offset in compat mode.
     no_eps = take_refract & compat.no_transmission_epsilon
@@ -434,6 +512,19 @@ def _next_ray(scene, opts: RenderOptions, p, pn, matf, kd, incoming, u):
     weight = torch.where(
         (ray_type == RAY_TRANSMISSION)[:, None], torch.ones_like(kd),
         torch.where((ray_type == RAY_SPECULAR)[:, None], ks, kd))
+    if opts.ns_gradient:
+        # Score-function surrogate for the Phong exponent: the lobe direction
+        # is the only quantity that depends on Ns, and it is detached.
+        # exp(logp - logp.detach()) is exactly 1.0 (the forward pass is
+        # bitwise unchanged) with gradient d logp / dNs, where
+        # logp = log(Ns + 1) + Ns * log cos(theta) + const at the sampled
+        # direction, log cos(theta) = log(u) / (Ns + 1) held fixed.
+        ns = matf[:, _MF_NS]
+        phong = (ray_type == RAY_SPECULAR) & ~take_refract
+        logcos = (torch.log(torch.clamp(u[:, 4], min=1e-12)) / (ns + 1.0)).detach()
+        logp = torch.log(ns + 1.0) + ns * logcos
+        surrogate = torch.where(phong, torch.exp(logp - logp.detach()), 1.0)
+        weight = weight * surrogate[:, None]
     return origin, direction, ray_type, weight
 
 
@@ -443,12 +534,204 @@ def _should_sort(opts: RenderOptions, num_tris: int) -> bool:
     return resolve_plan(opts, num_tris)[0].startswith("cluster")
 
 
+def _tracks_grad(scene) -> bool:
+    """True when autograd is recording and a scene tensor needs a gradient:
+    only then does a differentiable render checkpoint and record."""
+    return torch.is_grad_enabled() and any(
+        getattr(scene, f).requires_grad for f in SCENE_FIELDS)
+
+
+class _Replay:
+    """Results that do not depend on the scene's parameters (intersect
+    results, sort permutations and their inverses), recorded under a key on
+    the forward pass and handed back when torch.utils.checkpoint recomputes
+    a block for backward, so the recompute launches no intersect kernel and
+    sorts nothing (the JAX package saves the same residuals by name,
+    ``isect_*`` and ``perm_inv``).  Keys make the replay independent of the
+    order of nested recomputes; ``scope`` prefixes them.  Disabled, it just
+    calls."""
+
+    def __init__(self, enabled: bool, saved=None, prefix=()):
+        self.enabled = enabled
+        self.saved = {} if saved is None else saved
+        self.prefix = prefix
+
+    def scope(self, *key) -> "_Replay":
+        return _Replay(self.enabled, self.saved, self.prefix + key)
+
+    def __call__(self, key, fn):
+        if not self.enabled:
+            return fn()
+        key = self.prefix + key
+        if key not in self.saved:
+            self.saved[key] = fn()
+        return self.saved[key]
+
+
+def _sort_perm(sort_key, with_inverse: bool):
+    """(stable ascending order of sort_key, its inverse or None)."""
+    perm = torch.argsort(sort_key, stable=True)
+    return perm, inverse_permutation(perm) if with_inverse else None
+
+
 def _direction_bin(d):
     """6-bit direction bin: sign and |component| > 0.5 per axis."""
     return ((d[:, 0] > 0).to(_I32) * 32 + (d[:, 1] > 0).to(_I32) * 16
             + (d[:, 2] > 0).to(_I32) * 8 + (torch.abs(d[:, 0]) > 0.5).to(_I32) * 4
             + (torch.abs(d[:, 1]) > 0.5).to(_I32) * 2
             + (torch.abs(d[:, 2]) > 0.5).to(_I32))
+
+
+def trace_paths(scene: SceneArrays, bvh, opts: RenderOptions, keys, origin,
+                direction, differentiable: bool = False, accel=None,
+                replay=None):
+    """Full light transport for a batch of primary rays, all lanes in
+    lockstep: a bounce loop at full width while any lane is alive, up to
+    ``max_depth`` bounces (exactly ``max_depth`` when ``differentiable``,
+    each bounce checkpointed when ``max_depth > 4``).
+
+    With sorting on and more lanes than one subtile, each bounce permutes
+    the wavefront by (hit cluster, new direction bin) before its NEE and
+    bounce rays are intersected; every per-lane quantity rides the
+    permutation and ``slot`` unscrambles the radiance at the end.
+
+    Returns (radiance (R,3), n_rays) where n_rays (int64 tensor) counts the
+    primaries, one shadow ray per light per live lane and the bounce rays.
+    ``replay`` (a _Replay) records the intersect results and sort orders of
+    a differentiable render for its backward recompute.
+    """
+    if accel is None:
+        accel = intersector_tables(scene, opts)
+    track = differentiable and _tracks_grad(scene)
+    if replay is None:
+        replay = _Replay(track)
+    tables = _shading_tables(scene)
+    num_lights = scene.num_lights
+    n_slots = rng.n_bounce_slots(num_lights)
+    r = origin.shape[0]
+    do_sort = _should_sort(opts, scene.num_tris_padded) and r > opts.cluster_rays
+
+    def isect(key, o, d):
+        return replay(key, lambda: intersect_any(scene, bvh, o, d, opts,
+                                                 accel=accel))
+
+    hit, t, tri = isect(("primary",), origin, direction)
+    mat0 = scene.mat_id[torch.clamp(tri, min=0).long()].long()
+    emit0 = hit & scene.is_emitter[mat0]
+    # A primary emitter hit returns the light radiance.
+    radiance = torch.where(emit0[:, None], _material_rows(scene.emission, mat0),
+                           0.0)
+    state = dict(alive=hit & ~emit0, origin=origin, direction=direction, t=t,
+                 tri=tri, beta=torch.ones_like(radiance), radiance=radiance,
+                 keys=keys, slot=torch.arange(r, dtype=_I32, device=origin.device),
+                 n_rays=torch.tensor(r, dtype=torch.int64, device=origin.device))
+
+    def bounce(st, depth: int):
+        alive, direction, keys, slot = (st["alive"], st["direction"], st["keys"],
+                                        st["slot"])
+        beta, radiance, tri = st["beta"], st["radiance"], st["tri"]
+        u = rng.bounce_uniforms(keys, depth, n_slots)
+        p, pn, matf, kd = _gather_hit(scene, opts, st["origin"], direction,
+                                      st["t"], tri, tables)
+        cont = alive & (u[:, 0] < opts.rr_probability)
+        new_o, new_d, ray_type, weight = _next_ray(scene, opts, p, pn, matf, kd,
+                                                   direction, u)
+        if do_sort:
+            cluster = torch.clamp(tri, min=0) // opts.cluster_width
+            sort_key = torch.where(alive, cluster * 64 + _direction_bin(new_d),
+                                   2 ** 30)
+            perm, inv = replay(("perm", depth),
+                               lambda: _sort_perm(sort_key, track))
+            (p, pn, kd, new_o, new_d, weight, beta, radiance, u), \
+                (ray_type, keys, slot, alive, cont) = _permute_rows(
+                    perm, (p, pn, kd, new_o, new_d, weight, beta, radiance, u),
+                    (ray_type, keys, slot, alive, cont), inv)
+
+        # Next-event estimation: one full nearest-hit shadow query per light.
+        so, dirn, contrib, ok, dist, smat = _nee_prep(scene, opts, p, pn, kd, u,
+                                                      alive, tables)
+        shadow = [isect(("shadow", depth, li), so[li], dirn[li])
+                  for li in range(num_lights)]
+        if num_lights:
+            l_dir = _nee_resolve(scene, opts, contrib, ok, dist, smat,
+                                 *(torch.stack(x) for x in zip(*shadow)))
+            radiance = radiance + torch.where(alive[:, None], beta * l_dir, 0.0)
+        beta2 = (beta / opts.rr_probability) * weight
+
+        # Russian-roulette-terminated lanes are parked.
+        new_o = torch.where(cont[:, None], new_o, 1e9)
+        hit2, t2, tri2 = isect(("bounce", depth), new_o, new_d)
+        mat2 = scene.mat_id[torch.clamp(tri2, min=0).long()].long()
+        emit2 = hit2 & scene.is_emitter[mat2]
+        alive2 = cont & hit2
+        # Specular and transmission bounces see emitters, diffuse ones do not.
+        sees_emitter = alive2 & emit2 & (ray_type != RAY_DIFFUSE)
+        radiance = radiance + torch.where(sees_emitter[:, None],
+                                          beta2 * _material_rows(scene.emission,
+                                                                 mat2), 0.0)
+        n_rays = st["n_rays"] + alive.sum() * num_lights + cont.sum()
+        return dict(alive=alive2 & ~emit2, origin=new_o, direction=new_d, t=t2,
+                    tri=tri2, beta=beta2, radiance=radiance, keys=keys,
+                    slot=slot, n_rays=n_rays)
+
+    if differentiable:
+        for depth in range(opts.max_depth):
+            if track and opts.max_depth > 4:
+                state = checkpoint(bounce, state, depth, use_reentrant=False,
+                                   preserve_rng_state=False)
+            else:
+                state = bounce(state, depth)
+    else:
+        depth = 0
+        while depth < opts.max_depth and bool(state["alive"].any()):
+            state = bounce(state, depth)
+            depth += 1
+    radiance = state["radiance"]
+    if do_sort:
+        radiance = torch.zeros_like(radiance).index_copy(
+            0, state["slot"].long(), radiance)
+    return radiance, state["n_rays"]
+
+
+def render_pixels(scene: SceneArrays, bvh, opts: RenderOptions, pixel_ids,
+                  differentiable: bool = False, sample_offset: int = 0,
+                  accel=None):
+    """Mean radiance over ``opts.spp`` samples for flat pixel ids (R,).
+
+    With ``opts.refill`` (the default) this is the lane pool with one lane
+    per pixel (render_pixels_refill).  Otherwise a loop over sample indices
+    runs trace_paths at full width for each, checkpointed per sample when
+    ``differentiable``.  ``sample_offset`` slides the absolute sample
+    window, so the samples of a split render are those of a one-pass one.
+
+    Returns (mean radiance (R,3), rays traced as an int64 tensor).
+    """
+    if opts.refill:
+        return render_pixels_refill(scene, bvh, opts, pixel_ids, sample_offset,
+                                    differentiable=differentiable, accel=accel)
+    if accel is None:
+        accel = intersector_tables(scene, opts)
+    track = differentiable and _tracks_grad(scene)
+    replay = _Replay(track)
+    compat = opts.compat
+
+    def sample(s: int):
+        keys = rng.lane_keys(opts.seed, pixel_ids, s + sample_offset)
+        jitter = None if compat.no_pixel_jitter else rng.primary_uniforms(keys)
+        origin, direction = primary_rays(scene.camera, pixel_ids, jitter)
+        return trace_paths(scene, bvh, opts, keys, origin, direction,
+                           differentiable, accel=accel, replay=replay.scope(s))
+
+    acc = torch.zeros((pixel_ids.shape[0], 3), dtype=torch.float32,
+                      device=scene.device)
+    rays = torch.zeros((), dtype=torch.int64, device=scene.device)
+    for s in range(opts.spp):
+        rad, n = (checkpoint(sample, s, use_reentrant=False,
+                               preserve_rng_state=False) if track
+                  else sample(s))
+        acc = acc + rad
+        rays = rays + n
+    return acc / opts.spp, rays
 
 
 def render_pixels_refill(
@@ -480,12 +763,22 @@ def render_pixels_refill(
 
     Estimator and per-path RNG streams are those of the JAX package; every
     pixel is pinned to one lane, so the film does not depend on lane order.
+
+    ``differentiable=True`` runs a static budget of iterations,
+    ceil(n_pix * spp * e_seg / lanes) + max_depth + spp + 4 with e_seg =
+    ``opts.bwd_seg_per_sample`` or 1.2 / (1 - rr_probability), in blocks of
+    spp iterations (one pend slot per lane; a lane completes at most one
+    pixel per spp iterations).  Each block is checkpointed when a scene
+    tensor needs a gradient; its pend registers leave it as outputs and are
+    reset, and all blocks' outputs are added into the film once, out of
+    place, at the end.  The loop stops early at a block boundary once the
+    pool has drained (later iterations change nothing).  If the budget ends
+    with samples in flight, the ray count is negated: those samples are
+    missing from the film.
+
     Returns (mean radiance (n_pix, 3) aligned with pixel_ids, rays traced as
     an int64 scalar tensor).
     """
-    if differentiable:
-        raise NotImplementedError(
-            "the differentiable renderer is not ported yet (ROADMAP.md item A12)")
     dev = scene.device
     n_pix = pixel_ids.shape[0]
     r = min(lanes or n_pix, n_pix)
@@ -499,12 +792,15 @@ def render_pixels_refill(
     # Out-of-range dummies: the film has r * n_pend spare columns past
     # n_pix where non-pending lanes' flushes land; they are sliced off.
     dummy_slot = n_pix + lane_iota
-    n_pend = max(1, min(2, -(-16 // spp)))
+    n_pend = 1 if differentiable else max(1, min(2, -(-16 // spp)))
     pend_iota = torch.arange(n_pend, dtype=_I32, device=dev)
     dummy_pend = n_pix + lane_iota[:, None] * n_pend + pend_iota[None, :]
     tables = _shading_tables(scene)
     if accel is None:
         accel = intersector_tables(scene, opts)
+
+    track = differentiable and _tracks_grad(scene)
+    replay = _Replay(track)
 
     def isect(o, d):
         return intersect_any(scene, bvh, o, d, opts, accel=accel)
@@ -513,9 +809,10 @@ def render_pixels_refill(
         jitter = None if compat.no_pixel_jitter else rng.primary_uniforms(keys)
         return primary_rays(scene.camera, pix, jitter)
 
-    def step(s):
-        """One wavefront iteration on the state dict ``s`` (updated in
-        place): shade arrivals, stage completed pixels, intersect."""
+    def step(s, it: int):
+        """Iteration ``it`` on the state dict ``s`` (its entries replaced,
+        no tensor changed in place): shade arrivals, stage completed
+        pixels, intersect."""
         active, kind, depth, keys = s["active"], s["kind"], s["depth"], s["keys"]
         origin, direction, beta, rad = (s["origin"], s["direction"], s["beta"],
                                         s["rad"])
@@ -616,7 +913,7 @@ def render_pixels_refill(
             sort_key = torch.where(
                 active & was_fresh, bucket * 64 + _direction_bin(direction),
                 torch.where(active, 1 << 27, 2 ** 30))
-            perm = torch.argsort(sort_key, stable=True)
+            perm, inv = replay(("perm", it), lambda: _sort_perm(sort_key, track))
             ints = (slot, pix, samp, samp_left, keys, depth, kind, active,
                     was_fresh, prim_ok, prim_hit, prim_tri, pend_slot,
                     pend_count, shade, take, pixel_done, slot_done)
@@ -626,7 +923,7 @@ def render_pixels_refill(
                     perm,
                     (origin, direction, beta, rad, pend_r, pend_g, pend_b,
                      prim_t[:, None], p, pn, kd, beta_nee),
-                    ints + (keys_nee, depth_nee))
+                    ints + (keys_nee, depth_nee), inv)
                 keys_nee, depth_nee = ints_p[-2:]
                 u2 = rng.bounce_uniforms(keys_nee, depth_nee, n_slots)
                 so_s, dirn_s, contrib, ok_n, dist_n, smat_n = _nee_prep(
@@ -642,7 +939,7 @@ def render_pixels_refill(
                      so_s.permute(1, 0, 2).reshape(r, 3 * l),
                      dirn_s.permute(1, 0, 2).reshape(r, 3 * l),
                      contrib.permute(1, 0, 2).reshape(r, 3 * l)),
-                    ints + (ok_n.T, smat_n.T))
+                    ints + (ok_n.T, smat_n.T), inv)
                 dist_n = f_pack[:, 1:].T
                 so_s = so_p.reshape(r, l, 3).permute(1, 0, 2)
                 dirn_s = dn_p.reshape(r, l, 3).permute(1, 0, 2)
@@ -657,7 +954,7 @@ def render_pixels_refill(
         ray_o = torch.where((active & was_fresh)[:, None], origin, 1e9)
         all_o = torch.cat([ray_o] + [so_s[i] for i in range(num_lights)])
         all_d = torch.cat([direction] + [dirn_s[i] for i in range(num_lights)])
-        hit_q, t_q, tri_q = isect(all_o, all_d)
+        hit_q, t_q, tri_q = replay(("isect", it), lambda: isect(all_o, all_d))
         hit2, t2, tri2 = hit_q[:r], t_q[:r], tri_q[:r]
         hs = hit_q[r:].reshape(num_lights, r)
         ts = t_q[r:].reshape(num_lights, r)
@@ -731,6 +1028,42 @@ def render_pixels_refill(
     # Channel-major film with r * n_pend spare columns for the dummies.
     film = torch.zeros((3, n_pix + r * n_pend), **f32)
 
+    def drained() -> bool:
+        return not bool(((s["q"] < n_pix) | s["active"].any()).item())
+
+    if differentiable:
+        e_seg = (opts.bwd_seg_per_sample if opts.bwd_seg_per_sample is not None
+                 else 1.2 / (1.0 - opts.rr_probability))
+        n_iter = int(np.ceil(n_pix * spp * e_seg / r)) + opts.max_depth + spp + 4
+        k_steps = n_pend * spp
+
+        def block(b: int, st):
+            st = dict(st)
+            for k in range(k_steps):
+                step(st, b * k_steps + k)
+            out = (st["pend_slot"].reshape(-1),
+                   torch.stack([st[k].reshape(-1)
+                                for k in ("pend_r", "pend_g", "pend_b")]))
+            zero = torch.zeros((r, n_pend), **f32)
+            st.update(pend_slot=dummy_pend, pend_count=torch.zeros((r,), **i32),
+                      pend_r=zero, pend_g=zero, pend_b=zero)
+            return st, out
+
+        outs = []
+        for b in range(-(-n_iter // k_steps)):
+            if drained():
+                break
+            s, out = (checkpoint(block, b, s, use_reentrant=False,
+                                 preserve_rng_state=False) if track
+                      else block(b, s))
+            outs.append(out)
+        # Real slots are unique over the frame; dummies repeat across blocks
+        # and land in the spare columns.
+        film = film.index_add(1, torch.cat([o[0] for o in outs]).long(),
+                              torch.cat([o[1] for o in outs], dim=1))
+        n_rays = s["n_rays"] if drained() else -s["n_rays"]
+        return film[:, :n_pix].T / spp, n_rays
+
     def flush():
         # Real slots are unique (each pixel completes once per dispatch), so
         # every film entry receives one add and the order is immaterial.
@@ -744,10 +1077,9 @@ def render_pixels_refill(
     flush_every = max(1, n_pend * spp)
     i = 0
     while True:
-        if i % check_every == 0 and not bool(
-                ((s["q"] < n_pix) | s["active"].any()).item()):
+        if i % check_every == 0 and drained():
             break
-        step(s)
+        step(s, i)
         if (i + 1) % flush_every == 0:
             flush()
         i += 1
@@ -755,42 +1087,72 @@ def render_pixels_refill(
     return film[:, :n_pix].T / spp, s["n_rays"]
 
 
+@functools.lru_cache(maxsize=16)
+def _first_slots(h: int, w: int, tile: int):
+    """For each pixel of an h x w frame, the first slot of the tile-swizzled
+    id list that holds it (host numpy, read-only)."""
+    return np.unique(_tile_swizzled_ids(h, w, tile), return_index=True)[1]
+
+
 def _frame_ids(scene, opts: RenderOptions):
+    """(swizzled pixel ids (n_slots,) on the scene's device, their
+    arithmetic twin)."""
     h, w = scene.camera.height, scene.camera.width
     tile = swizzle_tile(opts, scene.num_tris_padded)
     ids = torch.as_tensor(_tile_swizzled_ids(h, w, tile), device=scene.device)
     return ids, _swizzle_pixel_fn(h, w, tile)
 
 
-def _assemble_frame(acc, ids, h: int, w: int, spp: int):
-    """(H, W, 3) frame from the swizzled per-slot sums.  Duplicate ids (edge
-    tile clamps) carry bitwise-identical values."""
-    flat = acc.new_zeros((h * w, 3))
-    flat[ids.long()] = acc / spp
-    return flat.reshape(h, w, 3)
+def _chunked_ids(ids, chunk: int):
+    """(n_chunks, chunk) pixel ids, the last chunk padded with the last id."""
+    pad = (-ids.shape[0]) % chunk
+    return torch.cat([ids, ids[-1:].expand(pad)]).reshape(-1, chunk)
+
+
+def _assemble_frame(acc, scene, opts: RenderOptions, spp: int):
+    """(H, W, 3) frame from sums over _frame_ids' slots (padded chunks may
+    add slots past them): each pixel from its first slot.  A duplicate id
+    (an edge-tile clamp, a chunk's padding) renders the same value, and only
+    its first slot is read, so each pixel's gradient is counted once, as in
+    the JAX package's scatter."""
+    h, w = scene.camera.height, scene.camera.width
+    first = _first_slots(h, w, swizzle_tile(opts, scene.num_tris_padded))
+    return (acc.index_select(0, torch.as_tensor(first, device=acc.device))
+            / spp).reshape(h, w, 3)
 
 
 def render_image_stats(scene: SceneArrays, bvh, opts: RenderOptions,
                        differentiable: bool = False, sample_offset: int = 0,
                        device=None):
-    """Full-frame render -> ((H, W, 3) f32 radiance, rays traced), the whole
-    frame's queue drained through one ``opts.chunk_size`` lane pool.
-    ``sample_offset`` slides the absolute sample window (progressive and
-    resumed renders continue the same per-pixel RNG streams)."""
-    if differentiable:
-        raise NotImplementedError(
-            "the differentiable renderer is not ported yet (ROADMAP.md item A12)")
-    if not opts.refill:
-        raise NotImplementedError(
-            "refill=False (the scan-over-samples renderer) is not ported yet "
-            "(ROADMAP.md item A8)")
+    """Full-frame render -> ((H, W, 3) f32 radiance, rays traced).
+
+    With ``opts.refill`` the whole frame's queue drains through one
+    ``opts.chunk_size`` lane pool; otherwise pixel chunks of
+    ``opts.chunk_size`` lanes (the last padded with its last id) go through
+    the scan over samples one after another.  ``sample_offset`` slides the
+    absolute sample window (progressive and resumed renders continue the
+    same per-pixel RNG streams).  ``differentiable=True`` makes the image a
+    function of the scene's material and light tensors for autograd
+    (montecarlopathtracing_torch.diff.gradients).
+    """
     scene = scene.to(resolve_device(device))
     h, w = scene.camera.height, scene.camera.width
     chunk = min(opts.chunk_size, max(1024, h * w))
     ids, pixel_fn = _frame_ids(scene, opts)
-    out, rays = render_pixels_refill(scene, bvh, opts, ids, sample_offset,
-                                     lanes=chunk, pixel_fn=pixel_fn)
-    return _assemble_frame(out, ids, h, w, 1), rays
+    if opts.refill:
+        out, rays = render_pixels_refill(scene, bvh, opts, ids, sample_offset,
+                                         lanes=chunk,
+                                         differentiable=differentiable,
+                                         pixel_fn=pixel_fn)
+        return _assemble_frame(out, scene, opts, 1), rays
+    accel = intersector_tables(scene, opts)
+    outs, rays = [], 0
+    for pix in _chunked_ids(ids, chunk):
+        out, n = render_pixels(scene, bvh, opts, pix, differentiable,
+                               sample_offset=sample_offset, accel=accel)
+        outs.append(out)
+        rays = rays + n
+    return _assemble_frame(torch.cat(outs), scene, opts, 1), rays
 
 
 def render_image(scene: SceneArrays, bvh, opts: RenderOptions,
@@ -803,19 +1165,17 @@ def render_image(scene: SceneArrays, bvh, opts: RenderOptions,
 
 def render_image_host_chunked(scene: SceneArrays, bvh, opts: RenderOptions,
                               progress=None, retries: int = 0, device=None):
-    """Full-frame render as one lane-pool drain per spp chunk.
+    """Full-frame render as one dispatch per (pixel chunk, spp chunk).
 
-    Same result as render_image (identical RNG keying).  Each dispatch drains
-    the whole frame's queue for a slice of the samples; chunk sizes are
-    balanced (spp 25 at spp_chunk 8 renders 5 x 5, not 8+8+8+1).  A dispatch
-    that raises is run again up to ``retries`` times: its samples are keyed
-    by (pixel, absolute sample index), so a retry renders the same samples.
+    Same result as render_image (identical RNG keying).  With
+    ``opts.refill`` each dispatch drains the whole frame's queue for a slice
+    of the samples, chunk sizes balanced (spp 25 at spp_chunk 8 renders
+    5 x 5, not 8+8+8+1); otherwise each pixel chunk is rendered in
+    ``spp_chunk`` slices by the scan over samples.  A dispatch that raises
+    is run again up to ``retries`` times: its samples are keyed by (pixel,
+    absolute sample index), so a retry renders the same samples.
     Returns ((H, W, 3) f32 tensor on the render device, rays traced).
     """
-    if not opts.refill:
-        raise NotImplementedError(
-            "refill=False (the scan-over-samples renderer) is not ported yet "
-            "(ROADMAP.md item A8)")
     scene = scene.to(resolve_device(device))
     h, w = scene.camera.height, scene.camera.width
     chunk = min(opts.chunk_size, max(1024, h * w))
@@ -823,11 +1183,10 @@ def render_image_host_chunked(scene: SceneArrays, bvh, opts: RenderOptions,
     ids, pixel_fn = _frame_ids(scene, opts)
     accel = intersector_tables(scene, opts)
 
-    def dispatch(**kw):
+    def dispatch(fn, **kw):
         for attempt in range(retries + 1):
             try:
-                out = render_pixels_refill(scene, bvh, lanes=chunk,
-                                           pixel_fn=pixel_fn, accel=accel, **kw)
+                out = fn(scene, bvh, accel=accel, **kw)
                 if out[0].is_cuda:
                     torch.cuda.synchronize(out[0].device)  # surface faults here
                 return out
@@ -836,21 +1195,41 @@ def render_image_host_chunked(scene: SceneArrays, bvh, opts: RenderOptions,
                     raise
         raise AssertionError("unreachable")
 
+    total_rays = 0
+    if not opts.refill:
+        chunks = _chunked_ids(ids, chunk)
+        outs = []
+        for ci, pix in enumerate(chunks):
+            acc, done = None, 0
+            while done < opts.spp:
+                k = min(spp_chunk, opts.spp - done)
+                rad, rays = dispatch(render_pixels, opts=opts.replace(spp=k),
+                                     pixel_ids=pix, sample_offset=done)
+                acc = rad * k if acc is None else acc + rad * k
+                total_rays += int(rays)
+                done += k
+            outs.append(acc)
+            if progress is not None:
+                progress(ci + 1, chunks.shape[0])
+        return (_assemble_frame(torch.cat(outs), scene, opts, opts.spp),
+                float(total_rays))
+
     n_steps = -(-opts.spp // spp_chunk)
     for n in range(n_steps, min(2 * n_steps, opts.spp) + 1):
         if opts.spp % n == 0:
             n_steps = n
             break
     base, extra = divmod(opts.spp, n_steps)
-    acc, done, step, total_rays = None, 0, 0, 0
+    acc, done, step = None, 0, 0
     while done < opts.spp:
         k = base + (1 if step < extra else 0)
-        rad, rays = dispatch(opts=opts.replace(spp=k), pixel_ids=ids,
-                             sample_offset=done)
+        rad, rays = dispatch(render_pixels_refill, opts=opts.replace(spp=k),
+                             pixel_ids=ids, sample_offset=done, lanes=chunk,
+                             pixel_fn=pixel_fn)
         acc = rad * k if acc is None else acc + rad * k
         total_rays += int(rays)
         done += k
         step += 1
         if progress is not None:
             progress(step, n_steps)
-    return _assemble_frame(acc, ids, h, w, opts.spp), float(total_rays)
+    return _assemble_frame(acc, scene, opts, opts.spp), float(total_rays)

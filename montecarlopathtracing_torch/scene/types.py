@@ -147,3 +147,15 @@ def scene_from_numpy(fields: Mapping[str, np.ndarray], camera: Mapping[str, Any]
            for k in _CAMERA_KEYS},
         width=int(camera["width"]), height=int(camera["height"]))
     return SceneArrays(**tensors, camera=cam)
+
+
+def scene_params_from_numpy(fields: Mapping[str, np.ndarray], device):
+    """Build a ``diff.gradients.SceneParams`` from numpy arrays (another
+    package's parameters pulled to the host, perturbed or not), keeping
+    every dtype and value.  ``fields`` maps kd, ks, ns, light_radiance and
+    atlas to arrays."""
+    from ..diff.gradients import PARAM_FIELDS, SceneParams
+
+    device = torch.device(device)
+    return SceneParams(**{f: torch.tensor(np.asarray(fields[f]), device=device)
+                          for f in PARAM_FIELDS})

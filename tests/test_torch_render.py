@@ -173,13 +173,13 @@ def test_render_progressive_resume(scene_dir, tmp_path):
 def test_unported_paths_raise(scene_dir):
     opts = RenderOptions(**BASE)
     ts, _ = tbuild(scene_dir, "one_light", opts, device="cpu")
-    for kw, item in ((dict(intersector="bvh"), "A11"),
-                     (dict(intersector="bvh_perray"), "A11"),
-                     (dict(refill=False), "A8")):
-        with pytest.raises(NotImplementedError, match=item):
+    for kw in (dict(intersector="bvh"), dict(intersector="bvh_perray")):
+        with pytest.raises(NotImplementedError, match="A11"):
             twf.render_image_stats(ts, None, opts.replace(**kw), device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        twf.render_image_stats(ts, None, opts, differentiable=True, device="cpu")
+    from montecarlopathtracing_torch.diff.gradients import (
+        make_distributed_train_step)
+    with pytest.raises(NotImplementedError, match="A14"):
+        make_distributed_train_step(ts, None, opts, mesh=None)
     with pytest.raises(NotImplementedError):
         twf.resolve_plan(RenderOptions(intersector="cluster_interpret"), 16)
     assert twf.resolve_plan(RenderOptions(), 16)[0] == "cluster"

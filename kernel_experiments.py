@@ -22,8 +22,9 @@ includes ``torch.sort`` where the package sorts outside the kernel).  Prints
 one JSON line per (frame, kernel, variant): mean, median, slowest and total
 ms, slowest over mean.  The first ``--check`` calls of each frame are also held
 exactly equal to the plain version, under every variant that computes
-results.  ``--sass FILE`` writes ``cuobjdump -sass`` of the key kernel's
-library to FILE (to count the instructions of its inner loop).
+results.  ``--sass FILE`` writes ``cuobjdump -sass`` of the key kernel's and
+the chunked intersect kernel's libraries to FILE (to count the instructions
+of their inner loops); ``--frames ""`` then replays nothing.
 
 Variants, joined by "+" to combine two (each answers what one cause of lost time is worth):
 
@@ -56,6 +57,9 @@ Variants, joined by "+" to combine two (each answers what one cause of lost time
   list_unfused   key kernel writes keys, torch.sort orders them
                  (FUSED_SORT_MAX_CLUSTERS = 0: every table counts as past the
                  fused sort's limit)
+  count          chunked kernel built with -DMCPT_COUNT_STATS: blocks that
+                 find no row, (ray, triangle) pairs and warp steps that an
+                 exact plane-distance reject could skip (COUNTER_NAMES)
 
 ``--pkg-root DIR`` imports montecarlopathtracing_torch from DIR (a checkout
 of another commit), to compare two commits on one card in one call; a
@@ -119,6 +123,7 @@ VARIANTS = {
     "keys_cpt1": (("-DMCPT_KEYS_CLUSTERS_PER_THREAD=1",), {}, True),
     "keys_cpt2": (("-DMCPT_KEYS_CLUSTERS_PER_THREAD=2",), {}, True),
     "list_unfused": ((), {"FUSED_SORT_MAX_CLUSTERS": 0}, True),
+    "count": (("-DMCPT_COUNT_STATS",), {}, True),
 }
 
 
@@ -184,9 +189,12 @@ def prepare(K, label, acc, origin, direction, mt):
             return (lambda: K.cluster_intersect_ftb(*args, chunk_cap=cap),
                     plain, counts)
         cand = K.cluster_keys_chunked_ftb(rays, cap, acc.caabb, tile)[2]
-        return (lambda: K.cluster_intersect_ftb(
-            rays, counts, cand.order, cand.qkeys, acc.tconst, tile, mt,
-            chunk_cap=cap, row_list=cand.row_list), plain, counts)
+
+        def launch(counter=None):
+            return K.cluster_intersect_ftb(
+                rays, counts, cand.order, cand.qkeys, acc.tconst, tile, mt,
+                chunk_cap=cap, counter=counter, row_list=cand.row_list)
+        return launch, plain, counts, int(cand.heads.sum())
     rays8 = K.pack_rays(o, d)
     keys, counts, _ = K.cluster_keys(rays8, acc.caabb, tile, with_ids=False)
     order, qkeys = K._ftb_candidates(keys)
@@ -260,15 +268,85 @@ def prepare_keys(K, label, acc, origin, direction, mt):
     return launch, step, check
 
 
+# Counters of a -DMCPT_COUNT_STATS build of the chunked intersect kernel
+# (kCounters of its source): what each slot receives.
+COUNTER_NAMES = ("units_tested", "blocks_without_row", "pairs", "pairs_rejectable",
+                 "warp_steps", "warp_steps_all_reject", "steps_32x1",
+                 "steps_32x1_all_reject", "steps_16x2", "steps_16x2_all_reject")
+COUNTERS = 16
+
+
+def count_shares(totals, calls: int):
+    """The counters of a frame's calls, summed, and the shares they give."""
+    c = dict(zip(COUNTER_NAMES, totals))
+    out = {"counts": c,
+           "blocks_without_row_per_call": c["blocks_without_row"] / calls}
+    for a, b in (("pairs_rejectable", "pairs"),
+                 ("warp_steps_all_reject", "warp_steps"),
+                 ("steps_32x1_all_reject", "steps_32x1"),
+                 ("steps_16x2_all_reject", "steps_16x2")):
+        out[f"share_{a}"] = c[a] / max(1, c[b])
+    return out
+
+
 def write_sass(B, dest: str) -> None:
-    """cuobjdump -sass of the key kernel's library into the file ``dest``."""
-    path = B.build(["cluster_keys"])["cluster_keys"]["path"]
+    """cuobjdump -sass of the key kernel's and the chunked intersect
+    kernel's libraries into the file ``dest``, one after the other."""
     tool = os.path.join(os.path.dirname(B.find_nvcc()), "cuobjdump")
-    out = subprocess.run([tool, "-sass", path], check=True,
-                         capture_output=True, text=True, timeout=300).stdout
+    parts = []
+    for src in ("cluster_keys", "cluster_intersect_ftb"):
+        path = B.build([src])[src]["path"]
+        parts.append(f"// ==== {src}: {os.path.basename(path)}\n")
+        parts.append(subprocess.run([tool, "-sass", path], check=True,
+                                    capture_output=True, text=True,
+                                    timeout=300).stdout)
     os.makedirs(os.path.dirname(os.path.abspath(dest)), exist_ok=True)
     with open(dest, "w") as fh:
-        fh.write(out)
+        fh.write("".join(parts))
+
+
+def sass_loops(text: str, top: int = 3):
+    """The loops of each function of a ``cuobjdump -sass`` dump: for every
+    backward branch, the instructions from its target to it, and their mix
+    (float arithmetic, shared loads, spills: STL / LDL, calls).  Per
+    function, the ``top`` loops with the most float instructions (the test
+    loops) and the function's spills."""
+    import re
+
+    out, name, ins = [], None, []
+
+    def close():
+        if name is None:
+            return
+        addr = {a: i for i, (a, _) in enumerate(ins)}
+        loops = []
+        for i, (a, op) in enumerate(ins):
+            m = re.search(r"\bBRA (?:`\(\.L_x_\d+\)`|0x([0-9a-f]+))", op)
+            if m and m.group(1) and int(m.group(1), 16) <= a:
+                body = [o for _, o in ins[addr[int(m.group(1), 16)]:i + 1]]
+                mix = {k: sum(1 for o in body if re.search(pat, o))
+                       for k, pat in (("float", r"\b(FMUL|FADD|FFMA|FSETP|FSEL|FMNMX|MUFU|FCHK)\b"),
+                                      ("lds", r"\bLDS"), ("sts", r"\bSTS"),
+                                      ("spill", r"\b(STL|LDL)\b"),
+                                      ("call", r"\bCALL\b"), ("bar", r"\bBAR\b"))}
+                loops.append({"from": hex(int(m.group(1), 16)), "to": hex(a),
+                              "instructions": len(body), **mix})
+        loops.sort(key=lambda l: -l["float"])
+        out.append({"function": name, "instructions": len(ins),
+                    "spills": sum(1 for _, o in ins if re.search(r"\b(STL|LDL)\b", o)),
+                    "loops": loops[:top]})
+
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            close()
+            name, ins = m.group(1), []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if m and name is not None:
+            ins.append((int(m.group(1), 16), m.group(2).strip()))
+    close()
+    return out
 
 
 def run_variants(args, B, K, label, kernel, calls, spp) -> None:
@@ -287,14 +365,21 @@ def run_variants(args, B, K, label, kernel, calls, spp) -> None:
                  "pairs_max_over_mean": max(pairs) * len(pairs) / sum(pairs),
                  "row_candidates_max": max(int(p[2].max()) for p in prepared),
                  "row_candidates_mean":
-                     sum(pairs) / sum(p[2].numel() for p in prepared)}
+                     sum(pairs) / sum(p[2].numel() for p in prepared),
+                 "rows_per_call": prepared[0][2].numel()}
+        if len(prepared[0]) > 3:  # the row list's length, per call
+            listed = [p[3] for p in prepared]
+            extra["listed_rows_mean"] = sum(listed) / len(listed)
+            extra["listed_rows_max"] = max(listed)
     for variant in args.variants.split(","):
         flags, switches, checked = (), {}, True
         for part in variant.split("+"):  # "a+b" combines two variants
             f, sw, ch = VARIANTS[part]
             flags, switches, checked = flags + f, {**switches, **sw}, checked and ch
         if (flags and not hasattr(B, "EXTRA_FLAGS")) or any(
-                not hasattr(K, k) for k in switches):
+                not hasattr(K, k) for k in switches) or (
+                "-DMCPT_COUNT_STATS" in flags
+                and (kernel != "intersect" or label != "large400_chunked")):
             emit({"frame": label, "kernel": kernel, "variant": variant,
                   "skipped": "this package has no such switch", "tag": args.tag})
             continue
@@ -312,6 +397,8 @@ def run_variants(args, B, K, label, kernel, calls, spp) -> None:
                  for ln in B.build([src])[src]["log"].splitlines()
                  if "registers" in ln]
         ms, ms_order = [], []
+        counting = "-DMCPT_COUNT_STATS" in flags
+        totals = torch.zeros(COUNTERS, dtype=torch.int64)
         for i, prep in enumerate(prepared):
             if kernel == "keys":
                 launch, step, ok = prep
@@ -322,8 +409,13 @@ def run_variants(args, B, K, label, kernel, calls, spp) -> None:
                     raise AssertionError(f"{label}/keys/{variant}: call {i} "
                                          "differs from the plain version")
                 continue
-            launch, plain, _ = prep
-            t, got = timed(launch)
+            launch, plain = prep[:2]
+            if counting:
+                ctr = torch.zeros(COUNTERS, dtype=torch.int64, device="cuda")
+                t, got = timed(lambda: launch(ctr))
+                totals += ctr.cpu()
+            else:
+                t, got = timed(launch)
             ms.append(t)
             if checked and i < args.check:
                 want = plain()
@@ -333,13 +425,15 @@ def run_variants(args, B, K, label, kernel, calls, spp) -> None:
                         "plain version")
         for k, v in saved.items():
             setattr(K, k, v)
-        mean = sum(ms) / len(ms)
-        extra["ms_median"] = sorted(ms)[len(ms) // 2]
+        more = dict(extra, ms_median=sorted(ms)[len(ms) // 2])
+        if counting:
+            more.update(count_shares(totals.tolist(), len(ms)))
         if ms_order:
-            extra["ms_order_mean"] = sum(ms_order) / len(ms_order)
+            more["ms_order_mean"] = sum(ms_order) / len(ms_order)
+        mean = sum(ms) / len(ms)
         emit({"frame": label, "kernel": kernel, "variant": variant,
               "calls": len(ms), "ms_mean": mean, "ms_max": max(ms),
-              "ms_total": sum(ms), "ms_max_over_mean": max(ms) / mean, **extra,
+              "ms_total": sum(ms), "ms_max_over_mean": max(ms) / mean, **more,
               "checked_calls": min(args.check, len(ms)) if checked else 0,
               "first_call_s": build_s, "ptxas": ptxas, "spp": spp,
               "tag": args.tag})
@@ -360,9 +454,17 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels", default="intersect",
                     help="steps to replay: intersect, keys or both (a,b)")
     ap.add_argument("--sass", default="", metavar="FILE",
-                    help="write the key kernel's SASS to FILE")
+                    help="write the key and chunked intersect kernels' SASS "
+                         "to FILE")
+    ap.add_argument("--sass-report", default="", metavar="FILE",
+                    help="print the loops of each function of a SASS dump "
+                         "(from --sass) and exit; runs without a card")
     ap.add_argument("--tag", default="", help="copied into every line")
     args = ap.parse_args(argv)
+    if args.sass_report:  # reads a dump written by --sass; needs no card
+        for fn in sass_loops(open(args.sass_report).read()):
+            emit(fn)
+        return 0
     if not torch.cuda.is_available():
         print("kernel_experiments: CUDA is not available", file=sys.stderr)
         return 1
@@ -382,7 +484,7 @@ def main(argv=None) -> int:
     if args.sass:
         write_sass(B, args.sass)
     scenes = {}
-    for label in args.frames.split(","):
+    for label in filter(None, args.frames.split(",")):
         n_tris, mode, name = FRAMES[label]
         if n_tris == 0:
             scenes[0] = load_builtin_box(width=1024, height=1024,

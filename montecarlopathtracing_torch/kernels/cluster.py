@@ -791,9 +791,12 @@ def _check_ftb_inputs(name, rays, counts, order, qkeys, tconst, tile, mt,
         raise ValueError(f"{name}: the table's column count {cols} must be a "
                          "power of two")
     if counter is not None and (counter.dtype != torch.int64
-                                or counter.numel() != 1
+                                or counter.numel() < 1
+                                or not counter.is_contiguous()
                                 or counter.device != dev):
-        raise ValueError(f"{name}: counter must be one int64 on {dev}")
+        raise ValueError(f"{name}: counter must be int64 on {dev} (one; a "
+                         "measurement build with -DMCPT_COUNT_STATS fills "
+                         "kCounters)")
     return dev
 
 

@@ -74,6 +74,70 @@ __device__ __forceinline__ int ordered_bits(int b) {
   return b ^ ((b >> 31) & 0x7fffffff);
 }
 
+#ifdef MCPT_COUNT_STATS
+// A measurement build only: `tested` is then an array of kCounters that
+// also receives
+//   [1] blocks that found no row on the list (list_row < 0),
+//   [2] (ray, triangle) pairs tested, [3] of them the pairs whose plane
+//       distance alone decides that they cannot change the ray's best:
+//       !(t > 0 && t < 1e30 && t <= best t of the testing thread),
+//   [4] warp steps (one test instruction stream over 32 lanes), [5] of
+//       them the steps in which every lane's pair is such a pair,
+//   [6] steps of a layout in which 32 lanes hold 32 rays of the subtile and
+//       read one column, [7] of them all-reject steps, [8] steps of a
+//       layout of 16 rays x 2 columns, [9] of them all-reject steps (both
+//       counted for subtiles of at most 64 rays, from this kernel's bests).
+constexpr int kCounters = 10;
+
+template <bool MT, class TriOf>
+__device__ __forceinline__ void count_piece(
+    const Ray (&r)[kRaysPerThread], const float4* slot, int ncols, int part,
+    int split, int first, int tile, float (&bt)[kRaysPerThread],
+    int (&bi)[kRaysPerThread], TriOf tri_of, unsigned (*s_keep)[2],
+    unsigned (&cnt)[kCounters]) {
+  for (int k = threadIdx.x; k < 2 * kPieceCols; k += blockDim.x)
+    (&s_keep[0][0])[k] = 0u;
+  __syncthreads();
+  for (int c = part; c < ncols; c += split) {
+    const Col k = load_col(slot, c);
+#pragma unroll
+    for (int i = 0; i < kRaysPerThread; ++i) {
+      float t;
+      const bool hit = tri_test<MT>(r[i], k, t);
+      const int ray = first + i;
+      const bool valid = ray < tile;
+      const bool rej = !(t > 0.0f && t < kBig && t <= bt[i]);
+      cnt[2] += valid;
+      cnt[3] += valid && rej;
+      const unsigned act = __activemask();
+      const bool all = __all_sync(act, rej || !valid);
+      if ((int)(threadIdx.x & 31) == __ffs(act) - 1) {
+        cnt[4] += 1;
+        cnt[5] += all;
+      }
+      if (valid && !rej && ray < 64)
+        atomicOr(&s_keep[c][ray >> 5], 1u << (ray & 31));
+      if (hit) lex_min(bt[i], bi[i], t, tri_of(c));
+    }
+  }
+  __syncthreads();
+  if (tile > 64) return;
+  for (int c = threadIdx.x; c < ncols; c += blockDim.x) {
+    for (int h = 0; h * 32 < tile; ++h) {
+      cnt[6] += 1;
+      cnt[7] += s_keep[c][h] == 0u;
+    }
+    if ((c & 1) || c + 1 >= ncols) continue;
+    for (int q = 0; q * 16 < tile; ++q) {
+      const int sh = (q & 1) * 16;
+      cnt[8] += 1;
+      cnt[9] += ((s_keep[c][q >> 1] >> sh) & 0xffffu) == 0u &&
+                ((s_keep[c + 1][q >> 1] >> sh) & 0xffffu) == 0u;
+    }
+  }
+}
+#endif
+
 // rays     (n_subtiles * tile, ray_stride) f32 rows, shared by all chunks
 // chunk_cap (n_chunks, n_subtiles * tile) f32 or null.  Given: the cap of
 //          each (chunk, ray), and a ray whose cap is < 0 is parked for that
@@ -107,6 +171,12 @@ cluster_ftb_kernel(
   __shared__ int s_bound[2][kMaxThreads / 32];  // [piece parity][warp]
 
   const int listed = list_row(heads, wrows, gridDim.x, blockIdx.x);
+#ifdef MCPT_COUNT_STATS
+  __shared__ unsigned s_keep[kPieceCols][2];
+  unsigned cnt[kCounters] = {};
+  if (listed < 0 && tested != nullptr && threadIdx.x == 0 && blockIdx.y == 0)
+    atomicAdd(tested + 1, 1ull);
+#endif
   if (listed < 0) return;  // past the list: the preset misses stand
   const size_t row = listed;
   const int n_split = gridDim.y;
@@ -177,8 +247,14 @@ cluster_ftb_kernel(
     }
     if (p == 0) ++done;
     const int base = cand[j] * unit_cols + p * kPieceCols;
+#ifdef MCPT_COUNT_STATS
+    count_piece<MT>(r, s_ring + (i % kStages) * 4 * pcols, pcols, part, split,
+                    first, tile, bt, bi, [&](int c) { return base + c; },
+                    s_keep, cnt);
+#else
     test_piece<MT>(r, s_ring + (i % kStages) * 4 * pcols, pcols, part, split,
                    bt, bi, [&](int c) { return base + c; });
+#endif
     if (i + 1 < n_mine && j != (q + n_split) >> pshift) {
       // This block's share of unit j is done: the bound for its next unit,
       // max over this warp's rays of min(best t of the ray, cap).
@@ -211,6 +287,15 @@ cluster_ftb_kernel(
   __pipeline_wait_prior(0);  // a guessed copy may still be in flight
   if (tested != nullptr && threadIdx.x == 0)
     atomicAdd(tested, (unsigned long long)done);
+#ifdef MCPT_COUNT_STATS
+  if (tested != nullptr) {
+#pragma unroll
+    for (int k = 2; k < kCounters; ++k) {
+      const unsigned s = __reduce_add_sync(0xffffffffu, cnt[k]);
+      if ((threadIdx.x & 31) == 0) atomicAdd(tested + k, (unsigned long long)s);
+    }
+  }
+#endif
 
 #pragma unroll
   for (int i = 0; i < kRaysPerThread; ++i) {

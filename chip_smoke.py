@@ -55,7 +55,11 @@ exits non-zero):
             backward pass (must be 0); (d) five diff.gradients.train_step
             calls at 256 x 256, spp 4, max_depth 8, from a grey red wall
             toward a target rendered with the true kd: the loss must fall and
-            the red kd move toward the truth;
+            the red kd move toward the truth; (e) a gradient through the
+            chunked plan (the 2k-triangle interior past lowered table
+            budgets, 3 chunks, MODERN, 32 x 32) on the card against the CPU
+            within (a)'s tolerance, rows 3 and 4 launched in the forward pass
+            and no key or intersect kernel in the backward pass;
 8. timing   every intersect call of the four frames replayed: each kernel
             and its plain version on the call's inputs, checked exactly
             equal and timed (CUDA events, device time only), with its bound,
@@ -72,7 +76,10 @@ exits non-zero):
             (library_ms: the library call for the ordering part);
             for the front-to-back kernels also the (subtile, candidate) pairs
             tested, against all candidate pairs and against the pairs no
-            exact exit could skip;
+            exact exit could skip; row 4 also under two measurement builds of
+            its source: its tests compiled out (ms_skip_tests), and its
+            counters (rows taken per call, blocks that took none, the share
+            of (ray, triangle) pairs its plane distance decided);
 9. a "kernels" line with one row per ported kernel, then the card's
    nvidia-smi line, then the last line {"ok": true, "device": {...}}.
 
@@ -479,11 +486,13 @@ def ftb_pairs(bt, cap, counts, qkeys, tile: int, counter):
     """(candidate pairs, pairs the kernel tested, pairs no exact exit could
     skip): per (chunk, subtile) row, all candidates, the kernel's count, and
     the candidates whose key is <= the row's final max over rays of
-    min(best t, cap)."""
+    min(best t, cap).  ``bt`` is the result over every chunk (R,), the least
+    best any exit could know; ``cap`` (K, R) or (R,)."""
     from montecarlopathtracing_torch.kernels import cluster as K
 
-    need = K.ftb_needed(bt.reshape(-1), cap.reshape(-1), counts, qkeys, tile)
-    return int(counts.sum()), int(counter), int(need.sum())
+    k_n = cap.numel() // bt.numel()
+    need = K.ftb_needed(bt.repeat(k_n), cap.reshape(-1), counts, qkeys, tile)
+    return int(counts.sum()), int(counter[0]), int(need.sum())
 
 
 def chunked_call(acc, origin, direction, mt: bool, tile: int, sleep: float,
@@ -514,14 +523,17 @@ def chunked_call(acc, origin, direction, mt: bool, tile: int, sleep: float,
     lib_ms = sort_ms(keys, sleep)
     ms2, late2, (bt, bi) = timed(lambda: K.cluster_intersect_ftb(
         rays, counts, fused.order, fused.qkeys, acc.tconst, tile, mt,
-        chunk_cap=cap, row_list=fused.row_list), sleep, warm=True)
+        chunk_cap=cap, row_list=fused.row_list, offsets=acc.offsets), sleep,
+        warm=True)
     pm2, _, (bt_p, bi_p) = timed(lambda: K.cluster_intersect_ftb_plain(
-        rays, counts, order, qkeys, acc.tconst, tile, mt, chunk_cap=cap), sleep)
+        rays, counts, order, qkeys, acc.tconst, tile, mt, chunk_cap=cap,
+        offsets=acc.offsets), sleep)
     check(torch.equal(bt, bt_p) and torch.equal(bi, bi_p),
           f"{label}: front-to-back intersect differs from the plain version")
     bt_s, bi_s = K.cluster_intersect_ftb(rays, counts, order, qkeys, acc.tconst,
                                          tile, mt, chunk_cap=cap,
-                                         row_list=fused.row_list)
+                                         row_list=fused.row_list,
+                                         offsets=acc.offsets)
     check(torch.equal(bt, bt_s) and torch.equal(bi, bi_s),
           f"{label}: the kernel fed by the fused list differs from the kernel "
           "fed by the sorted list")
@@ -529,7 +541,8 @@ def chunked_call(acc, origin, direction, mt: bool, tile: int, sleep: float,
     bt_c, bi_c = K.cluster_intersect_ftb(rays, counts, fused.order, fused.qkeys,
                                          acc.tconst, tile, mt, chunk_cap=cap,
                                          counter=counter,
-                                         row_list=fused.row_list)
+                                         row_list=fused.row_list,
+                                         offsets=acc.offsets)
     check(torch.equal(bt, bt_c) and torch.equal(bi, bi_c),
           f"{label}: the pair counter changed the result")
     cand, tested, needed = ftb_pairs(bt, cap, counts, qkeys, tile, counter)
@@ -541,6 +554,7 @@ def chunked_call(acc, origin, direction, mt: bool, tile: int, sleep: float,
                 & (rays[:, 0].reshape(-1, tile).repeat(k_n, 1) <= 5e8))
                .any(dim=1).sum())
     # Out: counts, order and qkeys of the candidates, one int per listed row.
+    # The intersect kernel's out: one 8-byte join word per ray.
     key_row = {"ms": msl, "plain_ms": pm1, "late": latel,
                "ms_keys_only": ms1, "library_ms": lib_ms,
                "bytes": 4 * (r * 8 + k_n * r + k_n * 8 * c + n_rows + 2 * cand
@@ -548,11 +562,12 @@ def chunked_call(acc, origin, direction, mt: bool, tile: int, sleep: float,
                "ops": OPS_KEY_PAIR * live * tile * c}
     isect_row = {"ms": ms2, "plain_ms": pm2, "late": late2,
                  "bytes": 4 * (r * rays.shape[1] + k_n * r + n_rows + 2 * needed
-                               + min(k_n * c, needed) * 16 * w + 2 * k_n * r),
+                               + min(k_n * c, needed) * 16 * w + 2 * r),
                  "ops": OPS_TRI_PAIR * tile * w * needed,
                  "ops_all": OPS_TRI_PAIR * tile * w * cand}
     return {"keys": key_row, "isect": isect_row, "cand": cand, "tested": tested,
             "needed": needed, "rays": origin.shape[0],
+            "listed": int(fused.heads.sum()),
             "err_keys": max_err(keys, keys_p), "err_t": max_err(bt, bt_p)}
 
 
@@ -622,6 +637,62 @@ def hbm_call(acc, origin, direction, mt: bool, tile: int, sleep: float,
             "err_keys": max_err(keys, keys_p), "err_t": max_err(bt, bt_p)}
 
 
+# Counters of the chunked intersect kernel's -DMCPT_COUNT_STATS build
+# (kCounters of csrc/cluster_intersect_ftb.cu).
+FTB_COUNTERS = ("units_tested", "blocks_without_row", "pairs", "pairs_rejected",
+                "warp_steps", "warp_steps_all_reject", "edge_batches",
+                "edge_pairs", "rows")
+
+
+def ftb_measurement_builds(calls, tile: int):
+    """Row 4 on every chunked call of the frame under two measurement builds
+    of its source: with the triangle tests compiled out (-DMCPT_SKIP_TESTS:
+    what a launch costs besides its tests, device ms) and with its counters
+    (-DMCPT_COUNT_STATS: rows taken, blocks that took none, the pairs that
+    the plane distance decided, the edge-test batches)."""
+    from montecarlopathtracing_torch.kernels import build as B
+    from montecarlopathtracing_torch.kernels import cluster as K
+
+    sleep = sleep_ms()
+    ms, totals = [], torch.zeros(16, dtype=torch.int64)
+    try:
+        for flag in ("-DMCPT_SKIP_TESTS", "-DMCPT_COUNT_STATS"):
+            B.EXTRA_FLAGS = (flag,)
+            B.load.cache_clear()
+            for acc, origin, direction, mt in calls:
+                o, d, _, tl = K._shape_and_pad(origin, direction, tile, MEGA)
+                cap = K.chunk_caps(acc, o, d)
+                rays = K.pack_rays(o, d, mt=mt)
+                _, counts, cand = K.cluster_keys_chunked_ftb(rays, cap,
+                                                             acc.caabb, tl)
+                ctr = (torch.zeros(16, dtype=torch.int64, device=rays.device)
+                       if flag == "-DMCPT_COUNT_STATS" else None)
+                run = lambda: K.cluster_intersect_ftb(
+                    rays, counts, cand.order, cand.qkeys, acc.tconst, tl, mt,
+                    chunk_cap=cap, counter=ctr, row_list=cand.row_list,
+                    offsets=acc.offsets)
+                if ctr is None:
+                    ms.append(timed(run, sleep, warm=True)[0])
+                else:
+                    run()
+                    totals += ctr.cpu()
+    finally:
+        B.EXTRA_FLAGS = ()
+        B.load.cache_clear()
+    c = dict(zip(FTB_COUNTERS, totals.tolist()))
+    n = len(calls)
+    out = {"ms_skip_tests": sum(ms) / n, "rows_per_call": c["rows"] / n,
+           "blocks_without_row_per_call": c["blocks_without_row"] / n,
+           "pairs_rejected_share": c["pairs_rejected"] / max(1, c["pairs"]),
+           "warp_steps_all_reject_share":
+               c["warp_steps_all_reject"] / max(1, c["warp_steps"]),
+           "edge_lanes_used": c["edge_pairs"] / max(1, 32 * c["edge_batches"]),
+           "counts": c}
+    emit({"phase": "kernel_measurement_builds", "case": "large400_chunked",
+          "kernel": "cluster_intersect_ftb", "calls": n, **out})
+    return out
+
+
 def ftb_frame_stats(calls, call_fn, tile: int, label: str, names):
     """Replay every intersect call of a 400k frame through ``call_fn``
     (chunked_call or hbm_call).  ``names`` = (key kernel, intersect kernel).
@@ -637,6 +708,8 @@ def ftb_frame_stats(calls, call_fn, tile: int, label: str, names):
     pairs = {"candidate_pairs": cand, "tested_pairs": tested,
              "unskippable_pairs": needed, "tested_share": tested / cand,
              "candidate_pairs_max": max(r["cand"] for r in recs)}
+    if "listed" in recs[0]:  # the row list's length per call
+        pairs["listed_rows_per_call"] = sum(r["listed"] for r in recs) / len(recs)
     # The intersect kernel's bound had every candidate been tested, beside
     # the bound over the pairs no exact exit could skip.
     pairs["bound_ms_all_candidates"] = sum(
@@ -733,6 +806,8 @@ def phase_timing(state):
                              ("large400_hbm", hbm_call, PATH_KERNELS["hbm"])):
         calls = state.pop(f"calls_{label}")
         state[f"time_{label}"] = ftb_frame_stats(calls, fn, 64, label, names)
+        if label == "large400_chunked":
+            state["ftb_builds"] = ftb_measurement_builds(calls, 64)
         del calls
         torch.cuda.empty_cache()
 
@@ -1200,6 +1275,62 @@ def phase_grad(dev, state):
           "seconds": secs})
 
 
+def phase_grad_chunked(dev, state):
+    """Phase grad (e): a gradient through the chunked plan on the card
+    against the CPU.  The table budgets are lowered as tests/test_torch_large
+    lowers them, so the 2k-triangle interior (2,048 padded triangles) is past
+    the single-table budget and cut into 3 chunks; MODERN, 32 x 32, spp 2,
+    max_depth 5, subtiles of 16 rays.  Keys and intersect are counted in the
+    forward pass (rows 3 and 4, > 0) and in the backward pass (0)."""
+    from montecarlopathtracing_torch.config import MODERN, RenderOptions
+    from montecarlopathtracing_torch.diff import gradients as G
+    from montecarlopathtracing_torch.integrator import wavefront as W
+    from montecarlopathtracing_torch.kernels import cluster as K
+    from montecarlopathtracing_torch.scene.builtin import load_builtin_large
+
+    opts = RenderOptions(spp=2, max_depth=5, seed=11, cluster_width=4,
+                         cluster_rays=16, sort_rays=True, compat=MODERN)
+    target = np.random.default_rng(6).uniform(0.1, 0.6, (32, 32, 3)).astype(
+        np.float32)
+    saved = W._VMEM_TABLE_BUDGET, W._VMEM_CHUNK_BUDGET
+    W._VMEM_TABLE_BUDGET, W._VMEM_CHUNK_BUDGET = 64 << 10, 48 << 10
+    grads, launches = {}, {}
+    try:
+        for name in ("cuda", "cpu"):
+            scene, _ = load_builtin_large(n_tris=2000, options=opts, width=32,
+                                          height=32, n_textures=1, device=name)
+            plan = W.resolve_plan(opts, scene.num_tris_padded)
+            check(plan == ("cluster", 128, 1, 3),
+                  f"grad (e): expected the chunked plan, got {plan}")
+            leaves = G.SceneParams.from_scene(scene).leaves(name)
+            K.reset_launch_counts()
+            img, rays = W.render_image_stats(G.apply_params(scene, leaves), None,
+                                             opts, differentiable=True,
+                                             device=name)
+            loss = torch.mean((img - torch.as_tensor(target, device=name)) ** 2)
+            fwd = K.launch_counts()
+            K.reset_launch_counts()
+            grads[name] = G.param_grads(loss, leaves)
+            launches[name] = (fwd, K.launch_counts())
+            check(int(rays) > 0, f"grad (e): the budget truncated the render "
+                                 f"on {name} (n_rays {int(rays)})")
+    finally:
+        W._VMEM_TABLE_BUDGET, W._VMEM_CHUNK_BUDGET = saved
+    fwd, bwd = launches["cuda"]
+    check_launched(fwd, PATH_KERNELS["chunked"], "grad (e) forward")
+    check(all(v == 0 for v in bwd.values()),
+          f"grad (e): the backward pass launched key or intersect kernels: {bwd}")
+    check(grads_finite(grads["cuda"]), "grad (e): non-finite gradients on the card")
+    errs, ok = grad_errors(grads["cpu"], grads["cuda"])
+    check(ok, f"grad (e): card gradients differ from the CPU's: {errs}")
+    check(float(grads["cuda"].kd.abs().max()) > 0, "grad (e): zero kd gradient")
+    emit({"phase": "grad_chunked_card_vs_cpu", "width": 32, "height": 32,
+          "spp": 2, "max_depth": 5, "plan": list(plan),
+          "tolerance": "atol 1e-6 + 1e-4 x field max",
+          "max_abs_err_and_scale": errs, "launches_forward": fwd,
+          "launches_backward": bwd})
+
+
 def phase_parity(dev, state):
     from montecarlopathtracing_torch.config import MODERN, RenderOptions
     from montecarlopathtracing_torch.integrator.wavefront import render_image_stats
@@ -1258,6 +1389,7 @@ def main() -> int:
     phase_parity(dev, state)
     phase_scan(dev)
     phase_grad(dev, state)
+    phase_grad_chunked(dev, state)
     phase_timing(state)
 
     csrc = "montecarlopathtracing_torch/kernels/csrc/"
@@ -1320,6 +1452,11 @@ def main() -> int:
             row["ms_keys_only"] = t["ms_keys_only"]
         if "pairs" in stats and name.startswith("cluster_intersect"):
             row.update(stats["pairs"])
+        if name == "cluster_intersect_ftb":
+            fb = state["ftb_builds"]
+            row.update(ms_skip_tests=fb["ms_skip_tests"],
+                       pairs_rejected_share=fb["pairs_rejected_share"],
+                       blocks_without_row_per_call=fb["blocks_without_row_per_call"])
         rows.append(row)
     emit({"kernels": rows})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

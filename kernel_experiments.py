@@ -18,7 +18,9 @@ the steps: ``intersect`` (the intersect wrapper: kernel plus whatever the
 wrapper does around it, a sort of the rows in older checkouts) and ``keys``
 (the key wrapper as the frame's path calls it; ``ms_mean`` is that launch,
 ``ms_order_mean`` the whole step up to an ordered candidate list, which
-includes ``torch.sort`` where the package sorts outside the kernel).  Prints
+includes ``torch.sort`` where the package sorts outside the kernel).  On the
+chunked frame ``ms_step_mean`` is the intersect step up to the merged (R,)
+result, with the PyTorch merge of the K chunks in a package that runs one.  Prints
 one JSON line per (frame, kernel, variant): mean, median, slowest and total
 ms, slowest over mean.  The first ``--check`` calls of each frame are also held
 exactly equal to the plain version, under every variant that computes
@@ -46,8 +48,15 @@ Variants, joined by "+" to combine two (each answers what one cause of lost time
   hbm_split1, hbm_split2, hbm_split4, hbm_split8, hbm_split32   supergroup
                  kernel with a subtile's pieces dealt out to 1 / 2 / 4 / 8 /
                  32 blocks instead of 16
-  ftb_split2, ftb_split4   chunked kernel with a row's clusters dealt out
-                 to 2 / 4 blocks instead of 1
+  ftb_no_reject  chunked kernel built with -DMCPT_FTB_NO_REJECT: every pair
+                 goes on to the edge tests, none is decided by its plane
+                 distance (lever a off)
+  ftb_no_seed    built with -DMCPT_FTB_NO_SEED: a row's bests start at the
+                 miss, not at the join words that other chunks' rows have
+                 lowered already
+  ftb_grid_rows  chunked kernel launched with one block per row, listed or
+                 not (FTB_GRID_BLOCKS large), instead of as many blocks as
+                 the card holds at once (lever b off)
   keys_no_octant   key kernel built with -DMCPT_KEYS_NO_OCTANT: near and far
                  plane by select per pair, as before the octant bodies
   keys_always_repair  built with -DMCPT_KEYS_ALWAYS_REPAIR: selects and the
@@ -57,9 +66,10 @@ Variants, joined by "+" to combine two (each answers what one cause of lost time
   list_unfused   key kernel writes keys, torch.sort orders them
                  (FUSED_SORT_MAX_CLUSTERS = 0: every table counts as past the
                  fused sort's limit)
-  count          chunked kernel built with -DMCPT_COUNT_STATS: blocks that
-                 find no row, (ray, triangle) pairs and warp steps that an
-                 exact plane-distance reject could skip (COUNTER_NAMES)
+  count          chunked kernel built with -DMCPT_COUNT_STATS: rows taken,
+                 blocks that take none, (ray, triangle) pairs and warp steps
+                 decided by the plane distance, batches of edge tests and
+                 the pairs in them (COUNTER_NAMES)
 
 ``--pkg-root DIR`` imports montecarlopathtracing_torch from DIR (a checkout
 of another commit), to compare two commits on one card in one call; a
@@ -116,8 +126,9 @@ VARIANTS = {
     "hbm_split8": ((), {"HBM_SPLIT": 8}, True),
     "hbm_split4": ((), {"HBM_SPLIT": 4}, True),
     "hbm_split32": ((), {"HBM_SPLIT": 32}, True),
-    "ftb_split2": ((), {"FTB_SPLIT": 2}, True),
-    "ftb_split4": ((), {"FTB_SPLIT": 4}, True),
+    "ftb_no_reject": (("-DMCPT_FTB_NO_REJECT",), {}, True),
+    "ftb_no_seed": (("-DMCPT_FTB_NO_SEED",), {}, True),
+    "ftb_grid_rows": ((), {"FTB_GRID_BLOCKS": 1 << 30}, True),
     "keys_no_octant": (("-DMCPT_KEYS_NO_OCTANT",), {}, True),
     "keys_always_repair": (("-DMCPT_KEYS_ALWAYS_REPAIR",), {}, True),
     "keys_cpt1": (("-DMCPT_KEYS_CLUSTERS_PER_THREAD=1",), {}, True),
@@ -165,18 +176,38 @@ class Capture:
         return self.inner(accel, *args, **kw)
 
 
+def merged(K, acc, out):
+    """A chunked intersect result as one (R,) (t, global tri) pair: as it
+    is, or, from a package whose kernel returns (K, R) chunk-local results,
+    through the lexicographic merge that package ran after it."""
+    bt, bi = out
+    if bt.dim() == 1:
+        return bt, bi
+    hit_k = bi >= 0
+    tri_g = torch.where(hit_k, bi + acc.offsets[:, None], 2 ** 31 - 1)
+    t_k = torch.where(hit_k, bt, K.BIG)
+    best_t = torch.amin(t_k, dim=0)
+    best_i = torch.amin(torch.where(t_k == best_t[None], tri_g, 2 ** 31 - 1),
+                        dim=0)
+    return best_t, torch.where(best_t < K.BIG, best_i, -1)
+
+
 def prepare(K, label, acc, origin, direction, mt):
-    """(kernel launch closure, plain version closure, candidate counts per
-    row) on one recorded call's inputs, everything before the intersect
-    kernel done once."""
+    """On one recorded call's inputs, everything before the intersect kernel
+    done once: {"launch": kernel launch closure (takes a counter on the
+    chunked frame), "plain": plain version closure, "counts": candidate
+    counts per row}, and on the chunked frame "listed" (the row list's
+    length) and "step" (the launch and whatever merge of the chunks the
+    package runs after it, up to the (R,) result)."""
     o, d, _, tile = K._shape_and_pad(origin, direction, TILE, MEGA)
     if label in ("box", "large"):
         rays = K.pack_rays(o, d)
         _, counts, ids = K.cluster_keys(rays, K._caabb(acc.cmin, acc.cmax), tile)
         rays_i = K.pack_rays(o, d, mt=True) if mt else rays
         args = (rays_i, counts, ids, acc.tconst, tile, mt)
-        return (lambda: K.cluster_intersect_padded(*args),
-                lambda: K.cluster_intersect_padded_plain(*args), counts)
+        return {"launch": lambda: K.cluster_intersect_padded(*args),
+                "plain": lambda: K.cluster_intersect_padded_plain(*args),
+                "counts": counts}
     fused = hasattr(K, "cluster_keys_ftb")  # the key kernel orders and lists
     if label == "large400_chunked":
         cap = K.chunk_caps(acc, o, d)
@@ -184,17 +215,23 @@ def prepare(K, label, acc, origin, direction, mt):
         keys, counts = K.cluster_keys_chunked(rays, cap, acc.caabb, tile)
         order, qkeys = K._ftb_candidates(keys)
         args = (rays, counts, order, qkeys, acc.tconst, tile, mt)
-        plain = lambda: K.cluster_intersect_ftb_plain(*args, chunk_cap=cap)
+        words = "offsets" in K.cluster_intersect_ftb.__code__.co_varnames
+        more = {"offsets": acc.offsets} if words else {}
+        plain = lambda: K.cluster_intersect_ftb_plain(*args, chunk_cap=cap,
+                                                      **more)
         if not fused:
-            return (lambda: K.cluster_intersect_ftb(*args, chunk_cap=cap),
-                    plain, counts)
+            return {"launch": lambda: K.cluster_intersect_ftb(*args,
+                                                              chunk_cap=cap),
+                    "plain": plain, "counts": counts}
         cand = K.cluster_keys_chunked_ftb(rays, cap, acc.caabb, tile)[2]
 
         def launch(counter=None):
             return K.cluster_intersect_ftb(
                 rays, counts, cand.order, cand.qkeys, acc.tconst, tile, mt,
-                chunk_cap=cap, counter=counter, row_list=cand.row_list)
-        return launch, plain, counts, int(cand.heads.sum())
+                chunk_cap=cap, counter=counter, row_list=cand.row_list, **more)
+        return {"launch": launch, "plain": plain, "counts": counts,
+                "listed": int(cand.heads.sum()),
+                "step": lambda: merged(K, acc, launch())}
     rays8 = K.pack_rays(o, d)
     keys, counts, _ = K.cluster_keys(rays8, acc.caabb, tile, with_ids=False)
     order, qkeys = K._ftb_candidates(keys)
@@ -202,11 +239,12 @@ def prepare(K, label, acc, origin, direction, mt):
     args = (rays, counts, order, qkeys, acc.tconst, tile, mt)
     plain = lambda: K.cluster_intersect_hbm_plain(*args)
     if not fused:
-        return lambda: K.cluster_intersect_hbm_padded(*args), plain, counts
+        return {"launch": lambda: K.cluster_intersect_hbm_padded(*args),
+                "plain": plain, "counts": counts}
     cand = K.cluster_keys_ftb(rays8, acc.caabb, tile)[2]
-    return (lambda: K.cluster_intersect_hbm_padded(
+    return {"launch": lambda: K.cluster_intersect_hbm_padded(
         rays, counts, cand.order, cand.qkeys, acc.tconst, tile, mt,
-        row_list=cand.row_list), plain, counts)
+        row_list=cand.row_list), "plain": plain, "counts": counts}
 
 
 def prepare_keys(K, label, acc, origin, direction, mt):
@@ -270,9 +308,9 @@ def prepare_keys(K, label, acc, origin, direction, mt):
 
 # Counters of a -DMCPT_COUNT_STATS build of the chunked intersect kernel
 # (kCounters of its source): what each slot receives.
-COUNTER_NAMES = ("units_tested", "blocks_without_row", "pairs", "pairs_rejectable",
-                 "warp_steps", "warp_steps_all_reject", "steps_32x1",
-                 "steps_32x1_all_reject", "steps_16x2", "steps_16x2_all_reject")
+COUNTER_NAMES = ("units_tested", "blocks_without_row", "pairs", "pairs_rejected",
+                 "warp_steps", "warp_steps_all_reject", "edge_batches",
+                 "edge_pairs", "rows")
 COUNTERS = 16
 
 
@@ -280,11 +318,11 @@ def count_shares(totals, calls: int):
     """The counters of a frame's calls, summed, and the shares they give."""
     c = dict(zip(COUNTER_NAMES, totals))
     out = {"counts": c,
-           "blocks_without_row_per_call": c["blocks_without_row"] / calls}
-    for a, b in (("pairs_rejectable", "pairs"),
-                 ("warp_steps_all_reject", "warp_steps"),
-                 ("steps_32x1_all_reject", "steps_32x1"),
-                 ("steps_16x2_all_reject", "steps_16x2")):
+           "blocks_without_row_per_call": c["blocks_without_row"] / calls,
+           "rows_per_call": c["rows"] / calls,
+           "edge_lanes_used": c["edge_pairs"] / max(1, 32 * c["edge_batches"])}
+    for a, b in (("pairs_rejected", "pairs"),
+                 ("warp_steps_all_reject", "warp_steps")):
         out[f"share_{a}"] = c[a] / max(1, c[b])
     return out
 
@@ -359,16 +397,17 @@ def run_variants(args, B, K, label, kernel, calls, spp) -> None:
     else:
         prepared = [prepare(K, label, *call) for call in calls]
         src = SOURCES[label]
-        pairs = [int(p[2].sum()) for p in prepared]
+        pairs = [int(p["counts"].sum()) for p in prepared]
+        rows = [p["counts"].numel() for p in prepared]
         # The longest candidate list of any row, and of the mean call's rows.
         extra = {"pairs_mean": sum(pairs) / len(pairs), "pairs_max": max(pairs),
                  "pairs_max_over_mean": max(pairs) * len(pairs) / sum(pairs),
-                 "row_candidates_max": max(int(p[2].max()) for p in prepared),
-                 "row_candidates_mean":
-                     sum(pairs) / sum(p[2].numel() for p in prepared),
-                 "rows_per_call": prepared[0][2].numel()}
-        if len(prepared[0]) > 3:  # the row list's length, per call
-            listed = [p[3] for p in prepared]
+                 "row_candidates_max": max(int(p["counts"].max())
+                                           for p in prepared),
+                 "row_candidates_mean": sum(pairs) / sum(rows),
+                 "rows_mean": sum(rows) / len(rows)}
+        if "listed" in prepared[0]:  # the row list's length, per call
+            listed = [p["listed"] for p in prepared]
             extra["listed_rows_mean"] = sum(listed) / len(listed)
             extra["listed_rows_max"] = max(listed)
     for variant in args.variants.split(","):
@@ -390,13 +429,16 @@ def run_variants(args, B, K, label, kernel, calls, spp) -> None:
         for k, v in switches.items():
             setattr(K, k, v)
         t0 = time.perf_counter()
-        prepared[0][1 if kernel == "keys" else 0]()  # build, warm up
+        if kernel == "keys":  # build, warm up
+            prepared[0][1]()
+        else:
+            prepared[0]["launch"]()
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         ptxas = [ln.split(":", 1)[-1].strip()
                  for ln in B.build([src])[src]["log"].splitlines()
                  if "registers" in ln]
-        ms, ms_order = [], []
+        ms, ms_order, ms_step = [], [], []
         counting = "-DMCPT_COUNT_STATS" in flags
         totals = torch.zeros(COUNTERS, dtype=torch.int64)
         for i, prep in enumerate(prepared):
@@ -409,7 +451,7 @@ def run_variants(args, B, K, label, kernel, calls, spp) -> None:
                     raise AssertionError(f"{label}/keys/{variant}: call {i} "
                                          "differs from the plain version")
                 continue
-            launch, plain = prep[:2]
+            launch, plain = prep["launch"], prep["plain"]
             if counting:
                 ctr = torch.zeros(COUNTERS, dtype=torch.int64, device="cuda")
                 t, got = timed(lambda: launch(ctr))
@@ -417,6 +459,8 @@ def run_variants(args, B, K, label, kernel, calls, spp) -> None:
             else:
                 t, got = timed(launch)
             ms.append(t)
+            if "step" in prep:
+                ms_step.append(timed(prep["step"])[0])
             if checked and i < args.check:
                 want = plain()
                 if not all(torch.equal(a, b) for a, b in zip(got, want)):
@@ -430,6 +474,8 @@ def run_variants(args, B, K, label, kernel, calls, spp) -> None:
             more.update(count_shares(totals.tolist(), len(ms)))
         if ms_order:
             more["ms_order_mean"] = sum(ms_order) / len(ms_order)
+        if ms_step:
+            more["ms_step_mean"] = sum(ms_step) / len(ms_step)
         mean = sum(ms) / len(ms)
         emit({"frame": label, "kernel": kernel, "variant": variant,
               "calls": len(ms), "ms_mean": mean, "ms_max": max(ms),

@@ -31,9 +31,10 @@ front to back with an early exit:
   runs over all chunks in one launch (``cluster_keys_chunked_ftb``) and
   itself orders each (chunk, subtile)'s candidates by entry key (the packed
   words of ``_ftb_order``, the hits only) and lists the rows that have any;
-  ``cluster_intersect_ftb`` starts a block per listed row and tests a row's
-  candidates until the next key is past every ray's min(best t, cap), and
-  the K results merge lexicographically on (t, global triangle id).
+  ``cluster_intersect_ftb`` walks the listed rows and tests a row's
+  candidates until the next key is past every ray's min(best t, cap); the K
+  chunks meet in one join word per ray, the lexicographic (t, global
+  triangle id) minimum.
 * ``cluster_intersect_hbm``: one table, swizzled into supergroups of ``sg``
   clusters; candidates and the exit work per supergroup.
 
@@ -41,7 +42,7 @@ front to back with an early exit:
 front-to-back kernel.  The supergroup kernel deals a subtile's 128-column
 pieces out to ``HBM_SPLIT`` blocks that share the rays' best hits (and so
 the exit bound) through the same join words as the single-table kernel; both
-front-to-back kernels start their rows longest candidate list first (the key
+front-to-back kernels take their rows longest candidate list first (the key
 kernel's row list is bucketed by count).  The
 exit never changes a result: the best hit is an
 order-independent lexicographic minimum and a skipped candidate's entry is
@@ -702,7 +703,7 @@ def _ftb_plain(rays, cap, counts, order, qkeys, tconst, tile: int, mt: bool):
 
 
 def cluster_intersect_ftb_plain(rays, counts, order, qkeys, tconst, tile: int,
-                                mt: bool = False, chunk_cap=None):
+                                mt: bool = False, chunk_cap=None, offsets=None):
     """Plain PyTorch version of the front-to-back intersect kernel.
 
     rays (R, 8) [o d cap 0] or, with ``mt``, (R, 16) [o d w cap 0...] f32,
@@ -710,37 +711,46 @@ def cluster_intersect_ftb_plain(rays, counts, order, qkeys, tconst, tile: int,
     and qkeys (K * R/tile, C) f32 from _ftb_candidates, rows chunk-major;
     tconst (K * C, 16, W) f32.  ``chunk_cap`` (K, R) f32 gives each (chunk,
     ray) its cap and parks the ray for the chunk where it is < 0; without it
-    K = 1, the cap is the rays' cap column and no ray is moved.
-    Returns (t (K, R) f32, tri (K, R) i32), tri local to the chunk:
+    K = 1, the cap is the rays' cap column and no ray is moved.  ``offsets``
+    (K,) i32 is each chunk's first global triangle id (0 for every chunk
+    without it).  Returns (t (R,) f32, tri (R,) i32): per chunk,
     cluster_intersect_padded_plain's result over each row's first
-    ``counts`` candidates.
+    ``counts`` candidates, tri made global by the chunk's offset; then the
+    lexicographic (t, global tri) minimum over the chunks, in ascending
+    chunk order, as the JAX package merges them.
     """
     r = rays.shape[0]
     n_sub = r // tile
-    if chunk_cap is None:
-        caps = rays[:, 9 if mt else 6][None]
-    else:
-        caps = chunk_cap
-    k_n = caps.shape[0]
+    caps = rays[:, 9 if mt else 6][None] if chunk_cap is None else chunk_cap
     c = order.shape[1]
-    out_t, out_i = [], []
-    for k in range(k_n):
+    best_t = rays.new_full((r,), BIG)
+    best_i = torch.full((r,), _INT_MAX, dtype=torch.int32, device=rays.device)
+    for k in range(caps.shape[0]):
         rows = slice(k * n_sub, (k + 1) * n_sub)
         rays_k = rays if chunk_cap is None else _park_rays(rays, caps[k], mt)
         bt, bi = _ftb_plain(rays_k, caps[k], counts[rows], order[rows],
                             qkeys[rows], tconst[k * c:(k + 1) * c], tile, mt)
-        out_t.append(bt)
-        out_i.append(bi)
-    return torch.stack(out_t), torch.stack(out_i)
+        hit = bi >= 0
+        off = 0 if offsets is None else offsets[k]
+        gi = torch.where(hit, bi + off, _INT_MAX)
+        tk = torch.where(hit, bt, BIG)
+        better = (tk < best_t) | ((tk == best_t) & (gi < best_i))
+        best_t = torch.where(better, tk, best_t)
+        best_i = torch.where(better, gi, best_i)
+    return best_t, torch.where(best_t < BIG, best_i, -1).to(torch.int32)
 
 
-# Blocks a row's 128-column pieces are dealt out to, front to back in turn,
-# by the chunked kernel (a cluster is one piece) and the supergroup kernel (a
-# supergroup of 4 clusters is four, so 16 blocks take the quarters of 4
-# candidates at a time).  The blocks of a row share their rays' best hits,
-# and with them the exit bound, through the join words.
-FTB_SPLIT = 1
+# Blocks a subtile's 128-column pieces are dealt out to, front to back in
+# turn, by the supergroup kernel (a supergroup of 4 clusters is four pieces,
+# so 16 blocks take the quarters of 4 candidates at a time).  The blocks of a
+# subtile share their rays' best hits, and with them the exit bound, through
+# the join words.
 HBM_SPLIT = 16
+
+# Blocks of a chunked intersect launch: 0 for as many as the card holds at
+# once (each takes rows of the list in turn); a measurement may set one per
+# row (a large number).
+FTB_GRID_BLOCKS = 0
 
 
 def _check_row_list(name, row_list, n_rows: int, dev):
@@ -802,47 +812,50 @@ def _check_ftb_inputs(name, rays, counts, order, qkeys, tconst, tile, mt,
 
 def cluster_intersect_ftb(rays, counts, order, qkeys, tconst, tile: int,
                           mt: bool = False, chunk_cap=None, counter=None, *,
-                          row_list):
-    """Nearest hit per (chunk, ray) over front-to-back candidate clusters,
-    stopping once the next candidate's key is past every ray's min(best t,
-    cap); see cluster_intersect_ftb_plain for the contract.  ``row_list``
+                          row_list, offsets=None):
+    """Nearest hit per ray over every chunk's front-to-back candidate
+    clusters, each (chunk, subtile) stopping once its next candidate's key is
+    past every ray's min(best t, cap); see cluster_intersect_ftb_plain for
+    the contract.  The chunks meet in one 64-bit join word per ray, (t bits)
+    << 32 | global triangle id, so no merge follows.  ``row_list``
     (FtbCandidates.row_list, from the key kernel that made ``counts``) names
-    the rows with candidates, longest lists first: it is the order in which
-    blocks start, and no row is sorted here.  ``counter`` (one int64 on the
-    card, or None) receives the number of (subtile, candidate) pairs
+    the rows with candidates, longest lists first: the launch's blocks take
+    its entries in turn, and no row is sorted here.  ``counter`` (int64 on
+    the card, or None) receives the number of (subtile, candidate) pairs
     tested."""
     if rays.device.type == "cpu":
         return cluster_intersect_ftb_plain(rays, counts, order, qkeys, tconst,
-                                           tile, mt, chunk_cap)
+                                           tile, mt, chunk_cap, offsets)
     from .build import load
 
     k_n = 1 if chunk_cap is None else chunk_cap.shape[0]
     more = {} if chunk_cap is None else {"chunk_cap": chunk_cap}
+    if offsets is not None:
+        more["offsets"] = offsets
     dev = _check_ftb_inputs("cluster_intersect_ftb", rays, counts, order, qkeys,
                             tconst, tile, mt, k_n, counter, **more)
     r = rays.shape[0]
     if chunk_cap is not None and (chunk_cap.dtype != torch.float32
-                                  or chunk_cap.shape != (k_n, r)
-                                  or k_n > 65535):
-        raise ValueError("cluster_intersect_ftb: chunk_cap must be (K <= 65535, "
-                         "R) float32")
+                                  or chunk_cap.shape != (k_n, r)):
+        raise ValueError("cluster_intersect_ftb: chunk_cap must be (K, R) "
+                         "float32")
+    if offsets is not None and (offsets.dtype != torch.int32
+                                or offsets.shape != (k_n,)):
+        raise ValueError("cluster_intersect_ftb: offsets must be (K,) int32")
     heads, wrows = _check_row_list("cluster_intersect_ftb", row_list,
                                    counts.shape[0], dev)
-    packed, out_t, out_i = _listed_outputs(FTB_SPLIT, (k_n, r), dev)
+    packed = torch.full((r,), _PACKED_MISS, dtype=torch.int64, device=dev)
     fn = load("cluster_intersect_ftb")
     with torch.cuda.device(dev):
         err = fn(_ptr(rays), rays.shape[1], r // tile, tile, k_n,
-                 _ptr(chunk_cap), _ptr(counts), _ptr(order), _ptr(qkeys),
-                 _ptr(heads), _ptr(wrows), order.shape[1], _ptr(tconst),
-                 tconst.shape[2], int(mt), FTB_SPLIT, _ptr(packed), _ptr(out_t),
-                 _ptr(out_i), _ptr(counter), _stream(dev))
+                 _ptr(chunk_cap), _ptr(offsets), _ptr(counts), _ptr(order),
+                 _ptr(qkeys), _ptr(heads), _ptr(wrows), order.shape[1],
+                 _ptr(tconst), tconst.shape[2], int(mt), FTB_GRID_BLOCKS,
+                 _ptr(packed), _ptr(counter), _stream(dev))
     if err != 0:
         raise RuntimeError(f"cluster_intersect_ftb launch failed: CUDA error {err}")
     cluster_intersect_ftb.launches += 1
-    if packed is None:
-        return out_t, out_i
-    bt, bi = _unpack_hits(packed)
-    return bt.reshape(k_n, r), bi.reshape(k_n, r)
+    return _unpack_hits(packed)
 
 
 cluster_intersect_ftb.launches = 0
@@ -986,7 +999,6 @@ def cluster_intersect(accel: ClusterAccel, origin, direction,
         bt, bi = cluster_intersect_ftb(rays, counts, cand.order, cand.qkeys,
                                        accel.tconst, tile, mt,
                                        row_list=cand.row_list)
-        bt, bi = bt[0], bi[0]
     else:
         bt, bi = cluster_intersect_padded(rays, counts, ids, accel.tconst, tile,
                                           mt)
@@ -1094,10 +1106,10 @@ def cluster_intersect_chunked(accel: ChunkedClusterAccel, offsets, origin,
                               group: int = 4, mt: bool = False):
     """Nearest hit over a chunked accel in two kernel launches (one key
     kernel that also orders the candidates and lists the rows that have any,
-    one test kernel, each over all K chunks), merged lexicographically
-    on (t, global triangle id): the single-table contract (chunks ascend in
-    triangle id).  ``offsets`` is accepted for the JAX package's signature;
-    ``accel.offsets`` is what is used.
+    one test kernel, each over all K chunks, whose chunks meet in the
+    lexicographic (t, global triangle id) minimum): the single-table
+    contract (chunks ascend in triangle id).  ``offsets`` is accepted for
+    the JAX package's signature; ``accel.offsets`` is what is used.
 
     A ray is parked for every chunk whose box it misses, so a (chunk,
     subtile) pair none of whose rays touch the chunk costs one skipped block
@@ -1114,14 +1126,9 @@ def cluster_intersect_chunked(accel: ChunkedClusterAccel, offsets, origin,
     _, counts, cand = cluster_keys_chunked_ftb(rays, cap, accel.caabb, tile)
     bt, bi = cluster_intersect_ftb(rays, counts, cand.order, cand.qkeys,
                                    accel.tconst, tile, mt, chunk_cap=cap,
-                                   row_list=cand.row_list)
-    # Lexicographic (t, global tri) minimum across the chunks.
-    hit_k = bi >= 0
-    tri_g = torch.where(hit_k, bi + accel.offsets[:, None], _INT_MAX)
-    t_k = torch.where(hit_k, bt, BIG)
-    best_t = torch.amin(t_k, dim=0)
-    best_i = torch.amin(torch.where(t_k == best_t[None], tri_g, _INT_MAX), dim=0)
-    return _result(best_t, torch.where(best_t < BIG, best_i, -1), r)
+                                   row_list=cand.row_list,
+                                   offsets=accel.offsets)
+    return _result(bt, bi, r)
 
 
 # --------------------------------------------------------------------------

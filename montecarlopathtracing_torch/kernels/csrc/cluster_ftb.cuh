@@ -1,19 +1,18 @@
 // Nearest hit over front-to-back candidate units with an early exit: the
-// device code shared by cluster_intersect_ftb.cu (unit = one cluster of a
-// chunk's table) and cluster_intersect_hbm.cu (unit = one supergroup block
-// of the swizzled table).  On this card every table lies in device memory,
-// so the two differ only in the table layout and in what a unit is.
+// device code of cluster_intersect_hbm.cu (unit = one supergroup block of
+// the swizzled table).  The chunked kernel (cluster_intersect_ftb.cu) walks
+// its rows the same way with a body of its own.
 //
-// Replaces the bodies of montecarlopathtracing_tpu/kernels/cluster.py::
-// _intersect_kernel (ftb=True) and _intersect_hbm_kernel.
+// Replaces the body of montecarlopathtracing_tpu/kernels/cluster.py::
+// _intersect_hbm_kernel.
 //
-// A row is one (ray subtile, chunk).  Its candidate units arrive sorted by
+// A row is one ray subtile.  Its candidate units arrive sorted by
 // their entry key (the subtile's least slab-entry distance, quantised down),
 // `qkeys` aligned with `order`.  They are walked in that order, and the walk
 // stops before a unit if
 //     qkeys[j] > max over the subtile's rays of min(best t, cap)
-// where cap is the ray's exit distance from the enclosing box (a chunk's
-// AABB), 1e30 for none, and -1 for a ray that does not touch the chunk.
+// where cap is the ray's exit distance from the enclosing box (ray column 6,
+// 9 with Moller-Trumbore), 1e30 for none.
 // The units come sorted, so every unit not tested has an entry beyond every
 // ray's bound: it can neither win nor tie.  The best is the order-independent
 // lexicographic (t, triangle id) minimum of cluster_tri.cuh, so the result
@@ -69,98 +68,26 @@
 
 namespace mcpt {
 
-// Order-preserving map between float and int (and back: an involution).
-__device__ __forceinline__ int ordered_bits(int b) {
-  return b ^ ((b >> 31) & 0x7fffffff);
-}
-
-#ifdef MCPT_COUNT_STATS
-// A measurement build only: `tested` is then an array of kCounters that
-// also receives
-//   [1] blocks that found no row on the list (list_row < 0),
-//   [2] (ray, triangle) pairs tested, [3] of them the pairs whose plane
-//       distance alone decides that they cannot change the ray's best:
-//       !(t > 0 && t < 1e30 && t <= best t of the testing thread),
-//   [4] warp steps (one test instruction stream over 32 lanes), [5] of
-//       them the steps in which every lane's pair is such a pair,
-//   [6] steps of a layout in which 32 lanes hold 32 rays of the subtile and
-//       read one column, [7] of them all-reject steps, [8] steps of a
-//       layout of 16 rays x 2 columns, [9] of them all-reject steps (both
-//       counted for subtiles of at most 64 rays, from this kernel's bests).
-constexpr int kCounters = 10;
-
-template <bool MT, class TriOf>
-__device__ __forceinline__ void count_piece(
-    const Ray (&r)[kRaysPerThread], const float4* slot, int ncols, int part,
-    int split, int first, int tile, float (&bt)[kRaysPerThread],
-    int (&bi)[kRaysPerThread], TriOf tri_of, unsigned (*s_keep)[2],
-    unsigned (&cnt)[kCounters]) {
-  for (int k = threadIdx.x; k < 2 * kPieceCols; k += blockDim.x)
-    (&s_keep[0][0])[k] = 0u;
-  __syncthreads();
-  for (int c = part; c < ncols; c += split) {
-    const Col k = load_col(slot, c);
-#pragma unroll
-    for (int i = 0; i < kRaysPerThread; ++i) {
-      float t;
-      const bool hit = tri_test<MT>(r[i], k, t);
-      const int ray = first + i;
-      const bool valid = ray < tile;
-      const bool rej = !(t > 0.0f && t < kBig && t <= bt[i]);
-      cnt[2] += valid;
-      cnt[3] += valid && rej;
-      const unsigned act = __activemask();
-      const bool all = __all_sync(act, rej || !valid);
-      if ((int)(threadIdx.x & 31) == __ffs(act) - 1) {
-        cnt[4] += 1;
-        cnt[5] += all;
-      }
-      if (valid && !rej && ray < 64)
-        atomicOr(&s_keep[c][ray >> 5], 1u << (ray & 31));
-      if (hit) lex_min(bt[i], bi[i], t, tri_of(c));
-    }
-  }
-  __syncthreads();
-  if (tile > 64) return;
-  for (int c = threadIdx.x; c < ncols; c += blockDim.x) {
-    for (int h = 0; h * 32 < tile; ++h) {
-      cnt[6] += 1;
-      cnt[7] += s_keep[c][h] == 0u;
-    }
-    if ((c & 1) || c + 1 >= ncols) continue;
-    for (int q = 0; q * 16 < tile; ++q) {
-      const int sh = (q & 1) * 16;
-      cnt[8] += 1;
-      cnt[9] += ((s_keep[c][q >> 1] >> sh) & 0xffffu) == 0u &&
-                ((s_keep[c + 1][q >> 1] >> sh) & 0xffffu) == 0u;
-    }
-  }
-}
-#endif
-
-// rays     (n_subtiles * tile, ray_stride) f32 rows, shared by all chunks
-// chunk_cap (n_chunks, n_subtiles * tile) f32 or null.  Given: the cap of
-//          each (chunk, ray), and a ray whose cap is < 0 is parked for that
-//          chunk (origin moved to 1e9).  Null: the cap is ray column 6 (9
-//          with MT) and no ray is moved.
-// counts   (n_chunks * n_subtiles,) i32, order / qkeys (that, n_units)
+// rays     (n_subtiles * tile, ray_stride) f32 rows, the cap in column 6
+//          (9 with MT)
+// counts   (n_subtiles,) i32, order / qkeys (that, n_units)
 // heads, wrows  the row list of cluster_rows.cuh over these counts: blocks
 //          (b, *) take the list's entry b, and those past its end leave: the
 //          caller presets `packed`, or out_t / out_tri, to the miss for the
 //          rows not listed
-// tconst   (n_chunks * n_units, 16, unit_cols) f32; unit_cols is a power of
-//          two, cut into 1 << pshift pieces
-// packed   (n_chunks, n_subtiles * tile) u64 preset to kMissWord, with a
-//          grid of (rows, n_split); or null with a grid of (rows, 1), and
-//          then out_t / out_tri (n_chunks, n_subtiles * tile) are written.
-//          The triangle id is unit * unit_cols + column, local to the chunk
+// tconst   (n_units, 16, unit_cols) f32; unit_cols is a power of two, cut
+//          into 1 << pshift pieces
+// packed   (n_subtiles * tile,) u64 preset to kMissWord, with a grid of
+//          (rows, n_split); or null with a grid of (rows, 1), and then out_t /
+//          out_tri (n_subtiles * tile,) are written.  The triangle id is
+//          unit * unit_cols + column
 // tested   null, or one counter that receives the number of (subtile, unit)
 //          pairs whose first piece was tested
 template <bool MT>
 __global__ void __launch_bounds__(kMaxThreads, MCPT_MIN_BLOCKS)
 cluster_ftb_kernel(
-    const float* __restrict__ rays, int ray_stride, int n_subtiles, int tile,
-    const float* __restrict__ chunk_cap, const int* __restrict__ counts,
+    const float* __restrict__ rays, int ray_stride, int tile,
+    const int* __restrict__ counts,
     const int* __restrict__ order, const float* __restrict__ qkeys,
     const int* __restrict__ heads, const int* __restrict__ wrows,
     int n_units, const float* __restrict__ tconst, int unit_cols, int pshift,
@@ -171,12 +98,6 @@ cluster_ftb_kernel(
   __shared__ int s_bound[2][kMaxThreads / 32];  // [piece parity][warp]
 
   const int listed = list_row(heads, wrows, gridDim.x, blockIdx.x);
-#ifdef MCPT_COUNT_STATS
-  __shared__ unsigned s_keep[kPieceCols][2];
-  unsigned cnt[kCounters] = {};
-  if (listed < 0 && tested != nullptr && threadIdx.x == 0 && blockIdx.y == 0)
-    atomicAdd(tested + 1, 1ull);
-#endif
   if (listed < 0) return;  // past the list: the preset misses stand
   const size_t row = listed;
   const int n_split = gridDim.y;
@@ -186,12 +107,10 @@ cluster_ftb_kernel(
   const int n_mine = (total - (int)blockIdx.y + n_split - 1) / n_split;
   if (n_mine <= 0) return;  // fewer pieces than blocks: nothing for this one
 
-  const int chunk = (int)(row / n_subtiles);
-  const int sub = (int)(row - (size_t)chunk * n_subtiles);
-  const size_t ray0 = (size_t)chunk * n_subtiles * tile + (size_t)sub * tile;
+  const size_t ray0 = row * tile;
   const int* cand = order + row * n_units;
   const float* qk = qkeys + row * n_units;
-  const float* table = tconst + (size_t)chunk * n_units * 16 * unit_cols;
+  const float* table = tconst;
   const int pcols = min(unit_cols, kPieceCols);
 
   auto stage = [&](int i) {
@@ -212,17 +131,12 @@ cluster_ftb_kernel(
   float bt[kRaysPerThread];
   int bi[kRaysPerThread];
   int first;
-  load_ray_tile<MT>(rays + (size_t)sub * tile * ray_stride, ray_stride, tile,
-                    split, r, first);
+  load_ray_tile<MT>(rays + ray0 * ray_stride, ray_stride, tile, split, r,
+                    first);
 #pragma unroll
   for (int i = 0; i < kRaysPerThread; ++i) {
     const size_t in_sub = min(first + i, tile - 1);
-    if (chunk_cap != nullptr) {
-      cap[i] = chunk_cap[ray0 + in_sub];
-      if (cap[i] < 0.0f) park_ray<MT>(r[i]);
-    } else {
-      cap[i] = rays[((size_t)sub * tile + in_sub) * ray_stride + (MT ? 9 : 6)];
-    }
+    cap[i] = rays[(ray0 + in_sub) * ray_stride + (MT ? 9 : 6)];
     bt[i] = kBig;
     bi[i] = INT_MAX;
   }
@@ -247,14 +161,8 @@ cluster_ftb_kernel(
     }
     if (p == 0) ++done;
     const int base = cand[j] * unit_cols + p * kPieceCols;
-#ifdef MCPT_COUNT_STATS
-    count_piece<MT>(r, s_ring + (i % kStages) * 4 * pcols, pcols, part, split,
-                    first, tile, bt, bi, [&](int c) { return base + c; },
-                    s_keep, cnt);
-#else
     test_piece<MT>(r, s_ring + (i % kStages) * 4 * pcols, pcols, part, split,
                    bt, bi, [&](int c) { return base + c; });
-#endif
     if (i + 1 < n_mine && j != (q + n_split) >> pshift) {
       // This block's share of unit j is done: the bound for its next unit,
       // max over this warp's rays of min(best t of the ray, cap).
@@ -287,15 +195,6 @@ cluster_ftb_kernel(
   __pipeline_wait_prior(0);  // a guessed copy may still be in flight
   if (tested != nullptr && threadIdx.x == 0)
     atomicAdd(tested, (unsigned long long)done);
-#ifdef MCPT_COUNT_STATS
-  if (tested != nullptr) {
-#pragma unroll
-    for (int k = 2; k < kCounters; ++k) {
-      const unsigned s = __reduce_add_sync(0xffffffffu, cnt[k]);
-      if ((threadIdx.x & 31) == 0) atomicAdd(tested + k, (unsigned long long)s);
-    }
-  }
-#endif
 
 #pragma unroll
   for (int i = 0; i < kRaysPerThread; ++i) {
@@ -311,11 +210,10 @@ cluster_ftb_kernel(
   }
 }
 
-// Launch (rows, n_split) blocks on `stream`, one row per (chunk, subtile);
-// returns the CUDA error of the launch.
+// Launch (rows, n_split) blocks on `stream`, one row per subtile; returns
+// the CUDA error of the launch.
 inline int launch_cluster_ftb(const float* rays, int ray_stride,
-                              int n_subtiles, int tile, int n_chunks,
-                              const float* chunk_cap, const int* counts,
+                              int n_subtiles, int tile, const int* counts,
                               const int* order, const float* qkeys,
                               const int* heads, const int* wrows,
                               int n_units, const float* tconst,
@@ -323,7 +221,7 @@ inline int launch_cluster_ftb(const float* rays, int ray_stride,
                               int n_split, unsigned long long* packed,
                               float* out_t, int* out_tri,
                               unsigned long long* tested, void* stream) {
-  if (n_subtiles <= 0 || n_chunks <= 0) return (int)cudaGetLastError();
+  if (n_subtiles <= 0) return (int)cudaGetLastError();
   if (n_split < 1 || (packed == nullptr) != (n_split == 1) ||
       heads == nullptr || wrows == nullptr)
     return (int)cudaErrorInvalidValue;
@@ -332,16 +230,16 @@ inline int launch_cluster_ftb(const float* rays, int ray_stride,
   const size_t smem = ring_bytes(pcols);
   int pshift = 0;
   while ((kPieceCols << pshift) < unit_cols) ++pshift;
-  const dim3 grid((unsigned)n_subtiles * (unsigned)n_chunks, n_split);
+  const dim3 grid((unsigned)n_subtiles, n_split);
   cudaStream_t s = (cudaStream_t)stream;
   if (mt) {
     cluster_ftb_kernel<true><<<grid, shape.threads, smem, s>>>(
-        rays, ray_stride, n_subtiles, tile, chunk_cap, counts, order, qkeys,
+        rays, ray_stride, tile, counts, order, qkeys,
         heads, wrows, n_units, tconst, unit_cols, pshift, shape.split,
         packed, out_t, out_tri, tested);
   } else {
     cluster_ftb_kernel<false><<<grid, shape.threads, smem, s>>>(
-        rays, ray_stride, n_subtiles, tile, chunk_cap, counts, order, qkeys,
+        rays, ray_stride, tile, counts, order, qkeys,
         heads, wrows, n_units, tconst, unit_cols, pshift, shape.split,
         packed, out_t, out_tri, tested);
   }

@@ -24,8 +24,7 @@
 // share their rays' best hits, and so the exit bound, through 64-bit
 // atomics.  On
 // an H100 it is bound by f32 throughput with contraction off; the kernel, its
-// bound and its design are in cluster_ftb.cuh, shared with the chunked
-// kernel.
+// bound and its design are in cluster_ftb.cuh.
 
 #include "cluster_ftb.cuh"
 
@@ -35,8 +34,8 @@ extern "C" int mcpt_cluster_intersect_hbm(
     const int* wrows, int n_super, const float* tconst, int super_cols,
     int mt, int n_split, unsigned long long* packed, float* out_t,
     int* out_tri, unsigned long long* tested, void* stream) {
-  return mcpt::launch_cluster_ftb(rays, ray_stride, n_subtiles, tile, 1,
-                                  nullptr, counts, order, qkeys, heads,
+  return mcpt::launch_cluster_ftb(rays, ray_stride, n_subtiles, tile,
+                                  counts, order, qkeys, heads,
                                   wrows, n_super, tconst, super_cols, mt,
                                   n_split, packed, out_t, out_tri, tested,
                                   stream);

@@ -237,6 +237,11 @@ __device__ __forceinline__ bool tri_test(const Ray& r, const Col& k, float& t) {
   return inside && t > 0.0f && t < kBig;
 }
 
+// Order-preserving map between float and int (and back: an involution).
+__device__ __forceinline__ int ordered_bits(int b) {
+  return b ^ ((b >> 31) & 0x7fffffff);
+}
+
 // Running lexicographic (t, tri) minimum: the winner of the TPU kernel's
 // deferred best (ties at equal t go to the lowest id), in any order.
 __device__ __forceinline__ void lex_min(float& bt, int& bi, float t, int tri) {

@@ -639,9 +639,9 @@ def hbm_call(acc, origin, direction, mt: bool, tile: int, sleep: float,
 
 # Counters of the chunked intersect kernel's -DMCPT_COUNT_STATS build
 # (kCounters of csrc/cluster_intersect_ftb.cu).
-FTB_COUNTERS = ("units_tested", "blocks_without_row", "pairs", "pairs_rejected",
-                "warp_steps", "warp_steps_all_reject", "edge_batches",
-                "edge_pairs", "rows")
+FTB_COUNTERS = ("units_tested", "blocks_without_row", "pairs",
+                "pairs_rejectable", "warp_steps", "warp_steps_all_reject",
+                "rows")
 
 
 def ftb_measurement_builds(calls, tile: int):
@@ -683,10 +683,9 @@ def ftb_measurement_builds(calls, tile: int):
     n = len(calls)
     out = {"ms_skip_tests": sum(ms) / n, "rows_per_call": c["rows"] / n,
            "blocks_without_row_per_call": c["blocks_without_row"] / n,
-           "pairs_rejected_share": c["pairs_rejected"] / max(1, c["pairs"]),
+           "pairs_rejectable_share": c["pairs_rejectable"] / max(1, c["pairs"]),
            "warp_steps_all_reject_share":
                c["warp_steps_all_reject"] / max(1, c["warp_steps"]),
-           "edge_lanes_used": c["edge_pairs"] / max(1, 32 * c["edge_batches"]),
            "counts": c}
     emit({"phase": "kernel_measurement_builds", "case": "large400_chunked",
           "kernel": "cluster_intersect_ftb", "calls": n, **out})
@@ -1455,7 +1454,7 @@ def main() -> int:
         if name == "cluster_intersect_ftb":
             fb = state["ftb_builds"]
             row.update(ms_skip_tests=fb["ms_skip_tests"],
-                       pairs_rejected_share=fb["pairs_rejected_share"],
+                       pairs_rejectable_share=fb["pairs_rejectable_share"],
                        blocks_without_row_per_call=fb["blocks_without_row_per_call"])
         rows.append(row)
     emit({"kernels": rows})

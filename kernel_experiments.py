@@ -48,15 +48,12 @@ Variants, joined by "+" to combine two (each answers what one cause of lost time
   hbm_split1, hbm_split2, hbm_split4, hbm_split8, hbm_split32   supergroup
                  kernel with a subtile's pieces dealt out to 1 / 2 / 4 / 8 /
                  32 blocks instead of 16
-  ftb_no_reject  chunked kernel built with -DMCPT_FTB_NO_REJECT: every pair
-                 goes on to the edge tests, none is decided by its plane
-                 distance (lever a off)
-  ftb_no_seed    built with -DMCPT_FTB_NO_SEED: a row's bests start at the
-                 miss, not at the join words that other chunks' rows have
-                 lowered already
+  ftb_waves1, ftb_waves2, ftb_waves8, ftb_waves16   chunked kernel launched
+                 with 1 / 2 / 8 / 16 waves of the blocks the card holds at
+                 once instead of FTB_GRID_WAVES
   ftb_grid_rows  chunked kernel launched with one block per row, listed or
-                 not (FTB_GRID_BLOCKS large), instead of as many blocks as
-                 the card holds at once (lever b off)
+                 not (FTB_GRID_WAVES large): the grid of the parent (lever b
+                 off)
   keys_no_octant   key kernel built with -DMCPT_KEYS_NO_OCTANT: near and far
                  plane by select per pair, as before the octant bodies
   keys_always_repair  built with -DMCPT_KEYS_ALWAYS_REPAIR: selects and the
@@ -126,9 +123,11 @@ VARIANTS = {
     "hbm_split8": ((), {"HBM_SPLIT": 8}, True),
     "hbm_split4": ((), {"HBM_SPLIT": 4}, True),
     "hbm_split32": ((), {"HBM_SPLIT": 32}, True),
-    "ftb_no_reject": (("-DMCPT_FTB_NO_REJECT",), {}, True),
-    "ftb_no_seed": (("-DMCPT_FTB_NO_SEED",), {}, True),
-    "ftb_grid_rows": ((), {"FTB_GRID_BLOCKS": 1 << 30}, True),
+    "ftb_waves1": ((), {"FTB_GRID_WAVES": 1}, True),
+    "ftb_waves2": ((), {"FTB_GRID_WAVES": 2}, True),
+    "ftb_waves8": ((), {"FTB_GRID_WAVES": 8}, True),
+    "ftb_waves16": ((), {"FTB_GRID_WAVES": 16}, True),
+    "ftb_grid_rows": ((), {"FTB_GRID_WAVES": 1 << 20}, True),
     "keys_no_octant": (("-DMCPT_KEYS_NO_OCTANT",), {}, True),
     "keys_always_repair": (("-DMCPT_KEYS_ALWAYS_REPAIR",), {}, True),
     "keys_cpt1": (("-DMCPT_KEYS_CLUSTERS_PER_THREAD=1",), {}, True),
@@ -308,9 +307,9 @@ def prepare_keys(K, label, acc, origin, direction, mt):
 
 # Counters of a -DMCPT_COUNT_STATS build of the chunked intersect kernel
 # (kCounters of its source): what each slot receives.
-COUNTER_NAMES = ("units_tested", "blocks_without_row", "pairs", "pairs_rejected",
-                 "warp_steps", "warp_steps_all_reject", "edge_batches",
-                 "edge_pairs", "rows")
+COUNTER_NAMES = ("units_tested", "blocks_without_row", "pairs",
+                 "pairs_rejectable", "warp_steps", "warp_steps_all_reject",
+                 "rows")
 COUNTERS = 16
 
 
@@ -319,9 +318,8 @@ def count_shares(totals, calls: int):
     c = dict(zip(COUNTER_NAMES, totals))
     out = {"counts": c,
            "blocks_without_row_per_call": c["blocks_without_row"] / calls,
-           "rows_per_call": c["rows"] / calls,
-           "edge_lanes_used": c["edge_pairs"] / max(1, 32 * c["edge_batches"])}
-    for a, b in (("pairs_rejected", "pairs"),
+           "rows_per_call": c["rows"] / calls}
+    for a, b in (("pairs_rejectable", "pairs"),
                  ("warp_steps_all_reject", "warp_steps")):
         out[f"share_{a}"] = c[a] / max(1, c[b])
     return out

@@ -747,10 +747,11 @@ def cluster_intersect_ftb_plain(rays, counts, order, qkeys, tconst, tile: int,
 # the join words.
 HBM_SPLIT = 16
 
-# Blocks of a chunked intersect launch: 0 for as many as the card holds at
-# once (each takes rows of the list in turn); a measurement may set one per
-# row (a large number).
-FTB_GRID_BLOCKS = 0
+# Blocks of a chunked intersect launch, in waves of as many as the card holds
+# at once (at most one block per row): block b takes the row list's entries
+# b, 2G-1-b, 2G+b, ...  A measurement may set one block per row (a large
+# number).
+FTB_GRID_WAVES = 4
 
 
 def _check_row_list(name, row_list, n_rows: int, dev):
@@ -850,7 +851,7 @@ def cluster_intersect_ftb(rays, counts, order, qkeys, tconst, tile: int,
         err = fn(_ptr(rays), rays.shape[1], r // tile, tile, k_n,
                  _ptr(chunk_cap), _ptr(offsets), _ptr(counts), _ptr(order),
                  _ptr(qkeys), _ptr(heads), _ptr(wrows), order.shape[1],
-                 _ptr(tconst), tconst.shape[2], int(mt), FTB_GRID_BLOCKS,
+                 _ptr(tconst), tconst.shape[2], int(mt), FTB_GRID_WAVES,
                  _ptr(packed), _ptr(counter), _stream(dev))
     if err != 0:
         raise RuntimeError(f"cluster_intersect_ftb launch failed: CUDA error {err}")

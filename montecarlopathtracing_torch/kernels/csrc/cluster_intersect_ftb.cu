@@ -12,42 +12,35 @@
 // 128-column piece; a wider cluster is several).  A row is one (chunk,
 // subtile); chunk_cap (K, R) carries each (chunk, ray)'s cap and parks the
 // ray for a chunk it misses (origin moved to 1e9), or is null (K = 1, the cap
-// is the ray's cap column).  The result of every row goes by atomicMin into
-// packed (R,), hit_word(t, offsets[k] + cluster * W + column) of
-// cluster_tri.cuh: the least word is the lexicographic (t, global id)
+// is the ray's cap column).  Every row's result goes by atomicMin into
+// packed (R,): hit_word(t, offsets[k] + cluster * W + column) of
+// cluster_tri.cuh.  The least word is the lexicographic (t, global id)
 // minimum over all chunks, which is the TPU package's merge (chunks ascend in
 // id).  The caller presets the words to the miss and unpacks them.
 //
 // Bound on an H100: f32 instruction issue.  A (ray, triangle) test is about
 // 34 fused operations, 85 instructions once a*b+c may not contract and the
-// division is IEEE (the plain version's rounding, bit for bit); a row of 64
-// rays against a 128-column cluster is 8,192 tests.  What the measurements
-// of the older kernel (one block per row, a thread holding 4 rays against a
-// share of the columns) showed, and what this design does about it:
-//   * Half the pairs (51% on the 400k-triangle frame) are decided by the
-//     plane distance alone: !(t > 0 && t < 1e30 && t <= the ray's best t)
-//     can neither be accepted nor beat the best (<=, so that a tie still
-//     reaches the lowest-id rule; NaN and inf fail).  But only 12-14% of
-//     warp steps have every lane's pair decided so, and a divergent branch
-//     saves no issue slot.  So the test is cut in two: every pair gets the
-//     plane distance (about 30 instructions), and the pairs that survive are
-//     queued per warp in shared memory and get the three edge functions 32
-//     at a time, one pair per lane, every lane busy.  The best t a pair is
-//     held to is the row's (shared by the block's warps, and seeded from the
-//     word, so other chunks' hits count too), read again after every batch.
-//     Every value is computed by the same expression as in the one-piece
-//     test, so accepted pairs and their t are the same, bit for bit.
-//   * 90% of the blocks of a one-block-per-row grid (12,829 per call) found
-//     no row on the list.  Here the grid holds as many blocks as are
-//     resident at once, and block b takes the list's entries b, 2G-1-b,
-//     2G+b, ... (the list is longest rows first; the back-and-forth order
-//     evens out the blocks' work), with no counter and no host sync.
-//   * The K results no longer go out as (K, R) arrays to be merged by a
-//     chain of small PyTorch kernels: they meet in the (R,) words.
-// Per row: its rays, caps and best words are staged in shared memory once;
-// its pieces stream through the cp.async ring of cluster_tri.cuh, one
-// barrier per piece; the exit bound (min over the block's warps of their
-// view of max over rays of min(best t, cap)) is folded into that barrier.
+// division is IEEE (the plain version's rounding, bit for bit).  The test
+// loop is the one of cluster_tri.cuh: 4 rays per thread in registers against
+// a share of the columns of a cp.async ring of column-major 128-column
+// pieces, one barrier per piece, the exit bound folded into that barrier
+// (as in cluster_ftb.cuh, whose comment gives the details).  Measured against
+// that loop on the 400k-triangle frame, and what this kernel does about it:
+//   * a block per (chunk, subtile) row started 14,262 blocks a call, of
+//     which 12,829 found no row on the list.  Here the grid is a few waves
+//     of the blocks the card holds at once (FTB grid_waves): block b takes
+//     the list's entry b, then entries 2G-1-b, 2G+b, ... (the list is
+//     longest rows first; the back-and-forth order evens the blocks' work).
+//     The first wave of rows is dealt out by the hardware as blocks finish;
+//     a grid of one wave, with every row dealt out statically, measured 20%
+//     slower than one block per row.  No counter, no host sync;
+//   * the K results went out as two (K, R) arrays, preset and then merged by
+//     a chain of small PyTorch kernels; they meet in the (R,) words instead;
+//   * an exact reject of the pairs whose plane distance cannot win (51% of
+//     them) does not pay: a whole warp step rejects in 12-14% of steps, and
+//     a kernel that queued the survivors to give them their edge tests 32 at
+//     a time was bound by shared-memory traffic (0.96 against 0.60 ms a
+//     launch).  A measurement build counts what the reject would decide.
 
 #include "cluster_rows.cuh"
 #include "cluster_tri.cuh"
@@ -55,8 +48,42 @@
 namespace mcpt {
 namespace {
 
-constexpr int kWarps = kMaxThreads / 32;
-constexpr int kQueue = 64;  // survivors queued per warp (a power of two)
+#ifdef MCPT_COUNT_STATS
+// A measurement build only: `tested` is then an array of kCounters that also
+// receives [1] blocks that took no row, [2] (ray, triangle) pairs tested,
+// [3] of them the pairs whose plane distance alone decides that they cannot
+// change the ray's best (!(t > 0 && t < 1e30 && t <= the testing thread's
+// best t)), [4] warp steps (one test instruction stream over 32 lanes), [5]
+// of them the steps in which that holds for every lane's pair, [6] rows
+// taken.
+constexpr int kCounters = 7;
+
+template <bool MT, class TriOf>
+__device__ __forceinline__ void count_piece(
+    const Ray (&r)[kRaysPerThread], const float4* slot, int ncols, int part,
+    int split, int first, int tile, float (&bt)[kRaysPerThread],
+    int (&bi)[kRaysPerThread], TriOf tri_of, unsigned (&cnt)[kCounters]) {
+  for (int c = part; c < ncols; c += split) {
+    const Col k = load_col(slot, c);
+#pragma unroll
+    for (int i = 0; i < kRaysPerThread; ++i) {
+      float t;
+      const bool hit = tri_test<MT>(r[i], k, t);
+      const bool valid = first + i < tile;
+      const bool rej = !(t > 0.0f && t < kBig && t <= bt[i]);
+      cnt[2] += valid;
+      cnt[3] += valid && rej;
+      const unsigned act = __activemask();
+      const bool all = __all_sync(act, rej || !valid);
+      if ((int)(threadIdx.x & 31) == __ffs(act) - 1) {
+        cnt[4] += 1;
+        cnt[5] += all;
+      }
+      if (hit) lex_min(bt[i], bi[i], t, tri_of(c));
+    }
+  }
+}
+#endif
 
 struct FtbParams {
   const float* rays;       // (n_subtiles * tile, ray_stride)
@@ -69,119 +96,33 @@ struct FtbParams {
   const int* wrows;
   const float* tconst;     // (n_chunks * n_units, 16, unit_cols)
   unsigned long long* packed;  // (n_subtiles * tile,) preset to kMissWord
-  unsigned long long* tested;  // null, or counters (see kCounters)
-  int ray_stride, n_subtiles, tile, n_rows, n_units, unit_cols, pshift;
+  unsigned long long* tested;  // null, or a counter (kCounters of them in a
+                               // -DMCPT_COUNT_STATS build)
+  int ray_stride, n_subtiles, tile, n_rows, n_units, unit_cols, pshift, split;
 };
-
-#ifdef MCPT_COUNT_STATS
-// A measurement build only: `tested` is then an array of kCounters:
-//   [0] (row, unit) pairs whose first piece was tested (as always),
-//   [1] blocks that took no row, [2] (ray, triangle) pairs given the plane
-//   distance, [3] of them the pairs it decided, [4] warp steps of the plane
-//   pass, [5] of them steps in which it decided every lane's pair,
-//   [6] batches of edge tests, [7] pairs in them, [8] rows taken.
-constexpr int kCounters = 9;
-#define MCPT_COUNT(k, v) (cnt[k] += (v))
-#else
-#define MCPT_COUNT(k, v) ((void)0)
-#endif
-
-// The best t of a best word (its high half; the words only fall, so a read
-// that races an atomicMin gets an old or a new value, both upper bounds).
-__device__ __forceinline__ float best_t(const unsigned long long* w, int r) {
-  return __uint_as_float(reinterpret_cast<const unsigned*>(w + r)[1]);
-}
-
-// Edge tests of the queued pairs (q[from .. from + n), n <= 32, one per
-// lane) against the piece in `slot`; accepted ones go to the row's best.
-// An entry is (t, det, ray << 7 | column, -).
-template <bool MT>
-__device__ __forceinline__ void edge_batch(const float4* q, unsigned from,
-                                           int n, const float4* s_ray,
-                                           const float4* slot, int id0,
-                                           unsigned long long* s_best) {
-  __syncwarp();
-  const int lane = threadIdx.x & 31;
-  if (lane < n) {
-    const float4 e = q[(from + lane) & (kQueue - 1)];
-    const int code = __float_as_int(e.z);
-    const int r = code >> 7;
-    const int c = code & 127;
-    constexpr int nv = MT ? 3 : 2;
-    const float4 v0 = s_ray[r * nv];
-    const float4 v1 = s_ray[r * nv + 1];
-    const float4* cp = slot + 4 * c;
-    const int x = (c >> 1) & 3;
-    const float4 kb = cp[1 ^ x];
-    const float4 kc = cp[2 ^ x];
-    const float4 kd = cp[3 ^ x];
-    const float t = e.x;
-    bool inside;
-    if (MT) {
-      // b = (e1, e2.x), c = (e2.yz, k_u.xy), d = (k_u.z, k_v); ray
-      // (o, d, w) in v0 = (o, d.x), v1 = (d.yz, w.xy), v2 = (w.z, -).
-      const float wz = s_ray[r * nv + 2].x;
-      const float det = e.y;
-      const float au = dot3(v1.z, v1.w, wz, kb.w, kc.x, kc.y) +
-                       dot3(v0.w, v1.x, v1.y, kc.z, kc.w, kd.x);
-      const float av = -dot3(v1.z, v1.w, wz, kb.x, kb.y, kb.z) +
-                       dot3(v0.w, v1.x, v1.y, kd.y, kd.z, kd.w);
-      inside = (au * det >= 0.0f) && (av * det >= 0.0f) &&
-               ((det - au - av) * det >= 0.0f);
-    } else {
-      // b = (m1, k1), c = (m2, k2), d = (m3, k3)
-      const float c1 = dot3(v0.x, v0.y, v0.z, kb.x, kb.y, kb.z) +
-                       t * dot3(v0.w, v1.x, v1.y, kb.x, kb.y, kb.z) - kb.w;
-      const float c2 = dot3(v0.x, v0.y, v0.z, kc.x, kc.y, kc.z) +
-                       t * dot3(v0.w, v1.x, v1.y, kc.x, kc.y, kc.z) - kc.w;
-      const float c3 = dot3(v0.x, v0.y, v0.z, kd.x, kd.y, kd.z) +
-                       t * dot3(v0.w, v1.x, v1.y, kd.x, kd.y, kd.z) - kd.w;
-      inside = (c1 * c2 >= 0.0f) && (c1 * c3 >= 0.0f) && (c2 * c3 >= 0.0f);
-    }
-    if (inside) atomicMin(s_best + r, hit_word(t, id0 + c));
-  }
-  __syncwarp();
-}
 
 template <bool MT>
 __global__ void __launch_bounds__(kMaxThreads, MCPT_MIN_BLOCKS)
 cluster_ftb_chunked_kernel(const FtbParams p) {
-  constexpr int nv = MT ? 3 : 2;
-  extern __shared__ float4 s_dyn[];  // ring | best | seed | rays | caps
-  __shared__ float4 s_queue[kWarps][kQueue];
-  __shared__ int s_bound[2][kWarps];  // [unit parity][warp]
+  extern __shared__ float4 s_ring[];            // [kStages][4 * pcols]
+  __shared__ int s_bound[2][kMaxThreads / 32];  // [unit parity][warp]
 
-  const int tile = p.tile;
-  const int pcols = min(p.unit_cols, kPieceCols);
-  const int npu = 1 << p.pshift;
-  float4* s_ring = s_dyn;
-  unsigned long long* s_best =
-      reinterpret_cast<unsigned long long*>(s_ring + kStages * 4 * pcols);
-  unsigned long long* s_seed = s_best + tile;
-  float4* s_ray = reinterpret_cast<float4*>(s_seed + tile);
-  float* s_cap = reinterpret_cast<float*>(s_ray + nv * tile);
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const unsigned below = (1u << lane) - 1u;
-  float4* q = s_queue[warp];
-  // Pairs of 32-ray slabs of the subtile, and the warps that share one.
-  const int n_sp = (tile + 63) >> 6;
-  const int wps = n_sp >= kWarps ? 1 : kWarps / n_sp;
-  const size_t n_rays = (size_t)p.n_subtiles * tile;
-
-  int heads[kBuckets];
   int n_listed = 0;
 #pragma unroll
-  for (int b = 0; b < kBuckets; ++b) {
-    heads[b] = p.heads[b];
-    n_listed += heads[b];
-  }
+  for (int b = 0; b < kBuckets; ++b) n_listed += p.heads[b];
 #ifdef MCPT_COUNT_STATS
   unsigned cnt[kCounters] = {};
   if (p.tested != nullptr && threadIdx.x == 0 && (int)blockIdx.x >= n_listed)
     atomicAdd(p.tested + 1, 1ull);
 #endif
+  const int tile = p.tile;
+  const int split = p.split;
+  const int npu = 1 << p.pshift;
+  const int pcols = min(p.unit_cols, kPieceCols);
+  const int part = threadIdx.x % split;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const size_t n_rays = (size_t)p.n_subtiles * tile;
   int done = 0;  // units whose first piece this block tested
 
   const int g = gridDim.x;
@@ -189,51 +130,18 @@ cluster_ftb_chunked_kernel(const FtbParams p) {
     const int e = round * g + ((round & 1) ? g - 1 - (int)blockIdx.x
                                            : (int)blockIdx.x);
     if (e >= n_listed) continue;
-    int row = 0;
-    for (int b = 0, t = e; b < kBuckets; ++b) {
-      if (t < heads[b]) {
-        row = p.wrows[(size_t)b * p.n_rows + t];
-        break;
-      }
-      t -= heads[b];
-    }
-    MCPT_COUNT(8, threadIdx.x == 0);
+    const int row = list_row(p.heads, p.wrows, p.n_rows, e);
+#ifdef MCPT_COUNT_STATS
+    cnt[6] += threadIdx.x == 0;
+#endif
     const int chunk = row / p.n_subtiles;
-    const int sub = row - chunk * p.n_subtiles;
-    const size_t ray0 = (size_t)sub * tile;
+    const size_t ray0 = (size_t)(row - chunk * p.n_subtiles) * tile;
     const int* cand = p.order + (size_t)row * p.n_units;
     const float* qk = p.qkeys + (size_t)row * p.n_units;
     const float* table =
         p.tconst + (size_t)chunk * p.n_units * 16 * p.unit_cols;
-    const int id_base =
-        (p.offsets != nullptr ? p.offsets[chunk] : 0);
-
-    // The row's rays as this chunk sees them, their caps, and their best
-    // words (seeded from the words, which hold other chunks' hits).
-    for (int r = threadIdx.x; r < tile; r += blockDim.x) {
-      const float* rp = p.rays + (ray0 + r) * p.ray_stride;
-      Ray ray = load_ray<MT>(rp);
-      float cap;
-      if (p.chunk_cap != nullptr) {
-        cap = p.chunk_cap[(size_t)chunk * n_rays + ray0 + r];
-        if (cap < 0.0f) park_ray<MT>(ray);
-      } else {
-        cap = rp[MT ? 9 : 6];
-      }
-      s_ray[r * nv] = make_float4(ray.ox, ray.oy, ray.oz, ray.dx);
-      s_ray[r * nv + 1] = make_float4(ray.dy, ray.dz, ray.wx, ray.wy);
-      if (MT) s_ray[r * nv + 2] = make_float4(ray.wz, 0.0f, 0.0f, 0.0f);
-      s_cap[r] = cap;
-#ifdef MCPT_FTB_NO_SEED
-      const unsigned long long seed = kMissWord;
-#else
-      const unsigned long long seed = __ldcg(p.packed + ray0 + r);
-#endif
-      s_seed[r] = seed;
-      s_best[r] = seed;
-    }
-
     const int total = p.counts[row] * npu;  // the row's pieces
+
     auto stage = [&](int i) {
       stage_cols(s_ring + (i % kStages) * 4 * pcols, 0,
                  table + (size_t)cand[i >> p.pshift] * 16 * p.unit_cols +
@@ -242,6 +150,27 @@ cluster_ftb_chunked_kernel(const FtbParams p) {
       __pipeline_commit();
     };
     stage(0);
+
+    Ray r[kRaysPerThread];
+    float cap[kRaysPerThread];
+    float bt[kRaysPerThread];
+    int bi[kRaysPerThread];
+    int first;
+    load_ray_tile<MT>(p.rays + ray0 * p.ray_stride, p.ray_stride, tile, split,
+                      r, first);
+#pragma unroll
+    for (int i = 0; i < kRaysPerThread; ++i) {
+      const size_t ray = ray0 + min(first + i, tile - 1);
+      if (p.chunk_cap != nullptr) {
+        cap[i] = p.chunk_cap[(size_t)chunk * n_rays + ray];
+        if (cap[i] < 0.0f) park_ray<MT>(r[i]);
+      } else {
+        cap[i] = p.rays[ray * p.ray_stride + (MT ? 9 : 6)];
+      }
+      bt[i] = kBig;
+      bi[i] = INT_MAX;
+    }
+
     for (int i = 0; i < total; ++i) {
       const int j = i >> p.pshift;
       const int pp = i & (npu - 1);
@@ -253,101 +182,47 @@ cluster_ftb_chunked_kernel(const FtbParams p) {
       __syncthreads();  // everyone's has; the piece before is no longer read;
                         // the bound slots written after it are complete
       if (pp == 0 && i > 0) {  // a new unit: may we stop?
-        const int* sl = s_bound[(j - 1) & 1];
-        int b = sl[0];
-#pragma unroll
-        for (int w = 1; w < kWarps; ++w) b = min(b, sl[w]);
+        const int* slots = s_bound[(j - 1) & 1];
+        int b = slots[0];
+        for (int w = 1; w < n_warps; ++w) b = max(b, slots[w]);
         if (qk[j] > __int_as_float(ordered_bits(b))) break;  // block-wide
       }
       if (pp == 0) ++done;
-#ifndef MCPT_SKIP_TESTS  // defined only to time the rest alone
-      const float4* slot = s_ring + (i % kStages) * 4 * pcols;
-      const int id0 = id_base + cand[j] * p.unit_cols + pp * kPieceCols;
-      unsigned qn = 0, qh = 0;  // pairs queued, pairs edge-tested
-      for (int sp = warp / wps; sp < n_sp; sp += kWarps / wps) {
-        int rid[2];
-        bool valid[2];
-        float ox[2], oy[2], oz[2], dx[2], dy[2], dz[2], rb[2];
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          rid[k] = sp * 64 + k * 32 + lane;
-          valid[k] = rid[k] < tile;
-          const int r = min(rid[k], tile - 1);
-          const float4 v0 = s_ray[r * nv];
-          const float4 v1 = s_ray[r * nv + 1];
-          ox[k] = v0.x;
-          oy[k] = v0.y;
-          oz[k] = v0.z;
-          dx[k] = v0.w;
-          dy[k] = v1.x;
-          dz[k] = v1.y;
-          rb[k] = best_t(s_best, r);
-        }
-        for (int c = warp % wps; c < pcols; c += wps) {
-          const float4 a = slot[4 * c + ((c >> 1) & 3)];  // (n, kn)
-#pragma unroll
-          for (int k = 0; k < 2; ++k) {
-            float t, det = 0.0f;
-            if (MT) {
-              det = -dot3(dx[k], dy[k], dz[k], a.x, a.y, a.z);
-              const float o_n = dot3(ox[k], oy[k], oz[k], a.x, a.y, a.z);
-              t = (o_n - a.w) / det;
-            } else {
-              const float n_o = dot3(ox[k], oy[k], oz[k], a.x, a.y, a.z);
-              const float n_d = dot3(dx[k], dy[k], dz[k], a.x, a.y, a.z);
-              t = (a.w - n_o) / n_d;
-            }
-#ifdef MCPT_FTB_NO_REJECT
-            const bool keep = valid[k];
+      const int base = cand[j] * p.unit_cols + pp * kPieceCols;
+#ifdef MCPT_COUNT_STATS
+      count_piece<MT>(r, s_ring + (i % kStages) * 4 * pcols, pcols, part,
+                      split, first, tile, bt, bi,
+                      [&](int c) { return base + c; }, cnt);
 #else
-            const bool keep = valid[k] && t > 0.0f && t < kBig && t <= rb[k];
-#endif
-            const unsigned m = __ballot_sync(0xffffffffu, keep);
-            MCPT_COUNT(2, valid[k]);
-            MCPT_COUNT(3, valid[k] && !keep);
-            MCPT_COUNT(4, lane == 0);
-            MCPT_COUNT(5, lane == 0 && m == 0u);
-            if (keep)
-              q[(qn + __popc(m & below)) & (kQueue - 1)] = make_float4(
-                  t, det, __int_as_float(rid[k] << 7 | c), 0.0f);
-            qn += __popc(m);
-            if (qn - qh >= 32) {
-              edge_batch<MT>(q, qh, 32, s_ray, slot, id0, s_best);
-              qh += 32;
-              MCPT_COUNT(6, lane == 0);
-              MCPT_COUNT(7, lane == 0 ? 32 : 0);
-#pragma unroll
-              for (int kk = 0; kk < 2; ++kk)
-                rb[kk] = best_t(s_best, min(rid[kk], tile - 1));
-            }
-          }
-        }
-      }
-      if (qn != qh) {  // the rest, before the piece's slot is reused
-        edge_batch<MT>(q, qh, (int)(qn - qh), s_ray, slot, id0, s_best);
-        MCPT_COUNT(6, lane == 0);
-        MCPT_COUNT(7, lane == 0 ? (int)(qn - qh) : 0);
-      }
+      test_piece<MT>(r, s_ring + (i % kStages) * 4 * pcols, pcols, part, split,
+                     bt, bi, [&](int c) { return base + c; });
 #endif
       if (pp == npu - 1 && i + 1 < total) {
-        // This warp is done with unit j: its view of the bound for the next
-        // unit, max over the rays of min(best t, cap).  Every best read is
-        // at least the row's best once all warps are done with unit j.
+        // This block is done with unit j: the bound for its next unit, max
+        // over this warp's rays of min(best t of the ray, cap).
         int m = INT_MIN;
-        for (int r = lane; r < tile; r += 32)
-          m = max(m, ordered_bits(__float_as_int(
-                         fminf(best_t(s_best, r), s_cap[r]))));
+#pragma unroll
+        for (int k = 0; k < kRaysPerThread; ++k) {
+          float rt = bt[k];
+          for (int off = split >> 1; off > 0; off >>= 1)
+            rt = fminf(rt, __shfl_xor_sync(0xffffffffu, rt, off));
+          if (part == 0)
+            m = max(m, ordered_bits(__float_as_int(fminf(rt, cap[k]))));
+        }
         m = __reduce_max_sync(0xffffffffu, m);
-        if (lane == 0) s_bound[j & 1][warp] = m;
+        if ((threadIdx.x & 31) == 0) s_bound[j & 1][warp] = m;
       }
     }
     __pipeline_wait_prior(0);  // a guessed copy may still be in flight
-    __syncthreads();           // every warp's batches are done
-    for (int r = threadIdx.x; r < tile; r += blockDim.x) {
-      const unsigned long long w = s_best[r];
-      if (w < s_seed[r]) atomicMin(p.packed + ray0 + r, w);
+
+    const int id0 = p.offsets != nullptr ? p.offsets[chunk] : 0;
+#pragma unroll
+    for (int i = 0; i < kRaysPerThread; ++i) {
+      lex_reduce(bt[i], bi[i], split);
+      if (part == 0 && first + i < tile && bt[i] < kBig)
+        atomicMin(p.packed + ray0 + first + i, hit_word(bt[i], id0 + bi[i]));
     }
-    __syncthreads();  // before the next row's rays overwrite these
+    __syncthreads();  // the ring and the slots are free for the next row
   }
 
   if (p.tested != nullptr && threadIdx.x == 0 && done > 0)
@@ -357,58 +232,50 @@ cluster_ftb_chunked_kernel(const FtbParams p) {
 #pragma unroll
     for (int k = 2; k < kCounters; ++k) {
       const unsigned s = __reduce_add_sync(0xffffffffu, cnt[k]);
-      if (lane == 0 && s != 0u) atomicAdd(p.tested + k, (unsigned long long)s);
+      if ((threadIdx.x & 31) == 0 && s != 0u)
+        atomicAdd(p.tested + k, (unsigned long long)s);
     }
   }
 #endif
 }
 
 template <bool MT>
-int launch(const FtbParams& p, int grid_blocks, cudaStream_t s) {
-  const int pcols = p.unit_cols < kPieceCols ? p.unit_cols : kPieceCols;
-  const size_t smem =
-      ring_bytes(pcols) + (size_t)p.tile * (2 * sizeof(unsigned long long) +
-                                            (MT ? 3 : 2) * sizeof(float4) +
-                                            sizeof(float));
+int launch(const FtbParams& p, int threads, size_t smem, int grid_waves,
+           cudaStream_t s) {
   const auto kernel = cluster_ftb_chunked_kernel<MT>;
+  int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  int grid = grid_blocks;
-  if (grid <= 0) {  // as many blocks as are resident at once
-    int dev = 0, sms = 0, per_sm = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev)) != cudaSuccess ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kernel, kMaxThreads, smem)) != cudaSuccess)
-      return (int)err;
-    grid = sms * (per_sm > 0 ? per_sm : 1);
-  }
-  if (grid > p.n_rows) grid = p.n_rows;
-  kernel<<<grid, kMaxThreads, smem, s>>>(p);
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, threads, smem)) != cudaSuccess)
+    return (int)err;
+  const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const long long grid = resident * grid_waves;
+  kernel<<<(unsigned)(grid < p.n_rows ? grid : p.n_rows), threads, smem, s>>>(
+      p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace mcpt
 
-// grid_blocks: the number of blocks, 0 for as many as are resident at once
-// (a measurement may ask for one block per row).  `tested` as in FtbParams.
+// grid_waves: the grid is that many times the blocks the card holds at once
+// (at most one block per row).  `tested` as in FtbParams.
 extern "C" int mcpt_cluster_intersect_ftb(
     const float* rays, int ray_stride, int n_subtiles, int tile, int n_chunks,
     const float* chunk_cap, const int* offsets, const int* counts,
     const int* order, const float* qkeys, const int* heads, const int* wrows,
-    int n_clusters, const float* tconst, int width, int mt, int grid_blocks,
+    int n_clusters, const float* tconst, int width, int mt, int grid_waves,
     unsigned long long* packed, unsigned long long* tested, void* stream) {
   if (n_subtiles <= 0 || n_chunks <= 0) return (int)cudaGetLastError();
   if (tile < 1 || tile > 1024 || width < 1 || (width & (width - 1)) ||
-      packed == nullptr || heads == nullptr || wrows == nullptr)
+      grid_waves < 1 || packed == nullptr || heads == nullptr ||
+      wrows == nullptr)
     return (int)cudaErrorInvalidValue;
+  const int pcols = width < mcpt::kPieceCols ? width : mcpt::kPieceCols;
+  const mcpt::BlockShape shape = mcpt::block_shape(tile, pcols);
   int pshift = 0;
   while ((mcpt::kPieceCols << pshift) < width) ++pshift;
   mcpt::FtbParams p;
@@ -430,7 +297,9 @@ extern "C" int mcpt_cluster_intersect_ftb(
   p.n_units = n_clusters;
   p.unit_cols = width;
   p.pshift = pshift;
+  p.split = shape.split;
+  const size_t smem = mcpt::ring_bytes(pcols);
   cudaStream_t s = (cudaStream_t)stream;
-  return mt ? mcpt::launch<true>(p, grid_blocks, s)
-            : mcpt::launch<false>(p, grid_blocks, s);
+  return mt ? mcpt::launch<true>(p, shape.threads, smem, grid_waves, s)
+            : mcpt::launch<false>(p, shape.threads, smem, grid_waves, s);
 }

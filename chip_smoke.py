@@ -73,13 +73,16 @@ exits non-zero):
             the intersect kernels fed by the fused list to the same kernels
             fed by the sorted list, and the key kernel is timed with and
             without the list beside ``torch.sort`` on the same packed words
-            (library_ms: the library call for the ordering part);
+            (library_ms: the library call for the ordering part; on the box
+            and 100k frames the ``torch.sort`` that lists a call's hit
+            clusters ascending);
             for the front-to-back kernels also the (subtile, candidate) pairs
             tested, against all candidate pairs and against the pairs no
             exact exit could skip; row 4 also under two measurement builds of
             its source: its tests compiled out (ms_skip_tests), and its
-            counters (rows taken per call, blocks that took none, the share
-            of (ray, triangle) pairs its plane distance decided);
+            counters (blocks that found no row, the share of (ray, triangle)
+            pairs and of warp steps that an exact plane-distance reject would
+            decide), beside the row list's length per call;
 9. a "kernels" line with one row per ported kernel, then the card's
    nvidia-smi line, then the last line {"ok": true, "device": {...}}.
 
@@ -326,6 +329,7 @@ def frame_kernel_stats(calls, tile: int, label: str):
               and torch.equal(torch.where(used, ids, -1),
                               torch.where(used, ids_p, -1)),
               f"{label}: keys differ from the plain version on a frame call")
+        lib1 = ids_sort_ms(keys, sleep)
         rays_i = K.pack_rays(o, d, mt=True) if mt else rays
         ms2, late2, (bt, bi) = timed(lambda: K.cluster_intersect_padded(
             rays_i, counts, ids, acc.tconst, tile, mt), sleep, warm=True)
@@ -342,6 +346,7 @@ def frame_kernel_stats(calls, tile: int, label: str):
                                    ("cluster_intersect", ms2, pm2, late2)):
             rows[name].append({"ms": ms, "plain_ms": pm, "late": late,
                                "bytes": b[name]["bytes"], "ops": b[name]["ops"]})
+        rows["cluster_keys"][-1]["library_ms"] = lib1
     out = {name: aggregate(r) for name, r in rows.items()}
     emit({"phase": "kernel_time", "case": label, "calls": len(pairs),
           "rays_per_call_max": max(int(c[1].shape[0]) for c in calls),
@@ -470,6 +475,16 @@ def adversarial_keys(dev, label: str, caabb, tile: int, seed: int):
             "rows_with_candidates": int((counts > 0).sum()),
             "candidates": int(counts.sum()),
             "inf_keys": int(torch.isinf(keys).sum())}
+
+
+def ids_sort_ms(keys, sleep: float) -> float:
+    """Device ms of the one torch.sort that lists a call's hit clusters in
+    ascending order (the plain version's sort of the hits' ids ahead of the
+    misses'): the library call for the list part of the key kernel."""
+    c = keys.shape[1]
+    iota = torch.arange(c, dtype=torch.int32, device=keys.device)
+    words = torch.where(keys < 1e30, iota, iota + c)
+    return timed(lambda: torch.sort(words, dim=1), sleep, warm=True)[0]
 
 
 def sort_ms(keys, sleep: float) -> float:
@@ -640,21 +655,20 @@ def hbm_call(acc, origin, direction, mt: bool, tile: int, sleep: float,
 # Counters of the chunked intersect kernel's -DMCPT_COUNT_STATS build
 # (kCounters of csrc/cluster_intersect_ftb.cu).
 FTB_COUNTERS = ("units_tested", "blocks_without_row", "pairs",
-                "pairs_rejectable", "warp_steps", "warp_steps_all_reject",
-                "rows")
+                "pairs_rejectable", "warp_steps", "warp_steps_all_reject")
 
 
 def ftb_measurement_builds(calls, tile: int):
     """Row 4 on every chunked call of the frame under two measurement builds
     of its source: with the triangle tests compiled out (-DMCPT_SKIP_TESTS:
     what a launch costs besides its tests, device ms) and with its counters
-    (-DMCPT_COUNT_STATS: rows taken, blocks that took none, the pairs that
-    the plane distance decided, the edge-test batches)."""
+    (-DMCPT_COUNT_STATS: blocks that found no row on the list, and the pairs
+    and warp steps that an exact plane-distance reject would decide)."""
     from montecarlopathtracing_torch.kernels import build as B
     from montecarlopathtracing_torch.kernels import cluster as K
 
     sleep = sleep_ms()
-    ms, totals = [], torch.zeros(16, dtype=torch.int64)
+    ms, totals = [], torch.zeros(len(FTB_COUNTERS), dtype=torch.int64)
     try:
         for flag in ("-DMCPT_SKIP_TESTS", "-DMCPT_COUNT_STATS"):
             B.EXTRA_FLAGS = (flag,)
@@ -665,7 +679,8 @@ def ftb_measurement_builds(calls, tile: int):
                 rays = K.pack_rays(o, d, mt=mt)
                 _, counts, cand = K.cluster_keys_chunked_ftb(rays, cap,
                                                              acc.caabb, tl)
-                ctr = (torch.zeros(16, dtype=torch.int64, device=rays.device)
+                ctr = (torch.zeros(len(FTB_COUNTERS), dtype=torch.int64,
+                                   device=rays.device)
                        if flag == "-DMCPT_COUNT_STATS" else None)
                 run = lambda: K.cluster_intersect_ftb(
                     rays, counts, cand.order, cand.qkeys, acc.tconst, tl, mt,
@@ -681,7 +696,7 @@ def ftb_measurement_builds(calls, tile: int):
         B.load.cache_clear()
     c = dict(zip(FTB_COUNTERS, totals.tolist()))
     n = len(calls)
-    out = {"ms_skip_tests": sum(ms) / n, "rows_per_call": c["rows"] / n,
+    out = {"ms_skip_tests": sum(ms) / n,
            "blocks_without_row_per_call": c["blocks_without_row"] / n,
            "pairs_rejectable_share": c["pairs_rejectable"] / max(1, c["pairs"]),
            "warp_steps_all_reject_share":
@@ -1437,6 +1452,7 @@ def main() -> int:
         if frame == "large":
             tb = state["time_box"][name]
             row.update(ms_box=tb["ms"], plain_ms_box=tb["plain_ms"],
+                       library_ms_box=tb.get("library_ms"),
                        bound_ms_box=tb["bound_ms"],
                        bound_unfused_ms_box=tb["bound_unfused_ms"])
         if name == "cluster_keys":

@@ -20,7 +20,9 @@ wrapper does around it, a sort of the rows in older checkouts) and ``keys``
 ``ms_order_mean`` the whole step up to an ordered candidate list, which
 includes ``torch.sort`` where the package sorts outside the kernel).  On the
 chunked frame ``ms_step_mean`` is the intersect step up to the merged (R,)
-result, with the PyTorch merge of the K chunks in a package that runs one.  Prints
+result, with the PyTorch merge of the K chunks in a package that runs one:
+with ``--pkg-root`` on a checkout from before the chunks met in the join
+word, the two ``ms_step_mean`` give that change's worth on one card.  Prints
 one JSON line per (frame, kernel, variant): mean, median, slowest and total
 ms, slowest over mean.  The first ``--check`` calls of each frame are also held
 exactly equal to the plain version, under every variant that computes
@@ -48,12 +50,6 @@ Variants, joined by "+" to combine two (each answers what one cause of lost time
   hbm_split1, hbm_split2, hbm_split4, hbm_split8, hbm_split32   supergroup
                  kernel with a subtile's pieces dealt out to 1 / 2 / 4 / 8 /
                  32 blocks instead of 16
-  ftb_waves1, ftb_waves2, ftb_waves8, ftb_waves16   chunked kernel launched
-                 with 1 / 2 / 8 / 16 waves of the blocks the card holds at
-                 once instead of FTB_GRID_WAVES
-  ftb_grid_rows  chunked kernel launched with one block per row, listed or
-                 not (FTB_GRID_WAVES large): the grid of the parent (lever b
-                 off)
   keys_no_octant   key kernel built with -DMCPT_KEYS_NO_OCTANT: near and far
                  plane by select per pair, as before the octant bodies
   keys_always_repair  built with -DMCPT_KEYS_ALWAYS_REPAIR: selects and the
@@ -63,10 +59,9 @@ Variants, joined by "+" to combine two (each answers what one cause of lost time
   list_unfused   key kernel writes keys, torch.sort orders them
                  (FUSED_SORT_MAX_CLUSTERS = 0: every table counts as past the
                  fused sort's limit)
-  count          chunked kernel built with -DMCPT_COUNT_STATS: rows taken,
-                 blocks that take none, (ray, triangle) pairs and warp steps
-                 decided by the plane distance, batches of edge tests and
-                 the pairs in them (COUNTER_NAMES)
+  count          chunked kernel built with -DMCPT_COUNT_STATS: blocks that
+                 find no row, (ray, triangle) pairs and warp steps that an
+                 exact plane-distance reject would decide (COUNTER_NAMES)
 
 ``--pkg-root DIR`` imports montecarlopathtracing_torch from DIR (a checkout
 of another commit), to compare two commits on one card in one call; a
@@ -123,11 +118,6 @@ VARIANTS = {
     "hbm_split8": ((), {"HBM_SPLIT": 8}, True),
     "hbm_split4": ((), {"HBM_SPLIT": 4}, True),
     "hbm_split32": ((), {"HBM_SPLIT": 32}, True),
-    "ftb_waves1": ((), {"FTB_GRID_WAVES": 1}, True),
-    "ftb_waves2": ((), {"FTB_GRID_WAVES": 2}, True),
-    "ftb_waves8": ((), {"FTB_GRID_WAVES": 8}, True),
-    "ftb_waves16": ((), {"FTB_GRID_WAVES": 16}, True),
-    "ftb_grid_rows": ((), {"FTB_GRID_WAVES": 1 << 20}, True),
     "keys_no_octant": (("-DMCPT_KEYS_NO_OCTANT",), {}, True),
     "keys_always_repair": (("-DMCPT_KEYS_ALWAYS_REPAIR",), {}, True),
     "keys_cpt1": (("-DMCPT_KEYS_CLUSTERS_PER_THREAD=1",), {}, True),
@@ -308,17 +298,15 @@ def prepare_keys(K, label, acc, origin, direction, mt):
 # Counters of a -DMCPT_COUNT_STATS build of the chunked intersect kernel
 # (kCounters of its source): what each slot receives.
 COUNTER_NAMES = ("units_tested", "blocks_without_row", "pairs",
-                 "pairs_rejectable", "warp_steps", "warp_steps_all_reject",
-                 "rows")
-COUNTERS = 16
+                 "pairs_rejectable", "warp_steps", "warp_steps_all_reject")
+COUNTERS = len(COUNTER_NAMES)
 
 
 def count_shares(totals, calls: int):
     """The counters of a frame's calls, summed, and the shares they give."""
     c = dict(zip(COUNTER_NAMES, totals))
     out = {"counts": c,
-           "blocks_without_row_per_call": c["blocks_without_row"] / calls,
-           "rows_per_call": c["rows"] / calls}
+           "blocks_without_row_per_call": c["blocks_without_row"] / calls}
     for a, b in (("pairs_rejectable", "pairs"),
                  ("warp_steps_all_reject", "warp_steps")):
         out[f"share_{a}"] = c[a] / max(1, c[b])

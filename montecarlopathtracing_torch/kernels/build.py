@@ -57,7 +57,7 @@ _SIGNATURES = {
     "cluster_intersect_ftb": ("cluster_intersect_ftb",
                               "mcpt_cluster_intersect_ftb",
                               [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _P, _I, _I, _I, _P, _P, _P]),
+                               _I, _P, _I, _I, _P, _P, _P]),
     "cluster_intersect_hbm": ("cluster_intersect_hbm",
                               "mcpt_cluster_intersect_hbm",
                               [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I,

@@ -31,7 +31,7 @@ front to back with an early exit:
   runs over all chunks in one launch (``cluster_keys_chunked_ftb``) and
   itself orders each (chunk, subtile)'s candidates by entry key (the packed
   words of ``_ftb_order``, the hits only) and lists the rows that have any;
-  ``cluster_intersect_ftb`` walks the listed rows and tests a row's
+  ``cluster_intersect_ftb`` starts a block per listed row and tests a row's
   candidates until the next key is past every ray's min(best t, cap); the K
   chunks meet in one join word per ray, the lexicographic (t, global
   triangle id) minimum.
@@ -42,7 +42,7 @@ front to back with an early exit:
 front-to-back kernel.  The supergroup kernel deals a subtile's 128-column
 pieces out to ``HBM_SPLIT`` blocks that share the rays' best hits (and so
 the exit bound) through the same join words as the single-table kernel; both
-front-to-back kernels take their rows longest candidate list first (the key
+front-to-back kernels start their rows longest candidate list first (the key
 kernel's row list is bucketed by count).  The
 exit never changes a result: the best hit is an
 order-independent lexicographic minimum and a skipped candidate's entry is
@@ -737,7 +737,7 @@ def cluster_intersect_ftb_plain(rays, counts, order, qkeys, tconst, tile: int,
         better = (tk < best_t) | ((tk == best_t) & (gi < best_i))
         best_t = torch.where(better, tk, best_t)
         best_i = torch.where(better, gi, best_i)
-    return best_t, torch.where(best_t < BIG, best_i, -1).to(torch.int32)
+    return best_t, torch.where(best_t < BIG, best_i, -1)
 
 
 # Blocks a subtile's 128-column pieces are dealt out to, front to back in
@@ -746,12 +746,6 @@ def cluster_intersect_ftb_plain(rays, counts, order, qkeys, tconst, tile: int,
 # subtile share their rays' best hits, and with them the exit bound, through
 # the join words.
 HBM_SPLIT = 16
-
-# Blocks of a chunked intersect launch, in waves of as many as the card holds
-# at once (at most one block per row): block b takes the row list's entries
-# b, 2G-1-b, 2G+b, ...  A measurement may set one block per row (a large
-# number).
-FTB_GRID_WAVES = 4
 
 
 def _check_row_list(name, row_list, n_rows: int, dev):
@@ -820,9 +814,9 @@ def cluster_intersect_ftb(rays, counts, order, qkeys, tconst, tile: int,
     the contract.  The chunks meet in one 64-bit join word per ray, (t bits)
     << 32 | global triangle id, so no merge follows.  ``row_list``
     (FtbCandidates.row_list, from the key kernel that made ``counts``) names
-    the rows with candidates, longest lists first: the launch's blocks take
-    its entries in turn, and no row is sorted here.  ``counter`` (int64 on
-    the card, or None) receives the number of (subtile, candidate) pairs
+    the rows with candidates, longest lists first: it is the order in which
+    blocks start, and no row is sorted here.  ``counter`` (int64 on the
+    card, or None) receives the number of (subtile, candidate) pairs
     tested."""
     if rays.device.type == "cpu":
         return cluster_intersect_ftb_plain(rays, counts, order, qkeys, tconst,
@@ -851,8 +845,8 @@ def cluster_intersect_ftb(rays, counts, order, qkeys, tconst, tile: int,
         err = fn(_ptr(rays), rays.shape[1], r // tile, tile, k_n,
                  _ptr(chunk_cap), _ptr(offsets), _ptr(counts), _ptr(order),
                  _ptr(qkeys), _ptr(heads), _ptr(wrows), order.shape[1],
-                 _ptr(tconst), tconst.shape[2], int(mt), FTB_GRID_WAVES,
-                 _ptr(packed), _ptr(counter), _stream(dev))
+                 _ptr(tconst), tconst.shape[2], int(mt), _ptr(packed),
+                 _ptr(counter), _stream(dev))
     if err != 0:
         raise RuntimeError(f"cluster_intersect_ftb launch failed: CUDA error {err}")
     cluster_intersect_ftb.launches += 1

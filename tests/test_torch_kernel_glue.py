@@ -11,6 +11,9 @@ Nothing here can compile CUDA, so these tests hold what the CPU can see:
   an integer minimum and unpacked by the wrapper's ``_unpack_hits``, must
   equal the plain version over the whole list exactly, with a subtile that
   has no candidate, rays that miss everything, and ties at equal t;
+* the chunked kernel's result: each chunk's bests packed with the chunk's
+  offset and joined by an integer minimum, against the plain version's
+  lexicographic merge of the chunks;
 * the order in which the front-to-back kernels start their rows;
 * the plain versions of what the key kernel fuses in for the front-to-back
   paths: the compact list (only a row's hits sorted) against the first
@@ -194,6 +197,42 @@ def test_joined_runs_equal_the_plain_version(doubled_interior, mt, n_split):
     assert torch.equal(covered, counts)  # the runs cover every candidate once
     got_t, got_i = K._unpack_hits(joined)
     assert torch.equal(got_t, want_t) and torch.equal(got_i, want_i)
+
+
+@pytest.mark.parametrize("mt", [False, True], ids=["compat", "mt"])
+def test_chunks_joined_by_word_equal_the_plain_merge(doubled_interior, mt):
+    """The chunked kernel's result: each (chunk, ray)'s best packed with the
+    chunk's offset (a global id) and joined by an integer minimum, as the
+    rows' atomicMin into one word per ray does, equals the plain version's
+    lexicographic merge of the K chunks, exactly."""
+    scene, _ = doubled_interior
+    acc, offsets = K.build_cluster_accel_chunked(scene, width=32, n_chunks=3,
+                                                 mt=mt)
+    assert len(offsets) == 3 and offsets[0] == 0
+    o, d = _rays(5 * TILE + 7, seed=12)
+    o, d, _, tile = K._shape_and_pad(o, d, TILE, 2)
+    cap = K.chunk_caps(acc, o, d)
+    rays = K.pack_rays(o, d, mt=mt)
+    keys, counts = K.cluster_keys_chunked_plain(rays, cap, acc.caabb, tile)
+    order, qkeys = K._ftb_candidates(keys)
+    want = K.cluster_intersect_ftb_plain(rays, counts, order, qkeys, acc.tconst,
+                                         tile, mt, chunk_cap=cap,
+                                         offsets=acc.offsets)
+    n_sub, c = rays.shape[0] // tile, acc.clusters_per_chunk
+    joined = torch.full((rays.shape[0],), K._PACKED_MISS, dtype=torch.int64)
+    hits_per_chunk = []
+    for k in range(3):
+        rows = slice(k * n_sub, (k + 1) * n_sub)
+        t, tri = K._ftb_plain(K._park_rays(rays, cap[k], mt), cap[k],
+                              counts[rows], order[rows], qkeys[rows],
+                              acc.tconst[k * c:(k + 1) * c], tile, mt)
+        hits_per_chunk.append(int((tri >= 0).sum()))
+        glob = torch.where(tri >= 0, tri + offsets[k], -1)
+        joined = torch.minimum(joined, _pack_hits(t, glob))
+    got_t, got_i = K._unpack_hits(joined)
+    assert torch.equal(got_t.view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got_i, want[1])
+    assert sum(h > 0 for h in hits_per_chunk) >= 2  # rays hit in several chunks
 
 
 def test_rows_longest_first_is_a_stable_descending_permutation():

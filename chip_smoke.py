@@ -83,8 +83,39 @@ exits non-zero):
             counters (blocks that found no row, the share of (ray, triangle)
             pairs and of warp steps that an exact plane-distance reject would
             decide), beside the row list's length per call;
-9. a "kernels" line with one row per ported kernel, then the card's
-   nvidia-smi line, then the last line {"ok": true, "device": {...}}.
+   walks    the two LBVH walk kernels (csrc/bvh_walk.cu, csrc/packet_walk.cu):
+            (a) on the box and the 100k interior, compat and MT, random rays
+            with adversarial ones (axis-parallel on node planes, -0.0,
+            parked, misses) and the interior's camera and shadow rays,
+            exactly equal to the plain walks and within the brute-force
+            contract; (b) frames at full width under intersector="bvh" and
+            "bvh_perray", MODERN: the box at 1024 x 1024, spp 16, max_depth
+            32, and the 100k interior at 1280 x 720, spp 4, each held to the
+            cluster render of the same options (the card-vs-CPU image
+            limits), with the walk's launches counted (no cluster kernel may
+            run); (c) the 400k interior past a chunk cap of 4 under
+            large_mode="chunked": resolve_plan gives the packet walk, and
+            the frame renders; each walk frame rendered twice, timed, then
+            recorded for the replay;
+   oracle   (d) a 16 x 16 box on the card against the port's f64 oracle
+            (tests/test_oracle.py's limits);
+   native   (e) the box and the 100k interior written to OBJ / MTL and loaded
+            with use_native=True: the C++ parser ran and its fields equal
+            the Python parser's;
+   ranks    (f) two ranks spawned on the card with gloo collectives on CUDA
+            tensors: render_image_sharded on a 2 x 1 and a 1 x 2 grid
+            against one process, and one make_distributed_train_step step
+            against train_step (tests/test_parallel.py's tolerances);
+   profile  (g) the CLI's --profile writes a trace holding device kernels;
+   walk timing  every walk frame's recorded calls replayed: the kernel on
+            the whole call against the plain walk on a slice of it (whole
+            packets for the packet walk), and a few whole calls timed with
+            both, exact; the bound's operations are the slab and triangle
+            tests the per-ray plain walk makes on the same call (the
+            function's needs), the packet walk's own tests printed beside;
+9. a "kernels" line with one row per ported kernel (the five cluster
+   kernels and the two walks), then the card's nvidia-smi line, then the
+   last line {"ok": true, "device": {...}}.
 
 The recording renders and the replays of phase 8 come after the counters are
 read and are not counted.
@@ -765,8 +796,8 @@ def phase_kernels(dev, state):
 
     # (b) the large interior's table, compat and MT, on main-path rays.
     t0 = time.perf_counter()
-    large, _ = load_builtin_large(n_tris=100_000, width=1280, height=720,
-                                  device=dev)
+    large, state["large_meta"] = load_builtin_large(n_tris=100_000, width=1280,
+                                                    height=720, device=dev)
     torch.cuda.synchronize()
     state["large"] = large
     state["large_load_s"] = time.perf_counter() - t0
@@ -845,6 +876,19 @@ def image_checks(img, label: str):
     mean = float(img.mean())
     check(mean > 0.0, f"{label}: black image")
     return mean
+
+
+def image_agreement(a, b, label: str):
+    """The card-vs-CPU image limits: at most 0.5% of pixels outside rtol
+    1e-4 / atol 1e-5, the mean within 1e-4 relative."""
+    a, b = a.cpu().numpy(), b.cpu().numpy()
+    outside = np.abs(a - b) > 1e-5 + 1e-4 * np.abs(a)
+    frac = float(outside.any(axis=2).mean())
+    mean_rel = abs(float(a.mean()) - float(b.mean())) / max(abs(float(a.mean())), 1e-30)
+    check(frac <= 0.005, f"{label}: {frac:.4%} pixels outside tolerance")
+    check(mean_rel <= 1e-4, f"{label}: image mean differs by {mean_rel:.3e}")
+    return {"frac_pixels_outside": frac, "mean_rel_diff": mean_rel,
+            "max_abs_diff": float(np.abs(a - b).max())}
 
 
 class CaptureCall:
@@ -1088,15 +1132,9 @@ def phase_large400(dev, state):
               "plan": list(plan), **shape, "seconds": secs,
               "load_seconds": state["large400_load_s"], "rays": rays,
               "rays_per_s": rays / secs, "mean": mean, "launches": launches})
-    a = images["large400_chunked"].cpu().numpy()
-    b = images["large400_hbm"].cpu().numpy()
-    outside = np.abs(a - b) > 1e-5 + 1e-4 * np.abs(a)
-    frac = float(outside.any(axis=2).mean())
-    mean_rel = abs(float(a.mean()) - float(b.mean())) / max(abs(float(a.mean())), 1e-30)
-    check(frac <= 0.005, f"large400: {frac:.4%} pixels differ between the plans")
-    check(mean_rel <= 1e-4, f"large400: image means differ by {mean_rel:.3e}")
-    emit({"phase": "large400_plans_agree", "frac_pixels_outside": frac,
-          "mean_rel_diff": mean_rel, "max_abs_diff": float(np.abs(a - b).max())})
+    emit({"phase": "large400_plans_agree",
+          **image_agreement(images["large400_chunked"], images["large400_hbm"],
+                            "large400 plans")})
 
 
 def phase_scan(dev):
@@ -1357,19 +1395,592 @@ def phase_parity(dev, state):
                                     with_glass=True, device=name)
         img, rays = render_image_stats(scene, None, opts, device=name)
         out[name] = (img.cpu().numpy(), int(rays))
-    a, b = out["cpu"][0], out["cuda"][0]
-    # Same tolerance as the CPU parity test against the JAX package:
-    # rtol 1e-4 / atol 1e-5 per value, at most 0.5% of pixels outside it
-    # (paths that diverge at an edge), image mean within 1e-4 relative.
-    outside = np.abs(a - b) > 1e-5 + 1e-4 * np.abs(a)
-    frac = float(outside.any(axis=2).mean())
-    mean_rel = abs(float(a.mean()) - float(b.mean())) / max(abs(float(a.mean())), 1e-30)
-    check(frac <= 0.005, f"parity: {frac:.4%} pixels outside tolerance")
-    check(mean_rel <= 1e-4, f"parity: image mean differs by {mean_rel:.3e}")
+    # Same tolerance as the CPU parity test against the JAX package (paths
+    # may diverge at an edge).
     emit({"phase": "parity", "width": 64, "height": 64, "spp": 4,
           "rays_cuda": out["cuda"][1], "rays_cpu": out["cpu"][1],
-          "frac_pixels_outside": frac, "mean_rel_diff": mean_rel,
-          "max_abs_diff": float(np.abs(a - b).max())})
+          **image_agreement(torch.as_tensor(out["cpu"][0]),
+                            torch.as_tensor(out["cuda"][0]), "parity")})
+
+
+# ---------------------------------------------------------------------------
+# The LBVH walks, the oracle, the native loader, two ranks, the profiler.
+# ---------------------------------------------------------------------------
+
+# f32 operations of one (ray, node) slab test and one (ray, triangle) test
+# of ops/intersect.py (walk_common.cuh): 6 subtractions, 6 products, 4 max /
+# min and 3 compares; compat 87 (3 dot products of cross products, the plane
+# solve, the hit point, sign products), Moller-Trumbore 56.
+OPS_SLAB = 19
+OPS_TRI_WALK = {False: 87, True: 56}
+# Every how-many-th recorded call of a walk frame the plain walk replays on a
+# slice of its rays (per-ray walk) or whole packets (packet walk); and how
+# many calls of each frame both walks replay whole, timed.
+WALK_SAMPLE_CALLS = 16
+WALK_FULL_CALLS = 8
+WALK_SUBSET_RAYS = 4096
+WALK_SUBSET_PACKETS = 4
+WALK_KERNELS = {"bvh_perray": "bvh_walk", "bvh": "packet_walk"}
+
+
+class WalkCapture:
+    """Records the inputs of every call the wavefront makes to one walk
+    (by its name in the integrator module); calls pass through."""
+
+    def __init__(self, name: str):
+        from montecarlopathtracing_torch.integrator import wavefront
+
+        self.module, self.name, self.calls = wavefront, name, []
+        self.inner = getattr(wavefront, name)
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.inner)
+
+    def __call__(self, bvh, scene, origin, direction, **kw):
+        self.calls.append((bvh, scene, origin, direction, kw))
+        return self.inner(bvh, scene, origin, direction, **kw)
+
+
+def walk_fns(kind):
+    """(kernel wrapper, plain version) of a walk intersector kind."""
+    from montecarlopathtracing_torch.accel import lbvh as L
+
+    if kind == "bvh_perray":
+        return L.bvh_intersect, L.bvh_intersect_plain
+    return L.packet_intersect, L.packet_intersect_plain
+
+
+def results_equal(a, b) -> bool:
+    """hit, t bits and tri all equal."""
+    return (torch.equal(a[0], b[0]) and torch.equal(a[2], b[2])
+            and torch.equal(a[1].view(torch.int32), b[1].view(torch.int32)))
+
+
+def walk_bound(bvh, rays_n: int, counts: dict, mt: bool):
+    """(bytes, ops) a walk must move and do on one call: rays, nodes and
+    triangles read once, (t, tri) written once; the slab and triangle tests
+    that the nearest hit of this call's rays needs, as the per-ray plain walk
+    counts them on the same rays (both walks compute the same function; the
+    packet walk's own tests, every ray of a packet at every node the packet
+    visits, are its algorithm's cost and not the function's)."""
+    lc = bvh.num_leaves
+    n_bytes = rays_n * 24 + 2 * lc * 24 + lc * 49 + rays_n * 8
+    n_ops = (OPS_SLAB * counts["node_tests"]
+             + OPS_TRI_WALK[mt] * counts["tri_tests"])
+    return n_bytes, n_ops
+
+
+def walk_frame_stats(calls, kind: str, label: str):
+    """Replay a walk frame's recorded calls: every WALK_SAMPLE_CALLS-th call
+    with the kernel on the whole call (timed) against the plain walk on a
+    slice of it (the per-ray walk on WALK_SUBSET_RAYS rays, the packet walk
+    on WALK_SUBSET_PACKETS whole packets: a packet's result depends on its
+    mates), and WALK_FULL_CALLS calls whole with both (timed, exact), the
+    bound taken from the per-ray plain walk's tests on the same call.  For
+    the packet walk its own plain version's tests are kept beside them."""
+    from montecarlopathtracing_torch.accel import lbvh as L
+
+    kernel, plain = walk_fns(kind)
+    sleep = sleep_ms()
+    full_idx = set(np.linspace(0, len(calls) - 1, WALK_FULL_CALLS).astype(int).tolist())
+    step = max(1, len(calls) // WALK_SAMPLE_CALLS)
+    sampled, full = [], []
+    for i, (bvh, scene, o, d, kw) in enumerate(calls):
+        if i % step and i not in full_idx:
+            continue
+        mt = not kw.get("compat", True)
+        ms, late, got = timed(lambda: kernel(bvh, scene, o, d, **kw), sleep,
+                              warm=True)
+        if kind == "bvh":
+            p = min(kw.get("packet_size", 1024), o.shape[0])
+            sl = slice(0, min(o.shape[0], WALK_SUBSET_PACKETS * p))
+        else:
+            sl = slice(0, min(o.shape[0], WALK_SUBSET_RAYS))
+        part = plain(bvh, scene, o[sl], d[sl], **kw)
+        check(results_equal(part, tuple(x[sl] for x in got)),
+              f"{label}: {kind} kernel differs from its plain version on "
+              f"call {i} (slice of {sl.stop} rays)")
+        sampled.append(ms)
+        if i in full_idx:
+            counts = {}
+            pm, _, want = timed(lambda: plain(bvh, scene, o, d, counts=counts, **kw),
+                                sleep)
+            check(results_equal(got, want),
+                  f"{label}: {kind} kernel differs from its plain version on "
+                  f"the whole call {i}")
+            own = counts
+            if kind == "bvh":
+                counts = {}
+                L.bvh_intersect_plain(bvh, scene, o, d, compat=not mt,
+                                      counts=counts)
+            n_bytes, n_ops = walk_bound(bvh, o.shape[0], counts, mt)
+            _, own_ops = walk_bound(bvh, o.shape[0], own, mt)
+            full.append({"ms": ms, "plain_ms": pm, "late": late,
+                         "bytes": n_bytes, "ops": n_ops,
+                         "bound_own_tests_ms": bound_of(n_bytes, own_ops)[0],
+                         "node_tests": counts["node_tests"],
+                         "tri_tests": counts["tri_tests"],
+                         "own_node_tests": own["node_tests"],
+                         "own_tri_tests": own["tri_tests"],
+                         "rays": int(o.shape[0])})
+    agg = aggregate(full)
+    n_rays = sum(r["rays"] for r in full)
+    agg.update(ms_sampled_mean=sum(sampled) / len(sampled),
+               calls_sampled=len(sampled), calls_recorded=len(calls),
+               node_tests_per_ray=sum(r["node_tests"] for r in full) / n_rays,
+               tri_tests_per_ray=sum(r["tri_tests"] for r in full) / n_rays)
+    if kind == "bvh":
+        agg.update(
+            own_node_tests_per_ray=sum(r["own_node_tests"] for r in full) / n_rays,
+            own_tri_tests_per_ray=sum(r["own_tri_tests"] for r in full) / n_rays,
+            bound_own_tests_ms=sum(r["bound_own_tests_ms"] for r in full)
+            / len(full))
+    emit({"phase": "walk_kernel_time", "case": label, "kernel": WALK_KERNELS[kind],
+          "sleep_ms": sleep, **agg})
+    return agg
+
+
+def phase_walk_kernels(dev, state):
+    """(a) The walk kernels on the card against their plain versions and
+    brute force: the box and the 100k interior, random rays with
+    adversarial ones (axis-parallel on node planes, -0.0, parked, misses),
+    and the 100k interior's camera and shadow rays, compat and MT."""
+    from montecarlopathtracing_torch.accel import lbvh as L
+    from montecarlopathtracing_torch.scene.builtin import load_builtin_box
+
+    box, _ = load_builtin_box(width=1024, height=1024, with_specular=True,
+                              with_glass=True, device=dev)
+    large = state["large"]
+    rng = np.random.default_rng(40)
+    cases = []
+    for name, scene, lo, hi in (("box", box, 0.1, 1.9), ("large", large, 0.1, 2.9)):
+        t0 = time.perf_counter()
+        bvh = L.build_lbvh(scene)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        host = L.build_lbvh_host(scene)
+        check(torch.equal(bvh.node_min, host.node_min)
+              and torch.equal(bvh.node_max, host.node_max),
+              f"walks {name}: build_lbvh differs from build_lbvh_host")
+        n = 8192 + 37
+        o = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
+        d = rng.normal(size=(n, 3)).astype(np.float32)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        nmin = bvh.node_min.cpu().numpy()
+        for i, k in enumerate(rng.integers(1, nmin.shape[0], 96)):
+            ax = i % 3
+            o[i, (ax + 1) % 3] = nmin[k, (ax + 1) % 3]  # on a node's plane
+            d[i] = 0.0
+            d[i, ax] = 1.0 if i % 2 else -1.0
+        d[96:160, 0] = -0.0
+        o[160:224] = 1e9
+        d[160:224] = (1.0, 0.0, 0.0)
+        o[224:256] = 50.0
+        d[224:256] = (0.0, 0.0, 1.0)
+        ray_sets = [("random", torch.as_tensor(o, device=dev),
+                     torch.as_tensor(d, device=dev))]
+        if name == "large":
+            co, cd = camera_and_shadow_rays(large, MAIN_RAYS // 2, seed=41)
+            half = co.shape[0] // 2
+            m = min(8192, half)
+            pick = torch.cat([torch.arange(0, m), torch.arange(half, half + m)])
+            ray_sets.append(("camera_shadow", co[pick.to(dev)], cd[pick.to(dev)]))
+            ray_sets.append(("camera_shadow_full", co, cd))
+        for label, oo, dd in ray_sets:
+            for mt in (False, True):
+                res = {"case": f"{name}_{label}" + ("_mt" if mt else ""),
+                       "rays": int(oo.shape[0]), "bvh_build_s": build_s}
+                for kind in ("bvh_perray", "bvh"):
+                    kernel, plain = walk_fns(kind)
+                    got = kernel(bvh, scene, oo, dd, compat=not mt)
+                    if label == "camera_shadow_full":
+                        # The main path's full shape only has to launch here;
+                        # whole calls are held to the plain walks on the
+                        # frames' replays.
+                        res[kind] = {"hits": int(got[0].sum())}
+                        continue
+                    want = plain(bvh, scene, oo, dd, compat=not mt)
+                    check(results_equal(got, want),
+                          f"walks {res['case']}: {kind} kernel differs from "
+                          "its plain version")
+                    # An axis-parallel ray on a node's slab plane misses
+                    # that node (0 * inf = NaN, as in the JAX package's
+                    # walks) where brute force may hit a triangle inside it:
+                    # the adversarial rays are left out of the brute-force
+                    # contract, and among camera rays (the lattice's centre
+                    # ray is axis-parallel) 1 in 1,000 may differ.
+                    sub = slice(256, None) if label == "random" else slice(None)
+                    res[kind] = brute_contract(
+                        scene, tuple(x[sub] for x in got), oo[sub], dd[sub], mt,
+                        f"walks {res['case']} {kind}",
+                        outliers=1e-3 if label == "camera_shadow" else 0.0)
+                    res[kind]["t_max_abs_err"] = max_err(got[1], want[1])
+                cases.append(res)
+    emit({"phase": "walk_kernels", "ok": True, "cases": cases})
+    state["max_abs_err_walk"] = {
+        k: max(c[k].get("t_max_abs_err", 0.0) for c in cases)
+        for k in ("bvh_perray", "bvh")}
+
+
+def walk_frame(scene, opts, kind: str, label: str, dev):
+    """One frame through render_image_host_chunked: timed with the counters
+    zeroed, then again with the walk's calls recorded.  Returns (image,
+    record, calls)."""
+    from montecarlopathtracing_torch.accel import lbvh as L
+    from montecarlopathtracing_torch.integrator.wavefront import (
+        _tile_swizzled_ids, render_image_host_chunked, resolve_plan, swizzle_tile)
+    from montecarlopathtracing_torch.kernels import cluster as K
+
+    opts = opts.replace(intersector=kind) if kind != "fallback" else opts
+    plan = resolve_plan(opts, scene.num_tris_padded)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bvh = L.build_lbvh_host(scene)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    K.reset_launch_counts()
+    L.reset_launch_counts()
+    t0 = time.perf_counter()
+    img, rays = render_image_host_chunked(scene, bvh, opts, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {**K.launch_counts(), **L.launch_counts()}
+    name = "bvh_intersect" if plan[0] == "bvh_perray" else "packet_intersect"
+    with WalkCapture(name) as cap:
+        render_image_host_chunked(scene, bvh, opts, device=dev)
+    walk = WALK_KERNELS[plan[0]]
+    check(launches[walk] > 0, f"{label}: the {walk} kernel was not launched")
+    check(all(v == 0 for k, v in launches.items() if k not in WALK_KERNELS.values()),
+          f"{label}: a cluster kernel was launched on a walk frame: {launches}")
+    mean = image_checks(img, label)
+    w, h = scene.camera.width, scene.camera.height
+    # A walk's swizzle tile is a packet (32 x 32 pixels): a frame whose
+    # height is no multiple of 32 renders duplicate slots, counted in
+    # ``rays``; primary_rays_per_s counts the frame's own W x H x spp.
+    slots = len(_tile_swizzled_ids(h, w, swizzle_tile(opts, scene.num_tris_padded)))
+    rec = {"phase": label, "width": w, "height": h, "spp": opts.spp,
+           "max_depth": opts.max_depth, "plan": list(plan),
+           "tris_padded": scene.num_tris_padded, "seconds": secs,
+           "bvh_build_host_s": build_s, "rays": rays, "rays_per_s": rays / secs,
+           "slots": slots, "duplicate_slot_share": 1 - w * h / slots,
+           "primary_rays_per_s": w * h * opts.spp / secs,
+           "iterations": launches[walk], "mean": mean, "launches": launches}
+    return img, rec, (plan[0], cap.calls)
+
+
+def phase_walk_frames(dev, state):
+    """(b) Frames at full width under both walks, MODERN, against the
+    cluster render of the same options; (c) the chunk-cap fallback frame."""
+    from montecarlopathtracing_torch.config import MODERN, RenderOptions
+    from montecarlopathtracing_torch.integrator.wavefront import (
+        render_image_host_chunked, resolve_plan)
+    from montecarlopathtracing_torch.scene.builtin import load_builtin_box
+
+    box, _ = load_builtin_box(width=1024, height=1024, device=dev)
+    frames = (("box", box, RenderOptions(spp=16, spp_chunk=16, max_depth=32,
+                                         compat=MODERN)),
+              ("large", state["large"], RenderOptions(spp=4, spp_chunk=4,
+                                                      compat=MODERN)))
+    for name, scene, opts in frames:
+        t0 = time.perf_counter()
+        ref, _ = render_image_host_chunked(scene, None, opts, device=dev)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        for kind in ("bvh", "bvh_perray"):
+            label = f"{name}_{kind}"
+            img, rec, calls = walk_frame(scene, opts, kind, label, dev)
+            rec["against_cluster"] = image_agreement(ref, img, label)
+            rec["cluster_seconds"] = ref_s
+            rec["cluster_primary_rays_per_s"] = (
+                scene.camera.width * scene.camera.height * opts.spp / ref_s)
+            emit(rec)
+            state[f"walk_frame_{label}"] = rec
+            state[f"walk_calls_{label}"] = calls
+            del img
+        del ref
+        torch.cuda.empty_cache()
+    # (c) The 400k interior past a chunk cap of 4 (it needs 7 chunks) under
+    # large_mode="chunked": the packet walk.
+    scene = state["large400"]
+    opts = RenderOptions(spp=LARGE400_SPP, spp_chunk=LARGE400_SPP,
+                         large_mode="chunked", max_table_chunks=4)
+    plan = resolve_plan(opts, scene.num_tris_padded)
+    check(plan == ("bvh", None, None, 1), f"fallback: resolve_plan gave {plan}")
+    img, rec, calls = walk_frame(scene, opts, "fallback", "large400_fallback", dev)
+    emit(rec)
+    state["walk_frame_large400_fallback"] = rec
+    state["walk_calls_large400_fallback"] = calls
+    del img
+    torch.cuda.empty_cache()
+
+
+def phase_walk_timing(state):
+    """(a) continued: every walk frame's calls replayed against the plain
+    walks (walk_frame_stats)."""
+    out = {}
+    for label in ("box_bvh", "box_bvh_perray", "large_bvh", "large_bvh_perray",
+                  "large400_fallback"):
+        kind, calls = state.pop(f"walk_calls_{label}")
+        out[label] = walk_frame_stats(calls, kind, label)
+        del calls
+        torch.cuda.empty_cache()
+    state["walk_time"] = out
+
+
+def phase_oracle(dev):
+    """(d) A 16 x 16 box rendered on the card against the port's f64 oracle
+    with tests/test_oracle.py's limits: direct lighting and the full path in
+    compat mode on the pixels whose lattice-corner primary meets a triangle
+    interior (an edge-exact primary's f32 hit decision may differ from the
+    f64 one; tests/test_oracle.py's compat refill test masks the same), and
+    the full path in MODERN mode on every pixel."""
+    from montecarlopathtracing_torch.accel.lbvh import brute_force_intersect
+    from montecarlopathtracing_torch.config import MODERN, RenderOptions
+    from montecarlopathtracing_torch.integrator.camera import primary_rays
+    from montecarlopathtracing_torch.integrator.wavefront import render_pixels
+    from montecarlopathtracing_torch.ops.intersect import barycentric
+    from montecarlopathtracing_torch.oracle.cpu_reference import oracle_render_pixels
+    from montecarlopathtracing_torch.scene.builtin import load_builtin_box
+
+    scene, _ = load_builtin_box(width=16, height=16, device=dev)
+    ids = np.arange(256, dtype=np.int32)
+    ids_t = torch.as_tensor(ids, device=dev)
+    o, d = primary_rays(scene.camera, ids_t)
+    hit, t, tri = brute_force_intersect(scene, o, d)
+    p = o + d * torch.where(hit, t, 0.0)[:, None]
+    tc = torch.clamp(tri, min=0).long()
+    bary = barycentric(p, scene.v0[tc], scene.v1[tc], scene.v2[tc])
+    interior = (hit & (torch.amin(bary, dim=1) > 1e-3)).cpu().numpy()
+    out = {"interior_share": float(interior.mean())}
+    for label, depth, med, line, share, mask, compat in (
+            ("direct", 1, 1e-5, 1e-3, 0.99, interior, {}),
+            ("full_path", 6, 1e-4, 1e-2, 0.98, interior, {}),
+            ("full_path_modern", 6, 1e-4, 1e-2, 0.98, None, {"compat": MODERN})):
+        opts = RenderOptions(spp=4, max_depth=depth, chunk_size=256, refill=False,
+                             **compat)
+        got, _ = render_pixels(scene, None, opts, ids_t)
+        want = oracle_render_pixels(scene, opts, ids)
+        rel = (np.abs(got.cpu().numpy().astype(np.float64) - want)
+               / np.maximum(np.abs(want), 1e-2))
+        frame_within = float((rel.max(axis=1) < line).mean())
+        if mask is not None:
+            rel = rel[mask]
+        within = float((rel.max(axis=1) < line).mean())
+        check(np.median(rel) < med and within > share,
+              f"oracle {label}: median {np.median(rel):.3e}, {within:.4f} of "
+              f"lanes within {line}")
+        out[label] = {"median_rel": float(np.median(rel)), "share_within": within,
+                      "share_within_whole_frame": frame_within}
+    emit({"phase": "oracle", "width": 16, "height": 16, "spp": 4, **out})
+
+
+def write_obj(scene, meta, d: str, name: str):
+    """The scene as OBJ / MTL / .camera text (valid triangles, one v / vt /
+    vn per corner, materials without textures)."""
+    valid = scene.tri_valid.cpu().numpy()
+    f = lambda t: t.cpu().numpy()[valid]
+    vs = np.stack([f(scene.v0), f(scene.v1), f(scene.v2)], axis=1).reshape(-1, 3)
+    vn = np.stack([f(scene.n0), f(scene.n1), f(scene.n2)], axis=1).reshape(-1, 3)
+    vt = np.stack([f(scene.uv0), f(scene.uv1), f(scene.uv2)], axis=1).reshape(-1, 2)
+    mat = f(scene.mat_id)
+    names = meta.material_names
+    lines = [f"v {a:.9g} {b:.9g} {c:.9g}" for a, b, c in vs]
+    lines += [f"vt {a:.9g} {b:.9g}" for a, b in vt]
+    lines += [f"vn {a:.9g} {b:.9g} {c:.9g}" for a, b, c in vn]
+    cur = None
+    for i, m in enumerate(mat):
+        if m != cur:
+            lines.append(f"usemtl {names[m]}")
+            cur = m
+        a, b, c = 3 * i + 1, 3 * i + 2, 3 * i + 3
+        lines.append(f"f {a}/{a}/{a} {b}/{b}/{b} {c}/{c}/{c}")
+    with open(os.path.join(d, name + ".obj"), "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    kd, ks = scene.kd.cpu().numpy(), scene.ks.cpu().numpy()
+    ns, ni = scene.ns.cpu().numpy(), scene.ni.cpu().numpy()
+    with open(os.path.join(d, name + ".mtl"), "w") as fh:
+        for i, n in enumerate(names):
+            fh.write(f"newmtl {n}\nKd {kd[i][0]:.9g} {kd[i][1]:.9g} {kd[i][2]:.9g}\n"
+                     f"Ks {ks[i][0]:.9g} {ks[i][1]:.9g} {ks[i][2]:.9g}\n"
+                     f"Ns {ns[i]:.9g}\nNi {ni[i]:.9g}\n")
+    cam = scene.camera
+    v3 = lambda t: " ".join(f"{x:.9g}" for x in t.cpu().numpy())
+    light = scene.light_radiance.cpu().numpy()
+    with open(os.path.join(d, name + ".camera"), "w") as fh:
+        fh.write(f"eye {v3(cam.eye)}\nlookat {v3(cam.look_at)}\nup {v3(cam.up)}\n"
+                 f"fovy {float(cam.fovy):.9g}\nwidth {cam.width}\n"
+                 f"height {cam.height}\n")
+        for li, m in enumerate(scene.light_mat.cpu().numpy()):
+            fh.write(f"mtlname {names[m]} {light[li][0]:.9g} {light[li][1]:.9g} "
+                     f"{light[li][2]:.9g}\n")
+
+
+def phase_native(dev, state):
+    """(e) The box and the 100k interior written to OBJ / MTL and loaded
+    with use_native=True: the native parser ran (no fallback) and its fields
+    equal the Python parser's."""
+    import logging
+
+    from montecarlopathtracing_torch import api
+    from montecarlopathtracing_torch.scene.builtin import write_box_scene
+    from montecarlopathtracing_torch.scene.types import SCENE_FIELDS
+
+    class Catch(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    catch = Catch()
+    logger = logging.getLogger("montecarlopathtracing_torch.api")
+    logger.addHandler(catch)
+    old_level = logger.level
+    logger.setLevel(logging.INFO)
+    out = []
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            write_box_scene(d, "box", width=64, height=64)
+            write_obj(state["large"], state["large_meta"], d, "large100k")
+            for name in ("box", "large100k"):
+                catch.lines.clear()
+                t0 = time.perf_counter()
+                sn, mn = api.load_scene(d, name, device=dev)
+                tn = time.perf_counter() - t0
+                check(any("parsed by the native loader" in s for s in catch.lines),
+                      f"native {name}: the native parser did not run: {catch.lines}")
+                t0 = time.perf_counter()
+                sp, mp = api.load_scene(d, name, use_native=False, device=dev)
+                tp = time.perf_counter() - t0
+                same = [f for f in SCENE_FIELDS
+                        if torch.equal(getattr(sn, f), getattr(sp, f))]
+                check(len(same) == len(SCENE_FIELDS) and mn.num_faces == mp.num_faces,
+                      f"native {name}: fields differ from the python parser: "
+                      f"{sorted(set(SCENE_FIELDS) - set(same))}")
+                out.append({"scene": name, "faces": mn.num_faces,
+                            "native_load_s": tn, "python_load_s": tp})
+    finally:
+        logger.removeHandler(catch)
+        logger.setLevel(old_level)
+    emit({"phase": "native", "ok": True, "scenes": out})
+
+
+RANK_RENDER = dict(spp=8, max_depth=4, chunk_size=256)
+RANK_TRAIN = dict(spp=4, max_depth=3, chunk_size=256)
+
+
+def rank_worker(rank: int, world: int, address: str, out_dir: str, dev: str):
+    """One of two ranks on the card (gloo collectives on CUDA tensors): the
+    sharded render on a 2 x 1 and a 1 x 2 grid, and one distributed step on
+    each grid."""
+    from montecarlopathtracing_torch.config import RenderOptions
+    from montecarlopathtracing_torch.diff.gradients import (
+        SceneParams, make_distributed_train_step)
+    from montecarlopathtracing_torch.parallel.mesh import (
+        _padded_ids, initialize_multihost, make_mesh, render_image_sharded)
+    from montecarlopathtracing_torch.scene.builtin import load_builtin_box
+
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+    initialize_multihost(address, world, rank, backend="gloo")
+    res = {}
+    for tile, spp in ((2, 1), (1, 2)):
+        mesh = make_mesh(tile=tile, spp=spp)
+        scene, _ = load_builtin_box(width=64, height=64, device=dev)
+        img = render_image_sharded(scene, None, RenderOptions(**RANK_RENDER), mesh,
+                                   device=dev)
+        small, _ = load_builtin_box(width=32, height=32, device=dev)
+        ids, per = _padded_ids(32 * 32, tile)
+        step = make_distributed_train_step(small, None, RenderOptions(**RANK_TRAIN),
+                                           mesh, lr=0.05, device=dev)
+        params, loss = step(SceneParams.from_scene(small),
+                            torch.zeros((tile, per, 3), device=dev), ids)
+        res[f"{tile}x{spp}"] = {"img": img.cpu(), "loss": float(loss),
+                                "kd": params.kd.cpu(), "per": per}
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def phase_ranks(dev):
+    """(f) Two ranks on the card, spawned here, gloo collectives on CUDA
+    tensors (NCCL refuses two ranks on one device): the sharded render and
+    the distributed step against one process, at tests/test_parallel.py's
+    tolerances."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from montecarlopathtracing_torch.config import RenderOptions
+    from montecarlopathtracing_torch.diff.gradients import SceneParams, train_step
+    from montecarlopathtracing_torch.integrator.wavefront import render_image
+    from montecarlopathtracing_torch.scene.builtin import load_builtin_box
+
+    scene, _ = load_builtin_box(width=64, height=64, device=dev)
+    single = render_image(scene, None, RenderOptions(**RANK_RENDER), device=dev).cpu()
+    small, _ = load_builtin_box(width=32, height=32, device=dev)
+    p1, loss1 = train_step(SceneParams.from_scene(small), small, None,
+                           RenderOptions(**RANK_TRAIN),
+                           torch.zeros((32, 32, 3), device=dev), lr=0.05, device=dev)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    address = f"localhost:{s.getsockname()[1]}"
+    s.close()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        mp.start_processes(rank_worker, args=(2, address, d, dev), nprocs=2,
+                           join=True, start_method="spawn")
+        ranks = [torch.load(os.path.join(d, f"rank{r}.pt")) for r in range(2)]
+    secs = time.perf_counter() - t0
+    out = {}
+    for grid, (rtol, atol) in (("2x1", (1e-5, 1e-6)), ("1x2", (1e-4, 1e-5))):
+        a, b = ranks[0][grid], ranks[1][grid]
+        check(torch.equal(a["img"], b["img"]), f"ranks {grid}: images differ "
+                                               "between the ranks")
+        check(bool(torch.allclose(a["img"], single, rtol=rtol, atol=atol)),
+              f"ranks {grid}: sharded render differs from one process")
+        check(a["per"] * int(grid[0]) == 32 * 32, f"ranks {grid}: padded tiles")
+        check(abs(a["loss"] - float(loss1)) <= 1e-4 * abs(float(loss1)),
+              f"ranks {grid}: loss {a['loss']} against {float(loss1)}")
+        check(bool(torch.allclose(a["kd"], p1.kd.cpu(), rtol=1e-3, atol=1e-6))
+              and torch.equal(a["kd"], b["kd"]),
+              f"ranks {grid}: kd after the step differs from train_step")
+        out[grid] = {"img_max_abs_diff": float((a["img"] - single).abs().max()),
+                     "loss": a["loss"], "loss_single": float(loss1),
+                     "kd_max_abs_diff": float((a["kd"] - p1.kd.cpu()).abs().max())}
+    emit({"phase": "ranks", "ranks": 2, "backend": "gloo", "seconds": secs, **out})
+
+
+def phase_profile(dev):
+    """(g) The CLI's --profile on a small scene writes a torch.profiler trace
+    holding device kernels."""
+    from montecarlopathtracing_torch.scene.builtin import write_box_scene
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as d:
+        write_box_scene(d, "box", width=64, height=64)
+        prof = os.path.join(d, "prof")
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "montecarlopathtracing_torch", "render", d,
+             "box", "--spp", "2", "--max-depth", "4", "--out-dir",
+             os.path.join(d, "out"), "--profile", prof, "--device", dev],
+            cwd=root, capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        check(res.returncode == 0, f"profile: the CLI failed:\n{res.stderr[-3000:]}")
+        path = os.path.join(prof, "trace.json")
+        check(os.path.isfile(path) and os.path.getsize(path) > 0,
+              "profile: no trace written")
+        events = json.load(open(path))["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        check(len(kernels) > 0, "profile: the trace holds no device kernel")
+        emit({"phase": "profile", "seconds": secs,
+              "trace_bytes": os.path.getsize(path), "events": len(events),
+              "kernel_events": len(kernels)})
 
 
 def main() -> int:
@@ -1400,11 +2011,18 @@ def main() -> int:
     phase_box(dev, state)
     phase_large(dev, state)
     phase_large400(dev, state)
+    phase_walk_kernels(dev, state)
+    phase_walk_frames(dev, state)
     phase_parity(dev, state)
     phase_scan(dev)
     phase_grad(dev, state)
     phase_grad_chunked(dev, state)
+    phase_oracle(dev)
+    phase_native(dev, state)
+    phase_ranks(dev)
+    phase_profile(dev)
     phase_timing(state)
+    phase_walk_timing(state)
 
     csrc = "montecarlopathtracing_torch/kernels/csrc/"
     tpu = "montecarlopathtracing_tpu/kernels/cluster.py:"
@@ -1473,6 +2091,43 @@ def main() -> int:
                        pairs_rejectable_share=fb["pairs_rejectable_share"],
                        blocks_without_row_per_call=fb["blocks_without_row_per_call"])
         rows.append(row)
+    # The LBVH walks: counterparts of XLA loops, not of Pallas kernels; their
+    # launches and times are from the 100k interior's walk frames.
+    walk_frames = ("box_bvh", "box_bvh_perray", "large_bvh", "large_bvh_perray",
+                   "large400_fallback")
+    for name, src, site, frame, kind in (
+            ("bvh_walk", "bvh_walk.cu", "119", "large_bvh_perray", "bvh_perray"),
+            ("packet_walk", "packet_walk.cu", "176", "large_bvh", "bvh")):
+        t = state["walk_time"][frame]
+        by_frame = {f: state[f"walk_frame_{f}"]["launches"][name]
+                    for f in walk_frames}
+        check(by_frame[frame] > 0, f"{name} was not launched on frame {frame}")
+        tb = state["walk_time"]["box_" + kind]
+        row = {
+            "name": name, "route": "cuda", "source": csrc + src,
+            "replaces": "montecarlopathtracing_tpu/accel/lbvh.py:" + site,
+            "launches": by_frame[frame],
+            "max_abs_err": state["max_abs_err_walk"][kind], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None, "frame": frame,
+            "ms_sampled_mean": t["ms_sampled_mean"], "ms_max": t["ms_max"],
+            "bound_unfused_ms": t["bound_unfused_ms"],
+            "node_tests_per_ray": t["node_tests_per_ray"],
+            "tri_tests_per_ray": t["tri_tests_per_ray"],
+            "launches_by_frame": by_frame, "ms_box": tb["ms"],
+            "plain_ms_box": tb["plain_ms"], "bound_ms_box": tb["bound_ms"],
+            "frame_seconds": state[f"walk_frame_{frame}"]["seconds"],
+        }
+        if kind == "bvh":
+            tf = state["walk_time"]["large400_fallback"]
+            row.update(own_node_tests_per_ray=t["own_node_tests_per_ray"],
+                       own_tri_tests_per_ray=t["own_tri_tests_per_ray"],
+                       bound_own_tests_ms=t["bound_own_tests_ms"],
+                       ms_large400_fallback=tf["ms"],
+                       plain_ms_large400_fallback=tf["plain_ms"],
+                       bound_ms_large400_fallback=tf["bound_ms"])
+        rows.append(row)
+    check(len(rows) == 7, f"kernels line: {len(rows)} rows")
     emit({"kernels": rows})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

@@ -17,6 +17,7 @@ Gradients of an image with respect to the materials and lights:
 """
 
 from .api import load_scene, render, render_progressive, render_scene
+from .accel.lbvh import BVHArrays, build_lbvh, build_lbvh_host
 from .config import MODERN, CompatOptions, RenderOptions
 from .film.film import Film, read_png, tonemap, write_png
 from .integrator.wavefront import (render_image, render_image_host_chunked,
@@ -28,7 +29,7 @@ from .scene.types import (CameraArrays, SceneArrays, SceneMeta,
 __version__ = "0.1.0"
 
 __all__ = [
-    "CameraArrays", "CompatOptions", "Film", "MODERN", "RenderOptions",
+    "BVHArrays", "build_lbvh", "build_lbvh_host", "CameraArrays", "CompatOptions", "Film", "MODERN", "RenderOptions",
     "SceneArrays", "SceneMeta", "load_scene", "read_png", "render",
     "render_image", "render_image_host_chunked", "render_image_stats",
     "render_pixels", "render_progressive", "render_scene", "scene_from_numpy",

@@ -1,17 +1,408 @@
-"""Brute-force nearest hit: the oracle the cluster intersector is held to.
+"""LBVH over the scene's triangle order as a perfect implicit heap, and its
+two nearest-hit walks.
 
-Counterpart of ``brute_force_intersect`` in
-``montecarlopathtracing_tpu/accel/lbvh.py``.  The LBVH build and its walks
-are not ported yet (ROADMAP.md item A11).
+Counterpart of ``montecarlopathtracing_tpu/accel/lbvh.py``.  The triangle
+array is already padded to ``Lc = 2^ceil(log2 T)`` slots whose padding rows
+get empty boxes (min = +BIG, max = -BIG), so the tree is perfect:
+
+* flat node arrays of ``2 * Lc`` rows in 1-based heap order: children of
+  ``k`` are ``2k`` and ``2k+1``, leaves are ``k`` in ``[Lc, 2 Lc)``, slot 0
+  is unused;
+* the build is log2(Lc) pairwise min / max reductions (exact in f32, so the
+  tensor build, the NumPy build and the JAX build agree bit for bit);
+* the walks are stackless: descend left on a box hit, else ``_advance`` to
+  the next subtree in preorder.
+
+``bvh_intersect`` walks one ray at a time and ``packet_intersect`` walks a
+packet of rays down one shared trail to fat leaves of ``leaf_width``
+triangles.  Each is a wrapper: on CUDA tensors it launches its kernel
+(``kernels/csrc/bvh_walk.cu``, ``kernels/csrc/packet_walk.cu``), on CPU
+tensors it runs its plain PyTorch version (``bvh_intersect_plain``,
+``packet_intersect_plain``).  The JAX package's walks are XLA while loops; a
+PyTorch host loop would end every step in a host sync, so on the card each
+walk is one kernel with its loop on the device.  ``brute_force_intersect``
+tests every triangle: the oracle the intersectors are held to.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Any
+
+import numpy as np
 import torch
 
-from ..ops.intersect import ray_triangle
+from ..ops.intersect import ray_aabb, ray_triangle
 
 BIG = 1e30
+_I32 = torch.int32
+
+# Host-sync cadence of the plain walks: a step after every walk has ended
+# changes nothing, so the loops read the termination predicate back only
+# every few steps.
+_CHECK_EVERY = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class BVHArrays:
+    """1-based heap: slot 0 unused, root at 1, leaves at [num_leaves, 2*num_leaves)."""
+
+    node_min: Any  # (2*Lc, 3) f32
+    node_max: Any  # (2*Lc, 3) f32
+
+    @property
+    def num_leaves(self) -> int:
+        return self.node_min.shape[0] // 2
+
+    def to(self, device) -> "BVHArrays":
+        return BVHArrays(node_min=self.node_min.to(device),
+                         node_max=self.node_max.to(device))
+
+
+def build_lbvh(scene) -> BVHArrays:
+    """Level-synchronous bottom-up build on the scene's device.
+
+    Internal box = union of the children; padded subtrees stay empty, so a
+    node whose right subtree is all padding gets exactly its left child's
+    box (the reference's single-child copy, ``findBondingBox(BVHNode&)``,
+    MTPC/BVH.cpp:116-124).
+    """
+    valid = scene.tri_valid[:, None]
+    big = torch.full_like(scene.v0, BIG)
+    leaf_min = torch.where(valid, torch.minimum(torch.minimum(scene.v0, scene.v1),
+                                                scene.v2), big)
+    leaf_max = torch.where(valid, torch.maximum(torch.maximum(scene.v0, scene.v1),
+                                                scene.v2), -big)
+    mins, maxs = [leaf_min], [leaf_max]
+    while mins[0].shape[0] > 1:
+        mins.insert(0, torch.amin(mins[0].reshape(-1, 2, 3), dim=1))
+        maxs.insert(0, torch.amax(maxs[0].reshape(-1, 2, 3), dim=1))
+    # Concatenated by depth, node k sits at flat row k - 1; a dummy slot 0
+    # makes the children 2k / 2k+1.
+    node_min = torch.cat([big[:1]] + mins, dim=0)
+    node_max = torch.cat([-big[:1]] + maxs, dim=0)
+    return BVHArrays(node_min=node_min, node_max=node_max)
+
+
+def build_lbvh_host(scene) -> BVHArrays:
+    """NumPy twin of build_lbvh, run on the host and uploaded to the scene's
+    device.  Bit-identical node arrays (min / max are exact in f32)."""
+    v0, v1, v2 = (getattr(scene, f).detach().cpu().numpy() for f in ("v0", "v1", "v2"))
+    valid = scene.tri_valid.cpu().numpy()[:, None]
+    big = np.float32(BIG)
+    leaf_min = np.where(valid, np.minimum(np.minimum(v0, v1), v2), big)
+    leaf_max = np.where(valid, np.maximum(np.maximum(v0, v1), v2), -big)
+    mins, maxs = [leaf_min], [leaf_max]
+    while mins[0].shape[0] > 1:
+        mins.insert(0, np.min(mins[0].reshape(-1, 2, 3), axis=1))
+        maxs.insert(0, np.max(maxs[0].reshape(-1, 2, 3), axis=1))
+    node_min = np.concatenate([np.full((1, 3), big, np.float32)] + mins, axis=0)
+    node_max = np.concatenate([np.full((1, 3), -big, np.float32)] + maxs, axis=0)
+    dev = scene.v0.device
+    return BVHArrays(node_min=torch.as_tensor(node_min, device=dev),
+                     node_max=torch.as_tensor(node_max, device=dev))
+
+
+def _advance(k):
+    """Next subtree in preorder: strip trailing 1-bits (pop while right
+    child), then step to the sibling.  0 (done) past the root.
+
+    For 1-based heap keys "is a right child" is the lowest bit, so the pop
+    loop is one divide by the lowest zero bit z = ~k & (k+1)."""
+    z = torch.bitwise_and(torch.bitwise_not(k), k + 1)
+    up = torch.div(k, z, rounding_mode="floor")
+    return torch.where(up <= 1, torch.zeros_like(up), up + 1)
+
+
+def _check_walk_inputs(name, origin, direction):
+    if origin.shape != direction.shape or origin.dim() != 2 or origin.shape[1] != 3:
+        raise ValueError(f"{name}: origin and direction must both be (R, 3)")
+    if origin.dtype != torch.float32 or direction.dtype != torch.float32:
+        raise TypeError(f"{name}: origin and direction must be float32")
+
+
+# --------------------------------------------------------------------------
+# The per-ray walk.
+# --------------------------------------------------------------------------
+
+def bvh_intersect_plain(bvh: BVHArrays, scene, origin, direction,
+                        compat: bool = True, max_steps: int | None = None,
+                        counts: dict | None = None):
+    """Plain PyTorch version of the per-ray walk (see bvh_intersect): every
+    ray steps in lockstep, one heap node per ray per step.  ``counts``, if
+    given, receives the (ray, node) slab tests and (ray, triangle) tests the
+    walk made ("node_tests", "tri_tests")."""
+    origin = origin.detach()
+    direction = direction.detach()
+    lc = bvh.num_leaves
+    r = origin.shape[0]
+    dev = origin.device
+    inv_dir = 1.0 / direction
+    if max_steps is None:
+        max_steps = 4 * lc + 64  # full-tree preorder walk upper bound
+    k = torch.ones(r, dtype=torch.int64, device=dev)
+    best_t = torch.full((r,), BIG, dtype=torch.float32, device=dev)
+    best_tri = torch.full((r,), -1, dtype=_I32, device=dev)
+    n_node = n_tri = torch.zeros((), dtype=torch.int64, device=dev)
+    for step in range(max_steps):
+        if step % _CHECK_EVERY == 0 and not bool((k > 0).any()):
+            break
+        active = k > 0
+        ksafe = torch.clamp(k, min=1)
+        hit_box = ray_aabb(origin, inv_dir, bvh.node_min[ksafe],
+                           bvh.node_max[ksafe], t_max=best_t) & active
+        is_leaf = ksafe >= lc
+        if counts is not None:
+            n_node = n_node + active.sum()
+            n_tri = n_tri + (hit_box & is_leaf).sum()
+        tri = torch.where(is_leaf, ksafe - lc, torch.zeros_like(ksafe))
+        hit_t, t, _ = ray_triangle(origin, direction, scene.v0[tri], scene.v1[tri],
+                                   scene.v2[tri], scene.geom_n[tri], compat)
+        better = (hit_box & is_leaf & hit_t & scene.tri_valid[tri] & (t > 0)
+                  & (t < best_t))
+        best_t = torch.where(better, t, best_t)
+        best_tri = torch.where(better, tri.to(_I32), best_tri)
+        k_next = torch.where(hit_box & ~is_leaf, 2 * ksafe, _advance(ksafe))
+        k = torch.where(active, k_next, torch.zeros_like(k_next))
+    _add_counts(counts, n_node, n_tri)
+    hit = best_tri >= 0
+    return hit, torch.where(hit, best_t, torch.full_like(best_t, BIG)), best_tri
+
+
+def _add_counts(counts, n_node, n_tri):
+    if counts is not None:
+        counts["node_tests"] = counts.get("node_tests", 0) + int(n_node)
+        counts["tri_tests"] = counts.get("tri_tests", 0) + int(n_tri)
+
+
+def bvh_intersect(bvh: BVHArrays, scene, origin, direction, compat: bool = True,
+                  max_steps: int | None = None):
+    """Nearest hit for a batch of rays, each walking the heap on its own.
+
+    origin/direction: (R,3).  Returns (hit (R,) bool, t (R,) f32, tri (R,)
+    i32): the smallest t > 0 over valid triangles (MTPC/pathTracing.cpp:
+    355-361), a miss as t = 1e30, tri = -1.  A box is entered when its slab
+    test passes with t_max = the ray's best t so far; a leaf's triangle wins
+    only at t strictly below it.  The walk stops after ``max_steps`` steps
+    (default 4 Lc + 64).  Traversal is outside the gradient.  On CUDA
+    tensors this launches csrc/bvh_walk.cu; on CPU tensors it runs
+    bvh_intersect_plain.
+    """
+    _check_walk_inputs("bvh_intersect", origin, direction)
+    if origin.device.type == "cpu":
+        return bvh_intersect_plain(bvh, scene, origin, direction, compat, max_steps)
+    from ..kernels.cluster import _check_cuda_inputs, _ptr, _stream
+    from ..kernels.build import load
+
+    lc = bvh.num_leaves
+    if max_steps is None:
+        max_steps = 4 * lc + 64
+    origin = origin.detach().contiguous()
+    direction = direction.detach().contiguous()
+    tensors = _walk_tensors(bvh, scene)
+    dev = _check_cuda_inputs("bvh_intersect", origin=origin, direction=direction,
+                             **tensors)
+    r = origin.shape[0]
+    out_t = torch.empty((r,), dtype=torch.float32, device=dev)
+    out_tri = torch.empty((r,), dtype=_I32, device=dev)
+    if r == 0:
+        return out_tri >= 0, out_t, out_tri
+    fn = load("bvh_walk")
+    with torch.cuda.device(dev):
+        err = fn(_ptr(origin), _ptr(direction), r, _ptr(tensors["node_min"]),
+                 _ptr(tensors["node_max"]), lc, _ptr(tensors["v0"]),
+                 _ptr(tensors["v1"]), _ptr(tensors["v2"]), _ptr(tensors["geom_n"]),
+                 _ptr(tensors["tri_valid"]), int(not compat), int(min(max_steps, 2**31 - 1)),
+                 _ptr(out_t), _ptr(out_tri), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"bvh_walk launch failed: CUDA error {err}")
+    bvh_intersect.launches += 1
+    return out_tri >= 0, out_t, out_tri
+
+
+bvh_intersect.launches = 0
+
+
+def _walk_tensors(bvh: BVHArrays, scene):
+    """The node and triangle tables a walk kernel reads, checked."""
+    tensors = dict(node_min=bvh.node_min, node_max=bvh.node_max, v0=scene.v0,
+                   v1=scene.v1, v2=scene.v2, geom_n=scene.geom_n,
+                   tri_valid=scene.tri_valid)
+    for name, t in tensors.items():
+        want = torch.bool if name == "tri_valid" else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"walk: {name} must be {want}")
+    if bvh.node_min.shape != (2 * scene.num_tris_padded, 3):
+        raise ValueError("walk: the LBVH was not built for this scene "
+                         f"({tuple(bvh.node_min.shape)} nodes, "
+                         f"{scene.num_tris_padded} padded triangles)")
+    return {name: t.contiguous() for name, t in tensors.items()}
+
+
+# --------------------------------------------------------------------------
+# The packet walk.
+# --------------------------------------------------------------------------
+
+def _packets(origin, direction, packet_size: int):
+    """Rays padded with parked ones (origin 1e9, direction (1,0,0)) to a
+    multiple of packet_size, as (n_packets, packet_size, 3)."""
+    r = origin.shape[0]
+    pad = (-r) % packet_size
+    if pad:
+        origin = torch.cat([origin, origin.new_full((pad, 3), 1e9)])
+        direction = torch.cat([direction, direction.new_tensor(
+            [[1.0, 0.0, 0.0]]).expand(pad, 3)])
+    return (origin.reshape(-1, packet_size, 3),
+            direction.reshape(-1, packet_size, 3))
+
+
+def _packet_shape(bvh: BVHArrays, r: int, packet_size: int, leaf_width: int,
+                  max_steps):
+    lc = bvh.num_leaves
+    leaf_width = min(leaf_width, lc)
+    packet_size = max(1, min(packet_size, r))
+    fat_start = lc // leaf_width  # heap key of the first fat leaf
+    if max_steps is None:
+        max_steps = 8 * fat_start + 64
+    return lc, leaf_width, packet_size, fat_start, max_steps
+
+
+def packet_intersect_plain(bvh: BVHArrays, scene, origin, direction,
+                           compat: bool = True, packet_size: int = 1024,
+                           leaf_width: int = 8, max_steps: int | None = None,
+                           counts: dict | None = None):
+    """Plain PyTorch version of the packet walk (see packet_intersect).  All
+    packets step in lockstep, each with its own heap key; a step tests the
+    fat leaves of only the packets that reached one with a box hit.
+    ``counts`` as in bvh_intersect_plain (every ray of a walking packet
+    makes the node's slab test; each ray that hit a fat leaf's box tests its
+    leaf_width triangles)."""
+    origin = origin.detach()
+    direction = direction.detach()
+    r = origin.shape[0]
+    lc, lw, packet_size, fat_start, max_steps = _packet_shape(
+        bvh, r, packet_size, leaf_width, max_steps)
+    o, d = _packets(origin, direction, packet_size)
+    n_pk = o.shape[0]
+    dev = o.device
+    inv_dir = 1.0 / d
+    k = torch.ones(n_pk, dtype=torch.int64, device=dev)
+    best_t = torch.full((n_pk, packet_size), BIG, dtype=torch.float32, device=dev)
+    best_tri = torch.full((n_pk, packet_size), -1, dtype=_I32, device=dev)
+    wide = torch.arange(lw, dtype=torch.int64, device=dev)
+    n_node = n_tri = torch.zeros((), dtype=torch.int64, device=dev)
+    for step in range(max_steps):
+        if step % _CHECK_EVERY == 0 and not bool((k > 0).any()):
+            break
+        active = k > 0
+        ksafe = torch.clamp(k, min=1)
+        hits = ray_aabb(o, inv_dir, bvh.node_min[ksafe][:, None, :],
+                        bvh.node_max[ksafe][:, None, :], t_max=best_t)  # (N, P)
+        any_hit = hits.any(dim=1) & active
+        is_fat = ksafe >= fat_start
+        idx = torch.nonzero(any_hit & is_fat)[:, 0]
+        if counts is not None:
+            n_node = n_node + active.sum() * packet_size
+            n_tri = n_tri + hits[idx].sum() * lw
+        if idx.numel():
+            # Dense (P, W) test of each such packet's fat leaf.
+            tri0 = torch.clamp((ksafe[idx] - fat_start) * lw, 0, lc - lw)
+            tris = tri0[:, None] + wide[None, :]  # (n, W)
+            ht, t, _ = ray_triangle(
+                o[idx][:, :, None, :], d[idx][:, :, None, :],
+                scene.v0[tris][:, None], scene.v1[tris][:, None],
+                scene.v2[tris][:, None], scene.geom_n[tris][:, None], compat)
+            bt = best_t[idx]
+            ok = (ht & scene.tri_valid[tris][:, None, :] & (t > 0)
+                  & (t < bt[:, :, None]) & hits[idx][:, :, None])
+            t = torch.where(ok, t, torch.full_like(t, BIG))
+            j = torch.argmin(t, dim=2, keepdim=True)  # lowest j at equal t
+            tj = torch.gather(t, 2, j)[:, :, 0]
+            better = tj < bt
+            best_t[idx] = torch.where(better, tj, bt)
+            best_tri[idx] = torch.where(better, (tri0[:, None] + j[:, :, 0]).to(_I32),
+                                        best_tri[idx])
+        k_next = torch.where(any_hit & ~is_fat, 2 * ksafe, _advance(ksafe))
+        k = torch.where(active, k_next, torch.zeros_like(k_next))
+    _add_counts(counts, n_node, n_tri)
+    best_t = best_t.reshape(-1)[:r]
+    best_tri = best_tri.reshape(-1)[:r]
+    hit = best_tri >= 0
+    return hit, torch.where(hit, best_t, torch.full_like(best_t, BIG)), best_tri
+
+
+def packet_intersect(bvh: BVHArrays, scene, origin, direction,
+                     compat: bool = True, packet_size: int = 1024,
+                     leaf_width: int = 8, max_steps: int | None = None):
+    """Nearest hit with packet traversal and fat leaves.
+
+    Rays go in packets of ``packet_size`` consecutive rays (the tail padded
+    with parked rays); a packet walks one shared trail, entering a node when
+    ANY of its rays hits the node's box (each ray's slab test capped at its
+    own best t), and stops ``log2(leaf_width)`` levels above the leaves: a
+    fat leaf's ``leaf_width`` consecutive triangles are tested densely
+    against the packet's rays whose box test passed.  A triangle wins when
+    it is a hit, valid, 0 < t < the ray's best t; at equal t the lowest
+    triangle wins.  At most ``max_steps`` steps (default 8 Lc / leaf_width
+    + 64).  Results equal bvh_intersect's up to that tie rule and the step
+    caps.  Returns (hit, t, tri) as bvh_intersect.  On CUDA tensors this
+    launches csrc/packet_walk.cu (one block per packet, so packet_size <=
+    1024); on CPU tensors it runs packet_intersect_plain.
+    """
+    _check_walk_inputs("packet_intersect", origin, direction)
+    if origin.device.type == "cpu":
+        return packet_intersect_plain(bvh, scene, origin, direction, compat,
+                                      packet_size, leaf_width, max_steps)
+    from ..kernels.cluster import _check_cuda_inputs, _ptr, _stream
+    from ..kernels.build import load
+
+    r = origin.shape[0]
+    lc, lw, packet_size, fat_start, max_steps = _packet_shape(
+        bvh, r, packet_size, leaf_width, max_steps)
+    if packet_size > 1024:
+        raise ValueError(f"packet_intersect: packet_size {packet_size} > 1024, "
+                         "the kernel's block size")
+    if lw > 256:
+        raise ValueError(f"packet_intersect: leaf_width {lw} > 256")
+    tensors = _walk_tensors(bvh, scene)
+    o, d = _packets(origin.detach().contiguous(), direction.detach().contiguous(),
+                    packet_size)
+    o, d = o.contiguous(), d.contiguous()
+    dev = _check_cuda_inputs("packet_intersect", origin=o, direction=d, **tensors)
+    n_pk = o.shape[0]
+    out_t = torch.empty((n_pk * packet_size,), dtype=torch.float32, device=dev)
+    out_tri = torch.empty((n_pk * packet_size,), dtype=_I32, device=dev)
+    if r == 0:
+        return out_tri[:0] >= 0, out_t[:0], out_tri[:0]
+    fn = load("packet_walk")
+    with torch.cuda.device(dev):
+        err = fn(_ptr(o), _ptr(d), n_pk, packet_size, _ptr(tensors["node_min"]),
+                 _ptr(tensors["node_max"]), lc, lw, _ptr(tensors["v0"]),
+                 _ptr(tensors["v1"]), _ptr(tensors["v2"]), _ptr(tensors["geom_n"]),
+                 _ptr(tensors["tri_valid"]), int(not compat),
+                 int(min(max_steps, 2**31 - 1)), _ptr(out_t), _ptr(out_tri),
+                 _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"packet_walk launch failed: CUDA error {err}")
+    packet_intersect.launches += 1
+    out_t, out_tri = out_t[:r], out_tri[:r]
+    return out_tri >= 0, out_t, out_tri
+
+
+packet_intersect.launches = 0
+
+# Kernel name (kernels/build.py) -> its wrapper.
+_WRAPPERS = {"bvh_walk": bvh_intersect, "packet_walk": packet_intersect}
+
+
+def launch_counts() -> dict:
+    """{kernel name: launches so far} for the walk kernels."""
+    return {name: fn.launches for name, fn in _WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in _WRAPPERS.values():
+        fn.launches = 0
 
 
 def brute_force_intersect(scene, origin, direction, compat: bool = True,

@@ -67,8 +67,10 @@ class RenderOptions:
     spp_chunk: int = 8
     # "auto" resolves to "cluster" in this package on every device: the CUDA
     # kernels on the card, their plain PyTorch versions on the CPU.
-    # "brute" is the test oracle.  "bvh", "bvh_perray" and
-    # "cluster_interpret" are not ported yet (see ROADMAP.md).
+    # "bvh" is the LBVH packet walk (packet_size rays per packet, fat leaves
+    # of leaf_width triangles), "bvh_perray" the per-ray walk, "brute" the
+    # test oracle.  "cluster_interpret" is the JAX package's Pallas
+    # interpreter and has no counterpart here.
     intersector: str = "auto"
     packet_size: int = 1024
     leaf_width: int = 8

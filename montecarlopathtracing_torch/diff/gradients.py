@@ -132,8 +132,54 @@ def pixel_gradient(scene: SceneArrays, bvh, opts: RenderOptions, pixel_ids,
 
 
 def make_distributed_train_step(scene, bvh, opts: RenderOptions, mesh,
-                                lr: float = 0.1):
-    """The SPMD training step over a (tile, spp) mesh is not ported yet."""
-    raise NotImplementedError(
-        "make_distributed_train_step: multi-device training is not ported yet "
-        "(ROADMAP.md item A14)")
+                                lr: float = 0.1, device=None):
+    """One SGD step of inverse rendering over a (tile, spp) grid of ranks
+    (``parallel.mesh.make_mesh``): each rank renders its pixel tile at its
+    sample offset, the radiance is averaged over the tile's spp ranks, and
+    the parameter gradients and the loss are averaged over all ranks before
+    the update, so every rank holds the same new parameters.
+
+    Returns ``step(params, target_tiles, ids_tiles) -> (new params, loss)``;
+    ``target_tiles`` (n_tiles, per, 3) and ``ids_tiles`` (n_tiles, per) are
+    the whole grid's arrays (``parallel.mesh._padded_ids``), of which each
+    rank reads its own tile.  With equal tiles (no padding) the step equals
+    ``train_step`` on the whole frame.
+
+    The spp mean is taken on detached radiance and the loss's gradient with
+    respect to it is pushed back through this rank's own samples, each rank
+    with the full cotangent, the gradients then averaged over all ranks: the
+    same gradient as the JAX package's pmean inside its shard_map, with only
+    sum all-reduces (gloo takes them on CUDA tensors).
+    """
+    from ..parallel.mesh import _all_reduce, _local_opts, _render_tile
+
+    dev = resolve_device(device)
+    scene = scene.to(dev)
+    local_opts, offset = _local_opts(opts, mesh)
+    n_ranks = mesh.size
+    tile = torch.tensor([mesh.tile_index], device=dev)
+
+    def step(params: SceneParams, target_tiles, ids_tiles):
+        ids = torch.as_tensor(ids_tiles, device=dev)[mesh.tile_index]
+        target = torch.as_tensor(target_tiles, device=dev)[mesh.tile_index]
+        leaves = params.leaves(dev)
+        rad = _render_tile(apply_params(scene, leaves), bvh, local_opts, ids,
+                           True, offset)
+        with torch.no_grad():
+            full = torch.zeros((ids_tiles.shape[0],) + tuple(rad.shape),
+                               dtype=torch.float32, device=dev)
+            full = _all_reduce(full.index_copy(0, tile, (rad / mesh.spp)[None]))
+            mean = full[mesh.tile_index]
+            diff = mean - target
+            loss = _all_reduce(torch.mean(diff ** 2)[None])[0] / n_ranks
+            cotangent = 2.0 * diff / diff.numel()
+        tensors = [getattr(leaves, f) for f in PARAM_FIELDS]
+        grads = torch.autograd.grad(rad, tensors, grad_outputs=cotangent,
+                                    allow_unused=True)
+        new = {}
+        for f, t, g in zip(PARAM_FIELDS, tensors, grads):
+            g = torch.zeros_like(t) if g is None else g
+            new[f] = t.detach() - lr * (_all_reduce(g.contiguous()) / n_ranks)
+        return SceneParams(**new), loss
+
+    return step

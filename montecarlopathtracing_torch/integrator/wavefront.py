@@ -25,20 +25,22 @@ launches no intersect kernel.
 A scene whose triangle table is past the single-table budget renders through
 the chunked or the supergroup ("HBM") cluster intersector, as
 ``resolve_plan`` decides; their tables are built once per scene
-(``intersector_tables``).
-
-Not ported yet: the LBVH walks (ROADMAP.md item A11).
+(``intersector_tables``).  ``intersector="bvh"`` and ``"bvh_perray"`` take
+the LBVH walks instead (accel/lbvh.py), as does a chunked plan past its chunk
+cap; their tables are the scene's LBVH, passed as ``bvh`` or built here.
 """
 
 from __future__ import annotations
 
 import functools
+import warnings
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..accel.lbvh import brute_force_intersect
+from ..accel.lbvh import (build_lbvh, brute_force_intersect, bvh_intersect,
+                          packet_intersect)
 from ..config import RenderOptions
 from ..kernels.cluster import (
     build_cluster_accel,
@@ -115,18 +117,15 @@ def _swizzle_pixel_fn(h: int, w: int, packet_size: int):
 
 def resolve_intersector(opts: RenderOptions) -> str:
     """'auto' is the cluster intersector on every device: the CUDA kernels on
-    the card, their plain PyTorch versions on the CPU."""
+    the card, their plain PyTorch versions on the CPU.  (The JAX package's
+    'auto' is the LBVH packet walk off the TPU.)"""
     kind = "cluster" if opts.intersector == "auto" else opts.intersector
-    if kind in ("bvh", "bvh_perray"):
-        raise NotImplementedError(
-            f"intersector={kind!r}: the LBVH walks are not ported yet "
-            "(ROADMAP.md item A11)")
     if kind == "cluster_interpret":
         raise NotImplementedError(
             "intersector='cluster_interpret' is the JAX package's Pallas "
             "interpreter; in this package intersector='cluster' on a CPU "
             "scene runs the kernels' plain PyTorch versions")
-    if kind not in ("cluster", "brute"):
+    if kind not in ("cluster", "brute", "bvh", "bvh_perray"):
         raise ValueError(f"unknown intersector {opts.intersector!r}")
     return kind
 
@@ -135,14 +134,16 @@ def resolve_plan(opts: RenderOptions, num_tris: int):
     """The intersector that will run for this (options, scene) pair, a
     4-tuple: ('cluster', width, group, n_chunks) for the cluster kernels
     (n_chunks > 1: chunked tables), ('cluster_hbm', 128, group, 1) for the
-    supergroup intersector, or ('brute', None, None, 1).
+    supergroup intersector, or (kind, None, None, 1) for 'bvh' (the packet
+    walk), 'bvh_perray' and 'brute'.
 
     The policy is the JAX package's.  A table within the single-table budget
     is one table; past it the triangle range is cut into chunks, unless
     ``large_mode="hbm_always"`` asks for the supergroup intersector; past
     ``max_table_chunks`` chunks, ``large_mode`` "hbm" and "hbm_always" take
     the supergroup intersector, and "chunked" falls back to the LBVH packet
-    walk, which is not ported yet."""
+    walk, with a warning when the cluster intersector was asked for by
+    name."""
     kind = resolve_intersector(opts)
     if kind != "cluster":
         return kind, None, None, 1
@@ -152,11 +153,13 @@ def resolve_plan(opts: RenderOptions, num_tris: int):
     if opts.large_mode in ("hbm", "hbm_always"):
         g = max(1, (opts.cluster_width * opts.cluster_group) // 128)
         return kind + "_hbm", 128, g, 1
-    raise NotImplementedError(
-        f"a scene of {num_tris} padded triangles is past the chunk cap "
-        f"(max_table_chunks={opts.max_table_chunks}) and large_mode="
-        f"{opts.large_mode!r} falls back to the LBVH packet walk, not ported "
-        "yet (ROADMAP.md item A11); large_mode='hbm' renders it")
+    if opts.intersector != "auto":
+        warnings.warn(
+            f"intersector={opts.intersector!r} requested but the scene's "
+            f"{num_tris} (padded) triangles are past the chunk cap "
+            f"(max_table_chunks={opts.max_table_chunks}); falling back to the "
+            "LBVH packet walk", stacklevel=2)
+    return "bvh", None, None, 1
 
 
 def swizzle_tile(opts: RenderOptions, num_tris: int) -> int:
@@ -190,13 +193,17 @@ def _cluster_plan(opts: RenderOptions, num_tris: int):
     return None
 
 
-def intersector_tables(scene, opts: RenderOptions):
+def intersector_tables(scene, opts: RenderOptions, bvh=None):
     """The tables intersect_any needs for this scene, by plan: a
-    ClusterAccel, a ChunkedClusterAccel, an HbmClusterAccel, or None for the
-    brute-force oracle.  Build once per scene and pass as ``accel``."""
+    ClusterAccel, a ChunkedClusterAccel, an HbmClusterAccel, the LBVH for
+    the walks (``bvh`` if given, else built on the scene's device), or None
+    for the brute-force oracle.  Build once per scene and pass as
+    ``accel``."""
     kind, width, _, n_chunks = resolve_plan(opts, scene.num_tris_padded)
     if kind == "brute":
         return None
+    if kind in ("bvh", "bvh_perray"):
+        return build_lbvh(scene) if bvh is None else bvh.to(scene.device)
     mt = not opts.compat.plane_sign_triangle_test
     if kind == "cluster_hbm":
         return build_hbm_accel(build_cluster_accel(scene, width=width, mt=mt))
@@ -208,8 +215,9 @@ def intersector_tables(scene, opts: RenderOptions):
 
 def intersect_any(scene, bvh, origin, direction, opts: RenderOptions,
                   accel=None):
-    """Nearest-hit dispatch: (hit (R,) bool, t (R,) f32, tri (R,) i32).
-    ``bvh`` is unused (None) until the LBVH is ported; ``accel`` takes the
+    """Nearest-hit dispatch (the reference's ray_intersect,
+    MTPC/pathTracing.cpp:382): (hit (R,) bool, t (R,) f32, tri (R,) i32).
+    ``bvh`` is the scene's LBVH for the walks, or None; ``accel`` takes the
     prebuilt tables (intersector_tables), built here when it is None.
     Traversal is outside the gradient: the rays are detached."""
     origin, direction = origin.detach(), direction.detach()
@@ -218,7 +226,13 @@ def intersect_any(scene, bvh, origin, direction, opts: RenderOptions,
     if kind == "brute":
         return brute_force_intersect(scene, origin, direction, compat=compat_tri)
     if accel is None:
-        accel = intersector_tables(scene, opts)
+        accel = intersector_tables(scene, opts, bvh)
+    if kind == "bvh_perray":
+        return bvh_intersect(accel, scene, origin, direction, compat=compat_tri)
+    if kind == "bvh":
+        return packet_intersect(accel, scene, origin, direction,
+                                compat=compat_tri, packet_size=opts.packet_size,
+                                leaf_width=opts.leaf_width)
     shape = dict(tile=opts.cluster_rays, mega=opts.cluster_mega,
                  mt=not compat_tri)
     if kind == "cluster_hbm":
@@ -601,7 +615,7 @@ def trace_paths(scene: SceneArrays, bvh, opts: RenderOptions, keys, origin,
     a differentiable render for its backward recompute.
     """
     if accel is None:
-        accel = intersector_tables(scene, opts)
+        accel = intersector_tables(scene, opts, bvh)
     track = differentiable and _tracks_grad(scene)
     if replay is None:
         replay = _Replay(track)
@@ -710,7 +724,7 @@ def render_pixels(scene: SceneArrays, bvh, opts: RenderOptions, pixel_ids,
         return render_pixels_refill(scene, bvh, opts, pixel_ids, sample_offset,
                                     differentiable=differentiable, accel=accel)
     if accel is None:
-        accel = intersector_tables(scene, opts)
+        accel = intersector_tables(scene, opts, bvh)
     track = differentiable and _tracks_grad(scene)
     replay = _Replay(track)
     compat = opts.compat
@@ -797,7 +811,7 @@ def render_pixels_refill(
     dummy_pend = n_pix + lane_iota[:, None] * n_pend + pend_iota[None, :]
     tables = _shading_tables(scene)
     if accel is None:
-        accel = intersector_tables(scene, opts)
+        accel = intersector_tables(scene, opts, bvh)
 
     track = differentiable and _tracks_grad(scene)
     replay = _Replay(track)
@@ -1145,7 +1159,7 @@ def render_image_stats(scene: SceneArrays, bvh, opts: RenderOptions,
                                          differentiable=differentiable,
                                          pixel_fn=pixel_fn)
         return _assemble_frame(out, scene, opts, 1), rays
-    accel = intersector_tables(scene, opts)
+    accel = intersector_tables(scene, opts, bvh)
     outs, rays = [], 0
     for pix in _chunked_ids(ids, chunk):
         out, n = render_pixels(scene, bvh, opts, pix, differentiable,
@@ -1181,7 +1195,7 @@ def render_image_host_chunked(scene: SceneArrays, bvh, opts: RenderOptions,
     chunk = min(opts.chunk_size, max(1024, h * w))
     spp_chunk = max(1, min(opts.spp_chunk, opts.spp))
     ids, pixel_fn = _frame_ids(scene, opts)
-    accel = intersector_tables(scene, opts)
+    accel = intersector_tables(scene, opts, bvh)
 
     def dispatch(fn, **kw):
         for attempt in range(retries + 1):

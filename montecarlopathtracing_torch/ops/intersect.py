@@ -6,6 +6,9 @@ Counterpart of ``montecarlopathtracing_tpu/ops/intersect.py``:
   edge-cross sign agreements, no backface cull, no t range
   (``MTPC/sceneManagement.cpp:316-338``);
 * ``ray_triangle_mt``: Moller-Trumbore, no backface cull (modern mode);
+* ``ray_aabb``: the slab test with sign-selected near and far planes, which
+  also rejects the inverted (min=+BIG, max=-BIG) boxes of LBVH padding
+  (``MTPC/sceneManagement.cpp:340-391``);
 * ``barycentric``: the cross-product formula of ``findGarCor``
   (``MTPC/pathTracing.cpp:394-432``).
 
@@ -21,6 +24,27 @@ from .sampling import cross
 
 def _dot(a, b):
     return torch.sum(a * b, dim=-1)
+
+
+def ray_aabb(origin, inv_dir, box_min, box_max, t_max=None):
+    """Slab test. origin/inv_dir (...,3); box_min/box_max (...,3). Returns bool.
+
+    Accept iff enter <= exit, exit >= 0 and, with ``t_max``, enter <= t_max.
+    ``torch.amax`` / ``torch.amin`` propagate NaN as ``jnp.max`` does: a ray
+    with a zero direction component whose origin lies on that slab plane
+    gives 0 * inf = NaN there, and the box is missed.
+    """
+    neg = inv_dir < 0
+    near = torch.where(neg, box_max, box_min)
+    far = torch.where(neg, box_min, box_max)
+    t_near = (near - origin) * inv_dir
+    t_far = (far - origin) * inv_dir
+    enter = torch.amax(t_near, dim=-1)
+    exit_ = torch.amin(t_far, dim=-1)
+    hit = (enter <= exit_) & (exit_ >= 0)
+    if t_max is not None:
+        hit &= enter <= t_max
+    return hit
 
 
 def ray_triangle_compat(origin, direction, p0, p1, p2, geom_n):

@@ -1,4 +1,4 @@
-"""Phase timing with throughput counters."""
+"""Phase timing with throughput counters, and a profiler trace context."""
 
 from __future__ import annotations
 
@@ -35,3 +35,26 @@ def phase_timer(label: str, work: Optional[float] = None, unit: str = "items"):
         else:
             log.info("%s: %.1f ms", label, dt * 1e3)
         box["seconds"] = dt
+
+
+@contextlib.contextmanager
+def profiler_trace(logdir: str):
+    """torch.profiler trace of the block, CPU and (when there is a card)
+    CUDA activity, written to ``logdir`` as a Chrome trace
+    (``trace.json``, view in chrome://tracing or Perfetto).  Counterpart of
+    the JAX package's jax.profiler trace context."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    path = os.path.join(logdir, "trace.json")
+    prof.export_chrome_trace(path)
+    log.info("profiler trace written to %s", path)

@@ -59,12 +59,60 @@ def test_cli_progressive_checkpoint(box_dir, tmp_path, capsys):
     assert read_png(capsys.readouterr().out.strip().splitlines()[-1]).shape == (16, 16, 3)
 
 
-def test_cli_missing_scene_and_unported_flags(tmp_path, box_dir):
+def test_cli_missing_scene_and_unported_flags(tmp_path, box_dir, capsys):
+    """A missing scene exits 2.  The flags that were not ported before
+    (--mesh-tile, --profile) now run: a 2 x 1 grid without a launcher is
+    one process, refused with exit code 2; a 1 x 1 grid renders."""
     assert cli.main(["render", str(tmp_path), "nope", "--device", "cpu"]) == 2
-    with pytest.raises(NotImplementedError, match="A14"):
-        cli.main(["render", box_dir, "box", "--device", "cpu", "--mesh-tile", "2"])
-    with pytest.raises(NotImplementedError, match="A16"):
-        cli.main(["render", box_dir, "box", "--device", "cpu", "--profile", "x"])
+    assert cli.main(["render", box_dir, "box", "--device", "cpu",
+                     "--mesh-tile", "2"]) == 2
+    assert "mesh 2x1 != 1 ranks" in capsys.readouterr().err
+    out = str(tmp_path / "mesh")
+    assert cli.main(["render", box_dir, "box", "--spp", "2", "--max-depth", "3",
+                     "--device", "cpu", "--mesh-tile", "1", "--out-dir", out]) == 0
+    assert read_png(os.path.join(out, "box-SPP2.png")).shape == (16, 16, 3)
+
+
+def test_cli_profile_writes_trace(box_dir, tmp_path, capsys):
+    """--profile DIR writes a torch.profiler Chrome trace of the render."""
+    import json
+
+    prof = tmp_path / "prof"
+    assert cli.main(["render", box_dir, "box", "--spp", "1", "--max-depth", "2",
+                     "--device", "cpu", "--profile", str(prof),
+                     "--out-dir", str(tmp_path / "out")]) == 0
+    events = json.load(open(prof / "trace.json"))["traceEvents"]
+    assert any(e.get("name", "").startswith("aten::") for e in events)
+    assert read_png(capsys.readouterr().out.strip().splitlines()[-1]).shape == (16, 16, 3)
+
+
+def test_walk_intersectors_through_api_and_cli(box_dir, tmp_path, capsys):
+    """intersector="bvh" / "bvh_perray": api.render builds the LBVH on the
+    host when none is passed; both walks give the same frame, the CLI
+    renders it, and it agrees with the cluster render (MODERN tolerance of
+    tests/test_torch_render.py)."""
+    from montecarlopathtracing_torch import build_lbvh
+    from montecarlopathtracing_torch.config import MODERN
+
+    scene, _ = api.load_scene(box_dir, "box", device="cpu")
+    imgs = {}
+    for kind in ("bvh", "bvh_perray", "cluster"):
+        opts = RenderOptions(spp=2, max_depth=4, compat=MODERN, intersector=kind)
+        imgs[kind] = api.render(scene, opts, device="cpu").numpy()
+    assert np.array_equal(imgs["bvh"], imgs["bvh_perray"])
+    explicit = api.render(scene, RenderOptions(spp=2, max_depth=4, compat=MODERN,
+                                               intersector="bvh"),
+                          bvh=build_lbvh(scene), device="cpu").numpy()
+    assert np.array_equal(explicit, imgs["bvh"])
+    a, b = imgs["cluster"], imgs["bvh"]
+    assert (np.abs(a - b) > 1e-5 + 1e-4 * np.abs(a)).any(axis=2).mean() <= 0.005
+    assert abs(a.mean() - b.mean()) <= 1e-4 * a.mean()
+    for kind in ("bvh", "bvh_perray"):
+        out = str(tmp_path / kind)
+        assert cli.main(["render", box_dir, "box", "--spp", "2", "--max-depth", "3",
+                         "--device", "cpu", "--intersector", kind,
+                         "--out-dir", out]) == 0
+        assert read_png(os.path.join(out, "box-SPP2.png")).shape == (16, 16, 3)
 
 
 def test_render_scene_phase_stats(box_dir, tmp_path):

@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from montecarlopathtracing_torch.accel import lbvh as L
 from montecarlopathtracing_torch.kernels import build as B
 from montecarlopathtracing_torch.kernels import cluster as K
 from montecarlopathtracing_torch.scene.builtin import load_builtin_large
@@ -82,7 +83,8 @@ def test_every_entry_point_has_a_signature():
             for sym in re.findall(r'extern\s+"C"\s+int\s+(\w+)\s*\(', text):
                 found.add((fname[:-3], sym))
     assert found == {(src, sym) for src, sym, _ in B._SIGNATURES.values()}
-    assert set(K._WRAPPERS) == set(B._SIGNATURES)  # one wrapper each
+    # One wrapper each: the cluster kernels' and the LBVH walks'.
+    assert set(K._WRAPPERS) | set(L._WRAPPERS) == set(B._SIGNATURES)
 
 
 @pytest.mark.parametrize("fname", sorted(

@@ -383,14 +383,15 @@ def test_resolve_plan_matches_jax(num_tris, large_mode):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         jplan = jwf.resolve_plan(jopts, num_tris)
-    if jplan[0] == "bvh":
-        # Past the chunk cap, "chunked" means the LBVH packet walk.
-        assert (num_tris, large_mode) == (1 << 24, "chunked")
-        with pytest.raises(NotImplementedError, match="A11"):
-            twf.resolve_plan(topts, num_tris)
-        return
+        jtile = jwf.swizzle_tile(jopts, num_tris)
     assert twf.resolve_plan(topts, num_tris) == jplan
-    assert twf.swizzle_tile(topts, num_tris) == jwf.swizzle_tile(jopts, num_tris)
+    assert twf.swizzle_tile(topts, num_tris) == jtile
+    if jplan[0] == "bvh":
+        # Past the chunk cap, "chunked" means the LBVH packet walk, which
+        # does not sort the wavefront.
+        assert (num_tris, large_mode) == (1 << 24, "chunked")
+        assert not twf._should_sort(topts, num_tris)
+        return
     assert twf._should_sort(topts, num_tris)
 
 

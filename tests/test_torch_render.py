@@ -171,15 +171,23 @@ def test_render_progressive_resume(scene_dir, tmp_path):
 
 
 def test_unported_paths_raise(scene_dir):
+    """Only the JAX package's Pallas interpreter mode has no counterpart
+    and raises.  The LBVH walks and the distributed training step, which
+    raised before they were ported, now resolve and run (their parity is in
+    tests/test_torch_lbvh.py and tests/test_torch_parallel.py)."""
     opts = RenderOptions(**BASE)
     ts, _ = tbuild(scene_dir, "one_light", opts, device="cpu")
-    for kw in (dict(intersector="bvh"), dict(intersector="bvh_perray")):
-        with pytest.raises(NotImplementedError, match="A11"):
-            twf.render_image_stats(ts, None, opts.replace(**kw), device="cpu")
+    for kind in ("bvh", "bvh_perray"):
+        assert twf.resolve_plan(opts.replace(intersector=kind), 16) == (
+            kind, None, None, 1)
+        img, rays = twf.render_image_stats(ts, None, opts.replace(intersector=kind),
+                                           device="cpu")
+        assert img.shape == (16, 16, 3) and int(rays) > 0
     from montecarlopathtracing_torch.diff.gradients import (
         make_distributed_train_step)
-    with pytest.raises(NotImplementedError, match="A14"):
-        make_distributed_train_step(ts, None, opts, mesh=None)
+    from montecarlopathtracing_torch.parallel.mesh import make_mesh
+    assert callable(make_distributed_train_step(ts, None, opts, make_mesh(),
+                                                device="cpu"))
     with pytest.raises(NotImplementedError):
         twf.resolve_plan(RenderOptions(intersector="cluster_interpret"), 16)
     assert twf.resolve_plan(RenderOptions(), 16)[0] == "cluster"

@@ -27,6 +27,7 @@ tests every triangle: the oracle the intersectors are held to.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
@@ -53,6 +54,14 @@ class BVHArrays:
     @property
     def num_leaves(self) -> int:
         return self.node_min.shape[0] // 2
+
+    @functools.cached_property
+    def boxes(self):
+        """(2*Lc, 8) f32, one 32-byte row per node: min xyz, max xyz, 0, 0.
+        The packet walk kernel's layout (a node's box in two 16-byte
+        copies), made once per BVHArrays on first use."""
+        pad = self.node_min.new_zeros((self.node_min.shape[0], 2))
+        return torch.cat([self.node_min, self.node_max, pad], dim=1).contiguous()
 
     def to(self, device) -> "BVHArrays":
         return BVHArrays(node_min=self.node_min.to(device),
@@ -331,9 +340,22 @@ def packet_intersect_plain(bvh: BVHArrays, scene, origin, direction,
     return hit, torch.where(hit, best_t, torch.full_like(best_t, BIG)), best_tri
 
 
+# Counters per packet that a measurement build of csrc/packet_walk.cu
+# (-DMCPT_WALK_STATS in kernels/build.py's EXTRA_FLAGS) writes into
+# packet_intersect's ``stats``: steps, fat-leaf visits with a box hit, rays
+# and warps that hit at those visits, then clock cycles as the block's
+# thread 0 sees them: the whole walk, until the node's box is in registers,
+# the slab tests, the step's barrier, staging the leaf, the leaf tests
+# (kWalkStats).
+PACKET_WALK_STATS = ("steps", "leaf_visits", "leaf_rays", "leaf_warps",
+                     "cycles", "cycles_node", "cycles_slab", "cycles_barrier",
+                     "cycles_leaf_stage", "cycles_leaf_test")
+
+
 def packet_intersect(bvh: BVHArrays, scene, origin, direction,
                      compat: bool = True, packet_size: int = 1024,
-                     leaf_width: int = 8, max_steps: int | None = None):
+                     leaf_width: int = 8, max_steps: int | None = None,
+                     stats=None):
     """Nearest hit with packet traversal and fat leaves.
 
     Rays go in packets of ``packet_size`` consecutive rays (the tail padded
@@ -347,10 +369,15 @@ def packet_intersect(bvh: BVHArrays, scene, origin, direction,
     + 64).  Results equal bvh_intersect's up to that tie rule and the step
     caps.  Returns (hit, t, tri) as bvh_intersect.  On CUDA tensors this
     launches csrc/packet_walk.cu (one block per packet, so packet_size <=
-    1024); on CPU tensors it runs packet_intersect_plain.
+    1024); on CPU tensors it runs packet_intersect_plain.  ``stats`` (card
+    only): None, or an int64 (n_packets, len(PACKET_WALK_STATS)) tensor
+    that a -DMCPT_WALK_STATS build of the kernel fills (others leave it).
     """
     _check_walk_inputs("packet_intersect", origin, direction)
     if origin.device.type == "cpu":
+        if stats is not None:
+            raise ValueError("packet_intersect: stats come from a measurement "
+                             "build of the CUDA kernel; the CPU has none")
         return packet_intersect_plain(bvh, scene, origin, direction, compat,
                                       packet_size, leaf_width, max_steps)
     from ..kernels.cluster import _check_cuda_inputs, _ptr, _stream
@@ -370,6 +397,11 @@ def packet_intersect(bvh: BVHArrays, scene, origin, direction,
     o, d = o.contiguous(), d.contiguous()
     dev = _check_cuda_inputs("packet_intersect", origin=o, direction=d, **tensors)
     n_pk = o.shape[0]
+    if stats is not None and (stats.dtype != torch.int64 or stats.device != dev
+                              or not stats.is_contiguous()
+                              or stats.shape != (n_pk, len(PACKET_WALK_STATS))):
+        raise ValueError(f"packet_intersect: stats must be int64 ({n_pk}, "
+                         f"{len(PACKET_WALK_STATS)}) on {dev}")
     out_t = torch.empty((n_pk * packet_size,), dtype=torch.float32, device=dev)
     out_tri = torch.empty((n_pk * packet_size,), dtype=_I32, device=dev)
     if r == 0:
@@ -377,11 +409,12 @@ def packet_intersect(bvh: BVHArrays, scene, origin, direction,
     fn = load("packet_walk")
     with torch.cuda.device(dev):
         err = fn(_ptr(o), _ptr(d), n_pk, packet_size, _ptr(tensors["node_min"]),
-                 _ptr(tensors["node_max"]), lc, lw, _ptr(tensors["v0"]),
+                 _ptr(tensors["node_max"]), _ptr(bvh.boxes), lc, lw,
+                 _ptr(tensors["v0"]),
                  _ptr(tensors["v1"]), _ptr(tensors["v2"]), _ptr(tensors["geom_n"]),
                  _ptr(tensors["tri_valid"]), int(not compat),
                  int(min(max_steps, 2**31 - 1)), _ptr(out_t), _ptr(out_tri),
-                 _stream(dev))
+                 _ptr(stats), _stream(dev))
     if err != 0:
         raise RuntimeError(f"packet_walk launch failed: CUDA error {err}")
     packet_intersect.launches += 1
@@ -390,6 +423,41 @@ def packet_intersect(bvh: BVHArrays, scene, origin, direction,
 
 
 packet_intersect.launches = 0
+
+def packet_walk_stats_summary(stats) -> dict:
+    """What the counters of a -DMCPT_WALK_STATS build say over several
+    calls: ``stats`` a list of (n_packets, len(PACKET_WALK_STATS)) int64
+    tensors, one per call.  Steps per packet (mean, max), fat-leaf visits
+    with a box hit per packet, rays and warps that hit per such visit,
+    clock cycles per step and their split (node fetch, slab tests, barrier,
+    leaf stage, leaf tests, the rest), and the longest trail of
+    each call (the packet with the most cycles: a launch lasts as long as
+    it), averaged over the calls."""
+    rows = [s.detach().cpu().to(torch.float64) for s in stats]
+    allr = torch.cat(rows)
+    c = dict(zip(PACKET_WALK_STATS, allr.T))
+    steps = max(1.0, float(c["steps"].sum()))
+    visits = max(1.0, float(c["leaf_visits"].sum()))
+    out = {"calls": len(rows), "packets": int(allr.shape[0]),
+           "steps_per_packet_mean": float(c["steps"].mean()),
+           "steps_per_packet_max": float(c["steps"].max()),
+           "leaf_visits_per_packet": float(c["leaf_visits"].mean()),
+           "rays_per_leaf_visit": float(c["leaf_rays"].sum()) / visits,
+           "warps_per_leaf_visit": float(c["leaf_warps"].sum()) / visits,
+           "cycles_per_step": float(c["cycles"].sum()) / steps}
+    parts = 0.0
+    for part in ("node", "slab", "barrier", "leaf_stage", "leaf_test"):
+        v = float(c["cycles_" + part].sum()) / steps
+        out["cycles_per_step_" + part] = v
+        parts += v
+    out["cycles_per_step_rest"] = out["cycles_per_step"] - parts
+    longest = [r[int(torch.argmax(r[:, 4]))] for r in rows]
+    out["longest_steps_mean"] = sum(float(r[0]) for r in longest) / len(rows)
+    out["longest_cycles_mean"] = sum(float(r[4]) for r in longest) / len(rows)
+    out["longest_cycles_per_step"] = out["longest_cycles_mean"] / max(
+        1.0, out["longest_steps_mean"])
+    return out
+
 
 # Kernel name (kernels/build.py) -> its wrapper.
 _WRAPPERS = {"bvh_walk": bvh_intersect, "packet_walk": packet_intersect}

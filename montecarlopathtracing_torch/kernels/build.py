@@ -37,7 +37,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
 )
-# Further flags for a measurement build (say "-DMCPT_SKIP_TESTS"); part of a
+# Further flags for a measurement build (say "-DMCPT_SKIP_TESTS", or for the
+# packet walk "-DMCPT_WALK_STATS" and "-DMCPT_PACKET_WALK_V1"); part of a
 # library's hash.  After changing them call ``load.cache_clear()``.
 EXTRA_FLAGS: tuple = ()
 
@@ -66,8 +67,8 @@ _SIGNATURES = {
                  [_P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P,
                   _P]),
     "packet_walk": ("packet_walk", "mcpt_packet_walk",
-                    [_P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I,
-                     _I, _P, _P, _P]),
+                    [_P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+                     _I, _I, _P, _P, _P, _P]),
 }
 
 

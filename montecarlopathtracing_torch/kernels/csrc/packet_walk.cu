@@ -7,18 +7,16 @@
 // package's intersector="bvh" and its "auto" off the TPU.  Its plain
 // PyTorch version is accel/lbvh.py::packet_intersect_plain.  The rules
 // (walk_common.cuh holds the arithmetic):
-//   * one block per packet of `packet` consecutive rays, one thread per ray
-//     (the wrapper pads the tail with parked rays, as the JAX package does);
+//   * one block per packet of `packet` consecutive rays (the wrapper pads
+//     the tail with parked rays, as the JAX package does);
 //   * the block holds one heap key; each ray's slab test is capped at its
-//     own best t, and the block descends when any ray hits
-//     (__syncthreads_or) and the node lies above the fat leaves, which start
-//     at fat_start = Lc / leaf_width;
-//   * at a fat leaf whose box some ray hits, its leaf_width triangles from
-//     tri0 = clip((k - fat_start) leaf_width, 0, Lc - leaf_width) go to
-//     shared memory, and each ray that hit the box tests them in order: a
-//     triangle wins when it is a hit, valid, t > 0 and t < the ray's best t
-//     from before the leaf, and the lowest j wins at equal t (the JAX
-//     package's argmin);
+//     own best t, and the block descends when any ray hits and the node
+//     lies above the fat leaves, which start at fat_start = Lc / leaf_width;
+//   * at a fat leaf whose box some ray hits, each ray that hit it tests the
+//     leaf's leaf_width triangles from tri0 = clip((k - fat_start)
+//     leaf_width, 0, Lc - leaf_width): a triangle wins when it is a hit,
+//     valid, t > 0 and t < the ray's best t from before the leaf, and the
+//     lowest j wins at equal t (the JAX package's argmin);
 //   * the walk ends at key 0 or after max_steps steps (8 fat_start + 64);
 //   * a miss is t = 1e30, tri = -1.
 //
@@ -26,13 +24,43 @@
 // per-ray walk computes too: the inputs read once (rays, nodes, triangles,
 // ~17 MB at 100k triangles) and the slab and triangle tests the per-ray
 // walk needs, about 19 f32 operations per (ray, node) slab test and 87
-// (compat) or 56 (MT) per (ray, triangle) test; the bytes decide.  Every
-// thread of a block reads the same node (one broadcast load), a leaf's
-// triangles are staged once per
-// block, and the tests run at full width, but the block waits at two
-// barriers per step and tests a whole fat leaf for every ray that hit its
-// box, so it does more tests than the per-ray walk; the packet's coherence
-// (pixel tiles, shadow rays to one light) decides by how much.
+// (compat) or 56 (MT) per (ray, triangle) test; the bytes decide.  What
+// keeps the kernel far above that bound is neither: a packet is one serial
+// trail on one SM, so a launch lasts as long as its longest trail's steps
+// (~1,900 on the 100k interior) times the time of one step, and a step is
+// the node's box from device memory, the packet's 1,024 slab tests
+// (~40 instructions each: issue-bound), the barrier that waits for the
+// last warp, and at a fat leaf the triangle tests.  The design:
+//   * four rays per thread (256 threads, 8 warps): per step each warp
+//     loads the box once for four rays, runs four slab tests without a
+//     branch between them, and the barrier waits for 8 warps, not 32;
+//   * the boxes of both keys that can follow a step (2k, advance(k)) are
+//     loaded while its slab tests and barrier run, as two 16-byte loads of
+//     a 32-byte record per node (BVHArrays.boxes);
+//   * a warp whose 1 / d components are all finite takes a slab test with
+//     fmaxf / fminf: no 0 * inf can arise, so it gives the NaN-propagating
+//     test's hits;
+//   * a fat leaf is one round of tests, not leaf_width in series: each warp
+//     lists its rays that hit the leaf's box (ballots) and gives the pairs
+//     of ray s and triangle j to lane j of group s (lanes s lw .. s lw +
+//     lw - 1, each lane loading its triangle j = lane % lw while the
+//     barrier runs); a ray's pairs meet in the least (t bits) << 32 | j
+//     over its group (xor shuffles; two 32-bit atomic minima in shared
+//     memory when lw is no power of two), and the accept rule reads the
+//     ray's best t from before the leaf, so the order cannot change the
+//     result.  No block barrier but the step's OR.
+// Tried and measured slower on these calls (walk_experiments.py): copies of
+// the boxes 2-4 steps ahead into shared memory with cp.async (from every
+// warp, or from a ninth warp), register loads 2 steps ahead read by
+// shuffles (the compiler waits for every load in flight at the first use),
+// 1, 2, 3, 6 or 8 rays per thread.  On coherent packets, whose leaves most
+// rays hit, the parent design's 32 warps test leaves faster; it stays as
+// the thread-per-ray kernel, taken for trees whose fat leaves lie at most
+// 4 levels below the root (kSmallTree: the built-in box, whose walks are a
+// few steps and mostly leaf tests).  -DMCPT_PACKET_WALK_V1 / _V2 build a
+// library that takes one of the two kernels for every call, so both can be
+// timed on one card; -DMCPT_WALK_STATS builds a measurement version that
+// writes kWalkStats counters per packet (see mcpt_packet_walk).
 
 #include "walk_common.cuh"
 
@@ -41,21 +69,56 @@ namespace {
 using namespace mcpt_walk;
 
 constexpr int kMaxPacket = 1024;
+// Counters per packet of a -DMCPT_WALK_STATS build (PACKET_WALK_STATS of
+// accel/lbvh.py): [0] steps, [1] fat-leaf visits with a box hit, [2] rays
+// and [3] warps that hit at those visits, [4] clock cycles of the walk, as
+// thread 0 sees them, of which [5] until the node's box is in registers,
+// [6] the slab tests, [7] the step's barrier, [8] staging the leaf (V1: the
+// triangles and a barrier; V2: the ballots and the warp's list), [9] the
+// leaf tests (V1: with the closing barrier; V2: thread 0's warp's pairs and
+// update).
+constexpr int kWalkStats = 10;
+
+#ifdef MCPT_WALK_STATS
+#define WS_CLOCK(name) const long long name = clock64()
+#define WS_ADD(i, x) (ws[i] += (x))
+// An instruction that needs v before the next clock read (the clock read
+// itself has no operand to wait on).
+#define WS_AFTER(v) asm volatile("add.u32 %0, %0, %1;" : "+r"(ws_dep) : "r"((unsigned)(v)))
+#else
+#define WS_CLOCK(name)
+#define WS_ADD(i, x)
+#define WS_AFTER(v)
+#endif
+
+
 constexpr int kTriFloats = 12;  // v0, v1, v2, geom_n
 
+// The thread-per-ray kernel (the parent design): one thread per ray, the
+// node read at the step's head, a fat leaf staged in shared memory and its
+// triangles tested in series by each ray that hit its box.
 template <bool MT>
 __global__ void __launch_bounds__(kMaxPacket)
-packet_walk_kernel(const float* __restrict__ origin,
-                   const float* __restrict__ direction,
+walk_thread_per_ray(const float* __restrict__ origin,
+                   const float* __restrict__ direction, int packet,
                    const float* __restrict__ node_min,
-                   const float* __restrict__ node_max, int lc, int lw,
+                   const float* __restrict__ node_max,
+                   const float4* __restrict__ boxes, int lc, int lw,
                    const float* __restrict__ v0, const float* __restrict__ v1,
                    const float* __restrict__ v2,
                    const float* __restrict__ geom_n,
                    const unsigned char* __restrict__ tri_valid, int max_steps,
-                   float* __restrict__ out_t, int* __restrict__ out_tri) {
+                   float* __restrict__ out_t, int* __restrict__ out_tri,
+                   long long* __restrict__ stats) {
   extern __shared__ float s_tri[];  // [lw][12] floats, then [lw] valid flags
   float* s_valid = s_tri + lw * kTriFloats;
+#ifdef MCPT_WALK_STATS
+  long long ws[kWalkStats] = {};
+  unsigned ws_dep = 0;
+  __shared__ int s_cnt[2];
+  if (threadIdx.x == 0) s_cnt[0] = s_cnt[1] = 0;
+  WS_CLOCK(c_begin);
+#endif
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
   const V3 o = load3(origin, i), d = load3(direction, i);
   const V3 inv{1.0f / d.x, 1.0f / d.y, 1.0f / d.z};
@@ -64,9 +127,21 @@ packet_walk_kernel(const float* __restrict__ origin,
   int best_tri = -1;
   int k = 1;
   for (int step = 0; k > 0 && step < max_steps; ++step) {
-    const bool hit =
-        slab_hit(o, inv, load3(node_min, k), load3(node_max, k), best_t);
+    WS_CLOCK(c0);
+    const V3 bmin = load3(node_min, k), bmax = load3(node_max, k);
+    WS_AFTER(__float_as_int(bmin.x) ^ __float_as_int(bmin.y) ^ __float_as_int(bmin.z) ^
+             __float_as_int(bmax.x) ^ __float_as_int(bmax.y) ^ __float_as_int(bmax.z));
+    WS_CLOCK(c0b);
+    const bool hit = slab_hit(o, inv, bmin, bmax, best_t);
+    WS_AFTER(hit);
+    WS_CLOCK(c1);
     const bool any_hit = __syncthreads_or(hit);
+    WS_AFTER(any_hit);
+    WS_CLOCK(c2);
+    WS_ADD(0, 1);
+    WS_ADD(5, c0b - c0);
+    WS_ADD(6, c1 - c0b);
+    WS_ADD(7, c2 - c1);
     const bool is_fat = k >= fat_start;
     if (any_hit && is_fat) {
       const int tri0 = min(max((k - fat_start) * lw, 0), lc - lw);
@@ -81,6 +156,7 @@ packet_walk_kernel(const float* __restrict__ origin,
         }
       }
       __syncthreads();
+      WS_CLOCK(c3);
       if (hit) {
         float cur = kBig;
         int cur_j = -1;
@@ -103,42 +179,453 @@ packet_walk_kernel(const float* __restrict__ origin,
         }
       }
       __syncthreads();  // the stage is read before the next one overwrites it
+      WS_CLOCK(c4);
+      WS_ADD(1, 1);
+      WS_ADD(8, c3 - c2);
+      WS_ADD(9, c4 - c3);
+#ifdef MCPT_WALK_STATS
+      const unsigned b = __ballot_sync(__activemask(), hit);
+      if ((threadIdx.x & 31) == 0 && b) {
+        atomicAdd(&s_cnt[0], __popc(b));
+        atomicAdd(&s_cnt[1], 1);
+      }
+#endif
     }
     k = (any_hit && !is_fat) ? 2 * k : advance(k);
   }
   out_t[i] = best_tri >= 0 ? best_t : kBig;
   out_tri[i] = best_tri;
+#ifdef MCPT_WALK_STATS
+  WS_CLOCK(c_end);
+  __syncthreads();
+  if (threadIdx.x == 0 && stats != nullptr) {
+    ws[2] = s_cnt[0];
+    ws[3] = s_cnt[1];
+    ws[4] = c_end - c_begin + (ws_dep == 0x9e3779b9u ? 1 : 0);
+    for (int q = 0; q < kWalkStats; ++q) stats[blockIdx.x * kWalkStats + q] = ws[q];
+  }
+#endif
+}
+
+size_t thread_per_ray_smem(int packet, int lw, int* threads) {
+  *threads = packet;
+  return (size_t)lw * (kTriFloats + 1) * sizeof(float);
+}
+
+
+#ifndef MCPT_WALK_RAYS
+#define MCPT_WALK_RAYS 4
+#endif
+constexpr int kRays = MCPT_WALK_RAYS;  // rays per thread
+constexpr int kList = 32 * kRays;      // a warp's rays
+constexpr int kMaxThreads = ((kMaxPacket + kRays - 1) / kRays + 31) / 32 * 32;
+constexpr int kUnroll = 4;             // rounds of pair tests in flight
+constexpr unsigned kNone = ~0u;
+
+// ray_aabb with t_max for a ray whose 1 / d has no infinite component:
+// then no slab product is 0 * inf, so no NaN arises, and fmaxf / fminf
+// (one instruction each) give the same hit as walk_common.cuh's
+// NaN-propagating max and min (they may differ only in the sign of a zero,
+// which no comparison sees).
+__device__ __forceinline__ bool slab_hit_finite(V3 o, V3 inv, V3 bmin, V3 bmax,
+                                                float t_max) {
+  const bool nx = inv.x < 0.0f, ny = inv.y < 0.0f, nz = inv.z < 0.0f;
+  const float tnx = ((nx ? bmax.x : bmin.x) - o.x) * inv.x;
+  const float tny = ((ny ? bmax.y : bmin.y) - o.y) * inv.y;
+  const float tnz = ((nz ? bmax.z : bmin.z) - o.z) * inv.z;
+  const float tfx = ((nx ? bmin.x : bmax.x) - o.x) * inv.x;
+  const float tfy = ((ny ? bmin.y : bmax.y) - o.y) * inv.y;
+  const float tfz = ((nz ? bmin.z : bmax.z) - o.z) * inv.z;
+  const float enter = fmaxf(fmaxf(tnx, tny), tnz);
+  const float exit_ = fminf(fminf(tfx, tfy), tfz);
+  return (enter <= exit_) && (exit_ >= 0.0f) && (enter <= t_max);
+}
+
+struct Tri {
+  V3 p0, p1, p2, gn;
+  bool valid;
+};
+
+template <bool MT>
+__device__ __forceinline__ Tri load_tri(const float* __restrict__ v0,
+                                        const float* __restrict__ v1,
+                                        const float* __restrict__ v2,
+                                        const float* __restrict__ geom_n,
+                                        const unsigned char* __restrict__ tri_valid,
+                                        int tri) {
+  return Tri{load3(v0, tri), load3(v1, tri), load3(v2, tri),
+             MT ? V3{0.0f, 0.0f, 0.0f} : load3(geom_n, tri),
+             __ldg(tri_valid + tri) != 0};
+}
+
+// What one lane needs of the device memory the walk reads.
+struct Scene {
+  const float* __restrict__ v0;
+  const float* __restrict__ v1;
+  const float* __restrict__ v2;
+  const float* __restrict__ geom_n;
+  const unsigned char* __restrict__ tri_valid;
+};
+
+// The test of pair (list slot s, triangle j) of a warp's list: the bits of
+// t when the triangle wins against the ray's best t from before the leaf,
+// else kNone.  With `staged` the lane already holds triangle j in `mine`;
+// else it is read here.
+template <bool MT>
+__device__ __forceinline__ unsigned pair_t(int s, int j, bool live,
+                                           const Tri& mine, bool staged,
+                                           int tri0, const Scene& sc,
+                                           const int* w_ray,
+                                           const float* w_best,
+                                           const float* s_rays, int packet) {
+  const Tri tri = staged ? mine
+                         : load_tri<MT>(sc.v0, sc.v1, sc.v2, sc.geom_n,
+                                        sc.tri_valid, tri0 + j);
+  const int ray = w_ray[s];
+  const V3 ro{s_rays[ray], s_rays[packet + ray], s_rays[2 * packet + ray]};
+  const V3 rd{s_rays[3 * packet + ray], s_rays[4 * packet + ray],
+              s_rays[5 * packet + ray]};
+  float t;
+  const bool h = tri_test<MT>(ro, rd, tri.p0, tri.p1, tri.p2, tri.gn, t);
+  return live && h && tri.valid && t > 0.0f && t < w_best[s]
+             ? __float_as_uint(t) : kNone;
+}
+
+// The rays-per-thread kernel (the redesign; see the note at the top).
+template <bool MT>
+__global__ void __launch_bounds__(kMaxThreads)
+walk_rays_per_thread(const float* __restrict__ origin,
+                   const float* __restrict__ direction, int packet,
+                   const float* __restrict__ node_min,
+                   const float* __restrict__ node_max,
+                   const float4* __restrict__ boxes, int lc, int lw,
+                   const float* __restrict__ v0, const float* __restrict__ v1,
+                   const float* __restrict__ v2,
+                   const float* __restrict__ geom_n,
+                   const unsigned char* __restrict__ tri_valid, int max_steps,
+                   float* __restrict__ out_t, int* __restrict__ out_tri,
+                   long long* __restrict__ stats) {
+  // Shared memory, per warp and list slot: the ray's least t bits and
+  // least j among them, its best t from before the leaf, its block-local
+  // index.  Then the packet's rays, [6][packet] (ox oy oz dx dy dz), for
+  // the lanes that test another thread's ray.
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n_warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  unsigned* w_tmin = reinterpret_cast<unsigned*>(smem) + warp * kList;
+  unsigned* w_jmin = w_tmin + n_warps * kList;
+  float* w_best = reinterpret_cast<float*>(w_jmin + n_warps * kList);
+  int* w_ray = reinterpret_cast<int*>(w_best + n_warps * kList);
+  float* s_rays = reinterpret_cast<float*>(smem) + 4 * n_warps * kList;
+  const Scene sc{v0, v1, v2, geom_n, tri_valid};
+#ifdef MCPT_WALK_STATS
+  long long ws[kWalkStats] = {};
+  unsigned ws_dep = 0;
+  __shared__ int s_cnt[2];
+  if (threadIdx.x == 0) s_cnt[0] = s_cnt[1] = 0;
+  WS_CLOCK(c_begin);
+#endif
+
+  const long base = (long)blockIdx.x * packet;
+  V3 o[kRays], inv[kRays];
+  float best_t[kRays];
+  int best_tri[kRays];
+  bool act[kRays];  // the thread holds ray r
+#pragma unroll
+  for (int r = 0; r < kRays; ++r) {
+    const int j = threadIdx.x + r * blockDim.x;
+    act[r] = j < packet;
+    o[r] = inv[r] = V3{0.0f, 0.0f, 0.0f};
+    if (act[r]) {
+      o[r] = load3(origin, base + j);
+      const V3 d = load3(direction, base + j);
+      inv[r] = V3{1.0f / d.x, 1.0f / d.y, 1.0f / d.z};
+      s_rays[j] = o[r].x;
+      s_rays[packet + j] = o[r].y;
+      s_rays[2 * packet + j] = o[r].z;
+      s_rays[3 * packet + j] = d.x;
+      s_rays[4 * packet + j] = d.y;
+      s_rays[5 * packet + j] = d.z;
+    }
+    best_t[r] = kBig;
+    best_tri[r] = -1;
+  }
+  for (int q = lane; q < kList; q += 32) w_tmin[q] = w_jmin[q] = kNone;
+  // The warp takes the cheaper slab test while none of its rays has an
+  // infinite 1 / d component.
+  bool finite = true;
+#pragma unroll
+  for (int r = 0; r < kRays; ++r)
+    finite = finite && isfinite(inv[r].x) && isfinite(inv[r].y) && isfinite(inv[r].z);
+  const bool warp_finite = __all_sync(~0u, finite);
+
+  const int fat_start = lc / lw;
+  const bool staged = lw <= 32;
+  const int per_round = staged ? 32 / lw : 1;  // rays whose pairs fill a round
+  const unsigned lanes_below = (1u << lane) - 1;
+  int k = 1;
+  // The node's box: two 16-byte loads of its record, the same address in
+  // every lane.  Each step loads the boxes of both keys that can follow it
+  // (2k, advance(k)) while its slab tests and barrier run.
+  float4 lo = __ldg(boxes + 2), hi = __ldg(boxes + 3);
+  for (int step = 0; k > 0 && step < max_steps; ++step) {
+    WS_CLOCK(c0);
+    const bool is_fat = k >= fat_start;
+    const int tri0 = min(max((k - fat_start) * lw, 0), lc - lw);
+    const V3 bmin{lo.x, lo.y, lo.z}, bmax{lo.w, hi.x, hi.y};
+    const int k_down = is_fat ? 0 : 2 * k, k_next = advance(k);
+#ifndef MCPT_WALK_NO_PREFETCH
+    const float4 zero{0.0f, 0.0f, 0.0f, 0.0f};
+    const float4 dlo = k_down > 0 ? __ldg(boxes + 2 * (long)k_down) : zero;
+    const float4 dhi = k_down > 0 ? __ldg(boxes + 2 * (long)k_down + 1) : zero;
+    const float4 nlo = k_next > 0 ? __ldg(boxes + 2 * (long)k_next) : zero;
+    const float4 nhi = k_next > 0 ? __ldg(boxes + 2 * (long)k_next + 1) : zero;
+#endif
+    WS_AFTER(__float_as_int(bmin.x) ^ __float_as_int(bmin.y) ^ __float_as_int(bmin.z) ^
+             __float_as_int(bmax.x) ^ __float_as_int(bmax.y) ^ __float_as_int(bmax.z));
+    WS_CLOCK(c0b);
+    // Bit r: ray r's box test passed.  The kRays tests have no branch
+    // between them, so their instructions interleave.
+    unsigned m = 0;
+    if (warp_finite) {
+#pragma unroll
+      for (int r = 0; r < kRays; ++r)
+        m |= (unsigned)(act[r] & slab_hit_finite(o[r], inv[r], bmin, bmax,
+                                                 best_t[r])) << r;
+    } else {
+#pragma unroll
+      for (int r = 0; r < kRays; ++r)
+        m |= (unsigned)(act[r] & slab_hit(o[r], inv[r], bmin, bmax, best_t[r]))
+             << r;
+    }
+    // A fat leaf's triangle j = lane % lw, the one this lane tests in every
+    // round of the leaf below, loaded while the barrier runs (in the warps
+    // with a hit).
+    Tri mine{};
+    if (is_fat && staged && __any_sync(~0u, m != 0))
+      mine = load_tri<MT>(v0, v1, v2, geom_n, tri_valid, tri0 + lane % lw);
+    WS_AFTER(m);
+    WS_CLOCK(c1);
+    const bool any_hit = __syncthreads_or(m != 0);
+    WS_AFTER(any_hit);
+    WS_CLOCK(c2);
+    WS_ADD(0, 1);
+    WS_ADD(5, c0b - c0);
+    WS_ADD(6, c1 - c0b);
+    WS_ADD(7, c2 - c1);
+    if (any_hit && is_fat) {
+      // This warp's rays that hit the box, listed in (ray slot, lane) order.
+      int pos[kRays];
+      int cnt = 0;
+#pragma unroll
+      for (int r = 0; r < kRays; ++r) {
+        const unsigned b = __ballot_sync(~0u, (m >> r) & 1);
+        pos[r] = cnt + __popc(b & lanes_below);
+        cnt += __popc(b);
+        if ((m >> r) & 1) {
+          w_ray[pos[r]] = threadIdx.x + r * blockDim.x;
+          w_best[pos[r]] = best_t[r];
+        }
+      }
+      WS_CLOCK(c3);
+      if (cnt > 0) {
+        __syncwarp();
+        const int g = lane / lw, j = lane - g * lw;
+        if (staged && (lw & (lw - 1)) == 0) {
+          // A round gives lanes g lw .. g lw + lw - 1 the pairs of list slot
+          // s0 + g; kUnroll rounds run side by side.  A ray's pairs meet in
+          // the least (t bits) << 32 | j over its aligned group of lanes
+          // (xor shuffles), which lane j = 0 writes.
+          for (int s0 = 0; s0 < cnt; s0 += per_round * kUnroll) {
+            unsigned long long word[kUnroll];
+            int s[kUnroll];
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+              s[u] = s0 + u * per_round + g;
+              const bool live = s[u] < cnt;
+              const unsigned tb = pair_t<MT>(live ? s[u] : 0, j, live, mine,
+                                             true, tri0, sc, w_ray, w_best,
+                                             s_rays, packet);
+              word[u] = tb == kNone ? ~0ull
+                                    : ((unsigned long long)tb << 32) | (unsigned)j;
+            }
+            for (int off = 1; off < lw; off <<= 1) {
+#pragma unroll
+              for (int u = 0; u < kUnroll; ++u)
+                word[u] = min(word[u], __shfl_xor_sync(~0u, word[u], off));
+            }
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+              if (j == 0 && s[u] < cnt && word[u] != ~0ull) {
+                w_tmin[s[u]] = (unsigned)(word[u] >> 32);
+                w_jmin[s[u]] = (unsigned)word[u];
+              }
+            }
+          }
+        } else if (staged) {
+          // Other widths up to 32: the same rounds (lanes past the last
+          // whole group idle), a ray's least t and then its least j at that
+          // t by two 32-bit atomic minima.
+          for (int s0 = 0; s0 < cnt; s0 += per_round * kUnroll) {
+            unsigned tb[kUnroll];
+            int s[kUnroll];
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+              s[u] = s0 + u * per_round + g;
+              const bool live = g < per_round && s[u] < cnt;
+              tb[u] = pair_t<MT>(live ? s[u] : 0, j, live, mine, true, tri0, sc,
+                                 w_ray, w_best, s_rays, packet);
+              if (tb[u] != kNone) atomicMin(w_tmin + s[u], tb[u]);
+            }
+            __syncwarp();
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u)
+              if (tb[u] != kNone && tb[u] == w_tmin[s[u]])
+                atomicMin(w_jmin + s[u], (unsigned)j);
+          }
+        } else {
+          // Wider leaves: each slot's pairs 32 at a time, t in a first pass
+          // and j in a second that repeats the same tests.
+          for (int pass = 0; pass < 2; ++pass) {
+            for (int s = 0; s < cnt; ++s) {
+              for (int jw = lane; jw < lw; jw += 32) {
+                const unsigned tb = pair_t<MT>(s, jw, true, Tri{}, false, tri0,
+                                               sc, w_ray, w_best, s_rays, packet);
+                if (tb == kNone) continue;
+                if (pass == 0) atomicMin(w_tmin + s, tb);
+                else if (tb == w_tmin[s]) atomicMin(w_jmin + s, (unsigned)jw);
+              }
+            }
+            __syncwarp();
+          }
+        }
+        __syncwarp();
+#pragma unroll
+        for (int r = 0; r < kRays; ++r) {
+          if ((m >> r) & 1) {
+            const unsigned tb = w_tmin[pos[r]];
+            if (tb != kNone) {  // t < best_t by the accept rule
+              best_t[r] = __uint_as_float(tb);
+              best_tri[r] = tri0 + (int)w_jmin[pos[r]];
+              w_tmin[pos[r]] = w_jmin[pos[r]] = kNone;
+            }
+          }
+        }
+#ifdef MCPT_WALK_STATS
+        if (lane == 0) {
+          atomicAdd(&s_cnt[0], cnt);
+          atomicAdd(&s_cnt[1], 1);
+        }
+#endif
+      }
+      WS_CLOCK(c4);
+      WS_ADD(1, 1);
+      WS_ADD(8, c3 - c2);
+      WS_ADD(9, c4 - c3);
+    }
+    const bool down = any_hit && !is_fat;
+    k = down ? k_down : k_next;
+#ifdef MCPT_WALK_NO_PREFETCH
+    if (k > 0) {
+      lo = __ldg(boxes + 2 * (long)k);
+      hi = __ldg(boxes + 2 * (long)k + 1);
+    }
+#else
+    lo = down ? dlo : nlo;
+    hi = down ? dhi : nhi;
+#endif
+  }
+#pragma unroll
+  for (int r = 0; r < kRays; ++r) {
+    const int j = threadIdx.x + r * blockDim.x;
+    if (act[r]) {
+      out_t[base + j] = best_tri[r] >= 0 ? best_t[r] : kBig;
+      out_tri[base + j] = best_tri[r];
+    }
+  }
+#ifdef MCPT_WALK_STATS
+  WS_CLOCK(c_end);
+  __syncthreads();
+  if (threadIdx.x == 0 && stats != nullptr) {
+    ws[2] = s_cnt[0];
+    ws[3] = s_cnt[1];
+    ws[4] = c_end - c_begin + (ws_dep == 0x9e3779b9u ? 1 : 0);
+    for (int q = 0; q < kWalkStats; ++q) stats[blockIdx.x * kWalkStats + q] = ws[q];
+  }
+#endif
+}
+
+size_t rays_per_thread_smem(int packet, int* threads) {
+  const int t = ((packet + kRays - 1) / kRays + 31) / 32 * 32;
+  *threads = t;
+  return ((size_t)(t / 32) * kList * 4 + (size_t)6 * packet) * sizeof(float);
+}
+
+
+// Trees whose fat leaves lie at most this many keys deep (fat_start =
+// Lc / leaf_width, 4 levels; at leaf width 8, scenes of up to 128 triangle
+// slots) take the thread-per-ray kernel: their walks are a few steps, the
+// leaf tests are most of a launch, and 32 warps hide those tests' latency
+// better than 8 (the built-in box: 0.0174 against 0.0330 ms a launch).
+constexpr int kSmallTree = 16;
+
+template <bool MT>
+int launch(const float* origin, const float* direction, int n_packets,
+           int packet, const float* node_min, const float* node_max,
+           const float* boxes, int lc, int leaf_width, const float* v0,
+           const float* v1, const float* v2, const float* geom_n,
+           const unsigned char* tri_valid, int max_steps, float* out_t,
+           int* out_tri, long long* stats, cudaStream_t s) {
+#if defined(MCPT_PACKET_WALK_V1)
+  const bool per_ray = true;  // a measurement build: the parent design only
+#elif defined(MCPT_PACKET_WALK_V2)
+  const bool per_ray = false;  // a measurement build: the redesign only
+#else
+  const bool per_ray = lc / leaf_width <= kSmallTree;
+#endif
+  auto kernel = per_ray ? walk_thread_per_ray<MT> : walk_rays_per_thread<MT>;
+  int threads;
+  const size_t smem = per_ray ? thread_per_ray_smem(packet, leaf_width, &threads)
+                              : rays_per_thread_smem(packet, &threads);
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<n_packets, threads, smem, s>>>(
+      origin, direction, packet, node_min, node_max,
+      reinterpret_cast<const float4*>(boxes), lc, leaf_width, v0, v1, v2,
+      geom_n, tri_valid, max_steps, out_t, out_tri, stats);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // origin, direction (n_packets * packet, 3) f32, padded; node_min, node_max
-// (2 lc, 3) f32; v0, v1, v2, geom_n (lc, 3) f32; tri_valid (lc,) bool;
+// (2 lc, 3) f32; boxes (2 lc, 8) f32, 16-byte aligned, each row min xyz, max
+// xyz, 0, 0 (BVHArrays.boxes); v0, v1, v2, geom_n (lc, 3) f32; tri_valid
+// (lc,) bool;
 // out_t, out_tri (n_packets * packet,).  packet <= 1024, 1 <= leaf_width
-// <= lc.  mt selects the Moller-Trumbore test.  Returns the launch's CUDA
-// error.
+// <= lc.  mt selects the Moller-Trumbore test.  stats: null, or (n_packets,
+// kWalkStats) int64 that a -DMCPT_WALK_STATS build fills (other builds
+// leave it alone).  Returns the launch's CUDA error.
 extern "C" int mcpt_packet_walk(const float* origin, const float* direction,
                                 int n_packets, int packet,
                                 const float* node_min, const float* node_max,
-                                int lc, int leaf_width, const float* v0,
+                                const float* boxes, int lc, int leaf_width,
+                                const float* v0,
                                 const float* v1, const float* v2,
                                 const float* geom_n,
                                 const unsigned char* tri_valid, int mt,
                                 int max_steps, float* out_t, int* out_tri,
-                                void* stream) {
+                                long long* stats, void* stream) {
   if (n_packets <= 0) return (int)cudaGetLastError();
   if (packet < 1 || packet > kMaxPacket || leaf_width < 1 || leaf_width > lc)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)leaf_width * (kTriFloats + 1) * sizeof(float);
   cudaStream_t s = (cudaStream_t)stream;
-  if (mt) {
-    packet_walk_kernel<true><<<n_packets, packet, smem, s>>>(
-        origin, direction, node_min, node_max, lc, leaf_width, v0, v1, v2,
-        geom_n, tri_valid, max_steps, out_t, out_tri);
-  } else {
-    packet_walk_kernel<false><<<n_packets, packet, smem, s>>>(
-        origin, direction, node_min, node_max, lc, leaf_width, v0, v1, v2,
-        geom_n, tri_valid, max_steps, out_t, out_tri);
-  }
-  return (int)cudaGetLastError();
+  if (mt)
+    return launch<true>(origin, direction, n_packets, packet, node_min,
+                        node_max, boxes, lc, leaf_width, v0, v1, v2, geom_n,
+                        tri_valid, max_steps, out_t, out_tri, stats, s);
+  return launch<false>(origin, direction, n_packets, packet, node_min,
+                       node_max, boxes, lc, leaf_width, v0, v1, v2, geom_n,
+                       tri_valid, max_steps, out_t, out_tri, stats, s);
 }

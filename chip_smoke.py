@@ -28,7 +28,8 @@ exits non-zero):
             the row list all exact;
 4. box      api.render_scene on the built-in box at 1024 x 1024, spp 16;
 5. large    the 100k-triangle interior at 1280 x 720, spp 4, through
-            render_image_host_chunked (single-table plan);
+            render_image_host_chunked (single-table plan); then
+            kernels.cluster.candidate_stats on it;
 6. large400 the 400k-triangle interior at 1280 x 720 through
             api.render_scene, once with the default options (chunked plan)
             and once with large_mode="hbm_always" (supergroup plan); the two
@@ -96,7 +97,11 @@ exits non-zero):
             run); (c) the 400k interior past a chunk cap of 4 under
             large_mode="chunked": resolve_plan gives the packet walk, and
             the frame renders; each walk frame rendered twice, timed, then
-            recorded for the replay;
+            recorded for the replay; the packet walk also on adversarial
+            packets (equal-t ties in one fat leaf and across leaves, a ray
+            that misses a node its packet enters and meets its own leaf
+            later, small max_steps, packet sizes and leaf widths off their
+            defaults), compat and MT, exactly equal to the plain walk;
    oracle   (d) a 16 x 16 box on the card against the port's f64 oracle
             (tests/test_oracle.py's limits);
    native   (e) the box and the 100k interior written to OBJ / MTL and loaded
@@ -113,6 +118,14 @@ exits non-zero):
             both, exact; the bound's operations are the slab and triangle
             tests the per-ray plain walk makes on the same call (the
             function's needs), the packet walk's own tests printed beside;
+            the packet walk's three frames replayed whole under the
+            package's build and builds that take one of its two kernels for
+            every call (the parent design, -DMCPT_PACKET_WALK_V1; the
+            redesign, -DMCPT_PACKET_WALK_V2), ms per launch mean and max
+            over all calls, and under the two designs' -DMCPT_WALK_STATS
+            builds: steps per packet, fat-leaf visits with a hit, rays and
+            warps per visit, clock cycles per step and their split
+            ("packet_walk_designs" lines);
 9. a "kernels" line with one row per ported kernel (the five cluster
    kernels and the two walks), then the card's nvidia-smi line, then the
    last line {"ok": true, "device": {...}}.
@@ -973,6 +986,13 @@ def phase_large(dev, state):
         render_image_host_chunked(scene, None, opts, device=dev)
     state["calls_large"] = cap.calls
     check_launched(launches, PATH_KERNELS["single"], "large")
+    # Candidate clusters per subtile on this frame's tiles and a bounce
+    # wavefront (the key kernel on the card), as bench.py's stats stage
+    # reports them.
+    cand = K.candidate_stats(scene, opts)
+    check(all(np.isfinite(v) for v in cand.values()) and cand["primary_cand"] >= 1,
+          f"large: candidate_stats gave {cand}")
+    emit({"phase": "candidate_stats", "case": "large", **cand})
     mean = image_checks(img, "large")
     state["launches_large"] = launches
     emit({"phase": "large", "width": 1280, "height": 720, "spp": 4,
@@ -1544,6 +1564,126 @@ def walk_frame_stats(calls, kind: str, label: str):
     return agg
 
 
+def doubled_scene(scene):
+    """The walk's view of ``scene`` with every triangle slot repeated after
+    the first copy: each hit ties at equal t with its copy in a later fat
+    leaf, and the first in preorder (the lower id) must win."""
+    import types
+
+    cat = lambda t: torch.cat([t, t]).contiguous()
+    return types.SimpleNamespace(
+        v0=cat(scene.v0), v1=cat(scene.v1), v2=cat(scene.v2),
+        geom_n=cat(scene.geom_n), tri_valid=cat(scene.tri_valid),
+        num_tris_padded=2 * scene.num_tris_padded)
+
+
+def far_apart_pairs(bvh, scene, rng, n_pairs: int = 16, depth: int = 6):
+    """Two-ray packets [b, a] from one origin: b aimed at a triangle inside
+    a depth-``depth`` node's subtree, a at a triangle outside it whose ray
+    misses that node's box (host slab test), so the packet enters the node
+    for b while a's test fails there, and a meets its own fat leaf later."""
+    nmin, nmax = bvh.node_min.cpu().numpy(), bvh.node_max.cpu().numpy()
+    valid = scene.tri_valid.cpu().numpy()
+    cen = ((scene.v0 + scene.v1 + scene.v2) / 3).cpu().numpy()
+    lc = bvh.num_leaves
+    span = lc >> depth
+    o, d = [], []
+    origin = np.array([1.5, 1.5, 1.5], np.float32)
+    for _ in range(4000):
+        if len(o) >= 2 * n_pairs:
+            break
+        node = int(rng.integers(1 << depth, 2 << depth))
+        first = node * span - lc
+        tb = first + int(rng.integers(0, span))
+        ta = int(rng.integers(0, lc))
+        if not (valid[tb] and valid[ta]) or first <= ta < first + span:
+            continue
+        da = cen[ta] - origin
+        da = da / np.linalg.norm(da)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t0 = (nmin[node] - origin) / da
+            t1 = (nmax[node] - origin) / da
+        enter = np.nanmax(np.minimum(t0, t1))
+        leave = np.nanmin(np.maximum(t0, t1))
+        if enter <= leave and leave >= 0:
+            continue  # a would enter the node too
+        db = cen[tb] - origin
+        o += [origin, origin]
+        d += [db / np.linalg.norm(db), da]
+    return np.asarray(o, np.float32), np.asarray(d, np.float32)
+
+
+def packet_adversarial(dev, box, large, rng, build: str):
+    """The packet walk kernel against its plain version, compat and MT, on
+    the cases a parallel leaf and several rays per thread could break:
+    equal-t ties inside one fat leaf (rays straight down onto the box
+    floor's diagonal: its two triangles share a leaf) and across fat leaves
+    (the same rays with leaf_width 1, and the box with every triangle
+    doubled); two-ray packets whose second ray misses a node the first
+    enters and then hits its own leaf; a small explicit max_steps; and
+    packet_size / leaf_width off their defaults, among them widths of no
+    power of two and past 32 (the kernel's other leaf paths)."""
+    from montecarlopathtracing_torch.accel import lbvh as L
+
+    t = rng.uniform(1.65, 1.95, (64, 1)).astype(np.float32)
+    diag_o = np.concatenate([t, np.full_like(t, 1.5), t], axis=1)
+    diag_d = np.tile(np.float32([0.0, -1.0, 0.0]), (64, 1))
+    diag_d[32:, 0] = -0.0
+    n = 4099
+    ro = rng.uniform(0.1, 1.9, (n, 3)).astype(np.float32)
+    rd = rng.normal(size=(n, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    lo = rng.uniform(0.1, 2.9, (n, 3)).astype(np.float32)
+    ld = rng.normal(size=(n, 3)).astype(np.float32)
+    ld /= np.linalg.norm(ld, axis=1, keepdims=True)
+    dbl = doubled_scene(box)
+    bvh_box, bvh_dbl, bvh_large = (L.build_lbvh(sc) for sc in (box, dbl, large))
+    pair_o, pair_d = far_apart_pairs(bvh_large, large, rng)
+    check(len(pair_o) >= 8, f"packet adversarial: only {len(pair_o) // 2} "
+                            "far-apart pairs found")
+    co, cd = camera_and_shadow_rays(
+        large, min(8192, large.camera.width * large.camera.height), seed=43)
+    cases = [("tie_in_leaf", bvh_box, box, diag_o, diag_d, {"packet_size": 32}),
+             ("tie_across_leaves", bvh_box, box, diag_o, diag_d,
+              {"packet_size": 32, "leaf_width": 1}),
+             ("doubled_box", bvh_dbl, dbl, ro, rd, {}),
+             ("doubled_box_lw4", bvh_dbl, dbl, ro, rd, {"packet_size": 128,
+                                                       "leaf_width": 4}),
+             ("doubled_box_lw6", bvh_dbl, dbl, ro, rd, {"packet_size": 64,
+                                                       "leaf_width": 6}),
+             ("box_lw3", bvh_box, box, ro, rd, {"packet_size": 100,
+                                               "leaf_width": 3}),
+             ("far_apart_pairs", bvh_large, large, pair_o, pair_d, {"packet_size": 2})]
+    for steps in (1, 7, 50):
+        cases.append((f"max_steps_{steps}", bvh_large, large, co, cd,
+                      {"max_steps": steps}))
+    for ps, lw in ((16, 1), (48, 2), (64, 8), (100, 3), (1024, 16), (256, 64),
+                   (1, 8)):
+        cases.append((f"shape_{ps}_{lw}", bvh_large, large, lo, ld,
+                      {"packet_size": ps, "leaf_width": lw}))
+    out = []
+    for name, bvh, sc, o, d, kw in cases:
+        o = torch.as_tensor(o, device=dev) if isinstance(o, np.ndarray) else o
+        d = torch.as_tensor(d, device=dev) if isinstance(d, np.ndarray) else d
+        for mt in (False, True):
+            got = L.packet_intersect(bvh, sc, o, d, compat=not mt, **kw)
+            want = L.packet_intersect_plain(bvh, sc, o, d, compat=not mt, **kw)
+            label = f"packet adversarial {name}" + (" mt" if mt else "")
+            check(results_equal(got, want), f"{label}: kernel differs from the "
+                                            "plain walk")
+            rec = {"case": name, "mt": mt, "rays": int(o.shape[0]),
+                   "hits": int(got[0].sum())}
+            lw = kw.get("leaf_width", 8)
+            if sc is dbl and lw & (lw - 1) == 0:  # fat leaves cover every slot
+                hit = got[0]
+                check(bool((got[2][hit] < box.num_tris_padded).all()),
+                      f"{label}: a tie went to the later copy")
+            out.append(rec)
+    emit({"phase": "packet_walk_adversarial", "build": build, "ok": True,
+          "cases": out})
+    return out
+
+
 def phase_walk_kernels(dev, state):
     """(a) The walk kernels on the card against their plain versions and
     brute force: the box and the 100k interior, random rays with
@@ -1621,6 +1761,18 @@ def phase_walk_kernels(dev, state):
                     res[kind]["t_max_abs_err"] = max_err(got[1], want[1])
                 cases.append(res)
     emit({"phase": "walk_kernels", "ok": True, "cases": cases})
+    # The package's build takes the thread-per-ray kernel for the box's
+    # small tree: the cases run again with the redesign for every call.
+    from montecarlopathtracing_torch.kernels import build as B
+
+    packet_adversarial(dev, box, large, np.random.default_rng(42), "package")
+    try:
+        B.EXTRA_FLAGS = ("-DMCPT_PACKET_WALK_V2",)
+        B.load.cache_clear()
+        packet_adversarial(dev, box, large, np.random.default_rng(42), "redesign")
+    finally:
+        B.EXTRA_FLAGS = ()
+        B.load.cache_clear()
     state["max_abs_err_walk"] = {
         k: max(c[k].get("t_max_abs_err", 0.0) for c in cases)
         for k in ("bvh_perray", "bvh")}
@@ -1718,14 +1870,76 @@ def phase_walk_frames(dev, state):
     torch.cuda.empty_cache()
 
 
+# The packet walk's designs (csrc/packet_walk.cu): the package's build,
+# which takes the thread-per-ray kernel (the parent design) for the smallest
+# trees and the rays-per-thread kernel (the redesign) for the rest, and
+# builds that take one of the two for every call, each of those also as a
+# -DMCPT_WALK_STATS measurement build (the counters of PACKET_WALK_STATS):
+# (name, flags, with a measurement build).
+PACKET_DESIGNS = (("package", (), False),
+                  ("parent", ("-DMCPT_PACKET_WALK_V1",), True),
+                  ("redesign", ("-DMCPT_PACKET_WALK_V2",), True))
+
+
+def packet_design_stats(calls, label: str):
+    """Every packet-walk call of a frame replayed under PACKET_DESIGNS, each
+    call timed once (CUDA events, after a warm-up call) and held bit for bit
+    to the package's build; then both designs' measurement builds over the
+    same calls: steps per packet, fat-leaf visits with a hit, rays and warps
+    per visit, clock cycles per step and their split (the step-0 counts).
+    ms and ms_max are over all calls of the frame."""
+    from montecarlopathtracing_torch.accel import lbvh as L
+    from montecarlopathtracing_torch.kernels import build as B
+
+    sleep = sleep_ms()
+    out, first = {}, []
+    try:
+        for name, flags, measured in PACKET_DESIGNS:
+            for counting in (False, True)[:1 + measured]:
+                B.EXTRA_FLAGS = flags + (("-DMCPT_WALK_STATS",) if counting else ())
+                B.load.cache_clear()
+                ms, stats = [], []
+                for i, (bvh, scene, o, d, kw) in enumerate(calls):
+                    p = min(kw.get("packet_size", 1024), o.shape[0])
+                    st = (torch.zeros((-(-o.shape[0] // p), len(L.PACKET_WALK_STATS)),
+                                      dtype=torch.int64, device=o.device)
+                          if counting else None)
+                    t, _, got = timed(lambda: L.packet_intersect(
+                        bvh, scene, o, d, stats=st, **kw), sleep, warm=True)
+                    if not first or len(first) <= i:
+                        first.append(got)
+                    else:
+                        check(results_equal(got, first[i]),
+                              f"{label}: packet walk {name} (stats {counting}) "
+                              f"differs from the package's build on call {i}")
+                    if counting:
+                        stats.append(st)
+                    else:
+                        ms.append(t)
+                rec = out.setdefault(name, {})
+                if counting:
+                    rec["step0"] = L.packet_walk_stats_summary(stats)
+                else:
+                    rec.update(ms=sum(ms) / len(ms), ms_max=max(ms), calls=len(ms))
+    finally:
+        B.EXTRA_FLAGS = ()
+        B.load.cache_clear()
+    out["parent_over_package"] = out["parent"]["ms"] / out["package"]["ms"]
+    emit({"phase": "packet_walk_designs", "case": label, "sleep_ms": sleep, **out})
+    return out
+
+
 def phase_walk_timing(state):
     """(a) continued: every walk frame's calls replayed against the plain
-    walks (walk_frame_stats)."""
+    walks (walk_frame_stats), and the packet walk's frames under both of
+    its designs (packet_design_stats)."""
     out = {}
     for label in ("box_bvh", "box_bvh_perray", "large_bvh", "large_bvh_perray",
                   "large400_fallback"):
         kind, calls = state.pop(f"walk_calls_{label}")
         out[label] = walk_frame_stats(calls, kind, label)
+        if kind == "bvh":
+            out[label]["designs"] = packet_design_stats(calls, label)
         del calls
         torch.cuda.empty_cache()
     state["walk_time"] = out
@@ -2120,6 +2334,15 @@ def main() -> int:
         }
         if kind == "bvh":
             tf = state["walk_time"]["large400_fallback"]
+            # Both designs over every call of the three packet-walk frames.
+            for f, sfx in (("large_bvh", ""), ("large400_fallback", "_large400_fallback"),
+                           ("box_bvh", "_box")):
+                des = state["walk_time"][f]["designs"]
+                for design, prefix in (("package", ""), ("parent", "parent_"),
+                                       ("redesign", "redesign_")):
+                    row.update({
+                        prefix + "ms_all_calls" + sfx: des[design]["ms"],
+                        prefix + "ms_all_calls_max" + sfx: des[design]["ms_max"]})
             row.update(own_node_tests_per_ray=t["own_node_tests_per_ray"],
                        own_tri_tests_per_ray=t["own_tri_tests_per_ray"],
                        bound_own_tests_ms=t["bound_own_tests_ms"],

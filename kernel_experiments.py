@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Time the key kernel and the three intersect kernels on the calls of real
-frames, under measurement builds and launch settings, on one CUDA card.
+"""Time the key kernel, the three intersect kernels and the packet LBVH
+walk on the calls of real frames, under measurement builds and launch
+settings, on one CUDA card.
 
     python3 kernel_experiments.py
     python3 kernel_experiments.py --frames large,large400_hbm --spp 2
     python3 kernel_experiments.py --kernels keys --variants default,keys_cpt1
     python3 kernel_experiments.py --pkg-root DIR --variants default
+    python3 kernel_experiments.py --kernels walk --frames box_bvh,box3_bvh
 
 Renders each frame once with its intersect calls recorded (the frames of
 chip_smoke.py: the 100k-triangle interior under the single-table plan, the
@@ -29,6 +31,18 @@ exactly equal to the plain version, under every variant that computes
 results.  ``--sass FILE`` writes ``cuobjdump -sass`` of the key kernel's and
 the chunked intersect kernel's libraries to FILE (to count the instructions
 of their inner loops); ``--frames ""`` then replays nothing.
+
+``--kernels walk`` takes the packet walk's frames instead (WALK_FRAMES:
+``large_bvh``, ``large400_fallback`` and ``box_bvh`` as chip_smoke.py
+renders them, and ``box1_bvh`` .. ``box4_bvh``, the box with every triangle
+split in two 1-4 times, whose trees lie around the kernel's choice between
+its two designs) and replays their calls with chip_smoke.py's
+``packet_design_stats``: the package's build and the builds that take one
+design for every call (``-DMCPT_PACKET_WALK_V1`` / ``_V2``), ms per launch
+over every call, held bit for bit to each other, and both designs'
+``-DMCPT_WALK_STATS`` counters (one ``packet_walk_designs`` line a frame;
+``--variants`` does not apply).  The first ``--check`` calls are held to
+the plain walk.
 
 Variants, joined by "+" to combine two (each answers what one cause of lost time is worth):
 
@@ -100,6 +114,21 @@ FRAMES = {
 SOURCES = {"box": "cluster_intersect", "large": "cluster_intersect",
            "large400_chunked": "cluster_intersect_ftb",
            "large400_hbm": "cluster_intersect_hbm"}
+
+# Packet-walk frames (--kernels walk): label -> (triangles of the interior,
+# or 0 for the built-in box at 1024 x 1024; times each box triangle is split
+# in two; spp; RenderOptions fields, "modern" for compat=MODERN).  The
+# splits give 24-192 triangles: fat leaves (width 8) 2-5 levels deep.
+WALK_FRAMES = {
+    "box_bvh": (0, 0, 16, {"modern": True, "intersector": "bvh"}),
+    "box1_bvh": (0, 1, 16, {"modern": True, "intersector": "bvh"}),
+    "box2_bvh": (0, 2, 16, {"modern": True, "intersector": "bvh"}),
+    "box3_bvh": (0, 3, 16, {"modern": True, "intersector": "bvh"}),
+    "box4_bvh": (0, 4, 16, {"modern": True, "intersector": "bvh"}),
+    "large_bvh": (100_000, 0, 4, {"modern": True, "intersector": "bvh"}),
+    "large400_fallback": (400_000, 0, 4, {"large_mode": "chunked",
+                                          "max_table_chunks": 4}),
+}
 
 # variant: (extra nvcc flags, {module switch: value}, results are checked)
 VARIANTS = {
@@ -474,17 +503,100 @@ def run_variants(args, B, K, label, kernel, calls, spp) -> None:
         B.load.cache_clear()
 
 
+def split_box(splits: int, device):
+    """The built-in box at 1024 x 1024 with every triangle split in two at
+    the midpoint of its longest edge, ``splits`` times: 12 * 2**splits
+    triangles over the same surfaces, materials and light."""
+    import tempfile
+
+    from montecarlopathtracing_torch.config import RenderOptions
+    from montecarlopathtracing_torch.scene.builtin import box_scene_text
+    from montecarlopathtracing_torch.scene.loader import build_scene
+
+    obj, mtl, cam = box_scene_text(width=1024, height=1024)
+    verts, faces, mat = [], [], None
+    for line in obj.splitlines():
+        tok = line.split()
+        if tok[0] == "v":
+            verts.append(tuple(float(x) for x in tok[1:]))
+        elif tok[0] == "usemtl":
+            mat = tok[1]
+        elif tok[0] == "f":
+            faces.append((*(int(x) - 1 for x in tok[1:]), mat))
+    dist = lambda a, b: sum((p - q) ** 2 for p, q in zip(verts[a], verts[b]))
+    for _ in range(splits):
+        out = []
+        for a, b, c, m in faces:
+            while dist(a, b) < max(dist(b, c), dist(c, a)):  # (a, b) longest
+                a, b, c = b, c, a
+            verts.append(tuple((p + q) / 2 for p, q in zip(verts[a], verts[b])))
+            mid = len(verts) - 1
+            out += [(a, mid, c, m), (mid, b, c, m)]
+        faces = out
+    lines = [f"v {x!r} {y!r} {z!r}" for x, y, z in verts]
+    for a, b, c, m in faces:
+        lines += [f"usemtl {m}", f"f {a + 1} {b + 1} {c + 1}"]
+    with tempfile.TemporaryDirectory() as d:
+        for ext, text in (("obj", "\n".join(lines) + "\n"), ("mtl", mtl),
+                          ("camera", cam)):
+            with open(os.path.join(d, "box." + ext), "w") as fh:
+                fh.write(text)
+        return build_scene(d, "box", RenderOptions(), device=device)[0]
+
+
+def run_walk(args, label: str) -> None:
+    """Render a packet-walk frame with its calls recorded, hold the first
+    ``--check`` calls to the plain walk, and replay all of them under the
+    walk's designs (chip_smoke.py's packet_design_stats)."""
+    import chip_smoke as S
+    from montecarlopathtracing_torch.accel import lbvh as L
+    from montecarlopathtracing_torch.config import MODERN, RenderOptions
+    from montecarlopathtracing_torch.integrator import wavefront
+    from montecarlopathtracing_torch.scene.builtin import load_builtin_large
+
+    n_tris, splits, spp, fields = WALK_FRAMES[label]
+    fields = dict(fields)
+    if fields.pop("modern", False):
+        fields["compat"] = MODERN
+    spp = args.spp or spp
+    scene = (load_builtin_large(n_tris=n_tris, width=1280, height=720,
+                                device="cuda")[0]
+             if n_tris else split_box(splits, "cuda"))
+    opts = RenderOptions(spp=spp, spp_chunk=spp, **fields)
+    plan = wavefront.resolve_plan(opts, scene.num_tris_padded)
+    if plan[0] != "bvh":
+        raise RuntimeError(f"{label}: plan {plan} is not the packet walk")
+    bvh = L.build_lbvh_host(scene)
+    with S.WalkCapture("packet_intersect") as cap:
+        wavefront.render_image_host_chunked(scene, bvh, opts, device="cuda")
+    torch.cuda.synchronize()
+    calls = cap.calls
+    checked = min(args.check, len(calls))
+    for bvh_i, sc, o, d, kw in calls[:checked]:
+        if not S.results_equal(L.packet_intersect(bvh_i, sc, o, d, **kw),
+                               L.packet_intersect_plain(bvh_i, sc, o, d, **kw)):
+            raise AssertionError(f"{label}: a call differs from the plain walk")
+    emit({"frame": label, "kernel": "walk", "tris_padded": scene.num_tris_padded,
+          "fat_start": bvh.num_leaves // calls[0][4].get("leaf_width", 8),
+          "spp": spp, "calls": len(calls), "checked_calls": checked,
+          "tag": args.tag})
+    S.packet_design_stats(calls, label)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--pkg-root", default=os.path.dirname(os.path.abspath(__file__)))
-    ap.add_argument("--frames", default="large,large400_chunked,large400_hbm")
+    ap.add_argument("--frames", default=None,
+                    help="default large,large400_chunked,large400_hbm; with "
+                         "--kernels walk large_bvh,large400_fallback,box_bvh")
     ap.add_argument("--variants", default=",".join(VARIANTS))
     ap.add_argument("--spp", type=int, default=0,
                     help="samples per pixel (default 16 box, 4 interiors)")
     ap.add_argument("--check", type=int, default=3,
                     help="calls per frame held against the plain version")
     ap.add_argument("--kernels", default="intersect",
-                    help="steps to replay: intersect, keys or both (a,b)")
+                    help="steps to replay: intersect, keys or both (a,b); "
+                         "or walk, the packet walk on WALK_FRAMES")
     ap.add_argument("--sass", default="", metavar="FILE",
                     help="write the key and chunked intersect kernels' SASS "
                          "to FILE")
@@ -515,8 +627,16 @@ def main(argv=None) -> int:
           "tag": args.tag})
     if args.sass:
         write_sass(B, args.sass)
+    walk = args.kernels == "walk"
+    frames = args.frames if args.frames is not None else (
+        "large_bvh,large400_fallback,box_bvh" if walk
+        else "large,large400_chunked,large400_hbm")
     scenes = {}
-    for label in filter(None, args.frames.split(",")):
+    for label in filter(None, frames.split(",")):
+        if walk:
+            run_walk(args, label)
+            torch.cuda.empty_cache()
+            continue
         n_tris, mode, name = FRAMES[label]
         if n_tris == 0:
             scenes[0] = load_builtin_box(width=1024, height=1024,

@@ -392,10 +392,12 @@ def packet_intersect(bvh: BVHArrays, scene, origin, direction,
     if lw > 256:
         raise ValueError(f"packet_intersect: leaf_width {lw} > 256")
     tensors = _walk_tensors(bvh, scene)
+    boxes = bvh.boxes
     o, d = _packets(origin.detach().contiguous(), direction.detach().contiguous(),
                     packet_size)
     o, d = o.contiguous(), d.contiguous()
-    dev = _check_cuda_inputs("packet_intersect", origin=o, direction=d, **tensors)
+    dev = _check_cuda_inputs("packet_intersect", origin=o, direction=d,
+                             boxes=boxes, **tensors)
     n_pk = o.shape[0]
     if stats is not None and (stats.dtype != torch.int64 or stats.device != dev
                               or not stats.is_contiguous()
@@ -408,11 +410,9 @@ def packet_intersect(bvh: BVHArrays, scene, origin, direction,
         return out_tri[:0] >= 0, out_t[:0], out_tri[:0]
     fn = load("packet_walk")
     with torch.cuda.device(dev):
-        err = fn(_ptr(o), _ptr(d), n_pk, packet_size, _ptr(tensors["node_min"]),
-                 _ptr(tensors["node_max"]), _ptr(bvh.boxes), lc, lw,
-                 _ptr(tensors["v0"]),
-                 _ptr(tensors["v1"]), _ptr(tensors["v2"]), _ptr(tensors["geom_n"]),
-                 _ptr(tensors["tri_valid"]), int(not compat),
+        err = fn(_ptr(o), _ptr(d), n_pk, packet_size, _ptr(boxes), lc, lw,
+                 _ptr(tensors["v0"]), _ptr(tensors["v1"]), _ptr(tensors["v2"]),
+                 _ptr(tensors["geom_n"]), _ptr(tensors["tri_valid"]), int(not compat),
                  int(min(max_steps, 2**31 - 1)), _ptr(out_t), _ptr(out_tri),
                  _ptr(stats), _stream(dev))
     if err != 0:

@@ -67,8 +67,8 @@ _SIGNATURES = {
                  [_P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P,
                   _P]),
     "packet_walk": ("packet_walk", "mcpt_packet_walk",
-                    [_P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
-                     _I, _I, _P, _P, _P, _P]),
+                    [_P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I,
+                     _P, _P, _P, _P]),
 }
 
 

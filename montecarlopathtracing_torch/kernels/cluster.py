@@ -1000,6 +1000,76 @@ def cluster_intersect(accel: ClusterAccel, origin, direction,
     return _result(bt, bi, r)
 
 
+def candidate_stats(scene, opts, bvh=None):
+    """Measured candidate-cluster density: mean candidate clusters per ray
+    subtile on (a) the frame's primary tiles and (b) a bounce-like
+    wavefront (cosine lobes about the primary hits' normals, sorted by (hit
+    cluster, 6-bit direction bin) as the renderer's wavefront sort does),
+    and the mix 0.3 primary + 0.7 bounce.  Returns {"candidates_per_ray",
+    "primary_cand", "bounce_cand"}, or {"candidates_per_ray": 0.0} when the
+    plan is no cluster intersector.  Counterpart of the JAX package's
+    candidate_stats (``bvh`` is accepted and unused there too); the key
+    kernel counts the candidates on the card, its plain version on the
+    CPU."""
+    import numpy as np
+
+    from ..integrator.camera import primary_rays
+    from ..integrator.wavefront import (_tile_swizzled_ids, resolve_plan,
+                                        swizzle_tile)
+
+    kind, width, group = resolve_plan(opts, scene.num_tris_padded)[:3]
+    if not (kind or "").startswith("cluster"):
+        return {"candidates_per_ray": 0.0}
+    dev = scene.v0.device
+    accel = build_cluster_accel(scene, width=width)
+    caabb = _caabb(accel.cmin, accel.cmax)
+    tile, mega = opts.cluster_rays, 16
+    h, w = scene.camera.height, scene.camera.width
+    ids = _tile_swizzled_ids(h, w, swizzle_tile(opts, scene.num_tris_padded))
+    r = min(65536, (len(ids) // (tile * mega)) * (tile * mega))
+    # Whole tiles strided across the frame (a contiguous prefix would sample
+    # only the top rows), each subtile kept coherent.
+    tiles = ids.reshape(-1, tile)
+    step = max(1, tiles.shape[0] // (r // tile))
+    ids = torch.as_tensor(tiles[::step][: r // tile].reshape(-1).astype(np.int64),
+                          device=dev)
+    r = int(ids.shape[0])
+    o, d = primary_rays(scene.camera, ids)
+
+    def popmean(o, d):
+        rays = torch.cat([o, d, o.new_zeros((o.shape[0], 2))], dim=1).contiguous()
+        counts = cluster_keys(rays, caabb, tile, with_ids=False)[1]
+        return float(counts.to(torch.float64).mean())
+
+    prim = popmean(o, d)
+
+    hit, t, tri = cluster_intersect(accel, o, d, tile=tile, group=group)
+    p = (o + d * torch.where(hit, t, torch.ones_like(t))[:, None]).cpu().numpy()
+    tri = tri.cpu().numpy()
+    gn = scene.geom_n.cpu().numpy()[np.maximum(tri, 0)]
+    rng_ = np.random.default_rng(0)
+    u = rng_.uniform(size=(r, 2))
+    phi, ct = 2 * np.pi * u[:, 0], np.sqrt(u[:, 1])
+    st = np.sqrt(1 - ct * ct)
+    a = np.where(np.abs(gn[:, :1]) > 0.9, [[0.0, 1.0, 0.0]], [[1.0, 0.0, 0.0]])
+    tx = np.cross(gn, a)
+    tx /= np.maximum(np.linalg.norm(tx, axis=1, keepdims=True), 1e-9)
+    ty = np.cross(gn, tx)
+    bd = (tx * (st * np.cos(phi))[:, None] + ty * (st * np.sin(phi))[:, None]
+          + gn * ct[:, None]).astype(np.float32)
+    # The renderer's 6-bit direction bin (sign and |component| > 0.5 per
+    # axis), so the density is that of the wavefront sort's order.
+    db = ((bd[:, 0] > 0) * 32 + (bd[:, 1] > 0) * 16 + (bd[:, 2] > 0) * 8
+          + (np.abs(bd[:, 0]) > 0.5) * 4 + (np.abs(bd[:, 1]) > 0.5) * 2
+          + (np.abs(bd[:, 2]) > 0.5)).astype(int)
+    key = np.maximum(tri, 0) // width * 64 + db
+    perm = np.argsort(key, kind="stable")
+    bounce = popmean(torch.as_tensor(p[perm] + bd[perm] * 0.01, device=dev),
+                     torch.as_tensor(bd[perm], device=dev))
+    return {"candidates_per_ray": float(0.3 * prim + 0.7 * bounce),
+            "primary_cand": float(prim), "bounce_cand": float(bounce)}
+
+
 # --------------------------------------------------------------------------
 # Chunked tables: scenes past the single-table budget.
 # --------------------------------------------------------------------------

@@ -49,15 +49,15 @@
 //     memory when lw is no power of two), and the accept rule reads the
 //     ray's best t from before the leaf, so the order cannot change the
 //     result.  No block barrier but the step's OR.
-// Tried and measured slower on these calls (walk_experiments.py): copies of
+// Tried and measured slower on these calls (PERF.md): copies of
 // the boxes 2-4 steps ahead into shared memory with cp.async (from every
 // warp, or from a ninth warp), register loads 2 steps ahead read by
 // shuffles (the compiler waits for every load in flight at the first use),
 // 1, 2, 3, 6 or 8 rays per thread.  On coherent packets, whose leaves most
 // rays hit, the parent design's 32 warps test leaves faster; it stays as
 // the thread-per-ray kernel, taken for trees whose fat leaves lie at most
-// 4 levels below the root (kSmallTree: the built-in box, whose walks are a
-// few steps and mostly leaf tests).  -DMCPT_PACKET_WALK_V1 / _V2 build a
+// 4 levels below the root (kSmallTree: small scenes, whose walks are a few
+// steps and mostly leaf tests).  -DMCPT_PACKET_WALK_V1 / _V2 build a
 // library that takes one of the two kernels for every call, so both can be
 // timed on one card; -DMCPT_WALK_STATS builds a measurement version that
 // writes kWalkStats counters per packet (see mcpt_packet_walk).
@@ -101,8 +101,6 @@ template <bool MT>
 __global__ void __launch_bounds__(kMaxPacket)
 walk_thread_per_ray(const float* __restrict__ origin,
                    const float* __restrict__ direction, int packet,
-                   const float* __restrict__ node_min,
-                   const float* __restrict__ node_max,
                    const float4* __restrict__ boxes, int lc, int lw,
                    const float* __restrict__ v0, const float* __restrict__ v1,
                    const float* __restrict__ v2,
@@ -128,7 +126,8 @@ walk_thread_per_ray(const float* __restrict__ origin,
   int k = 1;
   for (int step = 0; k > 0 && step < max_steps; ++step) {
     WS_CLOCK(c0);
-    const V3 bmin = load3(node_min, k), bmax = load3(node_max, k);
+    const float4 lo = __ldg(boxes + 2 * (long)k), hi = __ldg(boxes + 2 * (long)k + 1);
+    const V3 bmin{lo.x, lo.y, lo.z}, bmax{lo.w, hi.x, hi.y};
     WS_AFTER(__float_as_int(bmin.x) ^ __float_as_int(bmin.y) ^ __float_as_int(bmin.z) ^
              __float_as_int(bmax.x) ^ __float_as_int(bmax.y) ^ __float_as_int(bmax.z));
     WS_CLOCK(c0b);
@@ -213,11 +212,8 @@ size_t thread_per_ray_smem(int packet, int lw, int* threads) {
 }
 
 
-#ifndef MCPT_WALK_RAYS
-#define MCPT_WALK_RAYS 4
-#endif
-constexpr int kRays = MCPT_WALK_RAYS;  // rays per thread
-constexpr int kList = 32 * kRays;      // a warp's rays
+constexpr int kRays = 4;          // rays per thread
+constexpr int kList = 32 * kRays;  // a warp's rays
 constexpr int kMaxThreads = ((kMaxPacket + kRays - 1) / kRays + 31) / 32 * 32;
 constexpr int kUnroll = 4;             // rounds of pair tests in flight
 constexpr unsigned kNone = ~0u;
@@ -296,8 +292,6 @@ template <bool MT>
 __global__ void __launch_bounds__(kMaxThreads)
 walk_rays_per_thread(const float* __restrict__ origin,
                    const float* __restrict__ direction, int packet,
-                   const float* __restrict__ node_min,
-                   const float* __restrict__ node_max,
                    const float4* __restrict__ boxes, int lc, int lw,
                    const float* __restrict__ v0, const float* __restrict__ v1,
                    const float* __restrict__ v2,
@@ -374,13 +368,11 @@ walk_rays_per_thread(const float* __restrict__ origin,
     const int tri0 = min(max((k - fat_start) * lw, 0), lc - lw);
     const V3 bmin{lo.x, lo.y, lo.z}, bmax{lo.w, hi.x, hi.y};
     const int k_down = is_fat ? 0 : 2 * k, k_next = advance(k);
-#ifndef MCPT_WALK_NO_PREFETCH
     const float4 zero{0.0f, 0.0f, 0.0f, 0.0f};
     const float4 dlo = k_down > 0 ? __ldg(boxes + 2 * (long)k_down) : zero;
     const float4 dhi = k_down > 0 ? __ldg(boxes + 2 * (long)k_down + 1) : zero;
     const float4 nlo = k_next > 0 ? __ldg(boxes + 2 * (long)k_next) : zero;
     const float4 nhi = k_next > 0 ? __ldg(boxes + 2 * (long)k_next + 1) : zero;
-#endif
     WS_AFTER(__float_as_int(bmin.x) ^ __float_as_int(bmin.y) ^ __float_as_int(bmin.z) ^
              __float_as_int(bmax.x) ^ __float_as_int(bmax.y) ^ __float_as_int(bmax.z));
     WS_CLOCK(c0b);
@@ -525,15 +517,8 @@ walk_rays_per_thread(const float* __restrict__ origin,
     }
     const bool down = any_hit && !is_fat;
     k = down ? k_down : k_next;
-#ifdef MCPT_WALK_NO_PREFETCH
-    if (k > 0) {
-      lo = __ldg(boxes + 2 * (long)k);
-      hi = __ldg(boxes + 2 * (long)k + 1);
-    }
-#else
     lo = down ? dlo : nlo;
     hi = down ? dhi : nhi;
-#endif
   }
 #pragma unroll
   for (int r = 0; r < kRays; ++r) {
@@ -566,14 +551,21 @@ size_t rays_per_thread_smem(int packet, int* threads) {
 // Lc / leaf_width, 4 levels; at leaf width 8, scenes of up to 128 triangle
 // slots) take the thread-per-ray kernel: their walks are a few steps, the
 // leaf tests are most of a launch, and 32 warps hide those tests' latency
-// better than 8 (the built-in box: 0.0174 against 0.0330 ms a launch).
+// better than 8.  On the built-in box split into 12-192 triangles (fat_start
+// 2-32, kernel_experiments.py --kernels walk), the redesign took 1.89, 1.68,
+// 1.52 and 1.37 times the thread-per-ray kernel's time up to fat_start 16,
+// and 0.99 times at 32.
 constexpr int kSmallTree = 16;
+
+// Dynamic shared memory a block may take without an opt-in: the
+// rays-per-thread kernel's ~40 KB at 1,024 rays fits, so the common launch
+// makes no attribute call.
+constexpr size_t kSmemNoOptIn = 48 * 1024;
 
 template <bool MT>
 int launch(const float* origin, const float* direction, int n_packets,
-           int packet, const float* node_min, const float* node_max,
-           const float* boxes, int lc, int leaf_width, const float* v0,
-           const float* v1, const float* v2, const float* geom_n,
+           int packet, const float* boxes, int lc, int leaf_width,
+           const float* v0, const float* v1, const float* v2, const float* geom_n,
            const unsigned char* tri_valid, int max_steps, float* out_t,
            int* out_tri, long long* stats, cudaStream_t s) {
 #if defined(MCPT_PACKET_WALK_V1)
@@ -587,33 +579,31 @@ int launch(const float* origin, const float* direction, int n_packets,
   int threads;
   const size_t smem = per_ray ? thread_per_ray_smem(packet, leaf_width, &threads)
                               : rays_per_thread_smem(packet, &threads);
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
+  if (smem > kSmemNoOptIn) {  // a thread-per-ray leaf past ~940 triangles
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
   kernel<<<n_packets, threads, smem, s>>>(
-      origin, direction, packet, node_min, node_max,
-      reinterpret_cast<const float4*>(boxes), lc, leaf_width, v0, v1, v2,
-      geom_n, tri_valid, max_steps, out_t, out_tri, stats);
+      origin, direction, packet, reinterpret_cast<const float4*>(boxes), lc,
+      leaf_width, v0, v1, v2, geom_n, tri_valid, max_steps, out_t, out_tri, stats);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// origin, direction (n_packets * packet, 3) f32, padded; node_min, node_max
-// (2 lc, 3) f32; boxes (2 lc, 8) f32, 16-byte aligned, each row min xyz, max
-// xyz, 0, 0 (BVHArrays.boxes); v0, v1, v2, geom_n (lc, 3) f32; tri_valid
-// (lc,) bool;
-// out_t, out_tri (n_packets * packet,).  packet <= 1024, 1 <= leaf_width
+// origin, direction (n_packets * packet, 3) f32, padded; boxes (2 lc, 8)
+// f32, 16-byte aligned, each row min xyz, max xyz, 0, 0 (BVHArrays.boxes);
+// v0, v1, v2, geom_n (lc, 3) f32; tri_valid (lc,) bool; out_t, out_tri
+// (n_packets * packet,).  packet <= 1024, 1 <= leaf_width
 // <= lc.  mt selects the Moller-Trumbore test.  stats: null, or (n_packets,
 // kWalkStats) int64 that a -DMCPT_WALK_STATS build fills (other builds
 // leave it alone).  Returns the launch's CUDA error.
 extern "C" int mcpt_packet_walk(const float* origin, const float* direction,
                                 int n_packets, int packet,
-                                const float* node_min, const float* node_max,
                                 const float* boxes, int lc, int leaf_width,
-                                const float* v0,
-                                const float* v1, const float* v2,
-                                const float* geom_n,
+                                const float* v0, const float* v1,
+                                const float* v2, const float* geom_n,
                                 const unsigned char* tri_valid, int mt,
                                 int max_steps, float* out_t, int* out_tri,
                                 long long* stats, void* stream) {
@@ -622,10 +612,10 @@ extern "C" int mcpt_packet_walk(const float* origin, const float* direction,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (mt)
-    return launch<true>(origin, direction, n_packets, packet, node_min,
-                        node_max, boxes, lc, leaf_width, v0, v1, v2, geom_n,
+    return launch<true>(origin, direction, n_packets, packet, boxes, lc,
+                        leaf_width, v0, v1, v2, geom_n,
                         tri_valid, max_steps, out_t, out_tri, stats, s);
-  return launch<false>(origin, direction, n_packets, packet, node_min,
-                       node_max, boxes, lc, leaf_width, v0, v1, v2, geom_n,
+  return launch<false>(origin, direction, n_packets, packet, boxes, lc,
+                       leaf_width, v0, v1, v2, geom_n,
                        tri_valid, max_steps, out_t, out_tri, stats, s);
 }

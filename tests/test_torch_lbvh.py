@@ -229,10 +229,12 @@ def test_walk_matches_jax_on_adversarial_rays(scenes, name, mode, walk):
                                                        compat=mode == "compat"))
 
 
-@pytest.mark.parametrize("packet_size,leaf_width", [(16, 1), (48, 2), (64, 8)])
+@pytest.mark.parametrize("packet_size,leaf_width", [(16, 1), (48, 2), (64, 8),
+                                                    (100, 3), (1, 8), (150, 16)])
 def test_packet_shapes_match_jax(scenes, packet_size, leaf_width):
-    """Packet sizes that do not divide R (parked padding) and several fat
-    leaf widths."""
+    """Packet sizes that do not divide R (parked padding), one-ray packets,
+    one packet for all rays, and several fat leaf widths, one of no power
+    of two."""
     js, ts, jb, tb = scenes["boxspec"]
     o, d = _adversarial_rays(tb.node_min.numpy(), tb.node_max.numpy(), seed=5)
     o, d = o[:150], d[:150]
@@ -262,6 +264,173 @@ def test_walk_matches_jax_and_brute_on_interior(scenes, mode, walk):
     assert torch.equal(hb, hc)
     np.testing.assert_allclose(tb_[hb].numpy(), tc[hb].numpy(), rtol=1e-4, atol=1e-5)
     assert float((ib[hb] == ic[hb]).float().mean()) > 0.99
+
+
+# --------------------------------------------------------------------------
+# Packets that a parallel leaf test or several rays per thread could break.
+# --------------------------------------------------------------------------
+
+def _floor_diagonal_rays(seed):
+    """Rays straight down onto the box floor's diagonal x = z: the floor's
+    two triangles tie at equal t there."""
+    t = np.random.default_rng(seed).uniform(1.65, 1.95, (40, 1)).astype(np.float32)
+    o = np.concatenate([t, np.full_like(t, 1.5), t], axis=1)
+    d = np.tile(np.float32([0.0, -1.0, 0.0]), (40, 1))
+    d[20:, 0] = -0.0
+    return o, d
+
+
+def _floor_ids(ts):
+    v0, v1, v2 = (getattr(ts, f).numpy() for f in ("v0", "v1", "v2"))
+    on = ts.tri_valid.numpy() & (v0[:, 1] == 0) & (v1[:, 1] == 0) & (v2[:, 1] == 0)
+    return np.nonzero(on)[0]
+
+
+@pytest.mark.parametrize("mode", ["compat", "mt"])
+@pytest.mark.parametrize("leaf_width", [8, 1], ids=["in_one_leaf", "across_leaves"])
+def test_packet_ties_go_to_the_lowest_id(scenes, mode, leaf_width):
+    """Equal-t ties inside one fat leaf (width 8: the box's 12 triangles sit
+    in two leaves, the floor's pair in one) and across fat leaves (width 1:
+    every triangle its own leaf, the first in preorder wins): exact against
+    the JAX walk, and the floor's lower id wins."""
+    js, ts, jb, tb = scenes["box"]
+    o, d = _floor_diagonal_rays(11)
+    jr, tr = _walks(jb, js, tb, ts, o, d, mode == "compat", "packet",
+                    packet_size=16, leaf_width=leaf_width)
+    _exact(jr, tr)
+    floor = _floor_ids(ts)
+    assert len(floor) == 2 and floor[1] // 8 == floor[0] // 8
+    assert bool(tr[0].all()) and bool((tr[2] == int(floor.min())).all())
+
+
+def _doubled(scene, xp):
+    """The walk's view of a scene with every triangle slot repeated after
+    the first copy."""
+    import types
+
+    cat = (lambda a: xp.concatenate([a, a])) if xp is jnp else (
+        lambda a: torch.cat([a, a]))
+    return types.SimpleNamespace(
+        v0=cat(scene.v0), v1=cat(scene.v1), v2=cat(scene.v2),
+        geom_n=cat(scene.geom_n), tri_valid=cat(scene.tri_valid),
+        num_tris_padded=2 * scene.num_tris_padded)
+
+
+@pytest.mark.parametrize("mode", ["compat", "mt"])
+@pytest.mark.parametrize("shape", [(32, 8), (16, 4), (64, 6)])
+def test_packet_ties_across_leaves_on_a_doubled_box(scenes, mode, shape):
+    """Every triangle of the box repeated in a later fat leaf: every hit
+    ties with its copy, and the first copy must win (leaf widths 8 and 4).
+    Width 6 is no power of two: its fat leaves (tri0 = (k - fat_start) 6)
+    do not cover every triangle, so there only the JAX walk is the
+    reference."""
+    js, ts, _, _ = scenes["boxspec"]
+    jd, td = _doubled(js, jnp), _doubled(ts, torch)
+    jb, tb = JL.build_lbvh_host(jd), build_lbvh(td)
+    rs = np.random.default_rng(12)
+    o = rs.uniform(0.1, 1.9, (300, 3)).astype(np.float32)
+    d = rs.normal(size=(300, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    jr, tr = _walks(jb, jd, tb, td, o, d, mode == "compat", "packet",
+                    packet_size=shape[0], leaf_width=shape[1])
+    _exact(jr, tr)
+    hit = tr[0]
+    assert int(hit.sum()) > 100
+    if shape[1] & (shape[1] - 1) == 0:
+        assert bool((tr[2][hit] < ts.num_tris_padded).all())
+
+
+def _far_apart_pairs(tb, ts, seed, n_pairs=12, depth=4):
+    """Two-ray packets [b, a] from one origin: b aimed into a depth-4
+    node's subtree, a at a triangle outside it whose ray misses that node's
+    box, so a's slab test fails where its packet descends, and a meets its
+    own fat leaf later in the trail."""
+    rs = np.random.default_rng(seed)
+    nmin, nmax = tb.node_min.numpy(), tb.node_max.numpy()
+    valid = ts.tri_valid.numpy()
+    cen = ((ts.v0 + ts.v1 + ts.v2) / 3).numpy()
+    lc = tb.num_leaves
+    span = lc >> depth
+    origin = np.float32([1.5, 1.5, 1.5])
+    o, d = [], []
+    while len(o) < 2 * n_pairs:
+        node = int(rs.integers(1 << depth, 2 << depth))
+        first = node * span - lc
+        tb_, ta = first + int(rs.integers(0, span)), int(rs.integers(0, lc))
+        if not (valid[tb_] and valid[ta]) or first <= ta < first + span:
+            continue
+        da = (cen[ta] - origin) / np.linalg.norm(cen[ta] - origin)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t0, t1 = (nmin[node] - origin) / da, (nmax[node] - origin) / da
+        if np.nanmax(np.minimum(t0, t1)) <= np.nanmin(np.maximum(t0, t1)):
+            continue
+        db = cen[tb_] - origin
+        o += [origin, origin]
+        d += [db / np.linalg.norm(db), da]
+    return np.asarray(o, np.float32), np.asarray(d, np.float32)
+
+
+@pytest.mark.parametrize("mode", ["compat", "mt"])
+def test_packet_mate_misses_a_node_then_meets_its_leaf(scenes, mode):
+    """Packets of two rays on the 2k interior: the second misses a node the
+    first makes its packet enter, then hits its own triangle later: hit and
+    tri exact against the JAX walk, t within the interior's rtol (module
+    note)."""
+    js, ts, jb, tb = scenes["large"]
+    o, d = _far_apart_pairs(tb, ts, seed=13)
+    jr, tr = _walks(jb, js, tb, ts, o, d, mode == "compat", "packet",
+                    packet_size=2)
+    assert np.array_equal(np.asarray(jr[0]), tr[0].numpy())
+    assert np.array_equal(np.asarray(jr[2]), tr[2].numpy())
+    np.testing.assert_allclose(np.asarray(jr[1]), tr[1].numpy(), rtol=1e-6, atol=0)
+    assert int(tr[0][1::2].sum()) >= len(o) // 4
+
+
+@pytest.mark.parametrize("max_steps", [1, 3, 6, 9])
+def test_packet_max_steps_matches_jax(scenes, max_steps):
+    """A packet stopped by a small explicit max_steps keeps the hits found
+    so far, as the JAX walk does."""
+    js, ts, jb, tb = scenes["boxspec"]
+    o, d = _adversarial_rays(tb.node_min.numpy(), tb.node_max.numpy(), seed=14)
+    for compat in (True, False):
+        jr, tr = _walks(jb, js, tb, ts, o, d, compat, "packet", packet_size=32,
+                        leaf_width=2, max_steps=max_steps)
+        _exact(jr, tr)
+
+
+def test_packet_walk_stats_summary_reads_the_counters():
+    """The summary of a measurement build's counters, on made-up counts:
+    means per packet, per visit and per step, and each call's longest
+    trail."""
+    names = TL.PACKET_WALK_STATS
+    a = torch.zeros((2, len(names)), dtype=torch.int64)
+    b = torch.zeros((1, len(names)), dtype=torch.int64)
+    for row, vals in ((a[0], (10, 2, 6, 2, 1000, 100, 200, 300, 40, 60)),
+                      (a[1], (30, 4, 2, 2, 3000, 300, 600, 900, 120, 180)),
+                      (b[0], (20, 0, 0, 0, 4000, 1000, 1000, 1000, 0, 0))):
+        row[:] = torch.tensor(vals)
+    out = TL.packet_walk_stats_summary([a, b])
+    assert out["calls"] == 2 and out["packets"] == 3
+    assert out["steps_per_packet_mean"] == 20 and out["steps_per_packet_max"] == 30
+    assert out["leaf_visits_per_packet"] == 2
+    assert out["rays_per_leaf_visit"] == 8 / 6 and out["warps_per_leaf_visit"] == 4 / 6
+    assert out["cycles_per_step"] == 8000 / 60
+    assert out["cycles_per_step_node"] == 1400 / 60
+    parts = sum(out["cycles_per_step_" + p] for p in
+                ("node", "slab", "barrier", "leaf_stage", "leaf_test", "rest"))
+    assert abs(parts - out["cycles_per_step"]) < 1e-9
+    assert out["longest_steps_mean"] == 25 and out["longest_cycles_mean"] == 3500
+    assert out["longest_cycles_per_step"] == 140
+
+
+def test_packet_stats_need_the_card(scenes):
+    """The counters come from a measurement build of the CUDA kernel: on
+    the CPU, asking for them raises instead of returning zeros."""
+    _, ts, _, tb = scenes["box"]
+    o = torch.zeros((4, 3))
+    d = torch.tensor([[1.0, 0.0, 0.0]]).expand(4, 3).contiguous()
+    with pytest.raises(ValueError, match="measurement build"):
+        TL.packet_intersect(tb, ts, o, d, stats=torch.zeros((1, 10), dtype=torch.int64))
 
 
 def test_ray_aabb_matches_jax_with_nan():

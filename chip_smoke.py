@@ -1574,6 +1574,7 @@ def doubled_scene(scene):
     return types.SimpleNamespace(
         v0=cat(scene.v0), v1=cat(scene.v1), v2=cat(scene.v2),
         geom_n=cat(scene.geom_n), tri_valid=cat(scene.tri_valid),
+        tri_records=cat(scene.tri_records),
         num_tris_padded=2 * scene.num_tris_padded)
 
 
@@ -1684,6 +1685,65 @@ def packet_adversarial(dev, box, large, rng, build: str):
     return out
 
 
+def perray_adversarial(dev, box, large, rng, build: str):
+    """The per-ray walk kernel against its plain version, compat and MT, on
+    the cases its launch shape and record loads could break: ray counts of
+    1, 31, 33 and fewer than the card's SMs (partial warps, blocks short of
+    rays); equal-t ties across leaves (rays straight down onto the box
+    floor's diagonal, whose two triangles sit in two leaves, and the box with
+    every triangle doubled: the first copy in preorder must win); and a
+    small explicit max_steps."""
+    from montecarlopathtracing_torch.accel import lbvh as L
+
+    t = rng.uniform(1.65, 1.95, (64, 1)).astype(np.float32)
+    diag_o = np.concatenate([t, np.full_like(t, 1.5), t], axis=1)
+    diag_d = np.tile(np.float32([0.0, -1.0, 0.0]), (64, 1))
+    diag_d[32:, 0] = -0.0
+    n = 4099
+    ro = rng.uniform(0.1, 1.9, (n, 3)).astype(np.float32)
+    rd = rng.normal(size=(n, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    lo = rng.uniform(0.1, 2.9, (n, 3)).astype(np.float32)
+    ld = rng.normal(size=(n, 3)).astype(np.float32)
+    ld /= np.linalg.norm(ld, axis=1, keepdims=True)
+    dbl = doubled_scene(box)
+    bvh_box, bvh_dbl, bvh_large = (L.build_lbvh(sc) for sc in (box, dbl, large))
+    co, cd = camera_and_shadow_rays(
+        large, min(8192, large.camera.width * large.camera.height), seed=44)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases = [("tie_across_leaves", bvh_box, box, diag_o, diag_d, {}),
+             ("doubled_box", bvh_dbl, dbl, ro, rd, {})]
+    for count in (1, 31, 33, sms - 1):
+        cases.append((f"rays_{count}", bvh_large, large, lo[:count], ld[:count], {}))
+    for steps in (1, 3):
+        cases.append((f"max_steps_{steps}", bvh_large, large, co, cd,
+                      {"max_steps": steps}))
+    floor = torch.nonzero(box.tri_valid & (box.v0[:, 1] == 0) & (box.v1[:, 1] == 0)
+                          & (box.v2[:, 1] == 0))[:, 0]
+    check(floor.numel() == 2, "perray adversarial: the box floor is not two triangles")
+    out = []
+    for name, bvh, sc, o, d, kw in cases:
+        o, d = torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev)
+        for mt in (False, True):
+            got = L.bvh_intersect(bvh, sc, o, d, compat=not mt, **kw)
+            want = L.bvh_intersect_plain(bvh, sc, o, d, compat=not mt, **kw)
+            label = f"perray adversarial {name}" + (" mt" if mt else "")
+            check(results_equal(got, want), f"{label}: kernel differs from the "
+                                            "plain walk")
+            hit = got[0]
+            if sc is dbl:
+                check(bool((got[2][hit] < box.num_tris_padded).all()),
+                      f"{label}: a tie went to the later copy")
+            if name == "tie_across_leaves":
+                check(bool(hit.all()) and bool((got[2] == floor.min()).all()),
+                      f"{label}: the floor's later triangle won a tie")
+            out.append({"case": name, "mt": mt, "rays": int(o.shape[0]),
+                        "hits": int(hit.sum())})
+    emit({"phase": "bvh_walk_adversarial", "build": build, "ok": True,
+          "sms": sms, "cases": out})
+    return out
+
+
 def phase_walk_kernels(dev, state):
     """(a) The walk kernels on the card against their plain versions and
     brute force: the box and the 100k interior, random rays with
@@ -1761,15 +1821,20 @@ def phase_walk_kernels(dev, state):
                     res[kind]["t_max_abs_err"] = max_err(got[1], want[1])
                 cases.append(res)
     emit({"phase": "walk_kernels", "ok": True, "cases": cases})
-    # The package's build takes the thread-per-ray kernel for the box's
-    # small tree: the cases run again with the redesign for every call.
+    # The package's build takes the packet walk's thread-per-ray kernel for
+    # the box's small tree: the cases run again with the redesign for every
+    # call; the per-ray walk's cases run again under its parent design.
     from montecarlopathtracing_torch.kernels import build as B
 
     packet_adversarial(dev, box, large, np.random.default_rng(42), "package")
+    perray_adversarial(dev, box, large, np.random.default_rng(45), "package")
     try:
         B.EXTRA_FLAGS = ("-DMCPT_PACKET_WALK_V2",)
         B.load.cache_clear()
         packet_adversarial(dev, box, large, np.random.default_rng(42), "redesign")
+        B.EXTRA_FLAGS = ("-DMCPT_BVH_WALK_V1",)
+        B.load.cache_clear()
+        perray_adversarial(dev, box, large, np.random.default_rng(45), "parent")
     finally:
         B.EXTRA_FLAGS = ()
         B.load.cache_clear()
@@ -1870,76 +1935,99 @@ def phase_walk_frames(dev, state):
     torch.cuda.empty_cache()
 
 
-# The packet walk's designs (csrc/packet_walk.cu): the package's build,
-# which takes the thread-per-ray kernel (the parent design) for the smallest
-# trees and the rays-per-thread kernel (the redesign) for the rest, and
-# builds that take one of the two for every call, each of those also as a
-# -DMCPT_WALK_STATS measurement build (the counters of PACKET_WALK_STATS):
-# (name, flags, with a measurement build).
-PACKET_DESIGNS = (("package", (), False),
-                  ("parent", ("-DMCPT_PACKET_WALK_V1",), True),
-                  ("redesign", ("-DMCPT_PACKET_WALK_V2",), True))
+# Each walk's designs: the package's build and measurement builds, each of
+# those also as a -DMCPT_WALK_STATS build when marked: (name, flags, with a
+# measurement build).  The packet walk (csrc/packet_walk.cu): the package
+# takes the thread-per-ray kernel (the parent design) for the smallest trees
+# and the rays-per-thread kernel (the redesign) for the rest, and builds
+# that take one of the two for every call.  The per-ray walk
+# (csrc/bvh_walk.cu): the package's build is the redesign, and
+# -DMCPT_BVH_WALK_V1 builds the parent design.
+WALK_DESIGNS = {
+    "bvh": (("package", (), False),
+            ("parent", ("-DMCPT_PACKET_WALK_V1",), True),
+            ("redesign", ("-DMCPT_PACKET_WALK_V2",), True)),
+    "bvh_perray": (("package", (), True),
+                   ("parent", ("-DMCPT_BVH_WALK_V1",), True)),
+}
 
 
-def packet_design_stats(calls, label: str):
-    """Every packet-walk call of a frame replayed under PACKET_DESIGNS, each
-    call timed once (CUDA events, after a warm-up call) and held bit for bit
-    to the package's build; then both designs' measurement builds over the
-    same calls: steps per packet, fat-leaf visits with a hit, rays and warps
-    per visit, clock cycles per step and their split (the step-0 counts).
-    ms and ms_max are over all calls of the frame."""
+def walk_design_stats(calls, label: str, kind: str, designs=None):
+    """Every call of a walk frame replayed under each of ``designs``
+    (default WALK_DESIGNS[kind]), each call timed once (CUDA events, after
+    a warm-up call) and held bit for bit to the first design's result; then
+    the measurement builds over the same calls, their counters summarised
+    (accel/lbvh.py's packet_walk_stats_summary or bvh_walk_stats_summary:
+    the step-0 counts).  ms and ms_max are over all calls of the frame.
+    Emits one "packet_walk_designs" or "bvh_walk_designs" line."""
     from montecarlopathtracing_torch.accel import lbvh as L
     from montecarlopathtracing_torch.kernels import build as B
 
+    kernel, _ = walk_fns(kind)
+    designs = designs or WALK_DESIGNS[kind]
+    prefix = "PACKET" if kind == "bvh" else "BVH"
     sleep = sleep_ms()
     out, first = {}, []
     try:
-        for name, flags, measured in PACKET_DESIGNS:
+        for name, flags, measured in designs:
             for counting in (False, True)[:1 + measured]:
                 B.EXTRA_FLAGS = flags + (("-DMCPT_WALK_STATS",) if counting else ())
                 B.load.cache_clear()
+                log = B.build([WALK_KERNELS[kind]])[WALK_KERNELS[kind]]["log"]
+                if counting:
+                    names = getattr(L, prefix + "_WALK_STATS")
+                    summary = getattr(L, prefix.lower() + "_walk_stats_summary")
                 ms, stats = [], []
                 for i, (bvh, scene, o, d, kw) in enumerate(calls):
-                    p = min(kw.get("packet_size", 1024), o.shape[0])
-                    st = (torch.zeros((-(-o.shape[0] // p), len(L.PACKET_WALK_STATS)),
-                                      dtype=torch.int64, device=o.device)
-                          if counting else None)
-                    t, _, got = timed(lambda: L.packet_intersect(
-                        bvh, scene, o, d, stats=st, **kw), sleep, warm=True)
-                    if not first or len(first) <= i:
+                    extra = {}
+                    if counting:
+                        rows = o.shape[0]
+                        if kind == "bvh":
+                            rows = -(-rows // min(kw.get("packet_size", 1024), rows))
+                        extra["stats"] = torch.zeros((rows, len(names)),
+                                                     dtype=torch.int64, device=o.device)
+                    t, _, got = timed(lambda: kernel(bvh, scene, o, d, **extra, **kw),
+                                      sleep, warm=True)
+                    if len(first) <= i:
                         first.append(got)
                     else:
                         check(results_equal(got, first[i]),
-                              f"{label}: packet walk {name} (stats {counting}) "
-                              f"differs from the package's build on call {i}")
+                              f"{label}: {kind} walk {name} (stats {counting}) "
+                              f"differs from the {designs[0][0]} build on "
+                              f"call {i}")
                     if counting:
-                        stats.append(st)
+                        stats.append(extra["stats"])
                     else:
                         ms.append(t)
                 rec = out.setdefault(name, {})
+                ptxas = [ln.strip() for ln in log.splitlines()
+                         if "registers" in ln or "spill" in ln]
                 if counting:
-                    rec["step0"] = L.packet_walk_stats_summary(stats)
+                    rec.update(step0=summary(stats), ptxas_stats=ptxas)
                 else:
-                    rec.update(ms=sum(ms) / len(ms), ms_max=max(ms), calls=len(ms))
+                    rec.update(ms=sum(ms) / len(ms), ms_max=max(ms), calls=len(ms),
+                               ptxas=ptxas)
+                del stats
     finally:
         B.EXTRA_FLAGS = ()
         B.load.cache_clear()
-    out["parent_over_package"] = out["parent"]["ms"] / out["package"]["ms"]
-    emit({"phase": "packet_walk_designs", "case": label, "sleep_ms": sleep, **out})
+    if "parent" in out and "package" in out:
+        out["parent_over_package"] = out["parent"]["ms"] / out["package"]["ms"]
+    phase = "packet_walk_designs" if kind == "bvh" else "bvh_walk_designs"
+    emit({"phase": phase, "case": label, "sleep_ms": sleep, **out})
     return out
 
 
 def phase_walk_timing(state):
     """(a) continued: every walk frame's calls replayed against the plain
-    walks (walk_frame_stats), and the packet walk's frames under both of
-    its designs (packet_design_stats)."""
+    walks (walk_frame_stats), and under both designs of their walk
+    (walk_design_stats)."""
     out = {}
     for label in ("box_bvh", "box_bvh_perray", "large_bvh", "large_bvh_perray",
                   "large400_fallback"):
         kind, calls = state.pop(f"walk_calls_{label}")
         out[label] = walk_frame_stats(calls, kind, label)
-        if kind == "bvh":
-            out[label]["designs"] = packet_design_stats(calls, label)
+        out[label]["designs"] = walk_design_stats(calls, label, kind)
         del calls
         torch.cuda.empty_cache()
     state["walk_time"] = out
@@ -2332,17 +2420,20 @@ def main() -> int:
             "plain_ms_box": tb["plain_ms"], "bound_ms_box": tb["bound_ms"],
             "frame_seconds": state[f"walk_frame_{frame}"]["seconds"],
         }
-        if kind == "bvh":
-            tf = state["walk_time"]["large400_fallback"]
-            # Both designs over every call of the three packet-walk frames.
-            for f, sfx in (("large_bvh", ""), ("large400_fallback", "_large400_fallback"),
-                           ("box_bvh", "_box")):
-                des = state["walk_time"][f]["designs"]
-                for design, prefix in (("package", ""), ("parent", "parent_"),
-                                       ("redesign", "redesign_")):
+        # Every design over every call of the walk's frames.
+        for f, sfx in ((frame, ""), ("box_" + kind, "_box"),
+                       ("large400_fallback", "_large400_fallback")):
+            if kind == "bvh_perray" and f == "large400_fallback":
+                continue  # a packet-walk frame
+            des = state["walk_time"][f]["designs"]
+            for design, prefix in (("package", ""), ("parent", "parent_"),
+                                   ("redesign", "redesign_")):
+                if design in des:
                     row.update({
                         prefix + "ms_all_calls" + sfx: des[design]["ms"],
                         prefix + "ms_all_calls_max" + sfx: des[design]["ms_max"]})
+        if kind == "bvh":
+            tf = state["walk_time"]["large400_fallback"]
             row.update(own_node_tests_per_ray=t["own_node_tests_per_ray"],
                        own_tri_tests_per_ray=t["own_tri_tests_per_ray"],
                        bound_own_tests_ms=t["bound_own_tests_ms"],

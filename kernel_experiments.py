@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the key kernel, the three intersect kernels and the packet LBVH
-walk on the calls of real frames, under measurement builds and launch
+"""Time the key kernel, the three intersect kernels and the two LBVH
+walks on the calls of real frames, under measurement builds and launch
 settings, on one CUDA card.
 
     python3 kernel_experiments.py
@@ -8,6 +8,7 @@ settings, on one CUDA card.
     python3 kernel_experiments.py --kernels keys --variants default,keys_cpt1
     python3 kernel_experiments.py --pkg-root DIR --variants default
     python3 kernel_experiments.py --kernels walk --frames box_bvh,box3_bvh
+    python3 kernel_experiments.py --kernels walk --frames large_bvh_perray
 
 Renders each frame once with its intersect calls recorded (the frames of
 chip_smoke.py: the 100k-triangle interior under the single-table plan, the
@@ -32,17 +33,22 @@ results.  ``--sass FILE`` writes ``cuobjdump -sass`` of the key kernel's and
 the chunked intersect kernel's libraries to FILE (to count the instructions
 of their inner loops); ``--frames ""`` then replays nothing.
 
-``--kernels walk`` takes the packet walk's frames instead (WALK_FRAMES:
-``large_bvh``, ``large400_fallback`` and ``box_bvh`` as chip_smoke.py
-renders them, and ``box1_bvh`` .. ``box4_bvh``, the box with every triangle
-split in two 1-4 times, whose trees lie around the kernel's choice between
-its two designs) and replays their calls with chip_smoke.py's
-``packet_design_stats``: the package's build and the builds that take one
-design for every call (``-DMCPT_PACKET_WALK_V1`` / ``_V2``), ms per launch
-over every call, held bit for bit to each other, and both designs'
-``-DMCPT_WALK_STATS`` counters (one ``packet_walk_designs`` line a frame;
-``--variants`` does not apply).  The first ``--check`` calls are held to
-the plain walk.
+``--kernels walk`` takes the walks' frames instead (WALK_FRAMES:
+``large_bvh``, ``large400_fallback``, ``box_bvh``, ``large_bvh_perray`` and
+``box_bvh_perray`` as chip_smoke.py renders them, and ``box1_bvh`` ..
+``box4_bvh`` / ``box1_bvh_perray`` .. ``box4_bvh_perray``, the box with
+every triangle split in two 1-4 times, trees of 24-192 triangles) and
+replays their calls with chip_smoke.py's ``walk_design_stats``: the
+package's build and the builds of the walk's other design
+(``-DMCPT_PACKET_WALK_V1`` / ``_V2`` for the packet walk,
+``-DMCPT_BVH_WALK_V1`` for the per-ray walk), or those ``--designs`` names
+(``name=flag+flag,...``, each also with its measurement build), ms per
+launch over every call, held bit for bit to each other, and the
+``-DMCPT_WALK_STATS`` counters (one ``packet_walk_designs`` or
+``bvh_walk_designs`` line a frame; ``--variants`` does not apply).  The
+first ``--check`` calls are held to the plain walk.  With ``--pkg-root`` on
+a checkout whose per-ray walk has no measurement build, its per-ray frames
+replay that package's build alone.
 
 Variants, joined by "+" to combine two (each answers what one cause of lost time is worth):
 
@@ -115,20 +121,22 @@ SOURCES = {"box": "cluster_intersect", "large": "cluster_intersect",
            "large400_chunked": "cluster_intersect_ftb",
            "large400_hbm": "cluster_intersect_hbm"}
 
-# Packet-walk frames (--kernels walk): label -> (triangles of the interior,
-# or 0 for the built-in box at 1024 x 1024; times each box triangle is split
-# in two; spp; RenderOptions fields, "modern" for compat=MODERN).  The
-# splits give 24-192 triangles: fat leaves (width 8) 2-5 levels deep.
+# Walk frames (--kernels walk): label -> (triangles of the interior, or 0
+# for the built-in box at 1024 x 1024; times each box triangle is split in
+# two; spp; RenderOptions fields, "modern" for compat=MODERN).  The splits
+# give 24-192 triangles: the packet walk's fat leaves (width 8) 2-5 levels
+# deep, per-ray trees of depth 5-8.
 WALK_FRAMES = {
-    "box_bvh": (0, 0, 16, {"modern": True, "intersector": "bvh"}),
-    "box1_bvh": (0, 1, 16, {"modern": True, "intersector": "bvh"}),
-    "box2_bvh": (0, 2, 16, {"modern": True, "intersector": "bvh"}),
-    "box3_bvh": (0, 3, 16, {"modern": True, "intersector": "bvh"}),
-    "box4_bvh": (0, 4, 16, {"modern": True, "intersector": "bvh"}),
-    "large_bvh": (100_000, 0, 4, {"modern": True, "intersector": "bvh"}),
     "large400_fallback": (400_000, 0, 4, {"large_mode": "chunked",
                                           "max_table_chunks": 4}),
 }
+for _kind in ("bvh", "bvh_perray"):
+    WALK_FRAMES[f"box_{_kind}"] = (0, 0, 16, {"modern": True, "intersector": _kind})
+    WALK_FRAMES[f"large_{_kind}"] = (100_000, 0, 4, {"modern": True,
+                                                    "intersector": _kind})
+    for _splits in range(1, 5):
+        WALK_FRAMES[f"box{_splits}_{_kind}"] = (
+            0, _splits, 16, {"modern": True, "intersector": _kind})
 
 # variant: (extra nvcc flags, {module switch: value}, results are checked)
 VARIANTS = {
@@ -544,10 +552,26 @@ def split_box(splits: int, device):
         return build_scene(d, "box", RenderOptions(), device=device)[0]
 
 
+def walk_designs(args, kind: str, L):
+    """The designs --kernels walk replays: those of --designs, each
+    ``name=flag+flag`` with its measurement build, or else chip_smoke.py's
+    WALK_DESIGNS; for a --pkg-root package whose per-ray walk has no
+    measurement build, its own build alone."""
+    import chip_smoke as S
+
+    if kind == "bvh_perray" and not hasattr(L, "BVH_WALK_STATS"):
+        return (("package", (), False),)
+    if not args.designs:
+        return S.WALK_DESIGNS[kind]
+    return tuple((name, tuple(filter(None, flags.split("+"))), True)
+                 for name, flags in (d.split("=", 1)
+                                     for d in args.designs.split(",")))
+
+
 def run_walk(args, label: str) -> None:
-    """Render a packet-walk frame with its calls recorded, hold the first
+    """Render a walk frame with its calls recorded, hold the first
     ``--check`` calls to the plain walk, and replay all of them under the
-    walk's designs (chip_smoke.py's packet_design_stats)."""
+    walk's designs (chip_smoke.py's walk_design_stats)."""
     import chip_smoke as S
     from montecarlopathtracing_torch.accel import lbvh as L
     from montecarlopathtracing_torch.config import MODERN, RenderOptions
@@ -563,24 +587,26 @@ def run_walk(args, label: str) -> None:
                                 device="cuda")[0]
              if n_tris else split_box(splits, "cuda"))
     opts = RenderOptions(spp=spp, spp_chunk=spp, **fields)
-    plan = wavefront.resolve_plan(opts, scene.num_tris_padded)
-    if plan[0] != "bvh":
-        raise RuntimeError(f"{label}: plan {plan} is not the packet walk")
+    kind = wavefront.resolve_plan(opts, scene.num_tris_padded)[0]
+    if kind not in ("bvh", "bvh_perray"):
+        raise RuntimeError(f"{label}: plan {kind} is not a walk")
+    kernel, plain = S.walk_fns(kind)
     bvh = L.build_lbvh_host(scene)
-    with S.WalkCapture("packet_intersect") as cap:
+    with S.WalkCapture(kernel.__name__) as cap:
         wavefront.render_image_host_chunked(scene, bvh, opts, device="cuda")
     torch.cuda.synchronize()
     calls = cap.calls
     checked = min(args.check, len(calls))
     for bvh_i, sc, o, d, kw in calls[:checked]:
-        if not S.results_equal(L.packet_intersect(bvh_i, sc, o, d, **kw),
-                               L.packet_intersect_plain(bvh_i, sc, o, d, **kw)):
+        if not S.results_equal(kernel(bvh_i, sc, o, d, **kw),
+                               plain(bvh_i, sc, o, d, **kw)):
             raise AssertionError(f"{label}: a call differs from the plain walk")
-    emit({"frame": label, "kernel": "walk", "tris_padded": scene.num_tris_padded,
+    emit({"frame": label, "kernel": "walk", "walk": kind,
+          "tris_padded": scene.num_tris_padded, "num_leaves": bvh.num_leaves,
           "fat_start": bvh.num_leaves // calls[0][4].get("leaf_width", 8),
           "spp": spp, "calls": len(calls), "checked_calls": checked,
           "tag": args.tag})
-    S.packet_design_stats(calls, label)
+    S.walk_design_stats(calls, label, kind, walk_designs(args, kind, L))
 
 
 def main(argv=None) -> int:
@@ -596,13 +622,16 @@ def main(argv=None) -> int:
                     help="calls per frame held against the plain version")
     ap.add_argument("--kernels", default="intersect",
                     help="steps to replay: intersect, keys or both (a,b); "
-                         "or walk, the packet walk on WALK_FRAMES")
+                         "or walk, the walks on WALK_FRAMES")
     ap.add_argument("--sass", default="", metavar="FILE",
                     help="write the key and chunked intersect kernels' SASS "
                          "to FILE")
     ap.add_argument("--sass-report", default="", metavar="FILE",
                     help="print the loops of each function of a SASS dump "
                          "(from --sass) and exit; runs without a card")
+    ap.add_argument("--designs", default="", metavar="NAME=FLAGS,...",
+                    help="with --kernels walk, the builds to replay instead "
+                         "of the walk's designs (flags joined by +)")
     ap.add_argument("--tag", default="", help="copied into every line")
     args = ap.parse_args(argv)
     if args.sass_report:  # reads a dump written by --sass; needs no card

@@ -58,10 +58,15 @@ class BVHArrays:
     @functools.cached_property
     def boxes(self):
         """(2*Lc, 8) f32, one 32-byte row per node: min xyz, max xyz, 0, 0.
-        The packet walk kernel's layout (a node's box in two 16-byte
-        copies), made once per BVHArrays on first use."""
+        The walk kernels' layout (a node's box in one or two loads), made
+        once per BVHArrays on first use."""
         pad = self.node_min.new_zeros((self.node_min.shape[0], 2))
         return torch.cat([self.node_min, self.node_max, pad], dim=1).contiguous()
+
+    @functools.cached_property
+    def boxes24(self):
+        """(2*Lc, 6) f32 (experiment): min xyz, max xyz, 24 bytes a node."""
+        return torch.cat([self.node_min, self.node_max], dim=1).contiguous()
 
     def to(self, device) -> "BVHArrays":
         return BVHArrays(node_min=self.node_min.to(device),
@@ -184,8 +189,21 @@ def _add_counts(counts, n_node, n_tri):
         counts["tri_tests"] = counts.get("tri_tests", 0) + int(n_tri)
 
 
+# Counters per ray that a measurement build of csrc/bvh_walk.cu
+# (-DMCPT_WALK_STATS in kernels/build.py's EXTRA_FLAGS) writes into
+# bvh_intersect's ``stats``: steps, leaf steps with a triangle test, clock
+# cycles of the ray's walk and of its steps' parts (waiting for the node's
+# box, the slab test and the choice of the next key, waiting for the leaf's
+# triangle, the triangle test), the global index of the thread and the block
+# that walked it, and %globaltimer (ns) at the walk's start and end
+# (kRayStats).
+BVH_WALK_STATS = ("steps", "leaf_tests", "cycles", "cycles_node", "cycles_slab",
+                  "cycles_leaf_load", "cycles_leaf_test", "thread", "block",
+                  "start_ns", "end_ns")
+
+
 def bvh_intersect(bvh: BVHArrays, scene, origin, direction, compat: bool = True,
-                  max_steps: int | None = None):
+                  max_steps: int | None = None, stats=None):
     """Nearest hit for a batch of rays, each walking the heap on its own.
 
     origin/direction: (R,3).  Returns (hit (R,) bool, t (R,) f32, tri (R,)
@@ -194,11 +212,16 @@ def bvh_intersect(bvh: BVHArrays, scene, origin, direction, compat: bool = True,
     test passes with t_max = the ray's best t so far; a leaf's triangle wins
     only at t strictly below it.  The walk stops after ``max_steps`` steps
     (default 4 Lc + 64).  Traversal is outside the gradient.  On CUDA
-    tensors this launches csrc/bvh_walk.cu; on CPU tensors it runs
-    bvh_intersect_plain.
+    tensors this launches csrc/bvh_walk.cu, which reads ``bvh.boxes`` and
+    ``scene.tri_records``; on CPU tensors it runs bvh_intersect_plain.
+    ``stats`` (card only): None, or an int64 (R, len(BVH_WALK_STATS)) tensor
+    that a -DMCPT_WALK_STATS build of the kernel fills (others leave it).
     """
     _check_walk_inputs("bvh_intersect", origin, direction)
     if origin.device.type == "cpu":
+        if stats is not None:
+            raise ValueError("bvh_intersect: stats come from a measurement "
+                             "build of the CUDA kernel; the CPU has none")
         return bvh_intersect_plain(bvh, scene, origin, direction, compat, max_steps)
     from ..kernels.cluster import _check_cuda_inputs, _ptr, _stream
     from ..kernels.build import load
@@ -208,21 +231,34 @@ def bvh_intersect(bvh: BVHArrays, scene, origin, direction, compat: bool = True,
         max_steps = 4 * lc + 64
     origin = origin.detach().contiguous()
     direction = direction.detach().contiguous()
-    tensors = _walk_tensors(bvh, scene)
+    _check_tables(bvh, scene)
+    from ..kernels import build as _B
+    boxes, tris = bvh.boxes, scene.tri_records
+    if "-DMCPT_BVH_NODE24=1" in _B.EXTRA_FLAGS:  # experiment
+        boxes = bvh.boxes24
+    if boxes.dtype != torch.float32 or tris.dtype != torch.float32:
+        raise TypeError("bvh_intersect: boxes and tri_records must be float32")
+    if tris.shape != (lc, 12):
+        raise ValueError(f"bvh_intersect: tri_records must be ({lc}, 12)")
     dev = _check_cuda_inputs("bvh_intersect", origin=origin, direction=direction,
-                             **tensors)
+                             boxes=boxes, tri_records=tris)
+    if boxes.data_ptr() % 16 or tris.data_ptr() % 16:
+        raise ValueError("bvh_intersect: boxes and tri_records must be 16-byte aligned")
     r = origin.shape[0]
+    if stats is not None and (stats.dtype != torch.int64 or stats.device != dev
+                              or not stats.is_contiguous()
+                              or stats.shape != (r, len(BVH_WALK_STATS))):
+        raise ValueError(f"bvh_intersect: stats must be int64 ({r}, "
+                         f"{len(BVH_WALK_STATS)}) on {dev}")
     out_t = torch.empty((r,), dtype=torch.float32, device=dev)
     out_tri = torch.empty((r,), dtype=_I32, device=dev)
     if r == 0:
         return out_tri >= 0, out_t, out_tri
     fn = load("bvh_walk")
     with torch.cuda.device(dev):
-        err = fn(_ptr(origin), _ptr(direction), r, _ptr(tensors["node_min"]),
-                 _ptr(tensors["node_max"]), lc, _ptr(tensors["v0"]),
-                 _ptr(tensors["v1"]), _ptr(tensors["v2"]), _ptr(tensors["geom_n"]),
-                 _ptr(tensors["tri_valid"]), int(not compat), int(min(max_steps, 2**31 - 1)),
-                 _ptr(out_t), _ptr(out_tri), _stream(dev))
+        err = fn(_ptr(origin), _ptr(direction), r, _ptr(boxes), lc, _ptr(tris),
+                 int(not compat), int(min(max_steps, 2**31 - 1)), _ptr(out_t),
+                 _ptr(out_tri), _ptr(stats), _stream(dev))
     if err != 0:
         raise RuntimeError(f"bvh_walk launch failed: CUDA error {err}")
     bvh_intersect.launches += 1
@@ -232,8 +268,94 @@ def bvh_intersect(bvh: BVHArrays, scene, origin, direction, compat: bool = True,
 bvh_intersect.launches = 0
 
 
+def bvh_walk_stats_summary(stats) -> dict:
+    """What the counters of a -DMCPT_WALK_STATS build of the per-ray walk say
+    over several calls: ``stats`` a list of (R, len(BVH_WALK_STATS)) int64
+    tensors, one per call (each reduced on its own device first).  Steps
+    per ray (mean, p99, max), leaf tests per ray; SIMT efficiency, the steps
+    the rays of a warp took over 32 times the steps of its busiest lane
+    (each lane's rays' steps added: what the warp stepped through); clock
+    cycles per step and their split (node load, slab test and choice, leaf
+    load, leaf test, the rest); and per call the span of the launch (first
+    start to last end, ns) beside its blocks' own times: the mean block,
+    the slowest block, and the times at which half, 90% and all of the
+    blocks had ended (from the first start), averaged over the calls."""
+    col = {n: j for j, n in enumerate(BVH_WALK_STATS)}
+    tot = {k: 0.0 for k in ("rays", "steps", "leaf_tests", "cycles",
+                            "cycles_node", "cycles_slab", "cycles_leaf_load",
+                            "cycles_leaf_test", "warp_steps", "warp_lane_steps")}
+    hist = torch.zeros(1, dtype=torch.float64)
+    steps_max = 0
+    spans = {k: [] for k in ("span_ns", "block_mean_ns", "block_max_ns",
+                             "blocks_half_done_ns", "blocks_90_done_ns")}
+    for s in stats:
+        s = s.detach()
+        steps = s[:, col["steps"]]
+        for k in ("steps", "leaf_tests", "cycles", "cycles_node", "cycles_slab",
+                  "cycles_leaf_load", "cycles_leaf_test"):
+            tot[k] += float(s[:, col[k]].sum())
+        tot["rays"] += s.shape[0]
+        steps_max = max(steps_max, int(steps.max()))
+        h = torch.bincount(steps, minlength=hist.numel()).to(torch.float64).cpu()
+        hist = torch.nn.functional.pad(hist, (0, h.numel() - hist.numel())) + h
+        # Each lane's steps over all the rays it walked, then per warp the
+        # busiest lane: the iterations the warp went through.
+        thread = s[:, col["thread"]]
+        lanes, inv = torch.unique(thread, return_inverse=True)
+        lane_steps = torch.zeros(lanes.numel(), dtype=torch.int64,
+                                 device=s.device).index_add_(0, inv, steps)
+        warps, winv = torch.unique(lanes // 32, return_inverse=True)
+        busiest = torch.zeros(warps.numel(), dtype=torch.int64,
+                              device=s.device).scatter_reduce_(
+            0, winv, lane_steps, reduce="amax")
+        tot["warp_steps"] += float(steps.sum())
+        tot["warp_lane_steps"] += 32.0 * float(busiest.sum())
+        block = s[:, col["block"]]
+        blocks, binv = torch.unique(block, return_inverse=True)
+        nb = blocks.numel()
+        t0 = torch.full((nb,), 2**62, dtype=torch.int64, device=s.device
+                        ).scatter_reduce_(0, binv, s[:, col["start_ns"]], reduce="amin")
+        t1 = torch.zeros(nb, dtype=torch.int64, device=s.device).scatter_reduce_(
+            0, binv, s[:, col["end_ns"]], reduce="amax")
+        first = int(t0.min())
+        ends = torch.sort(t1 - first).values.to(torch.float64)
+        spans["span_ns"].append(float(ends[-1]))
+        dur = (t1 - t0).to(torch.float64)
+        spans["block_mean_ns"].append(float(dur.mean()))
+        spans["block_max_ns"].append(float(dur.max()))
+        spans["blocks_half_done_ns"].append(float(ends[(nb - 1) // 2]))
+        spans["blocks_90_done_ns"].append(float(ends[(9 * nb - 1) // 10]))
+    rays = max(1.0, tot["rays"])
+    steps = max(1.0, tot["steps"])
+    cdf = torch.cumsum(hist, 0) / rays
+    out = {"calls": len(stats), "rays": int(tot["rays"]),
+           "steps_per_ray_mean": tot["steps"] / rays,
+           "steps_per_ray_p99": int(torch.searchsorted(cdf, torch.tensor(
+               [0.99], dtype=torch.float64))[0]),
+           "steps_per_ray_max": steps_max,
+           "leaf_tests_per_ray": tot["leaf_tests"] / rays,
+           "simt_efficiency": tot["warp_steps"] / max(1.0, tot["warp_lane_steps"]),
+           "cycles_per_step": tot["cycles"] / steps}
+    parts = 0.0
+    for part in ("node", "slab", "leaf_load", "leaf_test"):
+        v = tot["cycles_" + part] / steps
+        out["cycles_per_step_" + part] = v
+        parts += v
+    out["cycles_per_step_rest"] = out["cycles_per_step"] - parts
+    for k, v in spans.items():
+        out[k] = sum(v) / max(1, len(v))
+    return out
+
+
+def _check_tables(bvh: BVHArrays, scene):
+    if bvh.node_min.shape != (2 * scene.num_tris_padded, 3):
+        raise ValueError("walk: the LBVH was not built for this scene "
+                         f"({tuple(bvh.node_min.shape)} nodes, "
+                         f"{scene.num_tris_padded} padded triangles)")
+
+
 def _walk_tensors(bvh: BVHArrays, scene):
-    """The node and triangle tables a walk kernel reads, checked."""
+    """The node and triangle tables the packet walk kernel reads, checked."""
     tensors = dict(node_min=bvh.node_min, node_max=bvh.node_max, v0=scene.v0,
                    v1=scene.v1, v2=scene.v2, geom_n=scene.geom_n,
                    tri_valid=scene.tri_valid)
@@ -241,10 +363,7 @@ def _walk_tensors(bvh: BVHArrays, scene):
         want = torch.bool if name == "tri_valid" else torch.float32
         if t.dtype != want:
             raise TypeError(f"walk: {name} must be {want}")
-    if bvh.node_min.shape != (2 * scene.num_tris_padded, 3):
-        raise ValueError("walk: the LBVH was not built for this scene "
-                         f"({tuple(bvh.node_min.shape)} nodes, "
-                         f"{scene.num_tris_padded} padded triangles)")
+    _check_tables(bvh, scene)
     return {name: t.contiguous() for name, t in tensors.items()}
 
 

@@ -38,8 +38,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
 )
 # Further flags for a measurement build (say "-DMCPT_SKIP_TESTS", or for the
-# packet walk "-DMCPT_WALK_STATS" and "-DMCPT_PACKET_WALK_V1"); part of a
-# library's hash.  After changing them call ``load.cache_clear()``.
+# walks "-DMCPT_WALK_STATS", "-DMCPT_PACKET_WALK_V1" and "-DMCPT_BVH_WALK_V1");
+# part of a library's hash.  After changing them call ``load.cache_clear()``.
 EXTRA_FLAGS: tuple = ()
 
 _P = ctypes.c_void_p
@@ -64,8 +64,7 @@ _SIGNATURES = {
                               [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _I,
                                _I, _I, _P, _P, _P, _P, _P]),
     "bvh_walk": ("bvh_walk", "mcpt_bvh_walk",
-                 [_P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P,
-                  _P]),
+                 [_P, _P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P]),
     "packet_walk": ("packet_walk", "mcpt_packet_walk",
                     [_P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I,
                      _P, _P, _P, _P]),

@@ -16,17 +16,27 @@
 //     (strict, so an earlier leaf keeps a tie);
 //   * a miss is t = 1e30, tri = -1.
 //
-// Bound on an H100: each step reads one 24-byte node and, at a leaf whose
-// box passes, one triangle (48 bytes and its valid flag), and does about 19
-// f32 operations for the slab test and 87 (compat) or 56 (MT) for a
-// triangle test.  The inputs read once (rays, nodes, triangles) are ~17 MB
-// at 100k triangles, and moving them outlasts the tests the rays' visits
-// need, so the bound is the bytes; what
-// keeps the kernel far above it is latency: every step is a dependent
-// gather of a node that neighbouring rays share only while their trails
-// agree, and the lanes of a warp step as long as their longest walk.  The
-// design is the simplest one that is right: one ray per thread in
-// registers, nodes and triangles read through the read-only cache.
+// Bound on an H100: each step reads one 32-byte node record and, at a leaf
+// whose box passes, one 48-byte triangle record, and does about 19 f32
+// operations for the slab test and 87 (compat) or 56 (MT) for a triangle
+// test.  The inputs read once (rays, nodes, triangles) are ~17 MB at 100k
+// triangles, and moving them outlasts the tests the rays' visits need, so
+// the bound is the bytes.  What keeps the kernel far above it is latency:
+// every step is a gather of a node that depends on the step before, and the
+// lanes of a warp step as long as their longest walk.  The design:
+//   * a node is one 32-byte record (BVHArrays.boxes), read as one 16-byte
+//     and one 8-byte load; a triangle is one 48-byte record
+//     (SceneArrays.tri_records: v0, v1, v2, geom_n, NaN in every slot that
+//     is not valid, so the test itself rejects it), three 16-byte loads;
+//   * the next key is one of two known at the head of a step (2k below a
+//     leaf, advance(k)): both boxes are loaded before the step's slab test,
+//     and, where one of them is a leaf, its triangle too, so the next step
+//     finds its node, and a leaf step its triangle, already in registers.
+// -DMCPT_BVH_WALK_V1 builds the parent design instead (one thread per ray,
+// the node and the triangle read by scalar loads at the head of the step
+// that tests them), so that both can be timed on one card;
+// -DMCPT_WALK_STATS builds a measurement version that writes kRayStats
+// counters per ray (see mcpt_bvh_walk).
 
 #include "walk_common.cuh"
 
@@ -35,69 +45,481 @@ namespace {
 using namespace mcpt_walk;
 
 constexpr int kThreads = 128;
+constexpr int kTriFloats = 12;  // v0, v1, v2, geom_n
 
+// Counters per ray of a -DMCPT_WALK_STATS build (BVH_WALK_STATS of
+// accel/lbvh.py): [0] steps, [1] leaf steps with a triangle test, [2] clock
+// cycles of the ray's walk, of which [3] waiting for the node's box, [4] the
+// slab test and the choice of the next key, [5] waiting for the leaf's
+// triangle, [6] the triangle test; [7] the global index of the thread and
+// [8] the block that walked it; [9] and [10] %globaltimer (ns) at its start
+// and end.
+[[maybe_unused]] constexpr int kRayStats = 11;
+
+#ifdef MCPT_WALK_STATS
+#define WS_CLOCK(name) const long long name = clock64()
+#define WS_ADD(i, x) (ws[i] += (x))
+// An instruction that needs v before the next clock read (the clock read
+// itself has no operand to wait on).
+#define WS_AFTER(v) asm volatile("add.u32 %0, %0, %1;" : "+r"(ws_dep) : "r"((unsigned)(v)))
+#define WS_BITS3(a) (__float_as_uint((a).x) ^ __float_as_uint((a).y) ^ __float_as_uint((a).z))
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#else
+#define WS_CLOCK(name)
+#define WS_ADD(i, x)
+#define WS_AFTER(v)
+#endif
+
+// The stats row of ray i, written once by the thread that walked it.
+#ifdef MCPT_WALK_STATS
+#define WS_BEGIN                      \
+  long long ws[kRayStats] = {};       \
+  unsigned ws_dep = 0;                \
+  const long long ws_ns0 = global_ns(); \
+  WS_CLOCK(ws_c0)
+#define WS_END(i)                                                          \
+  do {                                                                     \
+    WS_CLOCK(ws_c1);                                                       \
+    if (stats != nullptr) {                                                \
+      ws[2] = ws_c1 - ws_c0 + (ws_dep == 0x9e3779b9u ? 1 : 0);             \
+      ws[7] = (long long)blockIdx.x * blockDim.x + threadIdx.x;            \
+      ws[8] = blockIdx.x;                                                  \
+      ws[9] = ws_ns0;                                                      \
+      ws[10] = global_ns();                                                \
+      for (int q = 0; q < kRayStats; ++q) stats[(long)(i) * kRayStats + q] = ws[q]; \
+    }                                                                      \
+  } while (0)
+#else
+#define WS_BEGIN
+#define WS_END(i)
+#endif
+
+#ifdef MCPT_BVH_WALK_V1
+// The parent design: one thread per ray; each step reads its node's box and,
+// at a leaf whose box passes, its triangle by scalar loads at the head of
+// the step that uses them.
 template <bool MT>
 __global__ void __launch_bounds__(kThreads)
 bvh_walk_kernel(const float* __restrict__ origin,
                 const float* __restrict__ direction, int r,
-                const float* __restrict__ node_min,
-                const float* __restrict__ node_max, int lc,
-                const float* __restrict__ v0, const float* __restrict__ v1,
-                const float* __restrict__ v2, const float* __restrict__ geom_n,
-                const unsigned char* __restrict__ tri_valid, int max_steps,
-                float* __restrict__ out_t, int* __restrict__ out_tri) {
+                const float* __restrict__ boxes, int lc,
+                const float* __restrict__ tris, int max_steps,
+                float* __restrict__ out_t, int* __restrict__ out_tri,
+                long long* __restrict__ stats) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= r) return;
+  WS_BEGIN;
   const V3 o = load3(origin, i), d = load3(direction, i);
   const V3 inv{1.0f / d.x, 1.0f / d.y, 1.0f / d.z};
   float best_t = kBig;
   int best_tri = -1;
   int k = 1;
   for (int step = 0; k > 0 && step < max_steps; ++step) {
-    const bool hit_box =
-        slab_hit(o, inv, load3(node_min, k), load3(node_max, k), best_t);
+    WS_CLOCK(c0);
+    const float* nb = boxes + 8 * (long)k;
+    const V3 bmin{__ldg(nb), __ldg(nb + 1), __ldg(nb + 2)};
+    const V3 bmax{__ldg(nb + 3), __ldg(nb + 4), __ldg(nb + 5)};
+    WS_AFTER(WS_BITS3(bmin) ^ WS_BITS3(bmax));
+    WS_CLOCK(c1);
+    const bool hit_box = slab_hit(o, inv, bmin, bmax, best_t);
     const bool is_leaf = k >= lc;
+    const int k_next = (hit_box && !is_leaf) ? 2 * k : advance(k);
+    WS_AFTER(k_next);
+    WS_CLOCK(c2);
+    WS_ADD(0, 1);
+    WS_ADD(3, c1 - c0);
+    WS_ADD(4, c2 - c1);
     if (hit_box && is_leaf) {
       const int tri = k - lc;
+      const float* p = tris + kTriFloats * (long)tri;
+      const V3 p0{__ldg(p), __ldg(p + 1), __ldg(p + 2)};
+      const V3 p1{__ldg(p + 3), __ldg(p + 4), __ldg(p + 5)};
+      const V3 p2{__ldg(p + 6), __ldg(p + 7), __ldg(p + 8)};
+      const V3 gn{__ldg(p + 9), __ldg(p + 10), __ldg(p + 11)};
+      WS_AFTER(WS_BITS3(p0) ^ WS_BITS3(p1) ^ WS_BITS3(p2) ^ WS_BITS3(gn));
+      WS_CLOCK(c3);
       float t;
-      const bool h = tri_test<MT>(o, d, load3(v0, tri), load3(v1, tri),
-                                  load3(v2, tri), load3(geom_n, tri), t);
-      if (h && __ldg(tri_valid + tri) && t > 0.0f && t < best_t) {
+      // An invalid slot's record is NaN: its t is NaN and the test fails.
+      const bool h = tri_test<MT>(o, d, p0, p1, p2, gn, t);
+      if (h && t > 0.0f && t < best_t) {
         best_t = t;
         best_tri = tri;
       }
+      WS_AFTER(__float_as_uint(best_t));
+      WS_CLOCK(c4);
+      WS_ADD(1, 1);
+      WS_ADD(5, c3 - c2);
+      WS_ADD(6, c4 - c3);
     }
-    k = (hit_box && !is_leaf) ? 2 * k : advance(k);
+    k = k_next;
   }
   out_t[i] = best_tri >= 0 ? best_t : kBig;
   out_tri[i] = best_tri;
+  WS_END(i);
 }
+
+#else
+
+// Measurement knobs of the redesign (experiments; see PERF.md).
+#ifndef MCPT_BVH_NODE24
+#define MCPT_BVH_NODE24 0  // 1: nodes as 24-byte records (3 8-byte loads)
+#endif
+#ifndef MCPT_BVH_PREFETCH
+#define MCPT_BVH_PREFETCH 1  // both candidate boxes loaded a step ahead
+#endif
+#ifndef MCPT_BVH_FAST_SLAB
+#define MCPT_BVH_FAST_SLAB 0  // fmaxf / fminf slab test in all-finite warps
+#endif
+#ifndef MCPT_BVH_PERSIST
+#define MCPT_BVH_PERSIST 0  // blocks per SM that fetch rays; 0: a ray a thread
+#endif
+#ifndef MCPT_BVH_REFILL
+#define MCPT_BVH_REFILL 8  // idle lanes of a warp before it fetches rays
+#endif
+#ifndef MCPT_BVH_TRI_AHEAD
+#define MCPT_BVH_TRI_AHEAD 0  // the leaf candidate's triangle loaded a step ahead
+#endif
+#ifndef MCPT_BVH_PF
+#define MCPT_BVH_PF 0  // 2, 3: prefetch.global.L1 of the nodes 2 (3) steps on
+#endif
+
+#if MCPT_BVH_NODE24
+constexpr int kNodeFloats = 6;
+struct Box {
+  float2 a, b, c;  // min x y, min z max x, max y z
+};
+__device__ __forceinline__ Box load_box(const float* __restrict__ boxes, int k) {
+  const float2* p = reinterpret_cast<const float2*>(boxes + kNodeFloats * (long)k);
+  return Box{__ldg(p), __ldg(p + 1), __ldg(p + 2)};
+}
+__device__ __forceinline__ void box_v3(const Box& b, V3& lo, V3& hi) {
+  lo = V3{b.a.x, b.a.y, b.b.x};
+  hi = V3{b.b.y, b.c.x, b.c.y};
+}
+#else
+constexpr int kNodeFloats = 8;
+struct Box {
+  float4 lo;  // min x, y, z, max x
+  float2 hi;  // max y, z
+};
+__device__ __forceinline__ Box load_box(const float* __restrict__ boxes, int k) {
+  const float* p = boxes + kNodeFloats * (long)k;
+  return Box{__ldg(reinterpret_cast<const float4*>(p)),
+             __ldg(reinterpret_cast<const float2*>(p + 4))};
+}
+__device__ __forceinline__ void box_v3(const Box& b, V3& lo, V3& hi) {
+  lo = V3{b.lo.x, b.lo.y, b.lo.z};
+  hi = V3{b.lo.w, b.hi.x, b.hi.y};
+}
+#endif
+
+__device__ __forceinline__ void load_tri(const float* __restrict__ tris, int tri,
+                                         V3& p0, V3& p1, V3& p2, V3& gn) {
+  const float4* p = reinterpret_cast<const float4*>(tris + kTriFloats * (long)tri);
+  const float4 a = __ldg(p), b = __ldg(p + 1), c = __ldg(p + 2);
+  p0 = V3{a.x, a.y, a.z};
+  p1 = V3{a.w, b.x, b.y};
+  p2 = V3{b.z, b.w, c.x};
+  gn = V3{c.y, c.z, c.w};
+}
+
+// ray_aabb with t_max for a ray whose origin and 1 / d are finite, on boxes
+// without NaN: no slab value is NaN, so fmaxf / fminf give the
+// NaN-propagating test's hit.
+__device__ __forceinline__ bool slab_hit_finite(V3 o, V3 inv, V3 bmin, V3 bmax,
+                                                float t_max) {
+  const bool nx = inv.x < 0.0f, ny = inv.y < 0.0f, nz = inv.z < 0.0f;
+  const float tnx = ((nx ? bmax.x : bmin.x) - o.x) * inv.x;
+  const float tny = ((ny ? bmax.y : bmin.y) - o.y) * inv.y;
+  const float tnz = ((nz ? bmax.z : bmin.z) - o.z) * inv.z;
+  const float tfx = ((nx ? bmin.x : bmax.x) - o.x) * inv.x;
+  const float tfy = ((ny ? bmin.y : bmax.y) - o.y) * inv.y;
+  const float tfz = ((nz ? bmin.z : bmax.z) - o.z) * inv.z;
+  const float enter = fmaxf(fmaxf(tnx, tny), tnz);
+  const float exit_ = fminf(fminf(tfx, tfy), tfz);
+  return (enter <= exit_) && (exit_ >= 0.0f) && (enter <= t_max);
+}
+
+// Asks for the 128-byte line holding p in L1; no register waits for it.
+__device__ __forceinline__ void prefetch_l1(const float* p) {
+  asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
+}
+
+// The lines of the nodes [key, key + n) and, where those are leaves, of
+// their triangles; key + n <= 2 lc.
+__device__ __forceinline__ void prefetch_nodes(const float* __restrict__ boxes,
+                                               const float* __restrict__ tris,
+                                               int lc, int key, int n) {
+  if (key >= lc) {
+    const float* t = tris + kTriFloats * (long)(key - lc);
+    for (int b = 0; b < n * kTriFloats * 4; b += 128) prefetch_l1(t + b / 4);
+    prefetch_l1(t + n * kTriFloats - 1);
+  }
+  const float* p = boxes + kNodeFloats * (long)key;
+  for (int b = 0; b < n * kNodeFloats * 4; b += 128) prefetch_l1(p + b / 4);
+}
+
+// One ray's walk state.
+struct Ray {
+  V3 o, d, inv;
+  float best_t;
+  int best_tri, k, step;
+  Box box;
+  bool fin;
+#if MCPT_BVH_TRI_AHEAD
+  float4 ta, tb, tc;  // the triangle of k when k is a leaf
+#endif
+};
+
+__device__ __forceinline__ void start_ray(Ray& ry, const float* __restrict__ origin,
+                                          const float* __restrict__ direction,
+                                          const float* __restrict__ boxes, int lc,
+                                          const float* __restrict__ tris, int i) {
+  ry.o = load3(origin, i);
+  ry.d = load3(direction, i);
+  ry.inv = V3{1.0f / ry.d.x, 1.0f / ry.d.y, 1.0f / ry.d.z};
+  ry.best_t = kBig;
+  ry.best_tri = -1;
+  ry.k = 1;
+  ry.step = 0;
+  ry.box = load_box(boxes, 1);
+#if MCPT_BVH_TRI_AHEAD
+  if (lc == 1) {  // the root is a leaf
+    const float4* tp = reinterpret_cast<const float4*>(tris);
+    ry.ta = __ldg(tp);
+    ry.tb = __ldg(tp + 1);
+    ry.tc = __ldg(tp + 2);
+  }
+#endif
+  ry.fin = isfinite(ry.o.x) && isfinite(ry.o.y) && isfinite(ry.o.z) &&
+           isfinite(ry.inv.x) && isfinite(ry.inv.y) && isfinite(ry.inv.z);
+}
+
+// One step of the walk; false when the ray's walk has ended.
+template <bool MT>
+__device__ __forceinline__ bool step_ray(Ray& ry, bool fast,
+                                         const float* __restrict__ boxes, int lc,
+                                         const float* __restrict__ tris,
+                                         int max_steps, long long* ws,
+                                         unsigned& ws_dep) {
+  WS_CLOCK(c0);
+  const int k = ry.k;
+  const bool is_leaf = k >= lc;
+#if MCPT_BVH_PREFETCH
+  const int k_down = is_leaf ? 0 : 2 * k, k_next = advance(k);
+  Box down{}, next{};
+  if (k_down > 0) down = load_box(boxes, k_down);
+  if (k_next > 0) next = load_box(boxes, k_next);
+#if MCPT_BVH_TRI_AHEAD
+  // At most one of the two is a leaf: 2k when k is a leaf's parent, k + 1
+  // when k is a left leaf.
+  const int k_leaf = k_down >= lc ? k_down : (k_next >= lc ? k_next : 0);
+  float4 la{}, lb{}, lcc{};
+  if (k_leaf > 0) {
+    const float4* tp = reinterpret_cast<const float4*>(tris + kTriFloats * (long)(k_leaf - lc));
+    la = __ldg(tp);
+    lb = __ldg(tp + 1);
+    lcc = __ldg(tp + 2);
+  }
+#endif
+#if MCPT_BVH_PF >= 2
+  if (k < lc / 2) prefetch_nodes(boxes, tris, lc, 4 * k, 4);
+  if (k_next > 0 && k_next < lc) prefetch_nodes(boxes, tris, lc, 2 * k_next, 2);
+#endif
+#if MCPT_BVH_PF >= 3
+  if (k < lc / 4) prefetch_nodes(boxes, tris, lc, 8 * k, 8);
+  if (k_next > 0 && k_next < lc / 2) prefetch_nodes(boxes, tris, lc, 4 * k_next, 4);
+#endif
+#endif
+  V3 bmin, bmax;
+  box_v3(ry.box, bmin, bmax);
+  WS_AFTER(WS_BITS3(bmin) ^ WS_BITS3(bmax));
+  WS_CLOCK(c1);
+  const bool hit_box = fast ? slab_hit_finite(ry.o, ry.inv, bmin, bmax, ry.best_t)
+                            : slab_hit(ry.o, ry.inv, bmin, bmax, ry.best_t);
+  const bool go_down = hit_box && !is_leaf;
+  WS_AFTER(go_down);
+  WS_CLOCK(c2);
+  WS_ADD(0, 1);
+  WS_ADD(3, c1 - c0);
+  WS_ADD(4, c2 - c1);
+  if (hit_box && is_leaf) {
+    V3 p0, p1, p2, gn;
+#if MCPT_BVH_TRI_AHEAD && MCPT_BVH_PREFETCH
+    p0 = V3{ry.ta.x, ry.ta.y, ry.ta.z};
+    p1 = V3{ry.ta.w, ry.tb.x, ry.tb.y};
+    p2 = V3{ry.tb.z, ry.tb.w, ry.tc.x};
+    gn = V3{ry.tc.y, ry.tc.z, ry.tc.w};
+#else
+    load_tri(tris, k - lc, p0, p1, p2, gn);
+#endif
+    WS_AFTER(WS_BITS3(p0) ^ WS_BITS3(p1) ^ WS_BITS3(p2) ^ WS_BITS3(gn));
+    WS_CLOCK(c3);
+    float t;
+    // An invalid slot's record is NaN: its t is NaN and the test fails.
+    const bool h = tri_test<MT>(ry.o, ry.d, p0, p1, p2, gn, t);
+    if (h && t > 0.0f && t < ry.best_t) {
+      ry.best_t = t;
+      ry.best_tri = k - lc;
+    }
+    WS_AFTER(__float_as_uint(ry.best_t));
+    WS_CLOCK(c4);
+    WS_ADD(1, 1);
+    WS_ADD(5, c3 - c2);
+    WS_ADD(6, c4 - c3);
+  }
+#if MCPT_BVH_PREFETCH
+  ry.k = go_down ? k_down : k_next;
+  ry.box = go_down ? down : next;
+#if MCPT_BVH_TRI_AHEAD
+  ry.ta = la;
+  ry.tb = lb;
+  ry.tc = lcc;
+#endif
+#else
+  ry.k = go_down ? 2 * k : advance(k);
+  if (ry.k > 0) ry.box = load_box(boxes, ry.k);
+#endif
+  return ry.k > 0 && ++ry.step < max_steps;
+}
+
+#if MCPT_BVH_PERSIST
+__device__ unsigned g_next_ray = 0, g_blocks_done = 0;
+#endif
+
+// The redesign (see the note at the top).
+template <bool MT>
+__global__ void __launch_bounds__(kThreads, 8)
+bvh_walk_kernel(const float* __restrict__ origin,
+                const float* __restrict__ direction, int r,
+                const float* __restrict__ boxes, int lc,
+                const float* __restrict__ tris, int max_steps,
+                float* __restrict__ out_t, int* __restrict__ out_tri,
+                long long* __restrict__ stats) {
+#if MCPT_BVH_PERSIST
+  const unsigned lane = threadIdx.x & 31, below = (1u << lane) - 1;
+  Ray ry;
+  int i = -1;
+  bool live = false, more = true;
+#ifdef MCPT_WALK_STATS
+  long long ws[kRayStats] = {};
+  unsigned ws_dep = 0;
+  long long ws_ns0 = 0, ws_c0 = 0;
+#else
+  long long* ws = nullptr;
+  unsigned ws_dep = 0;
+#endif
+  for (;;) {
+    const bool want = !live && more;
+    const unsigned m = __ballot_sync(~0u, want);
+    if (m != 0 && (__popc(m) >= MCPT_BVH_REFILL || !__any_sync(~0u, live))) {
+      const int leader = __ffs(m) - 1;
+      unsigned base = 0;
+      if ((int)lane == leader) base = atomicAdd(&g_next_ray, (unsigned)__popc(m));
+      base = __shfl_sync(~0u, base, leader);
+      if (want) {
+        i = (int)(base + __popc(m & below));
+        if (i < r) {
+          start_ray(ry, origin, direction, boxes, lc, tris, i);
+          live = ry.step < max_steps;
+#ifdef MCPT_WALK_STATS
+          for (int q = 0; q < kRayStats; ++q) ws[q] = 0;
+          ws_ns0 = global_ns();
+          ws_c0 = clock64();
+#endif
+          if (!live) {
+            out_t[i] = kBig;
+            out_tri[i] = -1;
+          }
+        } else {
+          more = false;
+        }
+      }
+    }
+    if (!__any_sync(~0u, live)) {
+      if (!__any_sync(~0u, more)) break;
+      continue;
+    }
+    if (live) {
+      const bool fast = MCPT_BVH_FAST_SLAB && ry.fin;
+      if (!step_ray<MT>(ry, fast, boxes, lc, tris, max_steps, ws, ws_dep)) {
+        out_t[i] = ry.best_tri >= 0 ? ry.best_t : kBig;
+        out_tri[i] = ry.best_tri;
+        live = false;
+        WS_END(i);
+      }
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    if (atomicAdd(&g_blocks_done, 1u) == gridDim.x - 1) {
+      g_next_ray = 0;
+      g_blocks_done = 0;
+    }
+  }
+#else
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= r) return;
+  WS_BEGIN;
+#ifndef MCPT_WALK_STATS
+  long long* ws = nullptr;
+  unsigned ws_dep = 0;
+#endif
+  Ray ry;
+  start_ray(ry, origin, direction, boxes, lc, tris, i);
+  const bool fast = MCPT_BVH_FAST_SLAB && __all_sync(__activemask(), ry.fin);
+  if (ry.step < max_steps) {
+    if (fast) {
+      while (step_ray<MT>(ry, true, boxes, lc, tris, max_steps, ws, ws_dep)) {}
+    } else {
+      while (step_ray<MT>(ry, false, boxes, lc, tris, max_steps, ws, ws_dep)) {}
+    }
+  }
+  out_t[i] = ry.best_tri >= 0 ? ry.best_t : kBig;
+  out_tri[i] = ry.best_tri;
+  WS_END(i);
+#endif
+}
+
+#endif
 
 }  // namespace
 
-// origin, direction (r, 3) f32; node_min, node_max (2 lc, 3) f32; v0, v1,
-// v2, geom_n (lc, 3) f32; tri_valid (lc,) bool; out_t (r,) f32, out_tri
-// (r,) i32.  mt selects the Moller-Trumbore test.  Returns the launch's
-// CUDA error.
+// origin, direction (r, 3) f32; boxes (2 lc, 8) f32, 16-byte aligned, each
+// row min xyz, max xyz, 0, 0 (BVHArrays.boxes); tris (lc, 12) f32, 16-byte
+// aligned, each row v0, v1, v2, geom_n and NaN where the slot is not valid
+// (SceneArrays.tri_records); out_t (r,) f32, out_tri (r,) i32.  mt selects
+// the Moller-Trumbore test.  stats: null, or (r, kRayStats) int64 that a
+// -DMCPT_WALK_STATS build fills (other builds leave it alone).  Returns the
+// launch's CUDA error.
 extern "C" int mcpt_bvh_walk(const float* origin, const float* direction,
-                             int r, const float* node_min,
-                             const float* node_max, int lc, const float* v0,
-                             const float* v1, const float* v2,
-                             const float* geom_n,
-                             const unsigned char* tri_valid, int mt,
-                             int max_steps, float* out_t, int* out_tri,
+                             int r, const float* boxes, int lc,
+                             const float* tris, int mt, int max_steps,
+                             float* out_t, int* out_tri, long long* stats,
                              void* stream) {
   if (r <= 0) return (int)cudaGetLastError();
-  const int blocks = (r + kThreads - 1) / kThreads;
+  int blocks = (r + kThreads - 1) / kThreads;
+#if !defined(MCPT_BVH_WALK_V1) && MCPT_BVH_PERSIST
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  blocks = blocks < MCPT_BVH_PERSIST * sms ? blocks : MCPT_BVH_PERSIST * sms;
+#endif
   cudaStream_t s = (cudaStream_t)stream;
   if (mt) {
     bvh_walk_kernel<true><<<blocks, kThreads, 0, s>>>(
-        origin, direction, r, node_min, node_max, lc, v0, v1, v2, geom_n,
-        tri_valid, max_steps, out_t, out_tri);
+        origin, direction, r, boxes, lc, tris, max_steps, out_t, out_tri, stats);
   } else {
     bvh_walk_kernel<false><<<blocks, kThreads, 0, s>>>(
-        origin, direction, r, node_min, node_max, lc, v0, v1, v2, geom_n,
-        tri_valid, max_steps, out_t, out_tri);
+        origin, direction, r, boxes, lc, tris, max_steps, out_t, out_tri, stats);
   }
   return (int)cudaGetLastError();
 }

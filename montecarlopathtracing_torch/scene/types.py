@@ -11,6 +11,7 @@ packages can be fed bit-identical inputs.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Mapping
 
 import numpy as np
@@ -103,6 +104,17 @@ class SceneArrays:
     @property
     def device(self) -> torch.device:
         return self.v0.device
+
+    @functools.cached_property
+    def tri_records(self):
+        """(T, 12) f32, one 48-byte row per triangle slot: v0, v1, v2,
+        geom_n, and NaN throughout where ``tri_valid`` is False (a NaN
+        triangle's test fails, so the validity flag needs no read of its
+        own).  The per-ray walk kernel's layout (a triangle in three 16-byte
+        loads), made once per SceneArrays on first use."""
+        rec = torch.cat([self.v0, self.v1, self.v2, self.geom_n], dim=1).detach()
+        return torch.where(self.tri_valid[:, None], rec,
+                           torch.full_like(rec, float("nan"))).contiguous()
 
     def to(self, device) -> "SceneArrays":
         """The same scene with every tensor on ``device`` (tensors already

@@ -6,6 +6,7 @@
     python3 profile_torch.py --scene large --large-mode hbm_always
     python3 profile_torch.py --scene large --tris 100000   # single-table plan
     python3 profile_torch.py --grad           # full-width gradient of the box
+    python3 profile_torch.py --intersector bvh_perray --scene large --tris 100000
 
 Renders the frame once unprofiled (wall time), then once under
 torch.profiler, and prints one JSON line: wall seconds, wavefront
@@ -15,7 +16,9 @@ kernels' device time, the library sort kernels' device time, the
 intersector plan, and the 12 top kernels and host
 ops by time.  ``--large-mode`` is RenderOptions.large_mode: the default
 "hbm" renders the 400k interior under the chunked plan, "hbm_always" under
-the supergroup plan.
+the supergroup plan.  ``--intersector`` is RenderOptions.intersector: "bvh"
+and "bvh_perray" render the frame through the packet walk or the per-ray
+walk (iterations then count the walk's launches).
 
 ``--grad`` profiles the gradient of mean(image) over SceneParams instead, in
 bench.py's backward configuration (the built-in box at 1024 x 1024, spp 16,
@@ -132,6 +135,9 @@ def main(argv=None) -> int:
     ap.add_argument("--large-mode", default="hbm",
                     choices=["hbm", "hbm_always", "chunked"],
                     help="RenderOptions.large_mode (default hbm)")
+    ap.add_argument("--intersector", default="auto",
+                    choices=["auto", "bvh", "bvh_perray"],
+                    help="RenderOptions.intersector (default auto)")
     ap.add_argument("--grad", action="store_true",
                     help="profile the full-width gradient of the box instead")
     args = ap.parse_args(argv)
@@ -141,6 +147,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from torch.profiler import ProfilerActivity, profile
 
+    from montecarlopathtracing_torch.accel import lbvh as L
     from montecarlopathtracing_torch.config import RenderOptions
     from montecarlopathtracing_torch.integrator.wavefront import (
         render_image_host_chunked, resolve_plan)
@@ -163,7 +170,8 @@ def main(argv=None) -> int:
         scene, _ = load_builtin_large(n_tris=args.tris, width=1280, height=720,
                                       device="cuda")
         spp = args.spp or 4
-    opts = RenderOptions(spp=spp, spp_chunk=spp, large_mode=args.large_mode)
+    opts = RenderOptions(spp=spp, spp_chunk=spp, large_mode=args.large_mode,
+                         intersector=args.intersector)
     plan = resolve_plan(opts, scene.num_tris_padded)
     render_image_host_chunked(scene, None, opts.replace(spp=1, spp_chunk=1),
                               device="cuda")  # warm-up (kernel build, caches)
@@ -174,6 +182,7 @@ def main(argv=None) -> int:
     wall_plain = time.perf_counter() - t0  # the same frame, not profiled
 
     K.reset_launch_counts()
+    L.reset_launch_counts()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
@@ -181,18 +190,22 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     # One intersect launch per iteration, plus the bootstrap.
-    iters = max(K.launch_counts()[n] for n in (
-        "cluster_intersect", "cluster_intersect_ftb", "cluster_intersect_hbm")) - 1
+    iters = max([K.launch_counts()[n] for n in (
+        "cluster_intersect", "cluster_intersect_ftb", "cluster_intersect_hbm")]
+                + list(L.launch_counts().values())) - 1
 
     busy_us, n_kernels, kernels, host_ops = kernel_stats(prof)
     # By kernel-name prefix: both key kernels, the single-table intersect
-    # kernel, both front-to-back kernels; and every library sort kernel.
+    # kernel, both front-to-back kernels, the per-ray walk and the packet
+    # walk's two kernels; and every library sort kernel.
     ported = {name: sum(k[1] for k in kernels if name in k[0]) / 1e3
               for name in ("cluster_keys", "cluster_intersect_kernel",
-                           "cluster_ftb")}
+                           "cluster_ftb", "bvh_walk_kernel", "walk_thread_per_ray",
+                           "walk_rays_per_thread")}
     sort_ms = sum(k[1] for k in kernels if "sort" in k[0].lower()) / 1e3
     print(json.dumps({
-        "scene": args.scene, "spp": spp, "device": torch.cuda.get_device_name(0),
+        "scene": args.scene, "spp": spp, "intersector": args.intersector,
+        "device": torch.cuda.get_device_name(0),
         "tris_padded": scene.num_tris_padded, "plan": list(plan),
         "wall_s": wall_plain, "wall_s_profiled": wall, "rays": rays,
         "iterations": iters, "device_busy_ms": busy_us / 1e3,

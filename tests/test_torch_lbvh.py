@@ -117,6 +117,35 @@ def test_heap_invariants(scenes, name):
     assert (nmin[lc:][~valid] > nmax[lc:][~valid]).all()
 
 
+@pytest.mark.parametrize("name", ["spec_glass", "large"])
+def test_kernel_records_hold_the_rows_they_are_made_from(scenes, name):
+    """The walk kernels' records: ``boxes`` is node_min, node_max and two
+    zeros per node; ``tri_records`` is v0, v1, v2, geom_n per valid slot and
+    NaN throughout every other slot, whose test must then fail."""
+    _, ts, _, tb = scenes[name]
+    boxes = tb.boxes
+    assert boxes.shape == (2 * ts.num_tris_padded, 8) and boxes.is_contiguous()
+    assert torch.equal(boxes[:, 0:3], tb.node_min)
+    assert torch.equal(boxes[:, 3:6], tb.node_max)
+    assert not bool(boxes[:, 6:].any())
+    rec = ts.tri_records
+    assert rec.shape == (ts.num_tris_padded, 12) and rec.is_contiguous()
+    assert rec.dtype == torch.float32 and rec is ts.tri_records  # made once
+    valid = ts.tri_valid
+    for j, field in enumerate(("v0", "v1", "v2", "geom_n")):
+        assert torch.equal(rec[valid, 3 * j:3 * j + 3], getattr(ts, field)[valid])
+    assert bool(torch.isnan(rec[~valid]).all())
+    assert (int((~valid).sum()) > 0) == (name == "large")  # its padded slots
+    # A NaN record never hits, in either test.
+    o = torch.tensor([[0.5, 0.5, 0.5]]).expand(4, 3)
+    d = torch.tensor([[0.0, -1.0, 0.0]]).expand(4, 3)
+    r = torch.full((4, 12), float("nan"))
+    for compat in (True, False):
+        hit, t, _ = tint.ray_triangle(o, d, r[:, 0:3], r[:, 3:6], r[:, 6:9],
+                                      r[:, 9:12], compat)
+        assert not bool(hit.any()) and bool(torch.isnan(t).all())
+
+
 def test_advance_walks_preorder():
     """_advance gives the preorder successor of every subtree of a depth-3
     perfect tree (against a recursive walk), and equals the JAX _advance."""
@@ -398,6 +427,89 @@ def test_packet_max_steps_matches_jax(scenes, max_steps):
         _exact(jr, tr)
 
 
+@pytest.mark.parametrize("max_steps", [1, 3, 6, 9])
+def test_perray_max_steps_matches_jax(scenes, max_steps):
+    """A ray stopped by a small explicit max_steps keeps the hits found so
+    far, as the JAX walk does, compat and MT."""
+    js, ts, jb, tb = scenes["boxspec"]
+    o, d = _adversarial_rays(tb.node_min.numpy(), tb.node_max.numpy(), seed=15)
+    for compat in (True, False):
+        jo, jd = jnp.asarray(o), jnp.asarray(d)
+        jr = JL.bvh_intersect(jb, js, jo, jd, compat=compat, max_steps=max_steps)
+        tr = TL.bvh_intersect(tb, ts, torch.as_tensor(o), torch.as_tensor(d),
+                              compat=compat, max_steps=max_steps)
+        _exact(jr, tr)
+        if max_steps < 4:  # the box's leaves lie 4 levels down
+            assert not bool(tr[0].any())
+
+
+@pytest.mark.parametrize("mode", ["compat", "mt"])
+def test_perray_ties_across_leaves_on_a_doubled_box(scenes, mode):
+    """Every triangle of the box repeated in a later leaf: every hit ties at
+    equal t with its copy, and the first in preorder (the lower id) must win,
+    exact against the JAX walk."""
+    js, ts, _, _ = scenes["boxspec"]
+    jd, td = _doubled(js, jnp), _doubled(ts, torch)
+    jb, tb = JL.build_lbvh_host(jd), build_lbvh(td)
+    rs = np.random.default_rng(16)
+    o = rs.uniform(0.1, 1.9, (300, 3)).astype(np.float32)
+    d = rs.normal(size=(300, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    jr = JL.bvh_intersect(jb, jd, jnp.asarray(o), jnp.asarray(d), compat=mode == "compat")
+    tr = TL.bvh_intersect(tb, td, torch.as_tensor(o), torch.as_tensor(d),
+                          compat=mode == "compat")
+    _exact(jr, tr)
+    hit = tr[0]
+    assert int(hit.sum()) > 100
+    assert bool((tr[2][hit] < ts.num_tris_padded).all())
+
+
+def test_bvh_walk_stats_summary_reads_the_counters():
+    """The summary of the per-ray walk's counters, on made-up counts over
+    two calls: means and p99 per ray, SIMT efficiency from each lane's
+    steps, cycles per step and their split, and the blocks' times."""
+    names = TL.BVH_WALK_STATS
+    c = {n: j for j, n in enumerate(names)}
+    a = torch.zeros((64, len(names)), dtype=torch.int64)
+    a[:, c["steps"]] = 10
+    a[0, c["steps"]] = 40                 # lane 0 of warp 0: 40 steps
+    a[:, c["leaf_tests"]] = 1
+    a[:, c["cycles"]] = 100 * a[:, c["steps"]]
+    a[:, c["cycles_node"]] = 30 * a[:, c["steps"]]
+    a[:, c["cycles_slab"]] = 20 * a[:, c["steps"]]
+    a[:, c["cycles_leaf_load"]] = 10
+    a[:, c["cycles_leaf_test"]] = 5
+    a[:, c["thread"]] = torch.arange(64)  # two warps, one ray a lane
+    a[:, c["block"]] = torch.arange(64) // 32
+    a[:, c["start_ns"]] = 1000
+    a[:, c["end_ns"]] = 2000
+    a[32:, c["end_ns"]] = 5000            # block 1 ends last
+    b = a.clone()
+    # In the second call lane 1 walks two rays after one another (10 + 10
+    # steps), lane 0 none: warp 0's busiest lane has 40 steps again.
+    b[0, c["thread"]] = 1
+    b[0, c["steps"]] = 10
+    b[0, c["cycles"]], b[0, c["cycles_node"]], b[0, c["cycles_slab"]] = 1000, 300, 200
+    out = TL.bvh_walk_stats_summary([a, b])
+    assert out["calls"] == 2 and out["rays"] == 128
+    steps = 64 * 10 + 30 + 64 * 10
+    assert out["steps_per_ray_mean"] == steps / 128
+    assert out["steps_per_ray_max"] == 40 and out["steps_per_ray_p99"] == 10
+    assert out["leaf_tests_per_ray"] == 1
+    # Warp steps over 32 x the busiest lane: (350 / 1280 + 320 / 320) / 2
+    # calls' worth, summed before the division.
+    assert out["simt_efficiency"] == (350 + 320 + 320 + 320) / (32 * (40 + 10 + 20 + 10))
+    assert out["cycles_per_step"] == 100
+    assert out["cycles_per_step_node"] == 30 and out["cycles_per_step_slab"] == 20
+    assert out["cycles_per_step_leaf_load"] == 10 * 128 / steps
+    parts = sum(out["cycles_per_step_" + p] for p in
+                ("node", "slab", "leaf_load", "leaf_test", "rest"))
+    assert abs(parts - out["cycles_per_step"]) < 1e-9
+    assert out["span_ns"] == 4000 and out["block_max_ns"] == 4000
+    assert out["block_mean_ns"] == 2500
+    assert out["blocks_half_done_ns"] == 1000 and out["blocks_90_done_ns"] == 4000
+
+
 def test_packet_walk_stats_summary_reads_the_counters():
     """The summary of a measurement build's counters, on made-up counts:
     means per packet, per visit and per step, and each call's longest
@@ -431,6 +543,16 @@ def test_packet_stats_need_the_card(scenes):
     d = torch.tensor([[1.0, 0.0, 0.0]]).expand(4, 3).contiguous()
     with pytest.raises(ValueError, match="measurement build"):
         TL.packet_intersect(tb, ts, o, d, stats=torch.zeros((1, 10), dtype=torch.int64))
+
+
+def test_perray_stats_need_the_card(scenes):
+    """As test_packet_stats_need_the_card, for the per-ray walk."""
+    _, ts, _, tb = scenes["box"]
+    o = torch.zeros((4, 3))
+    d = torch.tensor([[1.0, 0.0, 0.0]]).expand(4, 3).contiguous()
+    stats = torch.zeros((4, len(TL.BVH_WALK_STATS)), dtype=torch.int64)
+    with pytest.raises(ValueError, match="measurement build"):
+        TL.bvh_intersect(tb, ts, o, d, stats=stats)
 
 
 def test_ray_aabb_matches_jax_with_nan():

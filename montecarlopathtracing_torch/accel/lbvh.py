@@ -64,9 +64,18 @@ class BVHArrays:
         return torch.cat([self.node_min, self.node_max, pad], dim=1).contiguous()
 
     @functools.cached_property
-    def boxes24(self):
-        """(2*Lc, 6) f32 (experiment): min xyz, max xyz, 24 bytes a node."""
+    def node_records(self):
+        """(2*Lc, 6) f32, one 24-byte row per node: min xyz, max xyz.  The
+        per-ray walk kernel's layout (a node's box in three 8-byte loads),
+        made once per BVHArrays on first use."""
         return torch.cat([self.node_min, self.node_max], dim=1).contiguous()
+
+    @functools.cached_property
+    def nan_free(self) -> bool:
+        """No node box holds a NaN (a NaN vertex would put one there): then
+        the per-ray walk kernel may take its fmaxf slab test.  Read back
+        once per BVHArrays."""
+        return not bool(torch.isnan(self.node_records).any())
 
     def to(self, device) -> "BVHArrays":
         return BVHArrays(node_min=self.node_min.to(device),
@@ -195,11 +204,12 @@ def _add_counts(counts, n_node, n_tri):
 # cycles of the ray's walk and of its steps' parts (waiting for the node's
 # box, the slab test and the choice of the next key, waiting for the leaf's
 # triangle, the triangle test), the global index of the thread and the block
-# that walked it, and %globaltimer (ns) at the walk's start and end
-# (kRayStats).
+# that walked it, %globaltimer (ns) at the walk's start and end, the steps
+# it took as the only lane of its warp still walking, and its steps at
+# nodes of the top 11 levels (kRayStats).
 BVH_WALK_STATS = ("steps", "leaf_tests", "cycles", "cycles_node", "cycles_slab",
                   "cycles_leaf_load", "cycles_leaf_test", "thread", "block",
-                  "start_ns", "end_ns")
+                  "start_ns", "end_ns", "lone_steps", "top_steps")
 
 
 def bvh_intersect(bvh: BVHArrays, scene, origin, direction, compat: bool = True,
@@ -212,8 +222,8 @@ def bvh_intersect(bvh: BVHArrays, scene, origin, direction, compat: bool = True,
     test passes with t_max = the ray's best t so far; a leaf's triangle wins
     only at t strictly below it.  The walk stops after ``max_steps`` steps
     (default 4 Lc + 64).  Traversal is outside the gradient.  On CUDA
-    tensors this launches csrc/bvh_walk.cu, which reads ``bvh.boxes`` and
-    ``scene.tri_records``; on CPU tensors it runs bvh_intersect_plain.
+    tensors this launches csrc/bvh_walk.cu, which reads ``bvh.node_records``
+    and ``scene.tri_records``; on CPU tensors it runs bvh_intersect_plain.
     ``stats`` (card only): None, or an int64 (R, len(BVH_WALK_STATS)) tensor
     that a -DMCPT_WALK_STATS build of the kernel fills (others leave it).
     """
@@ -232,18 +242,16 @@ def bvh_intersect(bvh: BVHArrays, scene, origin, direction, compat: bool = True,
     origin = origin.detach().contiguous()
     direction = direction.detach().contiguous()
     _check_tables(bvh, scene)
-    from ..kernels import build as _B
-    boxes, tris = bvh.boxes, scene.tri_records
-    if "-DMCPT_BVH_NODE24=1" in _B.EXTRA_FLAGS:  # experiment
-        boxes = bvh.boxes24
-    if boxes.dtype != torch.float32 or tris.dtype != torch.float32:
-        raise TypeError("bvh_intersect: boxes and tri_records must be float32")
+    nodes, tris = bvh.node_records, scene.tri_records
+    if nodes.dtype != torch.float32 or tris.dtype != torch.float32:
+        raise TypeError("bvh_intersect: node_records and tri_records must be float32")
     if tris.shape != (lc, 12):
         raise ValueError(f"bvh_intersect: tri_records must be ({lc}, 12)")
     dev = _check_cuda_inputs("bvh_intersect", origin=origin, direction=direction,
-                             boxes=boxes, tri_records=tris)
-    if boxes.data_ptr() % 16 or tris.data_ptr() % 16:
-        raise ValueError("bvh_intersect: boxes and tri_records must be 16-byte aligned")
+                             node_records=nodes, tri_records=tris)
+    if nodes.data_ptr() % 8 or tris.data_ptr() % 16:
+        raise ValueError("bvh_intersect: node_records and tri_records must be "
+                         "8- and 16-byte aligned")
     r = origin.shape[0]
     if stats is not None and (stats.dtype != torch.int64 or stats.device != dev
                               or not stats.is_contiguous()
@@ -256,9 +264,9 @@ def bvh_intersect(bvh: BVHArrays, scene, origin, direction, compat: bool = True,
         return out_tri >= 0, out_t, out_tri
     fn = load("bvh_walk")
     with torch.cuda.device(dev):
-        err = fn(_ptr(origin), _ptr(direction), r, _ptr(boxes), lc, _ptr(tris),
-                 int(not compat), int(min(max_steps, 2**31 - 1)), _ptr(out_t),
-                 _ptr(out_tri), _ptr(stats), _stream(dev))
+        err = fn(_ptr(origin), _ptr(direction), r, _ptr(nodes), lc, _ptr(tris),
+                 int(not compat), int(min(max_steps, 2**31 - 1)), int(bvh.nan_free),
+                 _ptr(out_t), _ptr(out_tri), _ptr(stats), _stream(dev))
     if err != 0:
         raise RuntimeError(f"bvh_walk launch failed: CUDA error {err}")
     bvh_intersect.launches += 1
@@ -274,16 +282,18 @@ def bvh_walk_stats_summary(stats) -> dict:
     tensors, one per call (each reduced on its own device first).  Steps
     per ray (mean, p99, max), leaf tests per ray; SIMT efficiency, the steps
     the rays of a warp took over 32 times the steps of its busiest lane
-    (each lane's rays' steps added: what the warp stepped through); clock
+    (each lane's rays' steps added: what the warp stepped through); the
+    share of those warp steps in which one lane alone walked, and the share
+    of steps at the top 11 levels; clock
     cycles per step and their split (node load, slab test and choice, leaf
     load, leaf test, the rest); and per call the span of the launch (first
     start to last end, ns) beside its blocks' own times: the mean block,
     the slowest block, and the times at which half, 90% and all of the
     blocks had ended (from the first start), averaged over the calls."""
     col = {n: j for j, n in enumerate(BVH_WALK_STATS)}
-    tot = {k: 0.0 for k in ("rays", "steps", "leaf_tests", "cycles",
-                            "cycles_node", "cycles_slab", "cycles_leaf_load",
-                            "cycles_leaf_test", "warp_steps", "warp_lane_steps")}
+    summed = ("steps", "leaf_tests", "cycles", "cycles_node", "cycles_slab",
+              "cycles_leaf_load", "cycles_leaf_test", "lone_steps", "top_steps")
+    tot = {k: 0.0 for k in summed + ("rays", "warp_lane_steps")}
     hist = torch.zeros(1, dtype=torch.float64)
     steps_max = 0
     spans = {k: [] for k in ("span_ns", "block_mean_ns", "block_max_ns",
@@ -291,8 +301,7 @@ def bvh_walk_stats_summary(stats) -> dict:
     for s in stats:
         s = s.detach()
         steps = s[:, col["steps"]]
-        for k in ("steps", "leaf_tests", "cycles", "cycles_node", "cycles_slab",
-                  "cycles_leaf_load", "cycles_leaf_test"):
+        for k in summed:
             tot[k] += float(s[:, col[k]].sum())
         tot["rays"] += s.shape[0]
         steps_max = max(steps_max, int(steps.max()))
@@ -308,7 +317,6 @@ def bvh_walk_stats_summary(stats) -> dict:
         busiest = torch.zeros(warps.numel(), dtype=torch.int64,
                               device=s.device).scatter_reduce_(
             0, winv, lane_steps, reduce="amax")
-        tot["warp_steps"] += float(steps.sum())
         tot["warp_lane_steps"] += 32.0 * float(busiest.sum())
         block = s[:, col["block"]]
         blocks, binv = torch.unique(block, return_inverse=True)
@@ -334,7 +342,10 @@ def bvh_walk_stats_summary(stats) -> dict:
                [0.99], dtype=torch.float64))[0]),
            "steps_per_ray_max": steps_max,
            "leaf_tests_per_ray": tot["leaf_tests"] / rays,
-           "simt_efficiency": tot["warp_steps"] / max(1.0, tot["warp_lane_steps"]),
+           "simt_efficiency": tot["steps"] / max(1.0, tot["warp_lane_steps"]),
+           "lone_share_of_warp_steps": 32.0 * tot["lone_steps"]
+           / max(1.0, tot["warp_lane_steps"]),
+           "top_share_of_steps": tot["top_steps"] / steps,
            "cycles_per_step": tot["cycles"] / steps}
     parts = 0.0
     for part in ("node", "slab", "leaf_load", "leaf_test"):

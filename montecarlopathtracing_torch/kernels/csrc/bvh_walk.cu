@@ -16,27 +16,36 @@
 //     (strict, so an earlier leaf keeps a tie);
 //   * a miss is t = 1e30, tri = -1.
 //
-// Bound on an H100: each step reads one 32-byte node record and, at a leaf
-// whose box passes, one 48-byte triangle record, and does about 19 f32
-// operations for the slab test and 87 (compat) or 56 (MT) for a triangle
-// test.  The inputs read once (rays, nodes, triangles) are ~17 MB at 100k
-// triangles, and moving them outlasts the tests the rays' visits need, so
-// the bound is the bytes.  What keeps the kernel far above it is latency:
-// every step is a gather of a node that depends on the step before, and the
-// lanes of a warp step as long as their longest walk.  The design:
-//   * a node is one 32-byte record (BVHArrays.boxes), read as one 16-byte
-//     and one 8-byte load; a triangle is one 48-byte record
-//     (SceneArrays.tri_records: v0, v1, v2, geom_n, NaN in every slot that
-//     is not valid, so the test itself rejects it), three 16-byte loads;
-//   * the next key is one of two known at the head of a step (2k below a
-//     leaf, advance(k)): both boxes are loaded before the step's slab test,
-//     and, where one of them is a leaf, its triangle too, so the next step
-//     finds its node, and a leaf step its triangle, already in registers.
-// -DMCPT_BVH_WALK_V1 builds the parent design instead (one thread per ray,
-// the node and the triangle read by scalar loads at the head of the step
-// that tests them), so that both can be timed on one card;
-// -DMCPT_WALK_STATS builds a measurement version that writes kRayStats
-// counters per ray (see mcpt_bvh_walk).
+// Bound on an H100: each step reads one 24-byte node and, at a leaf whose
+// box passes, one 48-byte triangle record, and does about 19 f32 operations
+// for the slab test and 87 (compat) or 56 (MT) for a triangle test.  The
+// inputs read once (rays, nodes, triangles) are ~17 MB at 100k triangles,
+// and moving them outlasts the tests the rays' visits need, so the bound is
+// the bytes.  What keeps the kernel far above it (PERF.md): the launch ends
+// with its longest walk (~1,000 steps against a mean of 43 at 100k), each
+// step a node load that depends on the step before, mostly from L2; and
+// while the card is full, the issue slots that warps spend on lanes whose
+// walk has ended (SIMT efficiency 0.3).  Every ray is resident from the
+// start (one wave of 128-thread blocks), so the longest walks start first.
+// The design cuts the instructions and bytes of a step:
+//   * a node is one 24-byte record (BVHArrays.node_records), three 8-byte
+//     loads; a triangle one 48-byte record (SceneArrays.tri_records: v0,
+//     v1, v2, geom_n, NaN in every slot that is not valid, so the test
+//     itself rejects it), three 16-byte loads, made only at a leaf whose
+//     box passes, after the next node's load has gone out;
+//   * a warp whose rays all have a finite origin and 1 / d, on a tree
+//     without NaN, takes the slab test with fmaxf / fminf;
+//   * a launch whose max_steps cannot end a walk (a walk visits each of the
+//     2 lc - 1 nodes at most once) counts no steps; advance(k) as the odd
+//     part of k + 1.
+// Tried and measured slower (PERF.md): both candidate boxes (and a leaf
+// candidate's triangle) loaded a step ahead, prefetch.global.L1 of the
+// nodes two or three steps on, 32-byte node records, persistent blocks that
+// fetch rays.  -DMCPT_BVH_WALK_V1 builds the parent design instead (one
+// thread per ray, the node read by six scalar loads at the head of each
+// step, the NaN-propagating slab test, a step counter), so that both can be
+// timed on one card; -DMCPT_WALK_STATS builds a measurement version that
+// writes kRayStats counters per ray (see mcpt_bvh_walk).
 
 #include "walk_common.cuh"
 
@@ -45,6 +54,7 @@ namespace {
 using namespace mcpt_walk;
 
 constexpr int kThreads = 128;
+constexpr int kNodeFloats = 6;  // min xyz, max xyz
 constexpr int kTriFloats = 12;  // v0, v1, v2, geom_n
 
 // Counters per ray of a -DMCPT_WALK_STATS build (BVH_WALK_STATS of
@@ -53,8 +63,10 @@ constexpr int kTriFloats = 12;  // v0, v1, v2, geom_n
 // slab test and the choice of the next key, [5] waiting for the leaf's
 // triangle, [6] the triangle test; [7] the global index of the thread and
 // [8] the block that walked it; [9] and [10] %globaltimer (ns) at its start
-// and end.
-[[maybe_unused]] constexpr int kRayStats = 11;
+// and end; [11] steps taken as the only lane of its warp still walking, [12]
+// steps at nodes of the top 11 levels (k < kTopNodes).
+[[maybe_unused]] constexpr int kRayStats = 13;
+[[maybe_unused]] constexpr int kTopNodes = 2048;
 
 #ifdef MCPT_WALK_STATS
 #define WS_CLOCK(name) const long long name = clock64()
@@ -101,13 +113,14 @@ __device__ __forceinline__ long long global_ns() {
 #ifdef MCPT_BVH_WALK_V1
 // The parent design: one thread per ray; each step reads its node's box and,
 // at a leaf whose box passes, its triangle by scalar loads at the head of
-// the step that uses them.
-template <bool MT>
+// the step that uses them (from the 24- and 48-byte records; the parent
+// read five arrays and the valid flags).
+template <bool MT, bool CAPPED>
 __global__ void __launch_bounds__(kThreads)
 bvh_walk_kernel(const float* __restrict__ origin,
                 const float* __restrict__ direction, int r,
-                const float* __restrict__ boxes, int lc,
-                const float* __restrict__ tris, int max_steps,
+                const float* __restrict__ nodes, int lc,
+                const float* __restrict__ tris, int max_steps, int finite_nodes,
                 float* __restrict__ out_t, int* __restrict__ out_tri,
                 long long* __restrict__ stats) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -120,7 +133,7 @@ bvh_walk_kernel(const float* __restrict__ origin,
   int k = 1;
   for (int step = 0; k > 0 && step < max_steps; ++step) {
     WS_CLOCK(c0);
-    const float* nb = boxes + 8 * (long)k;
+    const float* nb = nodes + kNodeFloats * (long)k;
     const V3 bmin{__ldg(nb), __ldg(nb + 1), __ldg(nb + 2)};
     const V3 bmax{__ldg(nb + 3), __ldg(nb + 4), __ldg(nb + 5)};
     WS_AFTER(WS_BITS3(bmin) ^ WS_BITS3(bmax));
@@ -133,6 +146,10 @@ bvh_walk_kernel(const float* __restrict__ origin,
     WS_ADD(0, 1);
     WS_ADD(3, c1 - c0);
     WS_ADD(4, c2 - c1);
+#ifdef MCPT_WALK_STATS
+    WS_ADD(11, __popc(__activemask()) == 1);
+    WS_ADD(12, k < kTopNodes);
+#endif
     if (hit_box && is_leaf) {
       const int tri = k - lc;
       const float* p = tris + kTriFloats * (long)tri;
@@ -164,72 +181,54 @@ bvh_walk_kernel(const float* __restrict__ origin,
 
 #else
 
-// Measurement knobs of the redesign (experiments; see PERF.md).
-#ifndef MCPT_BVH_NODE24
-#define MCPT_BVH_NODE24 0  // 1: nodes as 24-byte records (3 8-byte loads)
-#endif
-#ifndef MCPT_BVH_PREFETCH
-#define MCPT_BVH_PREFETCH 1  // both candidate boxes loaded a step ahead
-#endif
-#ifndef MCPT_BVH_FAST_SLAB
-#define MCPT_BVH_FAST_SLAB 0  // fmaxf / fminf slab test in all-finite warps
-#endif
-#ifndef MCPT_BVH_PERSIST
-#define MCPT_BVH_PERSIST 0  // blocks per SM that fetch rays; 0: a ray a thread
-#endif
-#ifndef MCPT_BVH_REFILL
-#define MCPT_BVH_REFILL 8  // idle lanes of a warp before it fetches rays
-#endif
-#ifndef MCPT_BVH_TRI_AHEAD
-#define MCPT_BVH_TRI_AHEAD 0  // the leaf candidate's triangle loaded a step ahead
-#endif
-#ifndef MCPT_BVH_PF
-#define MCPT_BVH_PF 0  // 2, 3: prefetch.global.L1 of the nodes 2 (3) steps on
-#endif
-
-#if MCPT_BVH_NODE24
-constexpr int kNodeFloats = 6;
 struct Box {
   float2 a, b, c;  // min x y, min z max x, max y z
 };
-__device__ __forceinline__ Box load_box(const float* __restrict__ boxes, int k) {
-  const float2* p = reinterpret_cast<const float2*>(boxes + kNodeFloats * (long)k);
+
+__device__ __forceinline__ Box load_box(const float* __restrict__ nodes, int k) {
+  const float2* p = reinterpret_cast<const float2*>(nodes + kNodeFloats * (long)k);
   return Box{__ldg(p), __ldg(p + 1), __ldg(p + 2)};
 }
-__device__ __forceinline__ void box_v3(const Box& b, V3& lo, V3& hi) {
-  lo = V3{b.a.x, b.a.y, b.b.x};
-  hi = V3{b.b.y, b.c.x, b.c.y};
-}
-#else
-constexpr int kNodeFloats = 8;
-struct Box {
-  float4 lo;  // min x, y, z, max x
-  float2 hi;  // max y, z
-};
-__device__ __forceinline__ Box load_box(const float* __restrict__ boxes, int k) {
-  const float* p = boxes + kNodeFloats * (long)k;
-  return Box{__ldg(reinterpret_cast<const float4*>(p)),
-             __ldg(reinterpret_cast<const float2*>(p + 4))};
-}
-__device__ __forceinline__ void box_v3(const Box& b, V3& lo, V3& hi) {
-  lo = V3{b.lo.x, b.lo.y, b.lo.z};
-  hi = V3{b.lo.w, b.hi.x, b.hi.y};
-}
-#endif
 
-__device__ __forceinline__ void load_tri(const float* __restrict__ tris, int tri,
-                                         V3& p0, V3& p1, V3& p2, V3& gn) {
-  const float4* p = reinterpret_cast<const float4*>(tris + kTriFloats * (long)tri);
-  const float4 a = __ldg(p), b = __ldg(p + 1), c = __ldg(p + 2);
-  p0 = V3{a.x, a.y, a.z};
-  p1 = V3{a.w, b.x, b.y};
-  p2 = V3{b.z, b.w, c.x};
-  gn = V3{c.y, c.z, c.w};
+// Measurement knobs (experiments; PERF.md).
+#ifndef MCPT_BVH_THREADS
+#define MCPT_BVH_THREADS 128  // threads a block
+#endif
+#ifndef MCPT_BVH_SMEM_TOP
+#define MCPT_BVH_SMEM_TOP 0  // 1: the top 11 levels' nodes in shared memory
+#endif
+#ifndef MCPT_BVH_LONE_PF
+#define MCPT_BVH_LONE_PF 0  // n: both candidate boxes a step ahead in warps of <= n live lanes
+#endif
+constexpr int kBlock = MCPT_BVH_THREADS;
+
+// The node record of key k: from shared memory (s_top) below kTopNodes when
+// MCPT_BVH_SMEM_TOP, else through the read-only cache.
+__device__ __forceinline__ Box load_node(const float* __restrict__ nodes,
+                                         const float2* s_top, int k) {
+#if MCPT_BVH_SMEM_TOP
+  const float2* p = k < kTopNodes
+                        ? s_top + 3 * k
+                        : reinterpret_cast<const float2*>(nodes) + 3 * (long)k;
+  return Box{p[0], p[1], p[2]};
+#else
+  return load_box(nodes, k);
+#endif
+}
+
+// walk_common.cuh's advance(k) in fewer instructions: k + 1 has as many
+// trailing zeros as k has trailing ones, so (k >> t) + 1 = (k + 1) >> t is
+// the odd part of k + 1, and that is 1 exactly when k >> t is 0.
+__device__ __forceinline__ int advance_odd(int k) {
+  const int x = k + 1;
+  const int a = x >> (__ffs(x) - 1);
+  return a == 1 ? 0 : a;
 }
 
 // ray_aabb with t_max for a ray whose origin and 1 / d are finite, on boxes
-// without NaN: no slab value is NaN, so fmaxf / fminf give the
-// NaN-propagating test's hit.
+// without NaN: no slab value is NaN, so fmaxf / fminf (one instruction each)
+// give the NaN-propagating test's hit (they may differ from it only in the
+// sign of a zero, which no comparison sees).
 __device__ __forceinline__ bool slab_hit_finite(V3 o, V3 inv, V3 bmin, V3 bmax,
                                                 float t_max) {
   const bool nx = inv.x < 0.0f, ny = inv.y < 0.0f, nz = inv.z < 0.0f;
@@ -244,225 +243,99 @@ __device__ __forceinline__ bool slab_hit_finite(V3 o, V3 inv, V3 bmin, V3 bmax,
   return (enter <= exit_) && (exit_ >= 0.0f) && (enter <= t_max);
 }
 
-// Asks for the 128-byte line holding p in L1; no register waits for it.
-__device__ __forceinline__ void prefetch_l1(const float* p) {
-  asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
-}
-
-// The lines of the nodes [key, key + n) and, where those are leaves, of
-// their triangles; key + n <= 2 lc.
-__device__ __forceinline__ void prefetch_nodes(const float* __restrict__ boxes,
-                                               const float* __restrict__ tris,
-                                               int lc, int key, int n) {
-  if (key >= lc) {
-    const float* t = tris + kTriFloats * (long)(key - lc);
-    for (int b = 0; b < n * kTriFloats * 4; b += 128) prefetch_l1(t + b / 4);
-    prefetch_l1(t + n * kTriFloats - 1);
-  }
-  const float* p = boxes + kNodeFloats * (long)key;
-  for (int b = 0; b < n * kNodeFloats * 4; b += 128) prefetch_l1(p + b / 4);
-}
-
-// One ray's walk state.
-struct Ray {
-  V3 o, d, inv;
-  float best_t;
-  int best_tri, k, step;
-  Box box;
-  bool fin;
-#if MCPT_BVH_TRI_AHEAD
-  float4 ta, tb, tc;  // the triangle of k when k is a leaf
-#endif
-};
-
-__device__ __forceinline__ void start_ray(Ray& ry, const float* __restrict__ origin,
-                                          const float* __restrict__ direction,
-                                          const float* __restrict__ boxes, int lc,
-                                          const float* __restrict__ tris, int i) {
-  ry.o = load3(origin, i);
-  ry.d = load3(direction, i);
-  ry.inv = V3{1.0f / ry.d.x, 1.0f / ry.d.y, 1.0f / ry.d.z};
-  ry.best_t = kBig;
-  ry.best_tri = -1;
-  ry.k = 1;
-  ry.step = 0;
-  ry.box = load_box(boxes, 1);
-#if MCPT_BVH_TRI_AHEAD
-  if (lc == 1) {  // the root is a leaf
-    const float4* tp = reinterpret_cast<const float4*>(tris);
-    ry.ta = __ldg(tp);
-    ry.tb = __ldg(tp + 1);
-    ry.tc = __ldg(tp + 2);
-  }
-#endif
-  ry.fin = isfinite(ry.o.x) && isfinite(ry.o.y) && isfinite(ry.o.z) &&
-           isfinite(ry.inv.x) && isfinite(ry.inv.y) && isfinite(ry.inv.z);
-}
-
-// One step of the walk; false when the ray's walk has ended.
-template <bool MT>
-__device__ __forceinline__ bool step_ray(Ray& ry, bool fast,
-                                         const float* __restrict__ boxes, int lc,
-                                         const float* __restrict__ tris,
-                                         int max_steps, long long* ws,
-                                         unsigned& ws_dep) {
-  WS_CLOCK(c0);
-  const int k = ry.k;
-  const bool is_leaf = k >= lc;
-#if MCPT_BVH_PREFETCH
-  const int k_down = is_leaf ? 0 : 2 * k, k_next = advance(k);
-  Box down{}, next{};
-  if (k_down > 0) down = load_box(boxes, k_down);
-  if (k_next > 0) next = load_box(boxes, k_next);
-#if MCPT_BVH_TRI_AHEAD
-  // At most one of the two is a leaf: 2k when k is a leaf's parent, k + 1
-  // when k is a left leaf.
-  const int k_leaf = k_down >= lc ? k_down : (k_next >= lc ? k_next : 0);
-  float4 la{}, lb{}, lcc{};
-  if (k_leaf > 0) {
-    const float4* tp = reinterpret_cast<const float4*>(tris + kTriFloats * (long)(k_leaf - lc));
-    la = __ldg(tp);
-    lb = __ldg(tp + 1);
-    lcc = __ldg(tp + 2);
-  }
-#endif
-#if MCPT_BVH_PF >= 2
-  if (k < lc / 2) prefetch_nodes(boxes, tris, lc, 4 * k, 4);
-  if (k_next > 0 && k_next < lc) prefetch_nodes(boxes, tris, lc, 2 * k_next, 2);
-#endif
-#if MCPT_BVH_PF >= 3
-  if (k < lc / 4) prefetch_nodes(boxes, tris, lc, 8 * k, 8);
-  if (k_next > 0 && k_next < lc / 2) prefetch_nodes(boxes, tris, lc, 4 * k_next, 4);
-#endif
-#endif
-  V3 bmin, bmax;
-  box_v3(ry.box, bmin, bmax);
-  WS_AFTER(WS_BITS3(bmin) ^ WS_BITS3(bmax));
-  WS_CLOCK(c1);
-  const bool hit_box = fast ? slab_hit_finite(ry.o, ry.inv, bmin, bmax, ry.best_t)
-                            : slab_hit(ry.o, ry.inv, bmin, bmax, ry.best_t);
-  const bool go_down = hit_box && !is_leaf;
-  WS_AFTER(go_down);
-  WS_CLOCK(c2);
-  WS_ADD(0, 1);
-  WS_ADD(3, c1 - c0);
-  WS_ADD(4, c2 - c1);
-  if (hit_box && is_leaf) {
-    V3 p0, p1, p2, gn;
-#if MCPT_BVH_TRI_AHEAD && MCPT_BVH_PREFETCH
-    p0 = V3{ry.ta.x, ry.ta.y, ry.ta.z};
-    p1 = V3{ry.ta.w, ry.tb.x, ry.tb.y};
-    p2 = V3{ry.tb.z, ry.tb.w, ry.tc.x};
-    gn = V3{ry.tc.y, ry.tc.z, ry.tc.w};
-#else
-    load_tri(tris, k - lc, p0, p1, p2, gn);
-#endif
-    WS_AFTER(WS_BITS3(p0) ^ WS_BITS3(p1) ^ WS_BITS3(p2) ^ WS_BITS3(gn));
-    WS_CLOCK(c3);
-    float t;
-    // An invalid slot's record is NaN: its t is NaN and the test fails.
-    const bool h = tri_test<MT>(ry.o, ry.d, p0, p1, p2, gn, t);
-    if (h && t > 0.0f && t < ry.best_t) {
-      ry.best_t = t;
-      ry.best_tri = k - lc;
+// One ray's walk from the root.  FAST: the fmaxf slab test (see
+// slab_hit_finite); CAPPED: max_steps may end the walk (a walk visits each
+// node at most once, so a cap of 2 lc steps or more never does).
+template <bool MT, bool FAST, bool CAPPED>
+__device__ __forceinline__ void walk(V3 o, V3 d, V3 inv,
+                                     const float* __restrict__ nodes, int lc,
+                                     const float* __restrict__ tris, int max_steps,
+                                     float& best_t, int& best_tri, long long* ws,
+                                     unsigned& ws_dep, const float2* s_top) {
+  int k = 1, steps = 0;
+  Box box = load_node(nodes, s_top, 1);
+  do {
+    WS_CLOCK(c0);
+    const bool is_leaf = k >= lc;
+#if MCPT_BVH_LONE_PF
+    const bool lone = __popc(__activemask()) <= MCPT_BVH_LONE_PF;
+    const int k_down = is_leaf ? 0 : 2 * k, k_adv = advance_odd(k);
+    Box down{}, next{};
+    if (lone) {
+      if (k_down > 0) down = load_node(nodes, s_top, k_down);
+      if (k_adv > 0) next = load_node(nodes, s_top, k_adv);
     }
-    WS_AFTER(__float_as_uint(ry.best_t));
-    WS_CLOCK(c4);
-    WS_ADD(1, 1);
-    WS_ADD(5, c3 - c2);
-    WS_ADD(6, c4 - c3);
-  }
-#if MCPT_BVH_PREFETCH
-  ry.k = go_down ? k_down : k_next;
-  ry.box = go_down ? down : next;
-#if MCPT_BVH_TRI_AHEAD
-  ry.ta = la;
-  ry.tb = lb;
-  ry.tc = lcc;
 #endif
+    const V3 bmin{box.a.x, box.a.y, box.b.x}, bmax{box.b.y, box.c.x, box.c.y};
+    WS_AFTER(WS_BITS3(bmin) ^ WS_BITS3(bmax));
+    WS_CLOCK(c1);
+    const bool hit_box = FAST ? slab_hit_finite(o, inv, bmin, bmax, best_t)
+                              : slab_hit(o, inv, bmin, bmax, best_t);
+#if MCPT_BVH_LONE_PF
+    const int k_next = (hit_box && !is_leaf) ? k_down : k_adv;
 #else
-  ry.k = go_down ? 2 * k : advance(k);
-  if (ry.k > 0) ry.box = load_box(boxes, ry.k);
+    const int k_next = (hit_box && !is_leaf) ? 2 * k : advance_odd(k);
 #endif
-  return ry.k > 0 && ++ry.step < max_steps;
+    WS_AFTER(k_next);
+    WS_CLOCK(c2);
+    WS_ADD(0, 1);
+    WS_ADD(3, c1 - c0);
+    WS_ADD(4, c2 - c1);
+#ifdef MCPT_WALK_STATS
+    WS_ADD(11, __popc(__activemask()) == 1);
+    WS_ADD(12, k < kTopNodes);
+#endif
+    // The next node's load goes out before the leaf's test.
+#if MCPT_BVH_LONE_PF
+    if (lone)
+      box = (hit_box && !is_leaf) ? down : next;
+    else
+#endif
+    if (k_next > 0) box = load_node(nodes, s_top, k_next);
+    if (hit_box && is_leaf) {
+      const float4* p = reinterpret_cast<const float4*>(tris + kTriFloats * (long)(k - lc));
+      const float4 ta = __ldg(p), tb = __ldg(p + 1), tc = __ldg(p + 2);
+      const V3 p0{ta.x, ta.y, ta.z}, p1{ta.w, tb.x, tb.y};
+      const V3 p2{tb.z, tb.w, tc.x}, gn{tc.y, tc.z, tc.w};
+      WS_AFTER(WS_BITS3(p0) ^ WS_BITS3(p1) ^ WS_BITS3(p2) ^ WS_BITS3(gn));
+      WS_CLOCK(c3);
+      float t;
+      // An invalid slot's record is NaN: its t is NaN and the test fails.
+      const bool h = tri_test<MT>(o, d, p0, p1, p2, gn, t);
+      if (h && t > 0.0f && t < best_t) {
+        best_t = t;
+        best_tri = k - lc;
+      }
+      WS_AFTER(__float_as_uint(best_t));
+      WS_CLOCK(c4);
+      WS_ADD(1, 1);
+      WS_ADD(5, c3 - c2);
+      WS_ADD(6, c4 - c3);
+    }
+    k = k_next;
+  } while (k > 0 && (!CAPPED || ++steps < max_steps));
 }
-
-#if MCPT_BVH_PERSIST
-__device__ unsigned g_next_ray = 0, g_blocks_done = 0;
-#endif
 
 // The redesign (see the note at the top).
-template <bool MT>
-__global__ void __launch_bounds__(kThreads, 8)
+template <bool MT, bool CAPPED>
+__global__ void __launch_bounds__(kBlock)
 bvh_walk_kernel(const float* __restrict__ origin,
                 const float* __restrict__ direction, int r,
-                const float* __restrict__ boxes, int lc,
-                const float* __restrict__ tris, int max_steps,
+                const float* __restrict__ nodes, int lc,
+                const float* __restrict__ tris, int max_steps, int finite_nodes,
                 float* __restrict__ out_t, int* __restrict__ out_tri,
                 long long* __restrict__ stats) {
-#if MCPT_BVH_PERSIST
-  const unsigned lane = threadIdx.x & 31, below = (1u << lane) - 1;
-  Ray ry;
-  int i = -1;
-  bool live = false, more = true;
-#ifdef MCPT_WALK_STATS
-  long long ws[kRayStats] = {};
-  unsigned ws_dep = 0;
-  long long ws_ns0 = 0, ws_c0 = 0;
-#else
-  long long* ws = nullptr;
-  unsigned ws_dep = 0;
-#endif
-  for (;;) {
-    const bool want = !live && more;
-    const unsigned m = __ballot_sync(~0u, want);
-    if (m != 0 && (__popc(m) >= MCPT_BVH_REFILL || !__any_sync(~0u, live))) {
-      const int leader = __ffs(m) - 1;
-      unsigned base = 0;
-      if ((int)lane == leader) base = atomicAdd(&g_next_ray, (unsigned)__popc(m));
-      base = __shfl_sync(~0u, base, leader);
-      if (want) {
-        i = (int)(base + __popc(m & below));
-        if (i < r) {
-          start_ray(ry, origin, direction, boxes, lc, tris, i);
-          live = ry.step < max_steps;
-#ifdef MCPT_WALK_STATS
-          for (int q = 0; q < kRayStats; ++q) ws[q] = 0;
-          ws_ns0 = global_ns();
-          ws_c0 = clock64();
-#endif
-          if (!live) {
-            out_t[i] = kBig;
-            out_tri[i] = -1;
-          }
-        } else {
-          more = false;
-        }
-      }
-    }
-    if (!__any_sync(~0u, live)) {
-      if (!__any_sync(~0u, more)) break;
-      continue;
-    }
-    if (live) {
-      const bool fast = MCPT_BVH_FAST_SLAB && ry.fin;
-      if (!step_ray<MT>(ry, fast, boxes, lc, tris, max_steps, ws, ws_dep)) {
-        out_t[i] = ry.best_tri >= 0 ? ry.best_t : kBig;
-        out_tri[i] = ry.best_tri;
-        live = false;
-        WS_END(i);
-      }
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    if (atomicAdd(&g_blocks_done, 1u) == gridDim.x - 1) {
-      g_next_ray = 0;
-      g_blocks_done = 0;
-    }
+#if MCPT_BVH_SMEM_TOP
+  extern __shared__ float2 s_top[];
+  {
+    const int n = 3 * min(kTopNodes, 2 * lc);
+    const float2* src = reinterpret_cast<const float2*>(nodes);
+    for (int q = threadIdx.x; q < n; q += blockDim.x) s_top[q] = src[q];
+    __syncthreads();
   }
 #else
+  const float2* s_top = nullptr;
+#endif
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= r) return;
   WS_BEGIN;
@@ -470,56 +343,58 @@ bvh_walk_kernel(const float* __restrict__ origin,
   long long* ws = nullptr;
   unsigned ws_dep = 0;
 #endif
-  Ray ry;
-  start_ray(ry, origin, direction, boxes, lc, tris, i);
-  const bool fast = MCPT_BVH_FAST_SLAB && __all_sync(__activemask(), ry.fin);
-  if (ry.step < max_steps) {
-    if (fast) {
-      while (step_ray<MT>(ry, true, boxes, lc, tris, max_steps, ws, ws_dep)) {}
-    } else {
-      while (step_ray<MT>(ry, false, boxes, lc, tris, max_steps, ws, ws_dep)) {}
-    }
+  const V3 o = load3(origin, i), d = load3(direction, i);
+  const V3 inv{1.0f / d.x, 1.0f / d.y, 1.0f / d.z};
+  const bool fin = isfinite(o.x) && isfinite(o.y) && isfinite(o.z) &&
+                   isfinite(inv.x) && isfinite(inv.y) && isfinite(inv.z);
+  float best_t = kBig;
+  int best_tri = -1;
+  if (max_steps > 0) {
+    // The whole warp takes one of the two loops.
+    if (finite_nodes && __all_sync(__activemask(), fin))
+      walk<MT, true, CAPPED>(o, d, inv, nodes, lc, tris, max_steps, best_t,
+                             best_tri, ws, ws_dep, s_top);
+    else
+      walk<MT, false, CAPPED>(o, d, inv, nodes, lc, tris, max_steps, best_t,
+                              best_tri, ws, ws_dep, s_top);
   }
-  out_t[i] = ry.best_tri >= 0 ? ry.best_t : kBig;
-  out_tri[i] = ry.best_tri;
+  out_t[i] = best_tri >= 0 ? best_t : kBig;
+  out_tri[i] = best_tri;
   WS_END(i);
-#endif
 }
 
 #endif
 
 }  // namespace
 
-// origin, direction (r, 3) f32; boxes (2 lc, 8) f32, 16-byte aligned, each
-// row min xyz, max xyz, 0, 0 (BVHArrays.boxes); tris (lc, 12) f32, 16-byte
+// origin, direction (r, 3) f32; nodes (2 lc, 6) f32, 8-byte aligned, each
+// row min xyz, max xyz (BVHArrays.node_records); tris (lc, 12) f32, 16-byte
 // aligned, each row v0, v1, v2, geom_n and NaN where the slot is not valid
-// (SceneArrays.tri_records); out_t (r,) f32, out_tri (r,) i32.  mt selects
-// the Moller-Trumbore test.  stats: null, or (r, kRayStats) int64 that a
-// -DMCPT_WALK_STATS build fills (other builds leave it alone).  Returns the
-// launch's CUDA error.
+// (SceneArrays.tri_records); finite_nodes: no node holds a NaN; out_t (r,)
+// f32, out_tri (r,) i32.  mt selects the Moller-Trumbore test.  stats:
+// null, or (r, kRayStats) int64 that a -DMCPT_WALK_STATS build fills (other
+// builds leave it alone).  Returns the launch's CUDA error.
 extern "C" int mcpt_bvh_walk(const float* origin, const float* direction,
-                             int r, const float* boxes, int lc,
+                             int r, const float* nodes, int lc,
                              const float* tris, int mt, int max_steps,
-                             float* out_t, int* out_tri, long long* stats,
-                             void* stream) {
+                             int finite_nodes, float* out_t, int* out_tri,
+                             long long* stats, void* stream) {
   if (r <= 0) return (int)cudaGetLastError();
-  int blocks = (r + kThreads - 1) / kThreads;
-#if !defined(MCPT_BVH_WALK_V1) && MCPT_BVH_PERSIST
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  blocks = blocks < MCPT_BVH_PERSIST * sms ? blocks : MCPT_BVH_PERSIST * sms;
+#ifdef MCPT_BVH_WALK_V1
+  const int block = kThreads;
+  const size_t smem = 0;
+#else
+  const int block = kBlock;
+  const size_t smem = MCPT_BVH_SMEM_TOP ? 3 * sizeof(float2) * kTopNodes : 0;
 #endif
+  const int blocks = (r + block - 1) / block;
   cudaStream_t s = (cudaStream_t)stream;
-  if (mt) {
-    bvh_walk_kernel<true><<<blocks, kThreads, 0, s>>>(
-        origin, direction, r, boxes, lc, tris, max_steps, out_t, out_tri, stats);
-  } else {
-    bvh_walk_kernel<false><<<blocks, kThreads, 0, s>>>(
-        origin, direction, r, boxes, lc, tris, max_steps, out_t, out_tri, stats);
-  }
+  // A walk visits each of the 2 lc - 1 nodes at most once.
+  const bool capped = max_steps < 2 * lc;
+  auto kernel = mt ? (capped ? bvh_walk_kernel<true, true> : bvh_walk_kernel<true, false>)
+                   : (capped ? bvh_walk_kernel<false, true> : bvh_walk_kernel<false, false>);
+  kernel<<<blocks, block, smem, s>>>(origin, direction, r, nodes, lc, tris,
+                                     max_steps, finite_nodes, out_t, out_tri,
+                                     stats);
   return (int)cudaGetLastError();
 }

@@ -483,6 +483,8 @@ def test_bvh_walk_stats_summary_reads_the_counters():
     a[:, c["block"]] = torch.arange(64) // 32
     a[:, c["start_ns"]] = 1000
     a[:, c["end_ns"]] = 2000
+    a[0, c["lone_steps"]] = 30            # lane 0 walks its last 30 alone
+    a[:, c["top_steps"]] = 5
     a[32:, c["end_ns"]] = 5000            # block 1 ends last
     b = a.clone()
     # In the second call lane 1 walks two rays after one another (10 + 10
@@ -490,6 +492,8 @@ def test_bvh_walk_stats_summary_reads_the_counters():
     b[0, c["thread"]] = 1
     b[0, c["steps"]] = 10
     b[0, c["cycles"]], b[0, c["cycles_node"]], b[0, c["cycles_slab"]] = 1000, 300, 200
+    b[0, c["lone_steps"]] = 0
+    b[1, c["lone_steps"]] = 10            # warp 0's second ray on lane 1
     out = TL.bvh_walk_stats_summary([a, b])
     assert out["calls"] == 2 and out["rays"] == 128
     steps = 64 * 10 + 30 + 64 * 10
@@ -499,6 +503,8 @@ def test_bvh_walk_stats_summary_reads_the_counters():
     # Warp steps over 32 x the busiest lane: (350 / 1280 + 320 / 320) / 2
     # calls' worth, summed before the division.
     assert out["simt_efficiency"] == (350 + 320 + 320 + 320) / (32 * (40 + 10 + 20 + 10))
+    assert out["lone_share_of_warp_steps"] == 40 / (40 + 10 + 20 + 10)
+    assert out["top_share_of_steps"] == 5 * 128 / steps
     assert out["cycles_per_step"] == 100
     assert out["cycles_per_step_node"] == 30 and out["cycles_per_step_slab"] == 20
     assert out["cycles_per_step_leaf_load"] == 10 * 128 / steps

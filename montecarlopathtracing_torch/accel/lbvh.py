@@ -204,12 +204,14 @@ def _add_counts(counts, n_node, n_tri):
 # cycles of the ray's walk and of its steps' parts (waiting for the node's
 # box, the slab test and the choice of the next key, waiting for the leaf's
 # triangle, the triangle test), the global index of the thread and the block
-# that walked it, %globaltimer (ns) at the walk's start and end, the steps
-# it took as the only lane of its warp still walking, and its steps at
-# nodes of the top 11 levels (kRayStats).
+# that ended it, %globaltimer (ns) at the walk's start and end, the steps
+# it took as the only lane of its warp still walking, its steps at nodes of
+# the top 11 levels, and its share of warp iterations: the sum over its
+# steps of 2^20 / the lanes stepping in its warp then (kRayStats).
 BVH_WALK_STATS = ("steps", "leaf_tests", "cycles", "cycles_node", "cycles_slab",
                   "cycles_leaf_load", "cycles_leaf_test", "thread", "block",
-                  "start_ns", "end_ns", "lone_steps", "top_steps")
+                  "start_ns", "end_ns", "lone_steps", "top_steps", "warp_share")
+_SHARE_ONE = 2 ** 20
 
 
 def bvh_intersect(bvh: BVHArrays, scene, origin, direction, compat: bool = True,
@@ -280,11 +282,11 @@ def bvh_walk_stats_summary(stats) -> dict:
     """What the counters of a -DMCPT_WALK_STATS build of the per-ray walk say
     over several calls: ``stats`` a list of (R, len(BVH_WALK_STATS)) int64
     tensors, one per call (each reduced on its own device first).  Steps
-    per ray (mean, p99, max), leaf tests per ray; SIMT efficiency, the steps
-    the rays of a warp took over 32 times the steps of its busiest lane
-    (each lane's rays' steps added: what the warp stepped through); the
-    share of those warp steps in which one lane alone walked, and the share
-    of steps at the top 11 levels; clock
+    per ray (mean, p99, max), leaf tests per ray; SIMT efficiency, the
+    rays' steps over 32 times the warp iterations they took part in (each
+    iteration counted once, by its lanes' shares); the share of those warp
+    iterations in which one lane alone walked, and the share of steps at
+    the top 11 levels; clock
     cycles per step and their split (node load, slab test and choice, leaf
     load, leaf test, the rest); and per call the span of the launch (first
     start to last end, ns) beside its blocks' own times: the mean block,
@@ -292,8 +294,9 @@ def bvh_walk_stats_summary(stats) -> dict:
     blocks had ended (from the first start), averaged over the calls."""
     col = {n: j for j, n in enumerate(BVH_WALK_STATS)}
     summed = ("steps", "leaf_tests", "cycles", "cycles_node", "cycles_slab",
-              "cycles_leaf_load", "cycles_leaf_test", "lone_steps", "top_steps")
-    tot = {k: 0.0 for k in summed + ("rays", "warp_lane_steps")}
+              "cycles_leaf_load", "cycles_leaf_test", "lone_steps", "top_steps",
+              "warp_share")
+    tot = {k: 0.0 for k in summed + ("rays",)}
     hist = torch.zeros(1, dtype=torch.float64)
     steps_max = 0
     spans = {k: [] for k in ("span_ns", "block_mean_ns", "block_max_ns",
@@ -307,17 +310,6 @@ def bvh_walk_stats_summary(stats) -> dict:
         steps_max = max(steps_max, int(steps.max()))
         h = torch.bincount(steps, minlength=hist.numel()).to(torch.float64).cpu()
         hist = torch.nn.functional.pad(hist, (0, h.numel() - hist.numel())) + h
-        # Each lane's steps over all the rays it walked, then per warp the
-        # busiest lane: the iterations the warp went through.
-        thread = s[:, col["thread"]]
-        lanes, inv = torch.unique(thread, return_inverse=True)
-        lane_steps = torch.zeros(lanes.numel(), dtype=torch.int64,
-                                 device=s.device).index_add_(0, inv, steps)
-        warps, winv = torch.unique(lanes // 32, return_inverse=True)
-        busiest = torch.zeros(warps.numel(), dtype=torch.int64,
-                              device=s.device).scatter_reduce_(
-            0, winv, lane_steps, reduce="amax")
-        tot["warp_lane_steps"] += 32.0 * float(busiest.sum())
         block = s[:, col["block"]]
         blocks, binv = torch.unique(block, return_inverse=True)
         nb = blocks.numel()
@@ -335,6 +327,7 @@ def bvh_walk_stats_summary(stats) -> dict:
         spans["blocks_90_done_ns"].append(float(ends[(9 * nb - 1) // 10]))
     rays = max(1.0, tot["rays"])
     steps = max(1.0, tot["steps"])
+    warp_iters = tot["warp_share"] / _SHARE_ONE
     cdf = torch.cumsum(hist, 0) / rays
     out = {"calls": len(stats), "rays": int(tot["rays"]),
            "steps_per_ray_mean": tot["steps"] / rays,
@@ -342,9 +335,8 @@ def bvh_walk_stats_summary(stats) -> dict:
                [0.99], dtype=torch.float64))[0]),
            "steps_per_ray_max": steps_max,
            "leaf_tests_per_ray": tot["leaf_tests"] / rays,
-           "simt_efficiency": tot["steps"] / max(1.0, tot["warp_lane_steps"]),
-           "lone_share_of_warp_steps": 32.0 * tot["lone_steps"]
-           / max(1.0, tot["warp_lane_steps"]),
+           "simt_efficiency": tot["steps"] / max(1.0, 32 * warp_iters),
+           "lone_share_of_warp_steps": tot["lone_steps"] / max(1.0, warp_iters),
            "top_share_of_steps": tot["top_steps"] / steps,
            "cycles_per_step": tot["cycles"] / steps}
     parts = 0.0

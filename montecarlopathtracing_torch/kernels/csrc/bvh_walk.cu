@@ -65,7 +65,10 @@ constexpr int kTriFloats = 12;  // v0, v1, v2, geom_n
 // [8] the block that walked it; [9] and [10] %globaltimer (ns) at its start
 // and end; [11] steps taken as the only lane of its warp still walking, [12]
 // steps at nodes of the top 11 levels (k < kTopNodes).
-[[maybe_unused]] constexpr int kRayStats = 13;
+[[maybe_unused]] constexpr int kRayStats = 14;
+// [13]: the sum over the ray's steps of 2^20 / (lanes of its warp stepping
+// then): the warp iterations it took part in, shared among their lanes.
+[[maybe_unused]] constexpr long long kShareOne = 1 << 20;
 [[maybe_unused]] constexpr int kTopNodes = 2048;
 
 #ifdef MCPT_WALK_STATS
@@ -149,6 +152,7 @@ bvh_walk_kernel(const float* __restrict__ origin,
 #ifdef MCPT_WALK_STATS
     WS_ADD(11, __popc(__activemask()) == 1);
     WS_ADD(12, k < kTopNodes);
+    WS_ADD(13, kShareOne / __popc(__activemask()));
 #endif
     if (hit_box && is_leaf) {
       const int tri = k - lc;
@@ -246,15 +250,60 @@ __device__ __forceinline__ bool slab_hit_finite(V3 o, V3 inv, V3 bmin, V3 bmax,
 // One ray's walk from the root.  FAST: the fmaxf slab test (see
 // slab_hit_finite); CAPPED: max_steps may end the walk (a walk visits each
 // node at most once, so a cap of 2 lc steps or more never does).
-template <bool MT, bool FAST, bool CAPPED>
-__device__ __forceinline__ void walk(V3 o, V3 d, V3 inv,
-                                     const float* __restrict__ nodes, int lc,
-                                     const float* __restrict__ tris, int max_steps,
-                                     float& best_t, int& best_tri, long long* ws,
-                                     unsigned& ws_dep, const float2* s_top) {
-  int k = 1, steps = 0;
-  Box box = load_node(nodes, s_top, 1);
-  do {
+struct RayState {
+  V3 o, d, inv;
+  float best_t;
+  int best_tri, k, steps, i;
+  bool fin;
+#ifdef MCPT_WALK_STATS
+  long long ws[kRayStats];  // [2]: the clock at its start; [9]: the ns
+#endif
+};
+
+#ifndef MCPT_BVH_OCTANT
+#define MCPT_BVH_OCTANT 0  // 1: warps whose rays share a direction octant take its own loop
+#endif
+#ifndef MCPT_BVH_CARVEOUT
+#define MCPT_BVH_CARVEOUT 0  // 1: ask for the largest L1 (no shared memory carve-out)
+#endif
+
+// slab_hit_finite with the signs of 1 / d fixed: bit 0, 1, 2 of OCT set
+// where inv.x, .y, .z < 0 (the caller's rays all have them).
+template <int OCT>
+__device__ __forceinline__ bool slab_hit_octant(V3 o, V3 inv, V3 bmin, V3 bmax,
+                                                float t_max) {
+  constexpr bool nx = OCT & 1, ny = OCT & 2, nz = OCT & 4;
+  const float tnx = ((nx ? bmax.x : bmin.x) - o.x) * inv.x;
+  const float tny = ((ny ? bmax.y : bmin.y) - o.y) * inv.y;
+  const float tnz = ((nz ? bmax.z : bmin.z) - o.z) * inv.z;
+  const float tfx = ((nx ? bmin.x : bmax.x) - o.x) * inv.x;
+  const float tfy = ((ny ? bmin.y : bmax.y) - o.y) * inv.y;
+  const float tfz = ((nz ? bmin.z : bmax.z) - o.z) * inv.z;
+  const float enter = fmaxf(fmaxf(tnx, tny), tnz);
+  const float exit_ = fminf(fminf(tfx, tfy), tfz);
+  return (enter <= exit_) && (exit_ >= 0.0f) && (enter <= t_max);
+}
+
+// The slab test of a MODE: 0 NaN-propagating, 1 fmaxf, 2 + o fmaxf in octant o.
+template <int MODE>
+__device__ __forceinline__ bool slab_mode(V3 o, V3 inv, V3 bmin, V3 bmax, float t_max) {
+  if (MODE == 0) return slab_hit(o, inv, bmin, bmax, t_max);
+  if (MODE == 1) return slab_hit_finite(o, inv, bmin, bmax, t_max);
+  return slab_hit_octant<(MODE >= 2 ? MODE - 2 : 0)>(o, inv, bmin, bmax, t_max);
+}
+
+// One step of a ray; false once its walk has ended.
+template <bool MT, int FAST, bool CAPPED>
+__device__ __forceinline__ bool walk_step(RayState& ry, Box& box,
+                                          const float* __restrict__ nodes, int lc,
+                                          const float* __restrict__ tris,
+                                          int max_steps, const float2* s_top,
+                                          long long* ws, unsigned& ws_dep) {
+  const V3 o = ry.o, d = ry.d, inv = ry.inv;
+  float& best_t = ry.best_t;
+  int& best_tri = ry.best_tri;
+  const int k = ry.k;
+  {
     WS_CLOCK(c0);
     const bool is_leaf = k >= lc;
 #if MCPT_BVH_LONE_PF
@@ -269,8 +318,7 @@ __device__ __forceinline__ void walk(V3 o, V3 d, V3 inv,
     const V3 bmin{box.a.x, box.a.y, box.b.x}, bmax{box.b.y, box.c.x, box.c.y};
     WS_AFTER(WS_BITS3(bmin) ^ WS_BITS3(bmax));
     WS_CLOCK(c1);
-    const bool hit_box = FAST ? slab_hit_finite(o, inv, bmin, bmax, best_t)
-                              : slab_hit(o, inv, bmin, bmax, best_t);
+    const bool hit_box = slab_mode<FAST>(o, inv, bmin, bmax, best_t);
 #if MCPT_BVH_LONE_PF
     const int k_next = (hit_box && !is_leaf) ? k_down : k_adv;
 #else
@@ -284,6 +332,7 @@ __device__ __forceinline__ void walk(V3 o, V3 d, V3 inv,
 #ifdef MCPT_WALK_STATS
     WS_ADD(11, __popc(__activemask()) == 1);
     WS_ADD(12, k < kTopNodes);
+    WS_ADD(13, kShareOne / __popc(__activemask()));
 #endif
     // The next node's load goes out before the leaf's test.
 #if MCPT_BVH_LONE_PF
@@ -312,10 +361,135 @@ __device__ __forceinline__ void walk(V3 o, V3 d, V3 inv,
       WS_ADD(5, c3 - c2);
       WS_ADD(6, c4 - c3);
     }
-    k = k_next;
-  } while (k > 0 && (!CAPPED || ++steps < max_steps));
+    ry.k = k_next;
+  }
+  return ry.k > 0 && (!CAPPED || ++ry.steps < max_steps);
 }
 
+template <bool MT, int FAST, bool CAPPED>
+__device__ __forceinline__ void walk(V3 o, V3 d, V3 inv,
+                                     const float* __restrict__ nodes, int lc,
+                                     const float* __restrict__ tris, int max_steps,
+                                     float& best_t, int& best_tri, long long* ws,
+                                     unsigned& ws_dep, const float2* s_top) {
+  RayState ry{o, d, inv, best_t, best_tri, 1, 0, 0, false};
+  Box box = load_node(nodes, s_top, 1);
+  while (walk_step<MT, FAST, CAPPED>(ry, box, nodes, lc, tris, max_steps, s_top,
+                                     ws, ws_dep)) {
+  }
+  best_t = ry.best_t;
+  best_tri = ry.best_tri;
+}
+
+#ifndef MCPT_BVH_ROUND
+#define MCPT_BVH_ROUND 0  // steps a round between compactions of a block's rays
+#endif
+
+#if MCPT_BVH_ROUND
+// Rounds of MCPT_BVH_ROUND steps; after each, a block whose live rays fit in
+// fewer warps than hold them moves them to its first threads, so that
+// warps step full and the emptied ones sit out.
+template <bool MT, bool CAPPED>
+__global__ void __launch_bounds__(kBlock)
+bvh_walk_kernel(const float* __restrict__ origin,
+                const float* __restrict__ direction, int r,
+                const float* __restrict__ nodes, int lc,
+                const float* __restrict__ tris, int max_steps, int finite_nodes,
+                float* __restrict__ out_t, int* __restrict__ out_tri,
+                long long* __restrict__ stats) {
+  constexpr int kWarps = kBlock / 32;
+  __shared__ RayState s_rays[kBlock];
+  __shared__ int s_warp_live[2][kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned ws_dep = 0;
+  RayState ry;
+  bool live = false;
+  {
+    const int i = blockIdx.x * kBlock + threadIdx.x;
+    if (i < r) {
+      ry.o = load3(origin, i);
+      ry.d = load3(direction, i);
+      ry.inv = V3{1.0f / ry.d.x, 1.0f / ry.d.y, 1.0f / ry.d.z};
+      ry.best_t = kBig;
+      ry.best_tri = -1;
+      ry.k = 1;
+      ry.steps = 0;
+      ry.i = i;
+      ry.fin = isfinite(ry.o.x) && isfinite(ry.o.y) && isfinite(ry.o.z) &&
+               isfinite(ry.inv.x) && isfinite(ry.inv.y) && isfinite(ry.inv.z);
+#ifdef MCPT_WALK_STATS
+      for (int q = 0; q < kRayStats; ++q) ry.ws[q] = 0;
+      ry.ws[2] = clock64();
+      ry.ws[9] = global_ns();
+#endif
+      live = max_steps > 0;
+      if (!live) {
+        out_t[i] = kBig;
+        out_tri[i] = -1;
+      }
+    }
+  }
+  Box box{};
+  if (live) box = load_box(nodes, 1);
+  for (int round = 0;; ++round) {
+    if (__any_sync(~0u, live)) {
+      const bool fast = finite_nodes && __all_sync(~0u, !live || ry.fin);
+      if (live) {
+#ifdef MCPT_WALK_STATS
+        long long* ws = ry.ws;
+#else
+        long long* ws = nullptr;
+#endif
+        bool more = true;
+        if (fast) {
+          for (int n = 0; more && n < MCPT_BVH_ROUND; ++n)
+            more = walk_step<MT, 1, CAPPED>(ry, box, nodes, lc, tris, max_steps,
+                                               nullptr, ws, ws_dep);
+        } else {
+          for (int n = 0; more && n < MCPT_BVH_ROUND; ++n)
+            more = walk_step<MT, 0, CAPPED>(ry, box, nodes, lc, tris, max_steps,
+                                                nullptr, ws, ws_dep);
+        }
+        if (!more) {
+          out_t[ry.i] = ry.best_tri >= 0 ? ry.best_t : kBig;
+          out_tri[ry.i] = ry.best_tri;
+          live = false;
+#ifdef MCPT_WALK_STATS
+          if (stats != nullptr) {
+            ry.ws[2] = clock64() - ry.ws[2] + (ws_dep == 0x9e3779b9u ? 1 : 0);
+            ry.ws[7] = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+            ry.ws[8] = blockIdx.x;
+            ry.ws[10] = global_ns();
+            for (int q = 0; q < kRayStats; ++q) stats[(long)ry.i * kRayStats + q] = ry.ws[q];
+          }
+#endif
+        }
+      }
+    }
+    const unsigned b = __ballot_sync(~0u, live);
+    int* counts = s_warp_live[round & 1];
+    if (lane == 0) counts[warp] = __popc(b);
+    const int n_live = __syncthreads_count(live);
+    if (n_live == 0) break;
+    int busy = 0, before = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = counts[w];
+      busy += c > 0;
+      before += w < warp ? c : 0;
+    }
+    if ((n_live + 31) / 32 < busy) {
+      if (live) s_rays[before + __popc(b & ((1u << lane) - 1))] = ry;
+      __syncthreads();
+      live = (int)threadIdx.x < n_live;
+      if (live) {
+        ry = s_rays[threadIdx.x];
+        box = load_box(nodes, ry.k);
+      }
+    }
+  }
+}
+
+#else
 // The redesign (see the note at the top).
 template <bool MT, bool CAPPED>
 __global__ void __launch_bounds__(kBlock)
@@ -351,17 +525,37 @@ bvh_walk_kernel(const float* __restrict__ origin,
   int best_tri = -1;
   if (max_steps > 0) {
     // The whole warp takes one of the two loops.
-    if (finite_nodes && __all_sync(__activemask(), fin))
-      walk<MT, true, CAPPED>(o, d, inv, nodes, lc, tris, max_steps, best_t,
-                             best_tri, ws, ws_dep, s_top);
-    else
-      walk<MT, false, CAPPED>(o, d, inv, nodes, lc, tris, max_steps, best_t,
-                              best_tri, ws, ws_dep, s_top);
+    const unsigned m = __activemask();
+#define MCPT_WALK_AS(MODE) \
+  walk<MT, MODE, CAPPED>(o, d, inv, nodes, lc, tris, max_steps, best_t, best_tri, ws, ws_dep, s_top)
+    if (finite_nodes && __all_sync(m, fin)) {
+#if MCPT_BVH_OCTANT
+      const int oct = (inv.x < 0.0f) | (inv.y < 0.0f) << 1 | (inv.z < 0.0f) << 2;
+      const int oct0 = __shfl_sync(m, oct, __ffs(m) - 1);
+      if (__all_sync(m, oct == oct0)) {
+        switch (oct0) {
+          case 0: MCPT_WALK_AS(2); break;
+          case 1: MCPT_WALK_AS(3); break;
+          case 2: MCPT_WALK_AS(4); break;
+          case 3: MCPT_WALK_AS(5); break;
+          case 4: MCPT_WALK_AS(6); break;
+          case 5: MCPT_WALK_AS(7); break;
+          case 6: MCPT_WALK_AS(8); break;
+          default: MCPT_WALK_AS(9); break;
+        }
+      } else
+#endif
+        MCPT_WALK_AS(1);
+    } else {
+      MCPT_WALK_AS(0);
+    }
+#undef MCPT_WALK_AS
   }
   out_t[i] = best_tri >= 0 ? best_t : kBig;
   out_tri[i] = best_tri;
   WS_END(i);
 }
+#endif  // MCPT_BVH_ROUND
 
 #endif
 
@@ -393,6 +587,9 @@ extern "C" int mcpt_bvh_walk(const float* origin, const float* direction,
   const bool capped = max_steps < 2 * lc;
   auto kernel = mt ? (capped ? bvh_walk_kernel<true, true> : bvh_walk_kernel<true, false>)
                    : (capped ? bvh_walk_kernel<false, true> : bvh_walk_kernel<false, false>);
+#if MCPT_BVH_CARVEOUT && !defined(MCPT_BVH_WALK_V1)
+  cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 0);
+#endif
   kernel<<<blocks, block, smem, s>>>(origin, direction, r, nodes, lc, tris,
                                      max_steps, finite_nodes, out_t, out_tri,
                                      stats);

@@ -466,44 +466,42 @@ def test_perray_ties_across_leaves_on_a_doubled_box(scenes, mode):
 
 def test_bvh_walk_stats_summary_reads_the_counters():
     """The summary of the per-ray walk's counters, on made-up counts over
-    two calls: means and p99 per ray, SIMT efficiency from each lane's
-    steps, cycles per step and their split, and the blocks' times."""
+    two calls: means and p99 per ray, SIMT efficiency and lone iterations
+    from the rays' shares of warp iterations, cycles per step and their
+    split, and the blocks' times."""
     names = TL.BVH_WALK_STATS
     c = {n: j for j, n in enumerate(names)}
+    one = 2 ** 20
     a = torch.zeros((64, len(names)), dtype=torch.int64)
     a[:, c["steps"]] = 10
-    a[0, c["steps"]] = 40                 # lane 0 of warp 0: 40 steps
+    a[0, c["steps"]] = 40                 # ray 0: 10 steps in a full warp,
+    a[:, c["warp_share"]] = 10 * one // 32
+    a[0, c["warp_share"]] = 10 * one // 32 + 30 * one  # then 30 alone
+    a[0, c["lone_steps"]] = 30
     a[:, c["leaf_tests"]] = 1
     a[:, c["cycles"]] = 100 * a[:, c["steps"]]
     a[:, c["cycles_node"]] = 30 * a[:, c["steps"]]
     a[:, c["cycles_slab"]] = 20 * a[:, c["steps"]]
     a[:, c["cycles_leaf_load"]] = 10
     a[:, c["cycles_leaf_test"]] = 5
-    a[:, c["thread"]] = torch.arange(64)  # two warps, one ray a lane
+    a[:, c["top_steps"]] = 5
+    a[:, c["thread"]] = torch.arange(64)
     a[:, c["block"]] = torch.arange(64) // 32
     a[:, c["start_ns"]] = 1000
     a[:, c["end_ns"]] = 2000
-    a[0, c["lone_steps"]] = 30            # lane 0 walks its last 30 alone
-    a[:, c["top_steps"]] = 5
     a[32:, c["end_ns"]] = 5000            # block 1 ends last
     b = a.clone()
-    # In the second call lane 1 walks two rays after one another (10 + 10
-    # steps), lane 0 none: warp 0's busiest lane has 40 steps again.
-    b[0, c["thread"]] = 1
-    b[0, c["steps"]] = 10
+    b[0, c["steps"]], b[0, c["warp_share"]], b[0, c["lone_steps"]] = 10, 10 * one // 32, 0
     b[0, c["cycles"]], b[0, c["cycles_node"]], b[0, c["cycles_slab"]] = 1000, 300, 200
-    b[0, c["lone_steps"]] = 0
-    b[1, c["lone_steps"]] = 10            # warp 0's second ray on lane 1
     out = TL.bvh_walk_stats_summary([a, b])
     assert out["calls"] == 2 and out["rays"] == 128
     steps = 64 * 10 + 30 + 64 * 10
     assert out["steps_per_ray_mean"] == steps / 128
     assert out["steps_per_ray_max"] == 40 and out["steps_per_ray_p99"] == 10
     assert out["leaf_tests_per_ray"] == 1
-    # Warp steps over 32 x the busiest lane: (350 / 1280 + 320 / 320) / 2
-    # calls' worth, summed before the division.
-    assert out["simt_efficiency"] == (350 + 320 + 320 + 320) / (32 * (40 + 10 + 20 + 10))
-    assert out["lone_share_of_warp_steps"] == 40 / (40 + 10 + 20 + 10)
+    # Warp iterations: 10 for each of the 4 warps, 30 more of ray 0's alone.
+    assert out["simt_efficiency"] == steps / (32 * (4 * 10 + 30))
+    assert out["lone_share_of_warp_steps"] == 30 / (4 * 10 + 30)
     assert out["top_share_of_steps"] == 5 * 128 / steps
     assert out["cycles_per_step"] == 100
     assert out["cycles_per_step_node"] == 30 and out["cycles_per_step_slab"] == 20

@@ -101,7 +101,12 @@ exits non-zero):
             packets (equal-t ties in one fat leaf and across leaves, a ray
             that misses a node its packet enters and meets its own leaf
             later, small max_steps, packet sizes and leaf widths off their
-            defaults), compat and MT, exactly equal to the plain walk;
+            defaults), compat and MT, exactly equal to the plain walk, and
+            the per-ray walk under the package's build and its parent
+            design (-DMCPT_BVH_WALK_V1) on adversarial rays (1, 31, 33 and
+            fewer rays than the card's SMs, equal-t ties across leaves on the
+            box floor and on the doubled box, max_steps 1 and 3, a tree
+            with NaN boxes), exactly equal to the plain walk;
    oracle   (d) a 16 x 16 box on the card against the port's f64 oracle
             (tests/test_oracle.py's limits);
    native   (e) the box and the 100k interior written to OBJ / MTL and loaded
@@ -118,14 +123,20 @@ exits non-zero):
             both, exact; the bound's operations are the slab and triangle
             tests the per-ray plain walk makes on the same call (the
             function's needs), the packet walk's own tests printed beside;
-            the packet walk's three frames replayed whole under the
-            package's build and builds that take one of its two kernels for
-            every call (the parent design, -DMCPT_PACKET_WALK_V1; the
-            redesign, -DMCPT_PACKET_WALK_V2), ms per launch mean and max
-            over all calls, and under the two designs' -DMCPT_WALK_STATS
-            builds: steps per packet, fat-leaf visits with a hit, rays and
-            warps per visit, clock cycles per step and their split
-            ("packet_walk_designs" lines);
+            every call of every walk frame replayed whole under its walk's
+            designs (WALK_DESIGNS), each build held bit for bit to the
+            package's, ms per launch mean and max over all calls: the packet
+            walk's three frames under the package's build and builds that
+            take one of its two kernels for every call (the parent design,
+            -DMCPT_PACKET_WALK_V1; the redesign, -DMCPT_PACKET_WALK_V2), and
+            their -DMCPT_WALK_STATS builds (steps per packet, fat-leaf visits
+            with a hit, rays and warps per visit, clock cycles per step and
+            their split; "packet_walk_designs" lines); the per-ray walk's two
+            frames under the package's build (the redesign) and the parent
+            design (-DMCPT_BVH_WALK_V1), and both -DMCPT_WALK_STATS builds
+            (steps per ray mean, p99 and max, leaf tests, SIMT efficiency,
+            clock cycles per step and their split, the blocks' end times;
+            "bvh_walk_designs" lines);
 9. a "kernels" line with one row per ported kernel (the five cluster
    kernels and the two walks), then the card's nvidia-smi line, then the
    last line {"ok": true, "device": {...}}.
@@ -1437,7 +1448,7 @@ OPS_TRI_WALK = {False: 87, True: 56}
 # slice of its rays (per-ray walk) or whole packets (packet walk); and how
 # many calls of each frame both walks replay whole, timed.
 WALK_SAMPLE_CALLS = 16
-WALK_FULL_CALLS = 8
+WALK_FULL_CALLS = 4
 WALK_SUBSET_RAYS = 4096
 WALK_SUBSET_PACKETS = 4
 WALK_KERNELS = {"bvh_perray": "bvh_walk", "bvh": "packet_walk"}
@@ -1691,8 +1702,10 @@ def perray_adversarial(dev, box, large, rng, build: str):
     1, 31, 33 and fewer than the card's SMs (partial warps, blocks short of
     rays); equal-t ties across leaves (rays straight down onto the box
     floor's diagonal, whose two triangles sit in two leaves, and the box with
-    every triangle doubled: the first copy in preorder must win); and a
-    small explicit max_steps."""
+    every triangle doubled: the first copy in preorder must win); a small
+    explicit max_steps; and a tree with NaN boxes (one NaN vertex)."""
+    import types
+
     from montecarlopathtracing_torch.accel import lbvh as L
 
     t = rng.uniform(1.65, 1.95, (64, 1)).astype(np.float32)
@@ -1707,12 +1720,25 @@ def perray_adversarial(dev, box, large, rng, build: str):
     ld = rng.normal(size=(n, 3)).astype(np.float32)
     ld /= np.linalg.norm(ld, axis=1, keepdims=True)
     dbl = doubled_scene(box)
-    bvh_box, bvh_dbl, bvh_large = (L.build_lbvh(sc) for sc in (box, dbl, large))
+    # The box with one vertex NaN: NaN boxes from its leaf to the root, so
+    # the kernel must take its NaN-propagating slab test throughout.
+    nan_box = types.SimpleNamespace(**{f: getattr(box, f) for f in (
+        "v1", "v2", "geom_n", "tri_valid", "num_tris_padded")})
+    nan_box.v0 = box.v0.clone()
+    nan_box.v0[int(torch.nonzero(box.tri_valid)[3, 0]), 1] = float("nan")
+    nan_box.tri_records = torch.where(
+        box.tri_valid[:, None],
+        torch.cat([nan_box.v0, box.v1, box.v2, box.geom_n], dim=1),
+        float("nan")).contiguous()
+    bvh_box, bvh_dbl, bvh_large, bvh_nan = (
+        L.build_lbvh(sc) for sc in (box, dbl, large, nan_box))
+    check(not bvh_nan.nan_free, "perray adversarial: the NaN box's tree has no NaN")
     co, cd = camera_and_shadow_rays(
         large, min(8192, large.camera.width * large.camera.height), seed=44)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     cases = [("tie_across_leaves", bvh_box, box, diag_o, diag_d, {}),
-             ("doubled_box", bvh_dbl, dbl, ro, rd, {})]
+             ("doubled_box", bvh_dbl, dbl, ro, rd, {}),
+             ("nan_tree", bvh_nan, nan_box, ro, rd, {})]
     for count in (1, 31, 33, sms - 1):
         cases.append((f"rays_{count}", bvh_large, large, lo[:count], ld[:count], {}))
     for steps in (1, 3):
@@ -1941,8 +1967,9 @@ def phase_walk_frames(dev, state):
 # takes the thread-per-ray kernel (the parent design) for the smallest trees
 # and the rays-per-thread kernel (the redesign) for the rest, and builds
 # that take one of the two for every call.  The per-ray walk
-# (csrc/bvh_walk.cu): the package's build is the redesign, and
-# -DMCPT_BVH_WALK_V1 builds the parent design.
+# (csrc/bvh_walk.cu): the package's build is the redesign on every tree (no
+# crossover: PERF.md, PR 9), and -DMCPT_BVH_WALK_V1 builds the parent
+# design.
 WALK_DESIGNS = {
     "bvh": (("package", (), False),
             ("parent", ("-DMCPT_PACKET_WALK_V1",), True),

@@ -58,8 +58,8 @@ class BVHArrays:
     @functools.cached_property
     def boxes(self):
         """(2*Lc, 8) f32, one 32-byte row per node: min xyz, max xyz, 0, 0.
-        The walk kernels' layout (a node's box in one or two loads), made
-        once per BVHArrays on first use."""
+        The packet walk kernel's layout (a node's box in two 16-byte
+        copies), made once per BVHArrays on first use."""
         pad = self.node_min.new_zeros((self.node_min.shape[0], 2))
         return torch.cat([self.node_min, self.node_max, pad], dim=1).contiguous()
 
@@ -286,12 +286,12 @@ def bvh_walk_stats_summary(stats) -> dict:
     rays' steps over 32 times the warp iterations they took part in (each
     iteration counted once, by its lanes' shares); the share of those warp
     iterations in which one lane alone walked, and the share of steps at
-    the top 11 levels; clock
-    cycles per step and their split (node load, slab test and choice, leaf
-    load, leaf test, the rest); and per call the span of the launch (first
-    start to last end, ns) beside its blocks' own times: the mean block,
-    the slowest block, and the times at which half, 90% and all of the
-    blocks had ended (from the first start), averaged over the calls."""
+    the top 11 levels; clock cycles per step and their split (node load,
+    slab test and choice, leaf load, leaf test, the rest); and per call the
+    span of the launch (first start to last end, ns) beside its blocks' own
+    times: the mean block, the slowest block, and the times at which half,
+    90% and all of the blocks had ended (from the first start), averaged
+    over the calls."""
     col = {n: j for j, n in enumerate(BVH_WALK_STATS)}
     summed = ("steps", "leaf_tests", "cycles", "cycles_node", "cycles_slab",
               "cycles_leaf_load", "cycles_leaf_test", "lone_steps", "top_steps",

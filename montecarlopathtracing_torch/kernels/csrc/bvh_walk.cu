@@ -21,28 +21,32 @@
 // for the slab test and 87 (compat) or 56 (MT) for a triangle test.  The
 // inputs read once (rays, nodes, triangles) are ~17 MB at 100k triangles,
 // and moving them outlasts the tests the rays' visits need, so the bound is
-// the bytes.  What keeps the kernel far above it (PERF.md): the launch ends
-// with its longest walk (~1,000 steps against a mean of 43 at 100k), each
-// step a node load that depends on the step before, mostly from L2; and
-// while the card is full, the issue slots that warps spend on lanes whose
-// walk has ended (SIMT efficiency 0.3).  Every ray is resident from the
-// start (one wave of 128-thread blocks), so the longest walks start first.
-// The design cuts the instructions and bytes of a step:
+// the bytes.  What keeps the kernel far above it (PERF.md, PR 9): a launch
+// ends with its longest walks (up to ~1,000 steps against a mean of 43 at
+// 100k), each step a node load that depends on the step before, mostly
+// from L2 below the top levels.  Every ray is resident from the start (one
+// wave of blocks), so the longest walks start first; what shortens them is
+// a cheaper step:
 //   * a node is one 24-byte record (BVHArrays.node_records), three 8-byte
-//     loads; a triangle one 48-byte record (SceneArrays.tri_records: v0,
-//     v1, v2, geom_n, NaN in every slot that is not valid, so the test
-//     itself rejects it), three 16-byte loads, made only at a leaf whose
-//     box passes, after the next node's load has gone out;
+//     loads, and the next node's load goes out before a leaf's test; a
+//     triangle is one 48-byte record (SceneArrays.tri_records: v0, v1, v2,
+//     geom_n, NaN in every slot that is not valid, so the test itself
+//     rejects it), three 16-byte loads, made only at a leaf whose box
+//     passes;
 //   * a warp whose rays all have a finite origin and 1 / d, on a tree
-//     without NaN, takes the slab test with fmaxf / fminf;
-//   * a launch whose max_steps cannot end a walk (a walk visits each of the
-//     2 lc - 1 nodes at most once) counts no steps; advance(k) as the odd
-//     part of k + 1.
+//     without NaN, takes the slab test with fmaxf / fminf, and with its
+//     near planes fixed at compile time when its rays share a direction
+//     octant (eight loops);
+//   * a launch whose max_steps cannot end a walk counts no steps, and
+//     advance(k) is the odd part of k + 1.
 // Tried and measured slower (PERF.md): both candidate boxes (and a leaf
-// candidate's triangle) loaded a step ahead, prefetch.global.L1 of the
-// nodes two or three steps on, 32-byte node records, persistent blocks that
-// fetch rays.  -DMCPT_BVH_WALK_V1 builds the parent design instead (one
-// thread per ray, the node read by six scalar loads at the head of each
+// candidate's triangle) loaded a step ahead, in every warp or in warps of
+// few live lanes; prefetch.global.L1 of the nodes two or three steps on;
+// 32-byte node records; the top 11 levels in shared memory; persistent
+// blocks that fetch rays; rounds after which a block moves its live rays to
+// its first warps (SIMT efficiency 0.3 -> 0.6, the launch longer).
+// -DMCPT_BVH_WALK_V1 builds the parent design instead (one thread per ray,
+// 128-thread blocks, the node read by six scalar loads at the head of each
 // step, the NaN-propagating slab test, a step counter), so that both can be
 // timed on one card; -DMCPT_WALK_STATS builds a measurement version that
 // writes kRayStats counters per ray (see mcpt_bvh_walk).
@@ -53,7 +57,11 @@ namespace {
 
 using namespace mcpt_walk;
 
+#ifdef MCPT_BVH_WALK_V1
 constexpr int kThreads = 128;
+#else
+constexpr int kThreads = 256;
+#endif
 constexpr int kNodeFloats = 6;  // min xyz, max xyz
 constexpr int kTriFloats = 12;  // v0, v1, v2, geom_n
 
@@ -194,32 +202,6 @@ __device__ __forceinline__ Box load_box(const float* __restrict__ nodes, int k) 
   return Box{__ldg(p), __ldg(p + 1), __ldg(p + 2)};
 }
 
-// Measurement knobs (experiments; PERF.md).
-#ifndef MCPT_BVH_THREADS
-#define MCPT_BVH_THREADS 128  // threads a block
-#endif
-#ifndef MCPT_BVH_SMEM_TOP
-#define MCPT_BVH_SMEM_TOP 0  // 1: the top 11 levels' nodes in shared memory
-#endif
-#ifndef MCPT_BVH_LONE_PF
-#define MCPT_BVH_LONE_PF 0  // n: both candidate boxes a step ahead in warps of <= n live lanes
-#endif
-constexpr int kBlock = MCPT_BVH_THREADS;
-
-// The node record of key k: from shared memory (s_top) below kTopNodes when
-// MCPT_BVH_SMEM_TOP, else through the read-only cache.
-__device__ __forceinline__ Box load_node(const float* __restrict__ nodes,
-                                         const float2* s_top, int k) {
-#if MCPT_BVH_SMEM_TOP
-  const float2* p = k < kTopNodes
-                        ? s_top + 3 * k
-                        : reinterpret_cast<const float2*>(nodes) + 3 * (long)k;
-  return Box{p[0], p[1], p[2]};
-#else
-  return load_box(nodes, k);
-#endif
-}
-
 // walk_common.cuh's advance(k) in fewer instructions: k + 1 has as many
 // trailing zeros as k has trailing ones, so (k >> t) + 1 = (k + 1) >> t is
 // the odd part of k + 1, and that is 1 exactly when k >> t is 0.
@@ -229,50 +211,18 @@ __device__ __forceinline__ int advance_odd(int k) {
   return a == 1 ? 0 : a;
 }
 
-// ray_aabb with t_max for a ray whose origin and 1 / d are finite, on boxes
-// without NaN: no slab value is NaN, so fmaxf / fminf (one instruction each)
-// give the NaN-propagating test's hit (they may differ from it only in the
-// sign of a zero, which no comparison sees).
-__device__ __forceinline__ bool slab_hit_finite(V3 o, V3 inv, V3 bmin, V3 bmax,
-                                                float t_max) {
-  const bool nx = inv.x < 0.0f, ny = inv.y < 0.0f, nz = inv.z < 0.0f;
-  const float tnx = ((nx ? bmax.x : bmin.x) - o.x) * inv.x;
-  const float tny = ((ny ? bmax.y : bmin.y) - o.y) * inv.y;
-  const float tnz = ((nz ? bmax.z : bmin.z) - o.z) * inv.z;
-  const float tfx = ((nx ? bmin.x : bmax.x) - o.x) * inv.x;
-  const float tfy = ((ny ? bmin.y : bmax.y) - o.y) * inv.y;
-  const float tfz = ((nz ? bmin.z : bmax.z) - o.z) * inv.z;
-  const float enter = fmaxf(fmaxf(tnx, tny), tnz);
-  const float exit_ = fminf(fminf(tfx, tfy), tfz);
-  return (enter <= exit_) && (exit_ >= 0.0f) && (enter <= t_max);
-}
-
-// One ray's walk from the root.  FAST: the fmaxf slab test (see
-// slab_hit_finite); CAPPED: max_steps may end the walk (a walk visits each
-// node at most once, so a cap of 2 lc steps or more never does).
-struct RayState {
-  V3 o, d, inv;
-  float best_t;
-  int best_tri, k, steps, i;
-  bool fin;
-#ifdef MCPT_WALK_STATS
-  long long ws[kRayStats];  // [2]: the clock at its start; [9]: the ns
-#endif
-};
-
-#ifndef MCPT_BVH_OCTANT
-#define MCPT_BVH_OCTANT 0  // 1: warps whose rays share a direction octant take its own loop
-#endif
-#ifndef MCPT_BVH_CARVEOUT
-#define MCPT_BVH_CARVEOUT 0  // 1: ask for the largest L1 (no shared memory carve-out)
-#endif
-
-// slab_hit_finite with the signs of 1 / d fixed: bit 0, 1, 2 of OCT set
-// where inv.x, .y, .z < 0 (the caller's rays all have them).
+// ray_aabb with t_max.  OCT < 0: walk_common.cuh's NaN-propagating test.
+// OCT >= 0, for a ray whose origin and 1 / d are finite, on boxes without
+// NaN, where no slab value can be NaN: fmaxf / fminf (one instruction each)
+// give the same hit (they may differ only in the sign of a zero, which no
+// comparison sees); OCT 8 takes the near plane by the signs of 1 / d, OCT
+// 0-7 has them fixed (bit 0, 1, 2 set where inv.x, .y, .z < 0).
 template <int OCT>
-__device__ __forceinline__ bool slab_hit_octant(V3 o, V3 inv, V3 bmin, V3 bmax,
-                                                float t_max) {
-  constexpr bool nx = OCT & 1, ny = OCT & 2, nz = OCT & 4;
+__device__ __forceinline__ bool slab(V3 o, V3 inv, V3 bmin, V3 bmax, float t_max) {
+  if (OCT < 0) return slab_hit(o, inv, bmin, bmax, t_max);
+  const bool nx = OCT == 8 ? inv.x < 0.0f : (OCT & 1) != 0;
+  const bool ny = OCT == 8 ? inv.y < 0.0f : (OCT & 2) != 0;
+  const bool nz = OCT == 8 ? inv.z < 0.0f : (OCT & 4) != 0;
   const float tnx = ((nx ? bmax.x : bmin.x) - o.x) * inv.x;
   const float tny = ((ny ? bmax.y : bmin.y) - o.y) * inv.y;
   const float tnz = ((nz ? bmax.z : bmin.z) - o.z) * inv.z;
@@ -284,46 +234,25 @@ __device__ __forceinline__ bool slab_hit_octant(V3 o, V3 inv, V3 bmin, V3 bmax,
   return (enter <= exit_) && (exit_ >= 0.0f) && (enter <= t_max);
 }
 
-// The slab test of a MODE: 0 NaN-propagating, 1 fmaxf, 2 + o fmaxf in octant o.
-template <int MODE>
-__device__ __forceinline__ bool slab_mode(V3 o, V3 inv, V3 bmin, V3 bmax, float t_max) {
-  if (MODE == 0) return slab_hit(o, inv, bmin, bmax, t_max);
-  if (MODE == 1) return slab_hit_finite(o, inv, bmin, bmax, t_max);
-  return slab_hit_octant<(MODE >= 2 ? MODE - 2 : 0)>(o, inv, bmin, bmax, t_max);
-}
-
-// One step of a ray; false once its walk has ended.
-template <bool MT, int FAST, bool CAPPED>
-__device__ __forceinline__ bool walk_step(RayState& ry, Box& box,
-                                          const float* __restrict__ nodes, int lc,
-                                          const float* __restrict__ tris,
-                                          int max_steps, const float2* s_top,
-                                          long long* ws, unsigned& ws_dep) {
-  const V3 o = ry.o, d = ry.d, inv = ry.inv;
-  float& best_t = ry.best_t;
-  int& best_tri = ry.best_tri;
-  const int k = ry.k;
-  {
+// One ray's walk from the root with the slab test slab<OCT>.  CAPPED:
+// max_steps may end the walk (a walk visits each node at most once, so a
+// cap of 2 lc steps or more never does).
+template <bool MT, int OCT, bool CAPPED>
+__device__ __forceinline__ void walk(V3 o, V3 d, V3 inv,
+                                     const float* __restrict__ nodes, int lc,
+                                     const float* __restrict__ tris, int max_steps,
+                                     float& best_t, int& best_tri, long long* ws,
+                                     unsigned& ws_dep) {
+  int k = 1, steps = 0;
+  Box box = load_box(nodes, 1);
+  do {
     WS_CLOCK(c0);
-    const bool is_leaf = k >= lc;
-#if MCPT_BVH_LONE_PF
-    const bool lone = __popc(__activemask()) <= MCPT_BVH_LONE_PF;
-    const int k_down = is_leaf ? 0 : 2 * k, k_adv = advance_odd(k);
-    Box down{}, next{};
-    if (lone) {
-      if (k_down > 0) down = load_node(nodes, s_top, k_down);
-      if (k_adv > 0) next = load_node(nodes, s_top, k_adv);
-    }
-#endif
     const V3 bmin{box.a.x, box.a.y, box.b.x}, bmax{box.b.y, box.c.x, box.c.y};
     WS_AFTER(WS_BITS3(bmin) ^ WS_BITS3(bmax));
     WS_CLOCK(c1);
-    const bool hit_box = slab_mode<FAST>(o, inv, bmin, bmax, best_t);
-#if MCPT_BVH_LONE_PF
-    const int k_next = (hit_box && !is_leaf) ? k_down : k_adv;
-#else
+    const bool hit_box = slab<OCT>(o, inv, bmin, bmax, best_t);
+    const bool is_leaf = k >= lc;
     const int k_next = (hit_box && !is_leaf) ? 2 * k : advance_odd(k);
-#endif
     WS_AFTER(k_next);
     WS_CLOCK(c2);
     WS_ADD(0, 1);
@@ -335,12 +264,7 @@ __device__ __forceinline__ bool walk_step(RayState& ry, Box& box,
     WS_ADD(13, kShareOne / __popc(__activemask()));
 #endif
     // The next node's load goes out before the leaf's test.
-#if MCPT_BVH_LONE_PF
-    if (lone)
-      box = (hit_box && !is_leaf) ? down : next;
-    else
-#endif
-    if (k_next > 0) box = load_node(nodes, s_top, k_next);
+    if (k_next > 0) box = load_box(nodes, k_next);
     if (hit_box && is_leaf) {
       const float4* p = reinterpret_cast<const float4*>(tris + kTriFloats * (long)(k - lc));
       const float4 ta = __ldg(p), tb = __ldg(p + 1), tc = __ldg(p + 2);
@@ -361,155 +285,19 @@ __device__ __forceinline__ bool walk_step(RayState& ry, Box& box,
       WS_ADD(5, c3 - c2);
       WS_ADD(6, c4 - c3);
     }
-    ry.k = k_next;
-  }
-  return ry.k > 0 && (!CAPPED || ++ry.steps < max_steps);
+    k = k_next;
+  } while (k > 0 && (!CAPPED || ++steps < max_steps));
 }
 
-template <bool MT, int FAST, bool CAPPED>
-__device__ __forceinline__ void walk(V3 o, V3 d, V3 inv,
-                                     const float* __restrict__ nodes, int lc,
-                                     const float* __restrict__ tris, int max_steps,
-                                     float& best_t, int& best_tri, long long* ws,
-                                     unsigned& ws_dep, const float2* s_top) {
-  RayState ry{o, d, inv, best_t, best_tri, 1, 0, 0, false};
-  Box box = load_node(nodes, s_top, 1);
-  while (walk_step<MT, FAST, CAPPED>(ry, box, nodes, lc, tris, max_steps, s_top,
-                                     ws, ws_dep)) {
-  }
-  best_t = ry.best_t;
-  best_tri = ry.best_tri;
-}
-
-#ifndef MCPT_BVH_ROUND
-#define MCPT_BVH_ROUND 0  // steps a round between compactions of a block's rays
-#endif
-
-#if MCPT_BVH_ROUND
-// Rounds of MCPT_BVH_ROUND steps; after each, a block whose live rays fit in
-// fewer warps than hold them moves them to its first threads, so that
-// warps step full and the emptied ones sit out.
-template <bool MT, bool CAPPED>
-__global__ void __launch_bounds__(kBlock)
-bvh_walk_kernel(const float* __restrict__ origin,
-                const float* __restrict__ direction, int r,
-                const float* __restrict__ nodes, int lc,
-                const float* __restrict__ tris, int max_steps, int finite_nodes,
-                float* __restrict__ out_t, int* __restrict__ out_tri,
-                long long* __restrict__ stats) {
-  constexpr int kWarps = kBlock / 32;
-  __shared__ RayState s_rays[kBlock];
-  __shared__ int s_warp_live[2][kWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  unsigned ws_dep = 0;
-  RayState ry;
-  bool live = false;
-  {
-    const int i = blockIdx.x * kBlock + threadIdx.x;
-    if (i < r) {
-      ry.o = load3(origin, i);
-      ry.d = load3(direction, i);
-      ry.inv = V3{1.0f / ry.d.x, 1.0f / ry.d.y, 1.0f / ry.d.z};
-      ry.best_t = kBig;
-      ry.best_tri = -1;
-      ry.k = 1;
-      ry.steps = 0;
-      ry.i = i;
-      ry.fin = isfinite(ry.o.x) && isfinite(ry.o.y) && isfinite(ry.o.z) &&
-               isfinite(ry.inv.x) && isfinite(ry.inv.y) && isfinite(ry.inv.z);
-#ifdef MCPT_WALK_STATS
-      for (int q = 0; q < kRayStats; ++q) ry.ws[q] = 0;
-      ry.ws[2] = clock64();
-      ry.ws[9] = global_ns();
-#endif
-      live = max_steps > 0;
-      if (!live) {
-        out_t[i] = kBig;
-        out_tri[i] = -1;
-      }
-    }
-  }
-  Box box{};
-  if (live) box = load_box(nodes, 1);
-  for (int round = 0;; ++round) {
-    if (__any_sync(~0u, live)) {
-      const bool fast = finite_nodes && __all_sync(~0u, !live || ry.fin);
-      if (live) {
-#ifdef MCPT_WALK_STATS
-        long long* ws = ry.ws;
-#else
-        long long* ws = nullptr;
-#endif
-        bool more = true;
-        if (fast) {
-          for (int n = 0; more && n < MCPT_BVH_ROUND; ++n)
-            more = walk_step<MT, 1, CAPPED>(ry, box, nodes, lc, tris, max_steps,
-                                               nullptr, ws, ws_dep);
-        } else {
-          for (int n = 0; more && n < MCPT_BVH_ROUND; ++n)
-            more = walk_step<MT, 0, CAPPED>(ry, box, nodes, lc, tris, max_steps,
-                                                nullptr, ws, ws_dep);
-        }
-        if (!more) {
-          out_t[ry.i] = ry.best_tri >= 0 ? ry.best_t : kBig;
-          out_tri[ry.i] = ry.best_tri;
-          live = false;
-#ifdef MCPT_WALK_STATS
-          if (stats != nullptr) {
-            ry.ws[2] = clock64() - ry.ws[2] + (ws_dep == 0x9e3779b9u ? 1 : 0);
-            ry.ws[7] = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-            ry.ws[8] = blockIdx.x;
-            ry.ws[10] = global_ns();
-            for (int q = 0; q < kRayStats; ++q) stats[(long)ry.i * kRayStats + q] = ry.ws[q];
-          }
-#endif
-        }
-      }
-    }
-    const unsigned b = __ballot_sync(~0u, live);
-    int* counts = s_warp_live[round & 1];
-    if (lane == 0) counts[warp] = __popc(b);
-    const int n_live = __syncthreads_count(live);
-    if (n_live == 0) break;
-    int busy = 0, before = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      const int c = counts[w];
-      busy += c > 0;
-      before += w < warp ? c : 0;
-    }
-    if ((n_live + 31) / 32 < busy) {
-      if (live) s_rays[before + __popc(b & ((1u << lane) - 1))] = ry;
-      __syncthreads();
-      live = (int)threadIdx.x < n_live;
-      if (live) {
-        ry = s_rays[threadIdx.x];
-        box = load_box(nodes, ry.k);
-      }
-    }
-  }
-}
-
-#else
 // The redesign (see the note at the top).
 template <bool MT, bool CAPPED>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kThreads)
 bvh_walk_kernel(const float* __restrict__ origin,
                 const float* __restrict__ direction, int r,
                 const float* __restrict__ nodes, int lc,
                 const float* __restrict__ tris, int max_steps, int finite_nodes,
                 float* __restrict__ out_t, int* __restrict__ out_tri,
                 long long* __restrict__ stats) {
-#if MCPT_BVH_SMEM_TOP
-  extern __shared__ float2 s_top[];
-  {
-    const int n = 3 * min(kTopNodes, 2 * lc);
-    const float2* src = reinterpret_cast<const float2*>(nodes);
-    for (int q = threadIdx.x; q < n; q += blockDim.x) s_top[q] = src[q];
-    __syncthreads();
-  }
-#else
-  const float2* s_top = nullptr;
-#endif
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= r) return;
   WS_BEGIN;
@@ -521,33 +309,31 @@ bvh_walk_kernel(const float* __restrict__ origin,
   const V3 inv{1.0f / d.x, 1.0f / d.y, 1.0f / d.z};
   const bool fin = isfinite(o.x) && isfinite(o.y) && isfinite(o.z) &&
                    isfinite(inv.x) && isfinite(inv.y) && isfinite(inv.z);
+  const int oct = (inv.x < 0.0f) | (inv.y < 0.0f) << 1 | (inv.z < 0.0f) << 2;
   float best_t = kBig;
   int best_tri = -1;
   if (max_steps > 0) {
-    // The whole warp takes one of the two loops.
+    // The whole warp takes one loop: its octant's when its rays are finite
+    // and share one, else the fmaxf test with the signs read, else (a ray
+    // or the tree that can make a NaN) the NaN-propagating test.
     const unsigned m = __activemask();
-#define MCPT_WALK_AS(MODE) \
-  walk<MT, MODE, CAPPED>(o, d, inv, nodes, lc, tris, max_steps, best_t, best_tri, ws, ws_dep, s_top)
-    if (finite_nodes && __all_sync(m, fin)) {
-#if MCPT_BVH_OCTANT
-      const int oct = (inv.x < 0.0f) | (inv.y < 0.0f) << 1 | (inv.z < 0.0f) << 2;
-      const int oct0 = __shfl_sync(m, oct, __ffs(m) - 1);
-      if (__all_sync(m, oct == oct0)) {
-        switch (oct0) {
-          case 0: MCPT_WALK_AS(2); break;
-          case 1: MCPT_WALK_AS(3); break;
-          case 2: MCPT_WALK_AS(4); break;
-          case 3: MCPT_WALK_AS(5); break;
-          case 4: MCPT_WALK_AS(6); break;
-          case 5: MCPT_WALK_AS(7); break;
-          case 6: MCPT_WALK_AS(8); break;
-          default: MCPT_WALK_AS(9); break;
-        }
-      } else
-#endif
-        MCPT_WALK_AS(1);
-    } else {
-      MCPT_WALK_AS(0);
+    const int oct0 = __shfl_sync(m, oct, __ffs(m) - 1);
+    const int mode = !(finite_nodes && __all_sync(m, fin)) ? -1
+                     : __all_sync(m, oct == oct0) ? oct0 : 8;
+#define MCPT_WALK_AS(OCT)                                                    \
+  walk<MT, OCT, CAPPED>(o, d, inv, nodes, lc, tris, max_steps, best_t, best_tri, \
+                        ws, ws_dep)
+    switch (mode) {
+      case 0: MCPT_WALK_AS(0); break;
+      case 1: MCPT_WALK_AS(1); break;
+      case 2: MCPT_WALK_AS(2); break;
+      case 3: MCPT_WALK_AS(3); break;
+      case 4: MCPT_WALK_AS(4); break;
+      case 5: MCPT_WALK_AS(5); break;
+      case 6: MCPT_WALK_AS(6); break;
+      case 7: MCPT_WALK_AS(7); break;
+      case 8: MCPT_WALK_AS(8); break;
+      default: MCPT_WALK_AS(-1); break;
     }
 #undef MCPT_WALK_AS
   }
@@ -555,7 +341,6 @@ bvh_walk_kernel(const float* __restrict__ origin,
   out_tri[i] = best_tri;
   WS_END(i);
 }
-#endif  // MCPT_BVH_ROUND
 
 #endif
 
@@ -574,23 +359,13 @@ extern "C" int mcpt_bvh_walk(const float* origin, const float* direction,
                              int finite_nodes, float* out_t, int* out_tri,
                              long long* stats, void* stream) {
   if (r <= 0) return (int)cudaGetLastError();
-#ifdef MCPT_BVH_WALK_V1
-  const int block = kThreads;
-  const size_t smem = 0;
-#else
-  const int block = kBlock;
-  const size_t smem = MCPT_BVH_SMEM_TOP ? 3 * sizeof(float2) * kTopNodes : 0;
-#endif
-  const int blocks = (r + block - 1) / block;
+  const int blocks = (r + kThreads - 1) / kThreads;
   cudaStream_t s = (cudaStream_t)stream;
   // A walk visits each of the 2 lc - 1 nodes at most once.
   const bool capped = max_steps < 2 * lc;
   auto kernel = mt ? (capped ? bvh_walk_kernel<true, true> : bvh_walk_kernel<true, false>)
                    : (capped ? bvh_walk_kernel<false, true> : bvh_walk_kernel<false, false>);
-#if MCPT_BVH_CARVEOUT && !defined(MCPT_BVH_WALK_V1)
-  cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 0);
-#endif
-  kernel<<<blocks, block, smem, s>>>(origin, direction, r, nodes, lc, tris,
+  kernel<<<blocks, kThreads, 0, s>>>(origin, direction, r, nodes, lc, tris,
                                      max_steps, finite_nodes, out_t, out_tri,
                                      stats);
   return (int)cudaGetLastError();

@@ -202,20 +202,6 @@ __device__ __forceinline__ Box load_box(const float* __restrict__ nodes, int k) 
   return Box{__ldg(p), __ldg(p + 1), __ldg(p + 2)};
 }
 
-#ifndef MCPT_BVH_PAIRS
-#define MCPT_BVH_PAIRS 0  // 1: a descent loads both children, a move to the right sibling none
-#endif
-
-// The boxes of siblings k and k + 1 (k even): 48 bytes at 48 (k / 2),
-// three 16-byte loads.
-__device__ __forceinline__ void load_pair(const float* __restrict__ nodes, int k,
-                                          Box& left, Box& right) {
-  const float4* p = reinterpret_cast<const float4*>(nodes + kNodeFloats * (long)k);
-  const float4 a = __ldg(p), b = __ldg(p + 1), c = __ldg(p + 2);
-  left = Box{make_float2(a.x, a.y), make_float2(a.z, a.w), make_float2(b.x, b.y)};
-  right = Box{make_float2(b.z, b.w), make_float2(c.x, c.y), make_float2(c.z, c.w)};
-}
-
 // walk_common.cuh's advance(k) in fewer instructions: k + 1 has as many
 // trailing zeros as k has trailing ones, so (k >> t) + 1 = (k + 1) >> t is
 // the odd part of k + 1, and that is 1 exactly when k >> t is 0.
@@ -259,9 +245,6 @@ __device__ __forceinline__ void walk(V3 o, V3 d, V3 inv,
                                      unsigned& ws_dep) {
   int k = 1, steps = 0;
   Box box = load_box(nodes, 1);
-#if MCPT_BVH_PAIRS
-  Box sib{};  // box(k + 1) while k is even: every even key is reached by a descent
-#endif
   do {
     WS_CLOCK(c0);
     const V3 bmin{box.a.x, box.a.y, box.b.x}, bmax{box.b.y, box.c.x, box.c.y};
@@ -281,16 +264,7 @@ __device__ __forceinline__ void walk(V3 o, V3 d, V3 inv,
     WS_ADD(13, kShareOne / __popc(__activemask()));
 #endif
     // The next node's load goes out before the leaf's test.
-#if MCPT_BVH_PAIRS
-    if (hit_box && !is_leaf)
-      load_pair(nodes, k_next, box, sib);
-    else if ((k & 1) == 0)
-      box = sib;  // advance(k) = k + 1
-    else if (k_next > 0)
-      box = load_box(nodes, k_next);
-#else
     if (k_next > 0) box = load_box(nodes, k_next);
-#endif
     if (hit_box && is_leaf) {
       const float4* p = reinterpret_cast<const float4*>(tris + kTriFloats * (long)(k - lc));
       const float4 ta = __ldg(p), tb = __ldg(p + 1), tc = __ldg(p + 2);

@@ -1575,18 +1575,31 @@ def walk_frame_stats(calls, kind: str, label: str):
     return agg
 
 
-def doubled_scene(scene):
-    """The walk's view of ``scene`` with every triangle slot repeated after
-    the first copy: each hit ties at equal t with its copy in a later fat
-    leaf, and the first in preorder (the lower id) must win."""
-    import types
+# SceneArrays' fields with one row per triangle slot.
+TRI_FIELDS = ("v0", "v1", "v2", "n0", "n1", "n2", "uv0", "uv1", "uv2", "geom_n",
+              "mat_id", "tri_valid")
 
-    cat = lambda t: torch.cat([t, t]).contiguous()
-    return types.SimpleNamespace(
-        v0=cat(scene.v0), v1=cat(scene.v1), v2=cat(scene.v2),
-        geom_n=cat(scene.geom_n), tri_valid=cat(scene.tri_valid),
-        tri_records=cat(scene.tri_records),
-        num_tris_padded=2 * scene.num_tris_padded)
+
+def doubled_scene(scene):
+    """``scene`` with every triangle slot repeated after the first copy
+    (its records made anew by SceneArrays.tri_records): each hit ties at
+    equal t with its copy in a later fat leaf, and the first in preorder
+    (the lower id) must win."""
+    import dataclasses
+
+    return dataclasses.replace(scene, **{
+        f: torch.cat([getattr(scene, f)] * 2).contiguous() for f in TRI_FIELDS})
+
+
+def nan_vertex_scene(scene):
+    """``scene`` with one valid triangle's vertex NaN (its records made
+    anew by SceneArrays.tri_records): NaN boxes from that leaf to the root,
+    so a walk kernel must take its NaN-propagating slab test throughout."""
+    import dataclasses
+
+    v0 = scene.v0.clone()
+    v0[int(torch.nonzero(scene.tri_valid)[3, 0]), 1] = float("nan")
+    return dataclasses.replace(scene, v0=v0)
 
 
 def far_apart_pairs(bvh, scene, rng, n_pairs: int = 16, depth: int = 6):
@@ -1649,7 +1662,10 @@ def packet_adversarial(dev, box, large, rng, build: str):
     ld = rng.normal(size=(n, 3)).astype(np.float32)
     ld /= np.linalg.norm(ld, axis=1, keepdims=True)
     dbl = doubled_scene(box)
-    bvh_box, bvh_dbl, bvh_large = (L.build_lbvh(sc) for sc in (box, dbl, large))
+    nan_box = nan_vertex_scene(box)
+    bvh_box, bvh_dbl, bvh_large, bvh_nan = (
+        L.build_lbvh(sc) for sc in (box, dbl, large, nan_box))
+    check(not bvh_nan.finite, "packet adversarial: the NaN box's tree is finite")
     pair_o, pair_d = far_apart_pairs(bvh_large, large, rng)
     check(len(pair_o) >= 8, f"packet adversarial: only {len(pair_o) // 2} "
                             "far-apart pairs found")
@@ -1665,6 +1681,8 @@ def packet_adversarial(dev, box, large, rng, build: str):
                                                        "leaf_width": 6}),
              ("box_lw3", bvh_box, box, ro, rd, {"packet_size": 100,
                                                "leaf_width": 3}),
+             ("nan_tree", bvh_nan, nan_box, ro, rd, {"packet_size": 128,
+                                                     "leaf_width": 1}),
              ("far_apart_pairs", bvh_large, large, pair_o, pair_d, {"packet_size": 2})]
     for steps in (1, 7, 50):
         cases.append((f"max_steps_{steps}", bvh_large, large, co, cd,
@@ -1704,8 +1722,6 @@ def perray_adversarial(dev, box, large, rng, build: str):
     floor's diagonal, whose two triangles sit in two leaves, and the box with
     every triangle doubled: the first copy in preorder must win); a small
     explicit max_steps; and a tree with NaN boxes (one NaN vertex)."""
-    import types
-
     from montecarlopathtracing_torch.accel import lbvh as L
 
     t = rng.uniform(1.65, 1.95, (64, 1)).astype(np.float32)
@@ -1720,19 +1736,10 @@ def perray_adversarial(dev, box, large, rng, build: str):
     ld = rng.normal(size=(n, 3)).astype(np.float32)
     ld /= np.linalg.norm(ld, axis=1, keepdims=True)
     dbl = doubled_scene(box)
-    # The box with one vertex NaN: NaN boxes from its leaf to the root, so
-    # the kernel must take its NaN-propagating slab test throughout.
-    nan_box = types.SimpleNamespace(**{f: getattr(box, f) for f in (
-        "v1", "v2", "geom_n", "tri_valid", "num_tris_padded")})
-    nan_box.v0 = box.v0.clone()
-    nan_box.v0[int(torch.nonzero(box.tri_valid)[3, 0]), 1] = float("nan")
-    nan_box.tri_records = torch.where(
-        box.tri_valid[:, None],
-        torch.cat([nan_box.v0, box.v1, box.v2, box.geom_n], dim=1),
-        float("nan")).contiguous()
+    nan_box = nan_vertex_scene(box)
     bvh_box, bvh_dbl, bvh_large, bvh_nan = (
         L.build_lbvh(sc) for sc in (box, dbl, large, nan_box))
-    check(not bvh_nan.nan_free, "perray adversarial: the NaN box's tree has no NaN")
+    check(not bvh_nan.finite, "perray adversarial: the NaN box's tree is finite")
     co, cd = camera_and_shadow_rays(
         large, min(8192, large.camera.width * large.camera.height), seed=44)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count

@@ -56,26 +56,18 @@ class BVHArrays:
         return self.node_min.shape[0] // 2
 
     @functools.cached_property
-    def boxes(self):
-        """(2*Lc, 8) f32, one 32-byte row per node: min xyz, max xyz, 0, 0.
-        The packet walk kernel's layout (a node's box in two 16-byte
-        copies), made once per BVHArrays on first use."""
-        pad = self.node_min.new_zeros((self.node_min.shape[0], 2))
-        return torch.cat([self.node_min, self.node_max, pad], dim=1).contiguous()
-
-    @functools.cached_property
     def node_records(self):
         """(2*Lc, 6) f32, one 24-byte row per node: min xyz, max xyz.  The
-        per-ray walk kernel's layout (a node's box in three 8-byte loads),
-        made once per BVHArrays on first use."""
+        walk kernels' layout (a node's box in three 8-byte loads), made once
+        per BVHArrays on first use."""
         return torch.cat([self.node_min, self.node_max], dim=1).contiguous()
 
     @functools.cached_property
-    def nan_free(self) -> bool:
-        """No node box holds a NaN (a NaN vertex would put one there): then
-        the per-ray walk kernel may take its fmaxf slab test.  Read back
-        once per BVHArrays."""
-        return not bool(torch.isnan(self.node_records).any())
+    def finite(self) -> bool:
+        """Every node box value is finite (a NaN or infinite vertex would
+        put one there): then the walk kernels may take their fmaxf slab
+        test.  Read back once per BVHArrays."""
+        return bool(torch.isfinite(self.node_records).all())
 
     def to(self, device) -> "BVHArrays":
         return BVHArrays(node_min=self.node_min.to(device),
@@ -243,17 +235,9 @@ def bvh_intersect(bvh: BVHArrays, scene, origin, direction, compat: bool = True,
         max_steps = 4 * lc + 64
     origin = origin.detach().contiguous()
     direction = direction.detach().contiguous()
-    _check_tables(bvh, scene)
-    nodes, tris = bvh.node_records, scene.tri_records
-    if nodes.dtype != torch.float32 or tris.dtype != torch.float32:
-        raise TypeError("bvh_intersect: node_records and tri_records must be float32")
-    if tris.shape != (lc, 12):
-        raise ValueError(f"bvh_intersect: tri_records must be ({lc}, 12)")
+    nodes, tris = _walk_records("bvh_intersect", bvh, scene)
     dev = _check_cuda_inputs("bvh_intersect", origin=origin, direction=direction,
                              node_records=nodes, tri_records=tris)
-    if nodes.data_ptr() % 8 or tris.data_ptr() % 16:
-        raise ValueError("bvh_intersect: node_records and tri_records must be "
-                         "8- and 16-byte aligned")
     r = origin.shape[0]
     if stats is not None and (stats.dtype != torch.int64 or stats.device != dev
                               or not stats.is_contiguous()
@@ -267,7 +251,7 @@ def bvh_intersect(bvh: BVHArrays, scene, origin, direction, compat: bool = True,
     fn = load("bvh_walk")
     with torch.cuda.device(dev):
         err = fn(_ptr(origin), _ptr(direction), r, _ptr(nodes), lc, _ptr(tris),
-                 int(not compat), int(min(max_steps, 2**31 - 1)), int(bvh.nan_free),
+                 int(not compat), int(min(max_steps, 2**31 - 1)), int(bvh.finite),
                  _ptr(out_t), _ptr(out_tri), _ptr(stats), _stream(dev))
     if err != 0:
         raise RuntimeError(f"bvh_walk launch failed: CUDA error {err}")
@@ -357,17 +341,20 @@ def _check_tables(bvh: BVHArrays, scene):
                          f"{scene.num_tris_padded} padded triangles)")
 
 
-def _walk_tensors(bvh: BVHArrays, scene):
-    """The node and triangle tables the packet walk kernel reads, checked."""
-    tensors = dict(node_min=bvh.node_min, node_max=bvh.node_max, v0=scene.v0,
-                   v1=scene.v1, v2=scene.v2, geom_n=scene.geom_n,
-                   tri_valid=scene.tri_valid)
-    for name, t in tensors.items():
-        want = torch.bool if name == "tri_valid" else torch.float32
-        if t.dtype != want:
-            raise TypeError(f"walk: {name} must be {want}")
+def _walk_records(name: str, bvh: BVHArrays, scene):
+    """The node and triangle records the walk kernels read
+    (``bvh.node_records``, ``scene.tri_records``), checked."""
     _check_tables(bvh, scene)
-    return {name: t.contiguous() for name, t in tensors.items()}
+    nodes, tris = bvh.node_records, scene.tri_records
+    if nodes.dtype != torch.float32 or tris.dtype != torch.float32:
+        raise TypeError(f"{name}: node_records and tri_records must be float32")
+    lc = bvh.num_leaves
+    if tris.shape != (lc, 12):
+        raise ValueError(f"{name}: tri_records must be ({lc}, 12)")
+    if nodes.data_ptr() % 8 or tris.data_ptr() % 16:
+        raise ValueError(f"{name}: node_records and tri_records must be "
+                         "8- and 16-byte aligned")
+    return nodes, tris
 
 
 # --------------------------------------------------------------------------
@@ -513,13 +500,12 @@ def packet_intersect(bvh: BVHArrays, scene, origin, direction,
                          "the kernel's block size")
     if lw > 256:
         raise ValueError(f"packet_intersect: leaf_width {lw} > 256")
-    tensors = _walk_tensors(bvh, scene)
-    boxes = bvh.boxes
+    nodes, tris = _walk_records("packet_intersect", bvh, scene)
     o, d = _packets(origin.detach().contiguous(), direction.detach().contiguous(),
                     packet_size)
     o, d = o.contiguous(), d.contiguous()
     dev = _check_cuda_inputs("packet_intersect", origin=o, direction=d,
-                             boxes=boxes, **tensors)
+                             node_records=nodes, tri_records=tris)
     n_pk = o.shape[0]
     if stats is not None and (stats.dtype != torch.int64 or stats.device != dev
                               or not stats.is_contiguous()
@@ -532,11 +518,10 @@ def packet_intersect(bvh: BVHArrays, scene, origin, direction,
         return out_tri[:0] >= 0, out_t[:0], out_tri[:0]
     fn = load("packet_walk")
     with torch.cuda.device(dev):
-        err = fn(_ptr(o), _ptr(d), n_pk, packet_size, _ptr(boxes), lc, lw,
-                 _ptr(tensors["v0"]), _ptr(tensors["v1"]), _ptr(tensors["v2"]),
-                 _ptr(tensors["geom_n"]), _ptr(tensors["tri_valid"]), int(not compat),
-                 int(min(max_steps, 2**31 - 1)), _ptr(out_t), _ptr(out_tri),
-                 _ptr(stats), _stream(dev))
+        err = fn(_ptr(o), _ptr(d), n_pk, packet_size, _ptr(nodes), lc, lw,
+                 _ptr(tris), int(not compat), int(min(max_steps, 2**31 - 1)),
+                 int(bvh.finite), _ptr(out_t), _ptr(out_tri), _ptr(stats),
+                 _stream(dev))
     if err != 0:
         raise RuntimeError(f"packet_walk launch failed: CUDA error {err}")
     packet_intersect.launches += 1

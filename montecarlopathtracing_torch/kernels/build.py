@@ -66,8 +66,7 @@ _SIGNATURES = {
     "bvh_walk": ("bvh_walk", "mcpt_bvh_walk",
                  [_P, _P, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P]),
     "packet_walk": ("packet_walk", "mcpt_packet_walk",
-                    [_P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I,
-                     _P, _P, _P, _P]),
+                    [_P, _P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P]),
 }
 
 

@@ -62,8 +62,6 @@ constexpr int kThreads = 128;
 #else
 constexpr int kThreads = 256;
 #endif
-constexpr int kNodeFloats = 6;  // min xyz, max xyz
-constexpr int kTriFloats = 12;  // v0, v1, v2, geom_n
 
 // Counters per ray of a -DMCPT_WALK_STATS build (BVH_WALK_STATS of
 // accel/lbvh.py): [0] steps, [1] leaf steps with a triangle test, [2] clock
@@ -173,7 +171,7 @@ bvh_walk_kernel(const float* __restrict__ origin,
       WS_CLOCK(c3);
       float t;
       // An invalid slot's record is NaN: its t is NaN and the test fails.
-      const bool h = tri_test<MT>(o, d, p0, p1, p2, gn, t);
+      const bool h = tri_test<MT>(o, d, Tri{p0, p1, p2, gn}, t);
       if (h && t > 0.0f && t < best_t) {
         best_t = t;
         best_tri = tri;
@@ -193,15 +191,6 @@ bvh_walk_kernel(const float* __restrict__ origin,
 
 #else
 
-struct Box {
-  float2 a, b, c;  // min x y, min z max x, max y z
-};
-
-__device__ __forceinline__ Box load_box(const float* __restrict__ nodes, int k) {
-  const float2* p = reinterpret_cast<const float2*>(nodes + kNodeFloats * (long)k);
-  return Box{__ldg(p), __ldg(p + 1), __ldg(p + 2)};
-}
-
 // walk_common.cuh's advance(k) in fewer instructions: k + 1 has as many
 // trailing zeros as k has trailing ones, so (k >> t) + 1 = (k + 1) >> t is
 // the odd part of k + 1, and that is 1 exactly when k >> t is 0.
@@ -209,29 +198,6 @@ __device__ __forceinline__ int advance_odd(int k) {
   const int x = k + 1;
   const int a = x >> (__ffs(x) - 1);
   return a == 1 ? 0 : a;
-}
-
-// ray_aabb with t_max.  OCT < 0: walk_common.cuh's NaN-propagating test.
-// OCT >= 0, for a ray whose origin and 1 / d are finite, on boxes without
-// NaN, where no slab value can be NaN: fmaxf / fminf (one instruction each)
-// give the same hit (they may differ only in the sign of a zero, which no
-// comparison sees); OCT 8 takes the near plane by the signs of 1 / d, OCT
-// 0-7 has them fixed (bit 0, 1, 2 set where inv.x, .y, .z < 0).
-template <int OCT>
-__device__ __forceinline__ bool slab(V3 o, V3 inv, V3 bmin, V3 bmax, float t_max) {
-  if (OCT < 0) return slab_hit(o, inv, bmin, bmax, t_max);
-  const bool nx = OCT == 8 ? inv.x < 0.0f : (OCT & 1) != 0;
-  const bool ny = OCT == 8 ? inv.y < 0.0f : (OCT & 2) != 0;
-  const bool nz = OCT == 8 ? inv.z < 0.0f : (OCT & 4) != 0;
-  const float tnx = ((nx ? bmax.x : bmin.x) - o.x) * inv.x;
-  const float tny = ((ny ? bmax.y : bmin.y) - o.y) * inv.y;
-  const float tnz = ((nz ? bmax.z : bmin.z) - o.z) * inv.z;
-  const float tfx = ((nx ? bmin.x : bmax.x) - o.x) * inv.x;
-  const float tfy = ((ny ? bmin.y : bmax.y) - o.y) * inv.y;
-  const float tfz = ((nz ? bmin.z : bmax.z) - o.z) * inv.z;
-  const float enter = fmaxf(fmaxf(tnx, tny), tnz);
-  const float exit_ = fminf(fminf(tfx, tfy), tfz);
-  return (enter <= exit_) && (exit_ >= 0.0f) && (enter <= t_max);
 }
 
 // One ray's walk from the root with the slab test slab<OCT>.  CAPPED:
@@ -247,12 +213,16 @@ __device__ __forceinline__ void walk(V3 o, V3 d, V3 inv,
   Box box = load_box(nodes, 1);
   do {
     WS_CLOCK(c0);
-    const V3 bmin{box.a.x, box.a.y, box.b.x}, bmax{box.b.y, box.c.x, box.c.y};
+    const V3 bmin = box.lo(), bmax = box.hi();
     WS_AFTER(WS_BITS3(bmin) ^ WS_BITS3(bmax));
     WS_CLOCK(c1);
-    const bool hit_box = slab<OCT>(o, inv, bmin, bmax, best_t);
+    const bool hit_box = slab_hit_as<OCT>(o, inv, bmin, bmax, best_t);
     const bool is_leaf = k >= lc;
+#ifdef MCPT_EXP_ADVANCE
+    const int k_next = (hit_box && !is_leaf) ? 2 * k : advance(k);
+#else
     const int k_next = (hit_box && !is_leaf) ? 2 * k : advance_odd(k);
+#endif
     WS_AFTER(k_next);
     WS_CLOCK(c2);
     WS_ADD(0, 1);
@@ -266,15 +236,13 @@ __device__ __forceinline__ void walk(V3 o, V3 d, V3 inv,
     // The next node's load goes out before the leaf's test.
     if (k_next > 0) box = load_box(nodes, k_next);
     if (hit_box && is_leaf) {
-      const float4* p = reinterpret_cast<const float4*>(tris + kTriFloats * (long)(k - lc));
-      const float4 ta = __ldg(p), tb = __ldg(p + 1), tc = __ldg(p + 2);
-      const V3 p0{ta.x, ta.y, ta.z}, p1{ta.w, tb.x, tb.y};
-      const V3 p2{tb.z, tb.w, tc.x}, gn{tc.y, tc.z, tc.w};
-      WS_AFTER(WS_BITS3(p0) ^ WS_BITS3(p1) ^ WS_BITS3(p2) ^ WS_BITS3(gn));
+      const Tri tri = load_tri(tris, k - lc);
+      WS_AFTER(WS_BITS3(tri.p0) ^ WS_BITS3(tri.p1) ^ WS_BITS3(tri.p2) ^
+               WS_BITS3(tri.gn));
       WS_CLOCK(c3);
       float t;
       // An invalid slot's record is NaN: its t is NaN and the test fails.
-      const bool h = tri_test<MT>(o, d, p0, p1, p2, gn, t);
+      const bool h = tri_test<MT>(o, d, tri, t);
       if (h && t > 0.0f && t < best_t) {
         best_t = t;
         best_tri = k - lc;
@@ -307,8 +275,7 @@ bvh_walk_kernel(const float* __restrict__ origin,
 #endif
   const V3 o = load3(origin, i), d = load3(direction, i);
   const V3 inv{1.0f / d.x, 1.0f / d.y, 1.0f / d.z};
-  const bool fin = isfinite(o.x) && isfinite(o.y) && isfinite(o.z) &&
-                   isfinite(inv.x) && isfinite(inv.y) && isfinite(inv.z);
+  const bool fin = slab_finite(o, d, inv);
   const int oct = (inv.x < 0.0f) | (inv.y < 0.0f) << 1 | (inv.z < 0.0f) << 2;
   float best_t = kBig;
   int best_tri = -1;
@@ -349,7 +316,8 @@ bvh_walk_kernel(const float* __restrict__ origin,
 // origin, direction (r, 3) f32; nodes (2 lc, 6) f32, 8-byte aligned, each
 // row min xyz, max xyz (BVHArrays.node_records); tris (lc, 12) f32, 16-byte
 // aligned, each row v0, v1, v2, geom_n and NaN where the slot is not valid
-// (SceneArrays.tri_records); finite_nodes: no node holds a NaN; out_t (r,)
+// (SceneArrays.tri_records); finite_nodes: every node value is finite
+// (BVHArrays.finite); out_t (r,)
 // f32, out_tri (r,) i32.  mt selects the Moller-Trumbore test.  stats:
 // null, or (r, kRayStats) int64 that a -DMCPT_WALK_STATS build fills (other
 // builds leave it alone).  Returns the launch's CUDA error.
@@ -362,7 +330,11 @@ extern "C" int mcpt_bvh_walk(const float* origin, const float* direction,
   const int blocks = (r + kThreads - 1) / kThreads;
   cudaStream_t s = (cudaStream_t)stream;
   // A walk visits each of the 2 lc - 1 nodes at most once.
+#ifdef MCPT_EXP_CAPPED
+  const bool capped = true;
+#else
   const bool capped = max_steps < 2 * lc;
+#endif
   auto kernel = mt ? (capped ? bvh_walk_kernel<true, true> : bvh_walk_kernel<true, false>)
                    : (capped ? bvh_walk_kernel<false, true> : bvh_walk_kernel<false, false>);
   kernel<<<blocks, kThreads, 0, s>>>(origin, direction, r, nodes, lc, tris,

@@ -35,11 +35,13 @@
 //     loads the box once for four rays, runs four slab tests without a
 //     branch between them, and the barrier waits for 8 warps, not 32;
 //   * the boxes of both keys that can follow a step (2k, advance(k)) are
-//     loaded while its slab tests and barrier run, as two 16-byte loads of
-//     a 32-byte record per node (BVHArrays.boxes);
-//   * a warp whose 1 / d components are all finite takes a slab test with
-//     fmaxf / fminf: no 0 * inf can arise, so it gives the NaN-propagating
-//     test's hits;
+//     loaded while its slab tests and barrier run, as three 8-byte loads
+//     of a 24-byte record per node (BVHArrays.node_records, the per-ray
+//     walk's too); a triangle is one 48-byte record (SceneArrays.tri_records,
+//     NaN where the slot is not valid, so its test fails without a flag);
+//   * a warp whose rays' origins, d and 1 / d are all finite, on a tree of
+//     finite values, takes a slab test with fmaxf / fminf: no 0 * inf can
+//     arise, so it gives the NaN-propagating test's hits;
 //   * a fat leaf is one round of tests, not leaf_width in series: each warp
 //     lists its rays that hit the leaf's box (ballots) and gives the pairs
 //     of ray s and triangle j to lane j of group s (lanes s lw .. s lw +
@@ -92,8 +94,6 @@ constexpr int kWalkStats = 10;
 #endif
 
 
-constexpr int kTriFloats = 12;  // v0, v1, v2, geom_n
-
 // The thread-per-ray kernel (the parent design): one thread per ray, the
 // node read at the step's head, a fat leaf staged in shared memory and its
 // triangles tested in series by each ray that hit its box.
@@ -101,15 +101,11 @@ template <bool MT>
 __global__ void __launch_bounds__(kMaxPacket)
 walk_thread_per_ray(const float* __restrict__ origin,
                    const float* __restrict__ direction, int packet,
-                   const float4* __restrict__ boxes, int lc, int lw,
-                   const float* __restrict__ v0, const float* __restrict__ v1,
-                   const float* __restrict__ v2,
-                   const float* __restrict__ geom_n,
-                   const unsigned char* __restrict__ tri_valid, int max_steps,
+                   const float* __restrict__ nodes, int lc, int lw,
+                   const float* __restrict__ tris, int max_steps, int finite_nodes,
                    float* __restrict__ out_t, int* __restrict__ out_tri,
                    long long* __restrict__ stats) {
-  extern __shared__ float s_tri[];  // [lw][12] floats, then [lw] valid flags
-  float* s_valid = s_tri + lw * kTriFloats;
+  extern __shared__ float s_tri[];  // [lw][12]: the leaf's triangle records
 #ifdef MCPT_WALK_STATS
   long long ws[kWalkStats] = {};
   unsigned ws_dep = 0;
@@ -126,8 +122,8 @@ walk_thread_per_ray(const float* __restrict__ origin,
   int k = 1;
   for (int step = 0; k > 0 && step < max_steps; ++step) {
     WS_CLOCK(c0);
-    const float4 lo = __ldg(boxes + 2 * (long)k), hi = __ldg(boxes + 2 * (long)k + 1);
-    const V3 bmin{lo.x, lo.y, lo.z}, bmax{lo.w, hi.x, hi.y};
+    const Box box = load_box(nodes, k);
+    const V3 bmin = box.lo(), bmax = box.hi();
     WS_AFTER(__float_as_int(bmin.x) ^ __float_as_int(bmin.y) ^ __float_as_int(bmin.z) ^
              __float_as_int(bmax.x) ^ __float_as_int(bmax.y) ^ __float_as_int(bmax.z));
     WS_CLOCK(c0b);
@@ -144,16 +140,9 @@ walk_thread_per_ray(const float* __restrict__ origin,
     const bool is_fat = k >= fat_start;
     if (any_hit && is_fat) {
       const int tri0 = min(max((k - fat_start) * lw, 0), lc - lw);
-      for (int q = threadIdx.x; q < lw * (kTriFloats + 1); q += blockDim.x) {
-        if (q < lw * kTriFloats) {
-          const int j = q / kTriFloats, c = q % kTriFloats;
-          const float* src = c < 3 ? v0 : c < 6 ? v1 : c < 9 ? v2 : geom_n;
-          s_tri[q] = __ldg(src + 3 * (long)(tri0 + j) + c % 3);
-        } else {
-          const int j = q - lw * kTriFloats;
-          s_valid[j] = __ldg(tri_valid + tri0 + j) ? 1.0f : 0.0f;
-        }
-      }
+      const float* src = tris + kTriFloats * (long)tri0;
+      for (int q = threadIdx.x; q < lw * kTriFloats; q += blockDim.x)
+        s_tri[q] = __ldg(src + q);
       __syncthreads();
       WS_CLOCK(c3);
       if (hit) {
@@ -162,11 +151,12 @@ walk_thread_per_ray(const float* __restrict__ origin,
         for (int j = 0; j < lw; ++j) {
           const float* p = s_tri + j * kTriFloats;
           float t;
-          const bool h = tri_test<MT>(o, d, V3{p[0], p[1], p[2]},
-                                      V3{p[3], p[4], p[5]},
-                                      V3{p[6], p[7], p[8]},
-                                      V3{p[9], p[10], p[11]}, t);
-          const bool ok = h && s_valid[j] != 0.0f && t > 0.0f && t < best_t;
+          // An invalid slot's record is NaN: its t is NaN and the test fails.
+          const bool h = tri_test<MT>(o, d, Tri{V3{p[0], p[1], p[2]},
+                                                V3{p[3], p[4], p[5]},
+                                                V3{p[6], p[7], p[8]},
+                                                V3{p[9], p[10], p[11]}}, t);
+          const bool ok = h && t > 0.0f && t < best_t;
           if (ok && t < cur) {
             cur = t;
             cur_j = j;
@@ -208,7 +198,7 @@ walk_thread_per_ray(const float* __restrict__ origin,
 
 size_t thread_per_ray_smem(int packet, int lw, int* threads) {
   *threads = packet;
-  return (size_t)lw * (kTriFloats + 1) * sizeof(float);
+  return (size_t)lw * kTriFloats * sizeof(float);
 }
 
 
@@ -218,51 +208,6 @@ constexpr int kMaxThreads = ((kMaxPacket + kRays - 1) / kRays + 31) / 32 * 32;
 constexpr int kUnroll = 4;             // rounds of pair tests in flight
 constexpr unsigned kNone = ~0u;
 
-// ray_aabb with t_max for a ray whose 1 / d has no infinite component:
-// then no slab product is 0 * inf, so no NaN arises, and fmaxf / fminf
-// (one instruction each) give the same hit as walk_common.cuh's
-// NaN-propagating max and min (they may differ only in the sign of a zero,
-// which no comparison sees).
-__device__ __forceinline__ bool slab_hit_finite(V3 o, V3 inv, V3 bmin, V3 bmax,
-                                                float t_max) {
-  const bool nx = inv.x < 0.0f, ny = inv.y < 0.0f, nz = inv.z < 0.0f;
-  const float tnx = ((nx ? bmax.x : bmin.x) - o.x) * inv.x;
-  const float tny = ((ny ? bmax.y : bmin.y) - o.y) * inv.y;
-  const float tnz = ((nz ? bmax.z : bmin.z) - o.z) * inv.z;
-  const float tfx = ((nx ? bmin.x : bmax.x) - o.x) * inv.x;
-  const float tfy = ((ny ? bmin.y : bmax.y) - o.y) * inv.y;
-  const float tfz = ((nz ? bmin.z : bmax.z) - o.z) * inv.z;
-  const float enter = fmaxf(fmaxf(tnx, tny), tnz);
-  const float exit_ = fminf(fminf(tfx, tfy), tfz);
-  return (enter <= exit_) && (exit_ >= 0.0f) && (enter <= t_max);
-}
-
-struct Tri {
-  V3 p0, p1, p2, gn;
-  bool valid;
-};
-
-template <bool MT>
-__device__ __forceinline__ Tri load_tri(const float* __restrict__ v0,
-                                        const float* __restrict__ v1,
-                                        const float* __restrict__ v2,
-                                        const float* __restrict__ geom_n,
-                                        const unsigned char* __restrict__ tri_valid,
-                                        int tri) {
-  return Tri{load3(v0, tri), load3(v1, tri), load3(v2, tri),
-             MT ? V3{0.0f, 0.0f, 0.0f} : load3(geom_n, tri),
-             __ldg(tri_valid + tri) != 0};
-}
-
-// What one lane needs of the device memory the walk reads.
-struct Scene {
-  const float* __restrict__ v0;
-  const float* __restrict__ v1;
-  const float* __restrict__ v2;
-  const float* __restrict__ geom_n;
-  const unsigned char* __restrict__ tri_valid;
-};
-
 // The test of pair (list slot s, triangle j) of a warp's list: the bits of
 // t when the triangle wins against the ray's best t from before the leaf,
 // else kNone.  With `staged` the lane already holds triangle j in `mine`;
@@ -270,20 +215,19 @@ struct Scene {
 template <bool MT>
 __device__ __forceinline__ unsigned pair_t(int s, int j, bool live,
                                            const Tri& mine, bool staged,
-                                           int tri0, const Scene& sc,
+                                           int tri0, const float* tris,
                                            const int* w_ray,
                                            const float* w_best,
                                            const float* s_rays, int packet) {
-  const Tri tri = staged ? mine
-                         : load_tri<MT>(sc.v0, sc.v1, sc.v2, sc.geom_n,
-                                        sc.tri_valid, tri0 + j);
+  const Tri tri = staged ? mine : load_tri(tris, tri0 + j);
   const int ray = w_ray[s];
   const V3 ro{s_rays[ray], s_rays[packet + ray], s_rays[2 * packet + ray]};
   const V3 rd{s_rays[3 * packet + ray], s_rays[4 * packet + ray],
               s_rays[5 * packet + ray]};
   float t;
-  const bool h = tri_test<MT>(ro, rd, tri.p0, tri.p1, tri.p2, tri.gn, t);
-  return live && h && tri.valid && t > 0.0f && t < w_best[s]
+  // An invalid slot's record is NaN: its t is NaN and the test fails.
+  const bool h = tri_test<MT>(ro, rd, tri, t);
+  return live && h && t > 0.0f && t < w_best[s]
              ? __float_as_uint(t) : kNone;
 }
 
@@ -292,11 +236,8 @@ template <bool MT>
 __global__ void __launch_bounds__(kMaxThreads)
 walk_rays_per_thread(const float* __restrict__ origin,
                    const float* __restrict__ direction, int packet,
-                   const float4* __restrict__ boxes, int lc, int lw,
-                   const float* __restrict__ v0, const float* __restrict__ v1,
-                   const float* __restrict__ v2,
-                   const float* __restrict__ geom_n,
-                   const unsigned char* __restrict__ tri_valid, int max_steps,
+                   const float* __restrict__ nodes, int lc, int lw,
+                   const float* __restrict__ tris, int max_steps, int finite_nodes,
                    float* __restrict__ out_t, int* __restrict__ out_tri,
                    long long* __restrict__ stats) {
   // Shared memory, per warp and list slot: the ray's least t bits and
@@ -311,7 +252,6 @@ walk_rays_per_thread(const float* __restrict__ origin,
   float* w_best = reinterpret_cast<float*>(w_jmin + n_warps * kList);
   int* w_ray = reinterpret_cast<int*>(w_best + n_warps * kList);
   float* s_rays = reinterpret_cast<float*>(smem) + 4 * n_warps * kList;
-  const Scene sc{v0, v1, v2, geom_n, tri_valid};
 #ifdef MCPT_WALK_STATS
   long long ws[kWalkStats] = {};
   unsigned ws_dep = 0;
@@ -322,6 +262,7 @@ walk_rays_per_thread(const float* __restrict__ origin,
 
   const long base = (long)blockIdx.x * packet;
   V3 o[kRays], inv[kRays];
+  bool finite = true;  // every ray of the thread may take slab_hit_as<8>
   float best_t[kRays];
   int best_tri[kRays];
   bool act[kRays];  // the thread holds ray r
@@ -334,6 +275,7 @@ walk_rays_per_thread(const float* __restrict__ origin,
       o[r] = load3(origin, base + j);
       const V3 d = load3(direction, base + j);
       inv[r] = V3{1.0f / d.x, 1.0f / d.y, 1.0f / d.z};
+      finite = finite && slab_finite(o[r], d, inv[r]);
       s_rays[j] = o[r].x;
       s_rays[packet + j] = o[r].y;
       s_rays[2 * packet + j] = o[r].z;
@@ -345,34 +287,27 @@ walk_rays_per_thread(const float* __restrict__ origin,
     best_tri[r] = -1;
   }
   for (int q = lane; q < kList; q += 32) w_tmin[q] = w_jmin[q] = kNone;
-  // The warp takes the cheaper slab test while none of its rays has an
-  // infinite 1 / d component.
-  bool finite = true;
-#pragma unroll
-  for (int r = 0; r < kRays; ++r)
-    finite = finite && isfinite(inv[r].x) && isfinite(inv[r].y) && isfinite(inv[r].z);
-  const bool warp_finite = __all_sync(~0u, finite);
+  // The warp takes the cheaper slab test when its rays and the tree allow.
+  const bool warp_finite = finite_nodes && __all_sync(~0u, finite);
 
   const int fat_start = lc / lw;
   const bool staged = lw <= 32;
   const int per_round = staged ? 32 / lw : 1;  // rays whose pairs fill a round
   const unsigned lanes_below = (1u << lane) - 1;
   int k = 1;
-  // The node's box: two 16-byte loads of its record, the same address in
+  // The node's box: three 8-byte loads of its record, the same address in
   // every lane.  Each step loads the boxes of both keys that can follow it
   // (2k, advance(k)) while its slab tests and barrier run.
-  float4 lo = __ldg(boxes + 2), hi = __ldg(boxes + 3);
+  Box box = load_box(nodes, 1);
   for (int step = 0; k > 0 && step < max_steps; ++step) {
     WS_CLOCK(c0);
     const bool is_fat = k >= fat_start;
     const int tri0 = min(max((k - fat_start) * lw, 0), lc - lw);
-    const V3 bmin{lo.x, lo.y, lo.z}, bmax{lo.w, hi.x, hi.y};
+    const V3 bmin = box.lo(), bmax = box.hi();
     const int k_down = is_fat ? 0 : 2 * k, k_next = advance(k);
-    const float4 zero{0.0f, 0.0f, 0.0f, 0.0f};
-    const float4 dlo = k_down > 0 ? __ldg(boxes + 2 * (long)k_down) : zero;
-    const float4 dhi = k_down > 0 ? __ldg(boxes + 2 * (long)k_down + 1) : zero;
-    const float4 nlo = k_next > 0 ? __ldg(boxes + 2 * (long)k_next) : zero;
-    const float4 nhi = k_next > 0 ? __ldg(boxes + 2 * (long)k_next + 1) : zero;
+    const Box none{};
+    const Box down_box = k_down > 0 ? load_box(nodes, k_down) : none;
+    const Box next_box = k_next > 0 ? load_box(nodes, k_next) : none;
     WS_AFTER(__float_as_int(bmin.x) ^ __float_as_int(bmin.y) ^ __float_as_int(bmin.z) ^
              __float_as_int(bmax.x) ^ __float_as_int(bmax.y) ^ __float_as_int(bmax.z));
     WS_CLOCK(c0b);
@@ -382,8 +317,8 @@ walk_rays_per_thread(const float* __restrict__ origin,
     if (warp_finite) {
 #pragma unroll
       for (int r = 0; r < kRays; ++r)
-        m |= (unsigned)(act[r] & slab_hit_finite(o[r], inv[r], bmin, bmax,
-                                                 best_t[r])) << r;
+        m |= (unsigned)(act[r] & slab_hit_as<8>(o[r], inv[r], bmin, bmax,
+                                                best_t[r])) << r;
     } else {
 #pragma unroll
       for (int r = 0; r < kRays; ++r)
@@ -395,7 +330,7 @@ walk_rays_per_thread(const float* __restrict__ origin,
     // with a hit).
     Tri mine{};
     if (is_fat && staged && __any_sync(~0u, m != 0))
-      mine = load_tri<MT>(v0, v1, v2, geom_n, tri_valid, tri0 + lane % lw);
+      mine = load_tri(tris, tri0 + lane % lw);
     WS_AFTER(m);
     WS_CLOCK(c1);
     const bool any_hit = __syncthreads_or(m != 0);
@@ -436,7 +371,7 @@ walk_rays_per_thread(const float* __restrict__ origin,
               s[u] = s0 + u * per_round + g;
               const bool live = s[u] < cnt;
               const unsigned tb = pair_t<MT>(live ? s[u] : 0, j, live, mine,
-                                             true, tri0, sc, w_ray, w_best,
+                                             true, tri0, tris, w_ray, w_best,
                                              s_rays, packet);
               word[u] = tb == kNone ? ~0ull
                                     : ((unsigned long long)tb << 32) | (unsigned)j;
@@ -465,8 +400,8 @@ walk_rays_per_thread(const float* __restrict__ origin,
             for (int u = 0; u < kUnroll; ++u) {
               s[u] = s0 + u * per_round + g;
               const bool live = g < per_round && s[u] < cnt;
-              tb[u] = pair_t<MT>(live ? s[u] : 0, j, live, mine, true, tri0, sc,
-                                 w_ray, w_best, s_rays, packet);
+              tb[u] = pair_t<MT>(live ? s[u] : 0, j, live, mine, true, tri0,
+                                 tris, w_ray, w_best, s_rays, packet);
               if (tb[u] != kNone) atomicMin(w_tmin + s[u], tb[u]);
             }
             __syncwarp();
@@ -482,7 +417,7 @@ walk_rays_per_thread(const float* __restrict__ origin,
             for (int s = 0; s < cnt; ++s) {
               for (int jw = lane; jw < lw; jw += 32) {
                 const unsigned tb = pair_t<MT>(s, jw, true, Tri{}, false, tri0,
-                                               sc, w_ray, w_best, s_rays, packet);
+                                               tris, w_ray, w_best, s_rays, packet);
                 if (tb == kNone) continue;
                 if (pass == 0) atomicMin(w_tmin + s, tb);
                 else if (tb == w_tmin[s]) atomicMin(w_jmin + s, (unsigned)jw);
@@ -517,8 +452,7 @@ walk_rays_per_thread(const float* __restrict__ origin,
     }
     const bool down = any_hit && !is_fat;
     k = down ? k_down : k_next;
-    lo = down ? dlo : nlo;
-    hi = down ? dhi : nhi;
+    box = down ? down_box : next_box;
   }
 #pragma unroll
   for (int r = 0; r < kRays; ++r) {
@@ -564,9 +498,8 @@ constexpr size_t kSmemNoOptIn = 48 * 1024;
 
 template <bool MT>
 int launch(const float* origin, const float* direction, int n_packets,
-           int packet, const float* boxes, int lc, int leaf_width,
-           const float* v0, const float* v1, const float* v2, const float* geom_n,
-           const unsigned char* tri_valid, int max_steps, float* out_t,
+           int packet, const float* nodes, int lc, int leaf_width,
+           const float* tris, int max_steps, int finite_nodes, float* out_t,
            int* out_tri, long long* stats, cudaStream_t s) {
 #if defined(MCPT_PACKET_WALK_V1)
   const bool per_ray = true;  // a measurement build: the parent design only
@@ -585,37 +518,37 @@ int launch(const float* origin, const float* direction, int n_packets,
     if (e != cudaSuccess) return (int)e;
   }
   kernel<<<n_packets, threads, smem, s>>>(
-      origin, direction, packet, reinterpret_cast<const float4*>(boxes), lc,
-      leaf_width, v0, v1, v2, geom_n, tri_valid, max_steps, out_t, out_tri, stats);
+      origin, direction, packet, nodes, lc, leaf_width, tris, max_steps,
+      finite_nodes, out_t, out_tri, stats);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// origin, direction (n_packets * packet, 3) f32, padded; boxes (2 lc, 8)
-// f32, 16-byte aligned, each row min xyz, max xyz, 0, 0 (BVHArrays.boxes);
-// v0, v1, v2, geom_n (lc, 3) f32; tri_valid (lc,) bool; out_t, out_tri
-// (n_packets * packet,).  packet <= 1024, 1 <= leaf_width
-// <= lc.  mt selects the Moller-Trumbore test.  stats: null, or (n_packets,
+// origin, direction (n_packets * packet, 3) f32, padded; nodes (2 lc, 6)
+// f32, 8-byte aligned, each row min xyz, max xyz (BVHArrays.node_records);
+// tris (lc, 12) f32, 16-byte aligned, each row v0, v1, v2, geom_n and NaN
+// where the slot is not valid (SceneArrays.tri_records); finite_nodes:
+// every node value is finite (BVHArrays.finite); out_t, out_tri (n_packets
+// * packet,).  packet <= 1024, 1 <= leaf_width <= lc.  mt selects the
+// Moller-Trumbore test.  stats: null, or (n_packets,
 // kWalkStats) int64 that a -DMCPT_WALK_STATS build fills (other builds
 // leave it alone).  Returns the launch's CUDA error.
 extern "C" int mcpt_packet_walk(const float* origin, const float* direction,
                                 int n_packets, int packet,
-                                const float* boxes, int lc, int leaf_width,
-                                const float* v0, const float* v1,
-                                const float* v2, const float* geom_n,
-                                const unsigned char* tri_valid, int mt,
-                                int max_steps, float* out_t, int* out_tri,
+                                const float* nodes, int lc, int leaf_width,
+                                const float* tris, int mt, int max_steps,
+                                int finite_nodes, float* out_t, int* out_tri,
                                 long long* stats, void* stream) {
   if (n_packets <= 0) return (int)cudaGetLastError();
   if (packet < 1 || packet > kMaxPacket || leaf_width < 1 || leaf_width > lc)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (mt)
-    return launch<true>(origin, direction, n_packets, packet, boxes, lc,
-                        leaf_width, v0, v1, v2, geom_n,
-                        tri_valid, max_steps, out_t, out_tri, stats, s);
-  return launch<false>(origin, direction, n_packets, packet, boxes, lc,
-                       leaf_width, v0, v1, v2, geom_n,
-                       tri_valid, max_steps, out_t, out_tri, stats, s);
+    return launch<true>(origin, direction, n_packets, packet, nodes, lc,
+                        leaf_width, tris, max_steps, finite_nodes, out_t,
+                        out_tri, stats, s);
+  return launch<false>(origin, direction, n_packets, packet, nodes, lc,
+                       leaf_width, tris, max_steps, finite_nodes, out_t,
+                       out_tri, stats, s);
 }

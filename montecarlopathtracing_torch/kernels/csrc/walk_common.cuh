@@ -1,6 +1,6 @@
 // Device code shared by the two LBVH walk kernels (bvh_walk.cu,
-// packet_walk.cu): the slab test, the two ray / triangle tests and the
-// preorder step of the stackless walk.
+// packet_walk.cu): the node and triangle records they read, the slab test,
+// the two ray / triangle tests and the preorder step of the stackless walk.
 //
 // The walks replace no Pallas kernel of
 // montecarlopathtracing_tpu/kernels/cluster.py: they are the counterparts of
@@ -76,6 +76,70 @@ __device__ __forceinline__ bool slab_hit(V3 o, V3 inv, V3 bmin, V3 bmax,
   return (enter <= exit_) && (exit_ >= 0.0f) && (enter <= t_max);
 }
 
+// slab_hit in fewer instructions where it may be: OCT < 0 is slab_hit
+// itself; OCT >= 0 is for a ray whose origin, d and 1 / d are finite, on a
+// box of finite values, where no slab value can be NaN (no 0 * inf), so
+// fmaxf / fminf (one instruction each) give slab_hit's hit (they may differ
+// only in the sign of a zero, which no comparison sees).  OCT 8 takes the
+// near planes by the signs of 1 / d; OCT 0-7 has them fixed (bit 0, 1, 2
+// set where inv.x, .y, .z < 0).
+template <int OCT>
+__device__ __forceinline__ bool slab_hit_as(V3 o, V3 inv, V3 bmin, V3 bmax,
+                                            float t_max) {
+  if (OCT < 0) return slab_hit(o, inv, bmin, bmax, t_max);
+  const bool nx = OCT == 8 ? inv.x < 0.0f : (OCT & 1) != 0;
+  const bool ny = OCT == 8 ? inv.y < 0.0f : (OCT & 2) != 0;
+  const bool nz = OCT == 8 ? inv.z < 0.0f : (OCT & 4) != 0;
+  const float tnx = ((nx ? bmax.x : bmin.x) - o.x) * inv.x;
+  const float tny = ((ny ? bmax.y : bmin.y) - o.y) * inv.y;
+  const float tnz = ((nz ? bmax.z : bmin.z) - o.z) * inv.z;
+  const float tfx = ((nx ? bmin.x : bmax.x) - o.x) * inv.x;
+  const float tfy = ((ny ? bmin.y : bmax.y) - o.y) * inv.y;
+  const float tfz = ((nz ? bmin.z : bmax.z) - o.z) * inv.z;
+  const float enter = fmaxf(fmaxf(tnx, tny), tnz);
+  const float exit_ = fminf(fminf(tfx, tfy), tfz);
+  return (enter <= exit_) && (exit_ >= 0.0f) && (enter <= t_max);
+}
+
+// Whether slab_hit_as<OCT >= 0> may stand for slab_hit on this ray (the
+// tree's own values must be finite too).
+__device__ __forceinline__ bool slab_finite(V3 o, V3 d, V3 inv) {
+  return isfinite(o.x) && isfinite(o.y) && isfinite(o.z) && isfinite(d.x) &&
+         isfinite(d.y) && isfinite(d.z) && isfinite(inv.x) &&
+         isfinite(inv.y) && isfinite(inv.z);
+}
+
+// A triangle as one 48-byte record (SceneArrays.tri_records: v0, v1, v2,
+// geom_n; NaN throughout where the slot is not valid, so either test
+// fails on it), in three 16-byte loads.
+constexpr int kTriFloats = 12;
+
+struct Tri {
+  V3 p0, p1, p2, gn;
+};
+
+__device__ __forceinline__ Tri load_tri(const float* __restrict__ tris, int tri) {
+  const float4* p = reinterpret_cast<const float4*>(tris + kTriFloats * (long)tri);
+  const float4 a = __ldg(p), b = __ldg(p + 1), c = __ldg(p + 2);
+  return Tri{V3{a.x, a.y, a.z}, V3{a.w, b.x, b.y}, V3{b.z, b.w, c.x},
+             V3{c.y, c.z, c.w}};
+}
+
+// A node's box as one 24-byte record (BVHArrays.node_records: min xyz,
+// max xyz), in three 8-byte loads.
+constexpr int kNodeFloats = 6;
+
+struct Box {
+  float2 a, b, c;  // min x y, min z max x, max y z
+  __device__ __forceinline__ V3 lo() const { return V3{a.x, a.y, b.x}; }
+  __device__ __forceinline__ V3 hi() const { return V3{b.y, c.x, c.y}; }
+};
+
+__device__ __forceinline__ Box load_box(const float* __restrict__ nodes, long k) {
+  const float2* p = reinterpret_cast<const float2*>(nodes + kNodeFloats * k);
+  return Box{__ldg(p), __ldg(p + 1), __ldg(p + 2)};
+}
+
 // ops/intersect.py::ray_triangle_compat (hit, t); barycentrics are not needed.
 __device__ __forceinline__ bool tri_compat(V3 o, V3 d, V3 p0, V3 p1, V3 p2,
                                            V3 gn, float& t) {
@@ -105,10 +169,9 @@ __device__ __forceinline__ bool tri_mt(V3 o, V3 d, V3 p0, V3 p1, V3 p2,
 }
 
 template <bool MT>
-__device__ __forceinline__ bool tri_test(V3 o, V3 d, V3 p0, V3 p1, V3 p2,
-                                         V3 gn, float& t) {
-  if (MT) return tri_mt(o, d, p0, p1, p2, t);
-  return tri_compat(o, d, p0, p1, p2, gn, t);
+__device__ __forceinline__ bool tri_test(V3 o, V3 d, const Tri& tri, float& t) {
+  if (MT) return tri_mt(o, d, tri.p0, tri.p1, tri.p2, t);
+  return tri_compat(o, d, tri.p0, tri.p1, tri.p2, tri.gn, t);
 }
 
 // accel/lbvh.py::_advance: the next subtree in preorder, 0 past the root.

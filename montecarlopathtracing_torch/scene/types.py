@@ -110,8 +110,8 @@ class SceneArrays:
         """(T, 12) f32, one 48-byte row per triangle slot: v0, v1, v2,
         geom_n, and NaN throughout where ``tri_valid`` is False (a NaN
         triangle's test fails, so the validity flag needs no read of its
-        own).  The per-ray walk kernel's layout (a triangle in three 16-byte
-        loads), made once per SceneArrays on first use."""
+        own).  The walk kernels' layout (a triangle in three 16-byte loads),
+        made once per SceneArrays on first use."""
         rec = torch.cat([self.v0, self.v1, self.v2, self.geom_n], dim=1).detach()
         return torch.where(self.tri_valid[:, None], rec,
                            torch.full_like(rec, float("nan"))).contiguous()

@@ -119,24 +119,19 @@ def test_heap_invariants(scenes, name):
 
 @pytest.mark.parametrize("name", ["spec_glass", "large"])
 def test_kernel_records_hold_the_rows_they_are_made_from(scenes, name):
-    """The walk kernels' records: ``boxes`` (the packet walk's) is node_min,
-    node_max and two zeros per node, ``node_records`` (the per-ray walk's)
-    node_min and node_max; ``tri_records`` is v0, v1, v2, geom_n per valid
-    slot and NaN throughout every other slot, whose test must then fail.
-    ``nan_free`` reads the node records: True here, False with one NaN."""
+    """The walk kernels' records: ``node_records`` is node_min and node_max
+    per node; ``tri_records`` is v0, v1, v2, geom_n per valid slot and NaN
+    throughout every other slot, whose test must then fail.  ``finite``
+    reads the node records: True here, False with one NaN or infinity."""
     _, ts, _, tb = scenes[name]
-    boxes = tb.boxes
-    assert boxes.shape == (2 * ts.num_tris_padded, 8) and boxes.is_contiguous()
-    assert torch.equal(boxes[:, 0:3], tb.node_min)
-    assert torch.equal(boxes[:, 3:6], tb.node_max)
-    assert not bool(boxes[:, 6:].any())
     nodes = tb.node_records
     assert nodes.shape == (2 * ts.num_tris_padded, 6) and nodes.is_contiguous()
     assert torch.equal(nodes, torch.cat([tb.node_min, tb.node_max], dim=1))
-    assert tb.nan_free
-    bad = tb.node_min.clone()
-    bad[3, 1] = float("nan")
-    assert not TL.BVHArrays(node_min=bad, node_max=tb.node_max).nan_free
+    assert tb.finite
+    for value in (float("nan"), float("inf")):
+        bad = tb.node_min.clone()
+        bad[3, 1] = value
+        assert not TL.BVHArrays(node_min=bad, node_max=tb.node_max).finite
     rec = ts.tri_records
     assert rec.shape == (ts.num_tris_padded, 12) and rec.is_contiguous()
     assert rec.dtype == torch.float32 and rec is ts.tri_records  # made once

@@ -101,7 +101,8 @@ exits non-zero):
             packets (equal-t ties in one fat leaf and across leaves, a ray
             that misses a node its packet enters and meets its own leaf
             later, small max_steps, packet sizes and leaf widths off their
-            defaults), compat and MT, exactly equal to the plain walk, and
+            defaults, a tree with NaN boxes), compat and MT, exactly equal
+            to the plain walk, and
             the per-ray walk under the package's build and its parent
             design (-DMCPT_BVH_WALK_V1) on adversarial rays (1, 31, 33 and
             fewer rays than the card's SMs, equal-t ties across leaves on the
@@ -1647,7 +1648,9 @@ def packet_adversarial(dev, box, large, rng, build: str):
     doubled); two-ray packets whose second ray misses a node the first
     enters and then hits its own leaf; a small explicit max_steps; and
     packet_size / leaf_width off their defaults, among them widths of no
-    power of two and past 32 (the kernel's other leaf paths)."""
+    power of two and past 32 (the kernel's other leaf paths); and a tree
+    with NaN boxes (one NaN vertex), where no warp may take the fmaxf slab
+    test."""
     from montecarlopathtracing_torch.accel import lbvh as L
 
     t = rng.uniform(1.65, 1.95, (64, 1)).astype(np.float32)
@@ -1986,10 +1989,10 @@ WALK_DESIGNS = {
 }
 
 
-def walk_design_stats(calls, label: str, kind: str, designs=None):
-    """Every call of a walk frame replayed under each of ``designs``
-    (default WALK_DESIGNS[kind]), each call timed once (CUDA events, after
-    a warm-up call) and held bit for bit to the first design's result; then
+def walk_design_stats(calls, label: str, kind: str):
+    """Every call of a walk frame replayed under each of WALK_DESIGNS[kind],
+    each call timed once (CUDA events, after a warm-up call) and held bit
+    for bit to the first design's result; then
     the measurement builds over the same calls, their counters summarised
     (accel/lbvh.py's packet_walk_stats_summary or bvh_walk_stats_summary:
     the step-0 counts).  ms and ms_max are over all calls of the frame.
@@ -1998,7 +2001,7 @@ def walk_design_stats(calls, label: str, kind: str, designs=None):
     from montecarlopathtracing_torch.kernels import build as B
 
     kernel, _ = walk_fns(kind)
-    designs = designs or WALK_DESIGNS[kind]
+    designs = WALK_DESIGNS[kind]
     prefix = "PACKET" if kind == "bvh" else "BVH"
     sleep = sleep_ms()
     out, first = {}, []

@@ -41,14 +41,11 @@ every triangle split in two 1-4 times, trees of 24-192 triangles) and
 replays their calls with chip_smoke.py's ``walk_design_stats``: the
 package's build and the builds of the walk's other design
 (``-DMCPT_PACKET_WALK_V1`` / ``_V2`` for the packet walk,
-``-DMCPT_BVH_WALK_V1`` for the per-ray walk), or those ``--designs`` names
-(``name=flag+flag,...``, each also with its measurement build), ms per
-launch over every call, held bit for bit to each other, and the
+``-DMCPT_BVH_WALK_V1`` for the per-ray walk; chip_smoke.py's WALK_DESIGNS),
+ms per launch over every call, held bit for bit to each other, and the
 ``-DMCPT_WALK_STATS`` counters (one ``packet_walk_designs`` or
 ``bvh_walk_designs`` line a frame; ``--variants`` does not apply).  The
-first ``--check`` calls are held to the plain walk.  With ``--pkg-root`` on
-a checkout whose per-ray walk has no measurement build, its per-ray frames
-replay that package's build alone.
+first ``--check`` calls are held to the plain walk.
 
 Variants, joined by "+" to combine two (each answers what one cause of lost time is worth):
 
@@ -552,22 +549,6 @@ def split_box(splits: int, device):
         return build_scene(d, "box", RenderOptions(), device=device)[0]
 
 
-def walk_designs(args, kind: str, L):
-    """The designs --kernels walk replays: those of --designs, each
-    ``name=flag+flag`` with its measurement build, or else chip_smoke.py's
-    WALK_DESIGNS; for a --pkg-root package whose per-ray walk has no
-    measurement build, its own build alone."""
-    import chip_smoke as S
-
-    if kind == "bvh_perray" and not hasattr(L, "BVH_WALK_STATS"):
-        return (("package", (), False),)
-    if not args.designs:
-        return S.WALK_DESIGNS[kind]
-    return tuple((name, tuple(filter(None, flags.split("+"))), True)
-                 for name, flags in (d.split("=", 1)
-                                     for d in args.designs.split(",")))
-
-
 def run_walk(args, label: str) -> None:
     """Render a walk frame with its calls recorded, hold the first
     ``--check`` calls to the plain walk, and replay all of them under the
@@ -606,7 +587,7 @@ def run_walk(args, label: str) -> None:
           "fat_start": bvh.num_leaves // calls[0][4].get("leaf_width", 8),
           "spp": spp, "calls": len(calls), "checked_calls": checked,
           "tag": args.tag})
-    S.walk_design_stats(calls, label, kind, walk_designs(args, kind, L))
+    S.walk_design_stats(calls, label, kind)
 
 
 def main(argv=None) -> int:
@@ -629,9 +610,6 @@ def main(argv=None) -> int:
     ap.add_argument("--sass-report", default="", metavar="FILE",
                     help="print the loops of each function of a SASS dump "
                          "(from --sass) and exit; runs without a card")
-    ap.add_argument("--designs", default="", metavar="NAME=FLAGS,...",
-                    help="with --kernels walk, the builds to replay instead "
-                         "of the walk's designs (flags joined by +)")
     ap.add_argument("--tag", default="", help="copied into every line")
     args = ap.parse_args(argv)
     if args.sass_report:  # reads a dump written by --sass; needs no card

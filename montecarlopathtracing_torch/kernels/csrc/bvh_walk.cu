@@ -33,12 +33,12 @@
 //     geom_n, NaN in every slot that is not valid, so the test itself
 //     rejects it), three 16-byte loads, made only at a leaf whose box
 //     passes;
-//   * a warp whose rays all have a finite origin and 1 / d, on a tree
-//     without NaN, takes the slab test with fmaxf / fminf, and with its
-//     near planes fixed at compile time when its rays share a direction
-//     octant (eight loops);
-//   * a launch whose max_steps cannot end a walk counts no steps, and
-//     advance(k) is the odd part of k + 1.
+//   * a warp whose rays all have a finite origin, d and 1 / d, on a tree
+//     of finite values, takes the slab test with fmaxf / fminf
+//     (walk_common.cuh's slab_hit_as), and with its near planes fixed at
+//     compile time when its rays share a direction octant (eight loops);
+//   * a launch whose max_steps cannot end a walk counts no steps (measured
+//     0.9% faster at 100k than counting on every call, PERF.md).
 // Tried and measured slower (PERF.md): both candidate boxes (and a leaf
 // candidate's triangle) loaded a step ahead, in every warp or in warps of
 // few live lanes; prefetch.global.L1 of the nodes two or three steps on;
@@ -191,16 +191,7 @@ bvh_walk_kernel(const float* __restrict__ origin,
 
 #else
 
-// walk_common.cuh's advance(k) in fewer instructions: k + 1 has as many
-// trailing zeros as k has trailing ones, so (k >> t) + 1 = (k + 1) >> t is
-// the odd part of k + 1, and that is 1 exactly when k >> t is 0.
-__device__ __forceinline__ int advance_odd(int k) {
-  const int x = k + 1;
-  const int a = x >> (__ffs(x) - 1);
-  return a == 1 ? 0 : a;
-}
-
-// One ray's walk from the root with the slab test slab<OCT>.  CAPPED:
+// One ray's walk from the root with the slab test slab_hit_as<OCT>.  CAPPED:
 // max_steps may end the walk (a walk visits each node at most once, so a
 // cap of 2 lc steps or more never does).
 template <bool MT, int OCT, bool CAPPED>
@@ -218,11 +209,7 @@ __device__ __forceinline__ void walk(V3 o, V3 d, V3 inv,
     WS_CLOCK(c1);
     const bool hit_box = slab_hit_as<OCT>(o, inv, bmin, bmax, best_t);
     const bool is_leaf = k >= lc;
-#ifdef MCPT_EXP_ADVANCE
     const int k_next = (hit_box && !is_leaf) ? 2 * k : advance(k);
-#else
-    const int k_next = (hit_box && !is_leaf) ? 2 * k : advance_odd(k);
-#endif
     WS_AFTER(k_next);
     WS_CLOCK(c2);
     WS_ADD(0, 1);
@@ -330,11 +317,7 @@ extern "C" int mcpt_bvh_walk(const float* origin, const float* direction,
   const int blocks = (r + kThreads - 1) / kThreads;
   cudaStream_t s = (cudaStream_t)stream;
   // A walk visits each of the 2 lc - 1 nodes at most once.
-#ifdef MCPT_EXP_CAPPED
-  const bool capped = true;
-#else
   const bool capped = max_steps < 2 * lc;
-#endif
   auto kernel = mt ? (capped ? bvh_walk_kernel<true, true> : bvh_walk_kernel<true, false>)
                    : (capped ? bvh_walk_kernel<false, true> : bvh_walk_kernel<false, false>);
   kernel<<<blocks, kThreads, 0, s>>>(origin, direction, r, nodes, lc, tris,

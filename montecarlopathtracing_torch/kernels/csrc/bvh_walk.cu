@@ -38,7 +38,7 @@
 //     (walk_common.cuh's slab_hit_as), and with its near planes fixed at
 //     compile time when its rays share a direction octant (eight loops);
 //   * a launch whose max_steps cannot end a walk counts no steps (measured
-//     0.9% faster at 100k than counting on every call, PERF.md).
+//     0.9% faster on an H100 at 100k than counting on every call, PERF.md).
 // Tried and measured slower (PERF.md): both candidate boxes (and a leaf
 // candidate's triangle) loaded a step ahead, in every warp or in warps of
 // few live lanes; prefetch.global.L1 of the nodes two or three steps on;

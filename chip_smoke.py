@@ -6,7 +6,8 @@
 Phases, always all of them, one JSON line each (any failure raises and
 exits non-zero):
 
-1. device   the card's name and power limit (nvidia-smi);
+1. device   the card's name and power limit (nvidia-smi), and whether PIL
+            is installed (the port's textures load without it);
 2. build    every CUDA kernel compiled from kernels/csrc (one nvcc per
             source, started together);
 3. kernels  each kernel against its plain PyTorch version on the same CUDA
@@ -29,7 +30,8 @@ exits non-zero):
 4. box      api.render_scene on the built-in box at 1024 x 1024, spp 16;
 5. large    the 100k-triangle interior at 1280 x 720, spp 4, through
             render_image_host_chunked (single-table plan); then
-            kernels.cluster.candidate_stats on it;
+            kernels.cluster.candidate_stats on it; 5 and 6 check that the
+            interior's atlas holds all 327,680 texels;
 6. large400 the 400k-triangle interior at 1280 x 720 through
             api.render_scene, once with the default options (chunked plan)
             and once with large_mode="hbm_always" (supergroup plan); the two
@@ -118,6 +120,9 @@ exits non-zero):
             against one process, and one make_distributed_train_step step
             against train_step (tests/test_parallel.py's tolerances);
    profile  (g) the CLI's --profile writes a trace holding device kernels;
+   bench    (h) bench_torch.py run as a subprocess at a reduced size (the
+            box at 256 x 256, stages fwd, bwd and stats, one timed run): exit
+            code 0, correct: true, this card's name;
    walk timing  every walk frame's recorded calls replayed: the kernel on
             the whole call against the plain walk on a slice of it (whole
             packets for the packet walk), and a few whole calls timed with
@@ -149,6 +154,7 @@ Imports only numpy, torch and montecarlopathtracing_torch.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import subprocess
@@ -175,6 +181,10 @@ MAIN_RAYS = 131072
 LARGE400_SPP = 4
 MEGA = 16              # RenderOptions().cluster_mega: the ray padding unit
 
+# Texels of the built-in interior's atlas: the 256 x 256 floor and seven
+# prop textures (four at 128, three at 256), whatever its triangle count.
+INTERIOR_TEXELS = 327_680
+
 # GPU clock cycles the stream sleeps before a timed call (~1 ms on an H100),
 # so the host has enqueued the call before the start event is stamped.
 SLEEP_CYCLES = 2_000_000
@@ -182,13 +192,6 @@ SLEEP_CYCLES = 2_000_000
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60).stdout
-    return out.strip().splitlines()[0].strip()
 
 
 def check(cond: bool, what: str) -> None:
@@ -903,6 +906,13 @@ def image_checks(img, label: str):
     return mean
 
 
+def check_interior_atlas(scene, label: str):
+    """The built-in interior loaded every texture (with or without PIL)."""
+    check(int(scene.atlas.shape[0]) == INTERIOR_TEXELS,
+          f"{label}: the interior's atlas holds {int(scene.atlas.shape[0])} "
+          f"texels, not {INTERIOR_TEXELS}")
+
+
 def image_agreement(a, b, label: str):
     """The card-vs-CPU image limits: at most 0.5% of pixels outside rtol
     1e-4 / atol 1e-5, the mean within 1e-4 relative."""
@@ -1006,11 +1016,12 @@ def phase_large(dev, state):
           f"large: candidate_stats gave {cand}")
     emit({"phase": "candidate_stats", "case": "large", **cand})
     mean = image_checks(img, "large")
+    check_interior_atlas(scene, "large")
     state["launches_large"] = launches
     emit({"phase": "large", "width": 1280, "height": 720, "spp": 4,
           "tris_padded": scene.num_tris_padded, "clusters": 1024,
           "cluster_width": 128, "materials": scene.num_materials,
-          "textured": int(scene.atlas.shape[0] > 0), "seconds": secs,
+          "texels": int(scene.atlas.shape[0]), "seconds": secs,
           "load_seconds": state["large_load_s"], "rays": rays,
           "rays_per_s": rays / secs, "mean": mean, "launches": launches})
 
@@ -1128,6 +1139,7 @@ def phase_large400(dev, state):
     from montecarlopathtracing_torch.kernels import cluster as K
 
     scene = state["large400"]
+    check_interior_atlas(scene, "large400")
     spp = LARGE400_SPP
     images = {}
     for label, mode, capture in (
@@ -1161,6 +1173,7 @@ def phase_large400(dev, state):
         state[f"launches_{label}"] = launches
         emit({"phase": label, "width": 1280, "height": 720, "spp": spp,
               "lanes": 65536, "tris_padded": scene.num_tris_padded,
+              "texels": int(scene.atlas.shape[0]),
               "plan": list(plan), **shape, "seconds": secs,
               "load_seconds": state["large400_load_s"], "rays": rays,
               "rays_per_s": rays / secs, "mean": mean, "launches": launches})
@@ -2294,6 +2307,36 @@ def phase_ranks(dev):
     emit({"phase": "ranks", "ranks": 2, "backend": "gloo", "seconds": secs, **out})
 
 
+BENCH_ARGS = ("--stages", "fwd,bwd,stats", "--size", "256", "--repeats", "1")
+
+
+def phase_bench():
+    """(h) bench_torch.py, the port's measuring entry point, as a user runs
+    it, at a reduced size: the box at 256 x 256 for its fwd, bwd and stats
+    stages, one timed run each.  It must exit 0 with correct: true and this
+    card's name."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, os.path.join(root, "bench_torch.py"),
+                          *BENCH_ARGS], cwd=root, capture_output=True, text=True,
+                         timeout=600)
+    secs = time.perf_counter() - t0
+    check(res.returncode == 0, f"bench: exit code {res.returncode}: "
+                               f"{res.stderr[-2000:]}")
+    lines = res.stdout.strip().splitlines()
+    check(len(lines) == 1, f"bench: {len(lines)} lines on stdout")
+    line = json.loads(lines[0])
+    check(line.get("correct") is True, "bench: correct is not true")
+    check(line.get("device") == torch.cuda.get_device_name(0),
+          f"bench: device {line.get('device')!r}")
+    keys = ("fwd_rays_per_s", "fwdbwd_rays_per_s", "cand_clusters_per_ray",
+            "fwd_check_outside_share", "bwd_peak_memory_bytes",
+            "est_f32_peak_share", "bwd_launches_backward")
+    check(all(k in line for k in keys), f"bench: keys missing from {sorted(line)}")
+    emit({"phase": "bench", "args": list(BENCH_ARGS), "seconds": secs,
+          **{k: line[k] for k in ("value", "nvidia_smi", *keys)}})
+
+
 def phase_profile(dev):
     """(g) The CLI's --profile on a small scene writes a torch.profiler trace
     holding device kernels."""
@@ -2329,13 +2372,15 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from montecarlopathtracing_torch.kernels import build as B
+    from montecarlopathtracing_torch.utils.device import nvidia_smi_line
 
     dev = "cuda"
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "nvidia_smi": smi, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
+          "cuda": torch.version.cuda, "count": torch.cuda.device_count(),
+          "pil": importlib.util.find_spec("PIL") is not None})
 
     state = {}
     t0 = time.perf_counter()
@@ -2360,6 +2405,7 @@ def main() -> int:
     phase_native(dev, state)
     phase_ranks(dev)
     phase_profile(dev)
+    phase_bench()
     phase_timing(state)
     phase_walk_timing(state)
 

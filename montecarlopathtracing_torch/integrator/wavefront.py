@@ -1193,7 +1193,6 @@ def render_image_host_chunked(scene: SceneArrays, bvh, opts: RenderOptions,
     scene = scene.to(resolve_device(device))
     h, w = scene.camera.height, scene.camera.width
     chunk = min(opts.chunk_size, max(1024, h * w))
-    spp_chunk = max(1, min(opts.spp_chunk, opts.spp))
     ids, pixel_fn = _frame_ids(scene, opts)
     accel = intersector_tables(scene, opts, bvh)
 
@@ -1210,13 +1209,13 @@ def render_image_host_chunked(scene: SceneArrays, bvh, opts: RenderOptions,
         raise AssertionError("unreachable")
 
     total_rays = 0
+    steps = spp_steps(opts)
     if not opts.refill:
         chunks = _chunked_ids(ids, chunk)
         outs = []
         for ci, pix in enumerate(chunks):
             acc, done = None, 0
-            while done < opts.spp:
-                k = min(spp_chunk, opts.spp - done)
+            for k in steps:
                 rad, rays = dispatch(render_pixels, opts=opts.replace(spp=k),
                                      pixel_ids=pix, sample_offset=done)
                 acc = rad * k if acc is None else acc + rad * k
@@ -1228,22 +1227,31 @@ def render_image_host_chunked(scene: SceneArrays, bvh, opts: RenderOptions,
         return (_assemble_frame(torch.cat(outs), scene, opts, opts.spp),
                 float(total_rays))
 
-    n_steps = -(-opts.spp // spp_chunk)
-    for n in range(n_steps, min(2 * n_steps, opts.spp) + 1):
-        if opts.spp % n == 0:
-            n_steps = n
-            break
-    base, extra = divmod(opts.spp, n_steps)
-    acc, done, step = None, 0, 0
-    while done < opts.spp:
-        k = base + (1 if step < extra else 0)
+    acc, done = None, 0
+    for step, k in enumerate(steps):
         rad, rays = dispatch(render_pixels_refill, opts=opts.replace(spp=k),
                              pixel_ids=ids, sample_offset=done, lanes=chunk,
                              pixel_fn=pixel_fn)
         acc = rad * k if acc is None else acc + rad * k
         total_rays += int(rays)
         done += k
-        step += 1
         if progress is not None:
-            progress(step, n_steps)
+            progress(step + 1, len(steps))
     return _assemble_frame(acc, scene, opts, opts.spp), float(total_rays)
+
+
+def spp_steps(opts: RenderOptions) -> list:
+    """The samples of each dispatch of render_image_host_chunked, in order.
+    The lane pool balances them (spp 25 at spp_chunk 8 renders 5 x 5, not
+    8+8+8+1); the scan over samples takes ``spp_chunk`` at a time."""
+    spp = opts.spp
+    spp_chunk = max(1, min(opts.spp_chunk, spp))
+    if not opts.refill:
+        return [min(spp_chunk, spp - done) for done in range(0, spp, spp_chunk)]
+    n_steps = -(-spp // spp_chunk)
+    for n in range(n_steps, min(2 * n_steps, spp) + 1):
+        if spp % n == 0:
+            n_steps = n
+            break
+    base, extra = divmod(spp, n_steps)
+    return [base + (1 if step < extra else 0) for step in range(n_steps)]

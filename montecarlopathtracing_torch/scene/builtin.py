@@ -11,6 +11,11 @@ import tempfile
 from typing import Optional
 
 from ..config import RenderOptions
+from ..film.film import write_png
+
+# The built-in interior's floor texture, shipped in the package.
+FLOOR_TEXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "assets", "cherry-wood-texture.png")
 
 
 def box_scene_text(light_radiance=(30.0, 30.0, 30.0), with_specular=False,
@@ -128,12 +133,9 @@ def write_box_scene(directory: str, name: str = "box", **kw) -> str:
     if kw.get("with_texture"):
         import numpy as np
 
-        from ..film.film import write_png
-
         # 8x8 red/blue checkerboard (distinct channels so tests can assert
-        # which texel a uv hit).  Written by the port's own PNG encoder, so
-        # writing needs no imaging library (reading it back at load time
-        # does, as in the loader's texture path).
+        # which texel a uv hit).  Written and read back by the port's own PNG
+        # codec, so neither needs an imaging library.
         yy, xx = np.mgrid[0:8, 0:8]
         check = ((yy + xx) % 2).astype(np.uint8)
         img = np.zeros((8, 8, 3), np.uint8)
@@ -171,8 +173,10 @@ def load_builtin_large(n_tris: int = 400_000,
     Built directly as parsed buffers (no OBJ text round-trip) and fed through
     the normal build_scene pipeline (Morton sort, gap clustering, light CDFs).
 
-    The prop textures are written with PIL; where PIL is missing they are
-    skipped, as the loader itself drops textures it cannot decode.
+    The floor is ``assets/cherry-wood-texture.png``, PIL's decode of the JAX
+    package's ``tests/golden/cherry-wood-texture.jpg`` stored losslessly, and
+    the prop textures are written with the port's own PNG encoder, so the
+    scene loads the same texels on a machine without PIL.
 
     Returns (scene, meta) on ``device`` (None = the card).
     """
@@ -245,7 +249,7 @@ def load_builtin_large(n_tris: int = 400_000,
     mats = []
     floor = MaterialRecord("Floor")
     floor.kd = np.array([1.0, 1.0, 1.0])
-    floor.map_kd = "cherry-wood-texture.jpg"
+    floor.map_kd = FLOOR_TEXTURE  # absolute: os.path.join keeps it
     mats.append(floor)
     wall = MaterialRecord("Wall")
     wall.kd = np.array([0.7, 0.7, 0.72])
@@ -283,30 +287,18 @@ def load_builtin_large(n_tris: int = 400_000,
     mat_index = {m.name: i for i, m in enumerate(mats)}
 
     with tempfile.TemporaryDirectory() as d:
-        import shutil
-
-        tex = os.path.join(os.path.dirname(__file__), "..", "..", "tests",
-                           "golden", "cherry-wood-texture.jpg")
-        if os.path.exists(tex):
-            shutil.copy(tex, d)
-        else:
-            floor.map_kd = None
         # Deterministic procedural prop textures at mixed extents (128/256):
         # distinct per-texture stripes/checker phases so atlas offsets are
         # testable, non-uniform sizes so per-material (offset, h, w) rows are
         # actually exercised.
         for k in range(n_extra_tex):
-            try:
-                from PIL import Image
-            except ImportError:
-                break  # _load_texture cannot decode them without PIL either
             side = 128 if k % 2 == 0 else 256
             yy, xx = np.mgrid[0:side, 0:side]
             img = np.zeros((side, side, 3), np.uint8)
             img[..., 0] = (127 + 120 * np.sin((xx + 7 * k) * 0.21)).astype(np.uint8)
             img[..., 1] = (((yy >> (3 + k % 3)) + (xx >> (3 + k % 3))) % 2) * 180 + 40
             img[..., 2] = (40 + 25 * k) % 256
-            Image.fromarray(img).save(os.path.join(d, f"prop-tex-{k}.png"))
+            write_png(os.path.join(d, f"prop-tex-{k}.png"), img)
         return build_scene(d, "large", options or RenderOptions(),
                            parsed=(mats, mat_index, obj, cam, lights),
                            device=device)

@@ -9,7 +9,8 @@ Reference parsers: ``MTPC/sceneManagement.cpp:17-74`` (MTL), ``:76-189`` (OBJ),
   OBJ standard (``v/vt/vn``).  Benign for the shipped scenes (all three indices
   identical per corner); this parser is standard-compliant.
 * OpenCV texture decode (``Material::readinMap``, MTPC/sceneManagement.h:134-143,
-  BGR) is replaced by PIL (RGB).
+  BGR) is replaced by the port's own PNG decoder (``film.read_png``) for
+  ``.png`` files and by PIL (RGB) for every other format.
 * Faces with >3 corners are fan-triangulated (the reference would mis-parse them).
 
 Counterpart of ``montecarlopathtracing_tpu/scene/loader.py``.  The host part
@@ -27,8 +28,12 @@ import numpy as np
 import torch
 
 from ..config import RenderOptions
+from ..film.film import read_png
 from ..utils.device import resolve_device
+from ..utils.logging import get_logger
 from .types import CameraArrays, SceneArrays, SceneMeta, pad_pow2
+
+log = get_logger(__name__)
 
 BIG = np.float32(1e30)  # empty-AABB sentinel; finite to avoid inf*0 NaNs
 
@@ -254,11 +259,23 @@ def parse_camera(path: str):
 
 
 def _load_texture(path: str) -> Optional[np.ndarray]:
+    """(H, W, 3) f32 RGB in [0, 1], or None for a file that is missing or
+    cannot be decoded here.  A PNG is decoded by ``read_png`` on every
+    machine (the JAX package's PIL gives the same values: PNG is lossless);
+    another format, or a PNG variant ``read_png`` does not read, needs PIL,
+    and without it the texture is dropped with a warning."""
+    if not os.path.exists(path):
+        return None
+    if path.lower().endswith(".png"):
+        try:
+            return read_png(path).astype(np.float32) / 255.0
+        except ValueError:
+            pass  # palette, grey, 16-bit or interlaced: PIL reads those
     try:
         from PIL import Image
     except ImportError:
-        return None
-    if not os.path.exists(path):
+        log.warning("texture %s dropped: decoding it needs PIL, which is not "
+                    "installed; the material renders with its kd alone", path)
         return None
     img = Image.open(path).convert("RGB")
     return np.asarray(img, np.float32) / 255.0  # (H,W,3) RGB in [0,1]

@@ -7,6 +7,7 @@ than quietly running on the CPU.
 
 from __future__ import annotations
 
+import subprocess
 from typing import Optional, Union
 
 import torch
@@ -21,3 +22,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def nvidia_smi_line() -> str:
+    """The first card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them (a card
+    may be set below its maximum power, and then runs slower under load)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    return out.strip().splitlines()[0].strip()

@@ -200,8 +200,9 @@ def _port_sources():
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(d, f)
-    yield os.path.join(ROOT, "chip_smoke.py")
-    yield os.path.join(ROOT, "profile_torch.py")
+    for script in ("chip_smoke.py", "profile_torch.py", "bench_torch.py",
+                   "bench_scaling_torch.py", "kernel_experiments.py"):
+        yield os.path.join(ROOT, script)
 
 
 def test_import_hygiene_ast():

@@ -5,9 +5,9 @@
     python3 bench_scaling_torch.py --device cpu     # gloo ranks on the CPU, 64 x 64
 
 Counterpart of bench_scaling.py.  For each rank count n in 1, 2, 4, ... up
-to ``torch.cuda.device_count()`` (``--max-ranks`` on the CPU, default 2),
-n processes are started, rank r on ``cuda:r`` with NCCL (gloo on the CPU),
-and each renders the built-in box through
+to ``torch.cuda.device_count()`` (2 on the CPU), n processes are started,
+rank r on ``cuda:r`` with NCCL (gloo on the CPU), and each renders the
+built-in box through
 ``parallel/mesh.py::render_image_sharded`` on an n x 1 (tile, spp) grid:
 256 x 256 (64 x 64 on the CPU), spp 8, 16,384 lanes (bench_scaling.py:45-57).
 Each rank count renders once to warm up, then --repeats times, each run
@@ -41,6 +41,7 @@ RTOL, ATOL = 1e-5, 1e-6  # tests/test_parallel.py:31, the tile axis
 SPP = 8
 LANES = 16384
 CPU_THREADS = 2  # per rank on the CPU
+CPU_RANKS = 2  # the largest rank count on the CPU
 
 
 def free_port() -> int:
@@ -110,9 +111,6 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--repeats", type=int, default=3,
                     help="timed renders per rank count (default 3)")
-    ap.add_argument("--max-ranks", type=int, default=None,
-                    help="the largest rank count (default: every card; 2 on "
-                         "the CPU)")
     args = ap.parse_args(argv)
     resolve_device(args.device)  # raises without a card
     if args.device == "cuda":
@@ -120,9 +118,8 @@ def main(argv=None) -> int:
         info = {"device": torch.cuda.get_device_name(0),
                 "nvidia_smi": nvidia_smi_line(), "backend": "nccl"}
     else:
-        cap, size = args.max_ranks or 2, 64
+        cap, size = CPU_RANKS, 64
         info = {"device": "cpu", "backend": "gloo"}
-    cap = min(cap, args.max_ranks or cap)
     sizes = [n for n in (1, 2, 4, 8, 16, 32, 64) if n <= cap]
     results, base_img = [], None
     for n in sizes:

@@ -913,17 +913,16 @@ def check_interior_atlas(scene, label: str):
           f"texels, not {INTERIOR_TEXELS}")
 
 
-def image_agreement(a, b, label: str):
-    """The card-vs-CPU image limits: at most 0.5% of pixels outside rtol
-    1e-4 / atol 1e-5, the mean within 1e-4 relative."""
-    a, b = a.cpu().numpy(), b.cpu().numpy()
-    outside = np.abs(a - b) > 1e-5 + 1e-4 * np.abs(a)
-    frac = float(outside.any(axis=2).mean())
-    mean_rel = abs(float(a.mean()) - float(b.mean())) / max(abs(float(a.mean())), 1e-30)
-    check(frac <= 0.005, f"{label}: {frac:.4%} pixels outside tolerance")
-    check(mean_rel <= 1e-4, f"{label}: image mean differs by {mean_rel:.3e}")
-    return {"frac_pixels_outside": frac, "mean_rel_diff": mean_rel,
-            "max_abs_diff": float(np.abs(a - b).max())}
+def image_agreement(ref, img, label: str):
+    """``img`` held to ``ref`` at the card-vs-CPU image limit
+    (utils/image_limit.py: at most 0.5% of pixels outside rtol 1e-4 / atol
+    1e-5 of ``ref``, the means within 1e-4 relative)."""
+    from montecarlopathtracing_torch.utils.image_limit import (
+        image_agreement as agreement, within_image_limit)
+
+    res = agreement(img, ref)
+    check(within_image_limit(res), f"{label}: the image is outside the limit: {res}")
+    return res
 
 
 class CaptureCall:

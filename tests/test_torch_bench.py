@@ -32,6 +32,8 @@ from montecarlopathtracing_tpu.scene import builtin as jbuiltin
 from montecarlopathtracing_torch.config import MODERN, RenderOptions
 from montecarlopathtracing_torch.integrator.wavefront import render_image_host_chunked
 from montecarlopathtracing_torch.scene import builtin as tbuiltin
+from montecarlopathtracing_torch.utils.image_limit import (
+    image_agreement, within_image_limit)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -144,6 +146,33 @@ def test_pixel_check_fails_on_one_perturbed_pixel(box):
     fine = img.clone().reshape(-1, 3)
     fine[other] += 1.0
     bt.pixel_check(fine.reshape(img.shape), box, opts, BENCH, "fwd")
+
+
+def test_image_limit_scales_with_the_reference():
+    """utils/image_limit.py, which bench_torch.py and chip_smoke.py share:
+    the tolerance is atol 1e-5 + rtol 1e-4 of the reference's value; 1
+    pixel in 200 may be outside it, 2 may not; the means must agree within
+    1e-4 relative even where every pixel is inside."""
+    ref = np.full((20, 10, 3), 0.5, np.float32)
+    one = ref.copy()
+    one[3, 4, 0] += 1e-4  # the tolerance at 0.5 is 6e-5
+    res = image_agreement(one, ref)
+    assert res["pixels"] == 200 and res["outside_share"] == 0.005
+    assert res["max_abs_diff"] == pytest.approx(1e-4, rel=1e-3)
+    assert within_image_limit(res)
+    two = one.copy()
+    two[7, 1, 2] -= 1e-4
+    assert not within_image_limit(image_agreement(two, ref))
+    big = np.full((1, 3), 10.0, np.float32)  # the tolerance at 10 is 1.01e-3
+    assert image_agreement(big + 1e-4, big)["outside_share"] == 0.0
+    assert image_agreement(big + 2e-3, big)["outside_share"] == 1.0
+    shifted = ref + 5.5e-5  # every pixel inside, the mean 1.1e-4 off
+    res = image_agreement(shifted, ref)
+    assert res["outside_share"] == 0.0
+    assert res["mean_rel_diff"] == pytest.approx(1.1e-4, rel=1e-2)
+    assert not within_image_limit(res)
+    assert image_agreement(torch.as_tensor(two), torch.as_tensor(ref)) == \
+        image_agreement(two, ref)
 
 
 def test_large_stage_refuses_an_untextured_scene(box):

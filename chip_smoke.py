@@ -62,7 +62,22 @@ exits non-zero):
             chunked plan (the 2k-triangle interior past lowered table
             budgets, 3 chunks, MODERN, 32 x 32) on the card against the CPU
             within (a)'s tolerance, rows 3 and 4 launched in the forward pass
-            and no key or intersect kernel in the backward pass;
+            and no key or intersect kernel in the backward pass; (f) the scan
+            renderer's gradient (render_pixels with refill=False and
+            differentiable=True) on the scan box, card against CPU within
+            (a)'s tolerance, finite, keys and intersect counted in the
+            forward pass (> 0) and the backward pass (0); (g) (e)'s scene,
+            budgets and loss under large_mode="hbm_always" (the supergroup
+            plan): rows 1 and 5 launched in the forward pass, none in the
+            backward pass, card against CPU within (a)'s tolerance;
+   compat_frame  the box at 256 x 256, spp 4, compat, rendered whole
+            through render_image_host_chunked on the card and on the CPU,
+            every pixel held to the image limit (pixels outside printed);
+   recovery test_failure_recovery.py's options on a 64 x 64 box on the
+            card: a dispatch that raises once under retries=1 and a
+            truncated checkpoint that makes render_progressive start over,
+            each film bit for bit the uninterrupted card film's; with
+            retries=0 the fault propagates;
 8. timing   every intersect call of the four frames replayed: each kernel
             and its plain version on the call's inputs, checked exactly
             equal and timed (CUDA events, device time only), with its bound,
@@ -118,7 +133,14 @@ exits non-zero):
    ranks    (f) two ranks spawned on the card with gloo collectives on CUDA
             tensors: render_image_sharded on a 2 x 1 and a 1 x 2 grid
             against one process, and one make_distributed_train_step step
-            against train_step (tests/test_parallel.py's tolerances);
+            against train_step (tests/test_parallel.py's tolerances); d
+            mean(image) / d SceneParams through render_image_sharded with
+            differentiable=True (64 x 64 box, MODERN) on both grids, bit for
+            bit the same on both ranks and within grad (a)'s tolerance of one
+            process's, rows 1 and 2 launched in every rank;
+   torchrun the CLI under python -m torch.distributed.run with two ranks on
+            the card and --mesh-tile 2 (gloo): exit code 0, its PNG byte for
+            byte the one-process CLI's or within the image limit;
    profile  (g) the CLI's --profile writes a trace holding device kernels;
    bench    (h) bench_torch.py run as a subprocess at a reduced size (the
             box at 256 x 256, stages fwd, bwd and stats, one timed run): exit
@@ -1371,13 +1393,16 @@ def phase_grad(dev, state):
           "seconds": secs})
 
 
-def phase_grad_chunked(dev, state):
-    """Phase grad (e): a gradient through the chunked plan on the card
-    against the CPU.  The table budgets are lowered as tests/test_torch_large
-    lowers them, so the 2k-triangle interior (2,048 padded triangles) is past
-    the single-table budget and cut into 3 chunks; MODERN, 32 x 32, spp 2,
-    max_depth 5, subtiles of 16 rays.  Keys and intersect are counted in the
-    forward pass (rows 3 and 4, > 0) and in the backward pass (0)."""
+def sync(dev: str) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def grad_large_plan(dev: str, large_mode: str, want_plan, path: str):
+    """A gradient of the 2k-triangle interior past lowered table budgets
+    (tests/test_torch_large's), MODERN, 32 x 32, spp 2, max_depth 5,
+    subtiles of 16 rays, under ``large_mode``, on ``dev`` and on the CPU:
+    (plan, {device: gradient}, {device: (forward, backward) launches})."""
     from montecarlopathtracing_torch.config import MODERN, RenderOptions
     from montecarlopathtracing_torch.diff import gradients as G
     from montecarlopathtracing_torch.integrator import wavefront as W
@@ -1385,19 +1410,20 @@ def phase_grad_chunked(dev, state):
     from montecarlopathtracing_torch.scene.builtin import load_builtin_large
 
     opts = RenderOptions(spp=2, max_depth=5, seed=11, cluster_width=4,
-                         cluster_rays=16, sort_rays=True, compat=MODERN)
+                         cluster_rays=16, sort_rays=True, compat=MODERN,
+                         large_mode=large_mode)
     target = np.random.default_rng(6).uniform(0.1, 0.6, (32, 32, 3)).astype(
         np.float32)
     saved = W._VMEM_TABLE_BUDGET, W._VMEM_CHUNK_BUDGET
     W._VMEM_TABLE_BUDGET, W._VMEM_CHUNK_BUDGET = 64 << 10, 48 << 10
     grads, launches = {}, {}
     try:
-        for name in ("cuda", "cpu"):
+        for name in (dev, "cpu"):
             scene, _ = load_builtin_large(n_tris=2000, options=opts, width=32,
                                           height=32, n_textures=1, device=name)
             plan = W.resolve_plan(opts, scene.num_tris_padded)
-            check(plan == ("cluster", 128, 1, 3),
-                  f"grad (e): expected the chunked plan, got {plan}")
+            check(plan == want_plan,
+                  f"{path}: expected the plan {want_plan}, got {plan}")
             leaves = G.SceneParams.from_scene(scene).leaves(name)
             K.reset_launch_counts()
             img, rays = W.render_image_stats(G.apply_params(scene, leaves), None,
@@ -1408,23 +1434,109 @@ def phase_grad_chunked(dev, state):
             K.reset_launch_counts()
             grads[name] = G.param_grads(loss, leaves)
             launches[name] = (fwd, K.launch_counts())
-            check(int(rays) > 0, f"grad (e): the budget truncated the render "
+            check(int(rays) > 0, f"{path}: the budget truncated the render "
                                  f"on {name} (n_rays {int(rays)})")
     finally:
         W._VMEM_TABLE_BUDGET, W._VMEM_CHUNK_BUDGET = saved
-    fwd, bwd = launches["cuda"]
-    check_launched(fwd, PATH_KERNELS["chunked"], "grad (e) forward")
+    return plan, grads, launches
+
+
+def check_grad_card_vs_cpu(grads, launches, dev: str, kernels, path: str):
+    """The path's kernels launched in the forward pass and no key or
+    intersect kernel in the backward pass; finite gradients on the card
+    within grad (a)'s tolerance of the CPU's.  Returns the errors."""
+    fwd, bwd = launches[dev]
+    check_launched(fwd, kernels, f"{path} forward")
     check(all(v == 0 for v in bwd.values()),
-          f"grad (e): the backward pass launched key or intersect kernels: {bwd}")
-    check(grads_finite(grads["cuda"]), "grad (e): non-finite gradients on the card")
-    errs, ok = grad_errors(grads["cpu"], grads["cuda"])
-    check(ok, f"grad (e): card gradients differ from the CPU's: {errs}")
-    check(float(grads["cuda"].kd.abs().max()) > 0, "grad (e): zero kd gradient")
+          f"{path}: the backward pass launched key or intersect kernels: {bwd}")
+    check(grads_finite(grads[dev]), f"{path}: non-finite gradients on the card")
+    errs, ok = grad_errors(grads["cpu"], grads[dev])
+    check(ok, f"{path}: card gradients differ from the CPU's: {errs}")
+    check(float(grads[dev].kd.abs().max()) > 0, f"{path}: zero kd gradient")
+    return errs
+
+
+def phase_grad_chunked(dev, state):
+    """Phase grad (e): a gradient through the chunked plan on the card
+    against the CPU.  The table budgets are lowered as tests/test_torch_large
+    lowers them, so the 2k-triangle interior (2,048 padded triangles) is past
+    the single-table budget and cut into 3 chunks; MODERN, 32 x 32, spp 2,
+    max_depth 5, subtiles of 16 rays.  Keys and intersect are counted in the
+    forward pass (rows 3 and 4, > 0) and in the backward pass (0)."""
+    plan, grads, launches = grad_large_plan(dev, "hbm", ("cluster", 128, 1, 3),
+                                            "grad (e)")
+    errs = check_grad_card_vs_cpu(grads, launches, dev, PATH_KERNELS["chunked"],
+                                  "grad (e)")
+    fwd, bwd = launches[dev]
     emit({"phase": "grad_chunked_card_vs_cpu", "width": 32, "height": 32,
           "spp": 2, "max_depth": 5, "plan": list(plan),
           "tolerance": "atol 1e-6 + 1e-4 x field max",
           "max_abs_err_and_scale": errs, "launches_forward": fwd,
           "launches_backward": bwd})
+
+
+def phase_grad_hbm(dev):
+    """Phase grad (g): grad (e)'s scene, budgets and loss under
+    large_mode="hbm_always", the supergroup plan: rows 1 and 5 launched in
+    the forward pass, none in the backward pass, the card within grad (a)'s
+    tolerance of the CPU."""
+    t0 = time.perf_counter()
+    plan, grads, launches = grad_large_plan(dev, "hbm_always",
+                                            ("cluster_hbm", 128, 1, 1), "grad (g)")
+    errs = check_grad_card_vs_cpu(grads, launches, dev, PATH_KERNELS["hbm"],
+                                  "grad (g)")
+    fwd, bwd = launches[dev]
+    emit({"phase": "grad_hbm_card_vs_cpu", "width": 32, "height": 32,
+          "spp": 2, "max_depth": 5, "plan": list(plan),
+          "tolerance": "atol 1e-6 + 1e-4 x field max",
+          "max_abs_err_and_scale": errs, "launches_forward": fwd,
+          "launches_backward": bwd, "seconds": time.perf_counter() - t0})
+
+
+def phase_grad_scan(dev):
+    """Phase grad (f): the scan renderer's gradient, render_pixels with
+    refill=False and differentiable=True, on the scan phase's 64 x 64
+    MODERN spec+glass box (spp 4, max_depth 8), d mean((radiance -
+    target)^2) / d SceneParams on the card and on the CPU: finite, within
+    grad (a)'s tolerance, key and intersect launches counted in the forward
+    pass (> 0) and the backward pass (0: the intersect results are
+    replayed)."""
+    from montecarlopathtracing_torch.config import MODERN, RenderOptions
+    from montecarlopathtracing_torch.diff import gradients as G
+    from montecarlopathtracing_torch.integrator.wavefront import render_pixels
+    from montecarlopathtracing_torch.kernels import cluster as K
+    from montecarlopathtracing_torch.scene.builtin import load_builtin_box
+
+    opts = RenderOptions(spp=4, max_depth=8, compat=MODERN, refill=False)
+    target = np.random.default_rng(5).uniform(0.1, 0.6, (64 * 64, 3)).astype(
+        np.float32)
+    grads, launches, secs = {}, {}, {}
+    for name in (dev, "cpu"):
+        scene, _ = load_builtin_box(width=64, height=64, with_specular=True,
+                                    with_glass=True, device=name)
+        ids = torch.arange(64 * 64, dtype=torch.int32, device=name)
+        t0 = time.perf_counter()
+        leaves = G.SceneParams.from_scene(scene).leaves(name)
+        K.reset_launch_counts()
+        rad, rays = render_pixels(G.apply_params(scene, leaves), None, opts, ids,
+                                  differentiable=True)
+        loss = torch.mean((rad - torch.as_tensor(target, device=name)) ** 2)
+        sync(name)
+        fwd = K.launch_counts()
+        K.reset_launch_counts()
+        grads[name] = G.param_grads(loss, leaves)
+        sync(name)
+        launches[name] = (fwd, K.launch_counts())
+        secs[name] = time.perf_counter() - t0
+        check(int(rays) > 0, f"grad (f): no rays on {name}")
+    errs = check_grad_card_vs_cpu(grads, launches, dev, PATH_KERNELS["single"],
+                                  "grad (f)")
+    fwd, bwd = launches[dev]
+    emit({"phase": "grad_scan_card_vs_cpu", "width": 64, "height": 64, "spp": 4,
+          "max_depth": 8, "tolerance": "atol 1e-6 + 1e-4 x field max",
+          "max_abs_err_and_scale": errs, "launches_forward": fwd,
+          "launches_backward": bwd, "seconds_cuda": secs[dev],
+          "seconds_cpu": secs["cpu"]})
 
 
 def phase_parity(dev, state):
@@ -2225,10 +2337,28 @@ RANK_RENDER = dict(spp=8, max_depth=4, chunk_size=256)
 RANK_TRAIN = dict(spp=4, max_depth=3, chunk_size=256)
 
 
+def sharded_grad(scene, mesh, dev: str):
+    """d mean(image) / d SceneParams through render_image_sharded with
+    differentiable=True (MODERN, RANK_RENDER's options), and the key and
+    intersect launches of that forward and backward pass."""
+    from montecarlopathtracing_torch.config import MODERN, RenderOptions
+    from montecarlopathtracing_torch.diff import gradients as G
+    from montecarlopathtracing_torch.kernels import cluster as K
+    from montecarlopathtracing_torch.parallel.mesh import render_image_sharded
+
+    K.reset_launch_counts()
+    leaves = G.SceneParams.from_scene(scene).leaves(dev)
+    img = render_image_sharded(G.apply_params(scene, leaves), None,
+                               RenderOptions(**RANK_RENDER, compat=MODERN), mesh,
+                               differentiable=True, device=dev)
+    grads = G.param_grads(img.mean(), leaves).to("cpu")
+    return grads, K.launch_counts()
+
+
 def rank_worker(rank: int, world: int, address: str, out_dir: str, dev: str):
     """One of two ranks on the card (gloo collectives on CUDA tensors): the
-    sharded render on a 2 x 1 and a 1 x 2 grid, and one distributed step on
-    each grid."""
+    sharded render and its gradient on a 2 x 1 and a 1 x 2 grid, and one
+    distributed step on each grid."""
     from montecarlopathtracing_torch.config import RenderOptions
     from montecarlopathtracing_torch.diff.gradients import (
         SceneParams, make_distributed_train_step)
@@ -2245,6 +2375,9 @@ def rank_worker(rank: int, world: int, address: str, out_dir: str, dev: str):
         scene, _ = load_builtin_box(width=64, height=64, device=dev)
         img = render_image_sharded(scene, None, RenderOptions(**RANK_RENDER), mesh,
                                    device=dev)
+        t0 = time.perf_counter()
+        grads, grad_launches = sharded_grad(scene, mesh, dev)
+        grad_secs = time.perf_counter() - t0
         small, _ = load_builtin_box(width=32, height=32, device=dev)
         ids, per = _padded_ids(32 * 32, tile)
         step = make_distributed_train_step(small, None, RenderOptions(**RANK_TRAIN),
@@ -2252,7 +2385,9 @@ def rank_worker(rank: int, world: int, address: str, out_dir: str, dev: str):
         params, loss = step(SceneParams.from_scene(small),
                             torch.zeros((tile, per, 3), device=dev), ids)
         res[f"{tile}x{spp}"] = {"img": img.cpu(), "loss": float(loss),
-                                "kd": params.kd.cpu(), "per": per}
+                                "kd": params.kd.cpu(), "per": per,
+                                "grads": vars(grads), "grad_launches": grad_launches,
+                                "grad_seconds": grad_secs}
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     torch.distributed.destroy_process_group()
 
@@ -2261,32 +2396,37 @@ def phase_ranks(dev):
     """(f) Two ranks on the card, spawned here, gloo collectives on CUDA
     tensors (NCCL refuses two ranks on one device): the sharded render and
     the distributed step against one process, at tests/test_parallel.py's
-    tolerances."""
-    import socket
-
+    tolerances; the sharded gradient bit for bit the same on both ranks and
+    within grad (a)'s tolerance of one process's, with rows 1 and 2
+    launched in every rank."""
     import torch.multiprocessing as mp
 
     from montecarlopathtracing_torch.config import RenderOptions
-    from montecarlopathtracing_torch.diff.gradients import SceneParams, train_step
+    from montecarlopathtracing_torch.diff.gradients import (
+        PARAM_FIELDS, SceneParams, train_step)
     from montecarlopathtracing_torch.integrator.wavefront import render_image
+    from montecarlopathtracing_torch.parallel.mesh import make_mesh
     from montecarlopathtracing_torch.scene.builtin import load_builtin_box
 
     scene, _ = load_builtin_box(width=64, height=64, device=dev)
     single = render_image(scene, None, RenderOptions(**RANK_RENDER), device=dev).cpu()
+    single_grad, single_launches = sharded_grad(scene, make_mesh(), dev)
     small, _ = load_builtin_box(width=32, height=32, device=dev)
     p1, loss1 = train_step(SceneParams.from_scene(small), small, None,
                            RenderOptions(**RANK_TRAIN),
                            torch.zeros((32, 32, 3), device=dev), lr=0.05, device=dev)
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    address = f"localhost:{s.getsockname()[1]}"
-    s.close()
+    address = f"localhost:{free_port()}"
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
         mp.start_processes(rank_worker, args=(2, address, d, dev), nprocs=2,
                            join=True, start_method="spawn")
         ranks = [torch.load(os.path.join(d, f"rank{r}.pt")) for r in range(2)]
     secs = time.perf_counter() - t0
+    for r in ranks:
+        for res in r.values():
+            res["grads"] = SceneParams(**res["grads"])
+    check(grads_finite(single_grad) and float(single_grad.kd.abs().max()) > 0,
+          "ranks: the one-process gradient is not finite or is zero")
     out = {}
     for grid, (rtol, atol) in (("2x1", (1e-5, 1e-6)), ("1x2", (1e-4, 1e-5))):
         a, b = ranks[0][grid], ranks[1][grid]
@@ -2300,10 +2440,182 @@ def phase_ranks(dev):
         check(bool(torch.allclose(a["kd"], p1.kd.cpu(), rtol=1e-3, atol=1e-6))
               and torch.equal(a["kd"], b["kd"]),
               f"ranks {grid}: kd after the step differs from train_step")
+        check(all(torch.equal(getattr(a["grads"], f), getattr(b["grads"], f))
+                  for f in PARAM_FIELDS),
+              f"ranks {grid}: the sharded gradients differ between the ranks")
+        errs, ok = grad_errors(single_grad, a["grads"])
+        check(ok, f"ranks {grid}: the sharded gradient differs from one "
+                  f"process's: {errs}")
+        for r in (a, b):
+            check_launched(r["grad_launches"], PATH_KERNELS["single"],
+                           f"ranks {grid} sharded gradient")
         out[grid] = {"img_max_abs_diff": float((a["img"] - single).abs().max()),
                      "loss": a["loss"], "loss_single": float(loss1),
-                     "kd_max_abs_diff": float((a["kd"] - p1.kd.cpu()).abs().max())}
-    emit({"phase": "ranks", "ranks": 2, "backend": "gloo", "seconds": secs, **out})
+                     "kd_max_abs_diff": float((a["kd"] - p1.kd.cpu()).abs().max()),
+                     "grad_max_abs_err_and_scale": errs,
+                     "grad_seconds": [a["grad_seconds"], b["grad_seconds"]],
+                     "grad_launches": [a["grad_launches"], b["grad_launches"]]}
+    emit({"phase": "ranks", "ranks": 2, "backend": "gloo", "seconds": secs,
+          "grad_tolerance": "atol 1e-6 + 1e-4 x field max",
+          "grad_launches_single": single_launches, **out})
+
+
+RECOVERY_OPTS = dict(spp=6, spp_chunk=2, max_depth=6, seed=5)
+
+
+def phase_recovery(dev):
+    """Failure recovery (tests/test_torch_recovery.py) on the card, the 64 x
+    64 box, MODERN, test_failure_recovery.py's options: a dispatch that
+    raises once under retries=1, and a render_progressive that finds a
+    truncated checkpoint and starts over, each film bit for bit the
+    uninterrupted card film's; with retries=0 the fault propagates.  Rows 1
+    and 2 are counted over the recovered renders."""
+    from montecarlopathtracing_torch import api
+    from montecarlopathtracing_torch.config import MODERN, RenderOptions
+    from montecarlopathtracing_torch.integrator import wavefront as W
+    from montecarlopathtracing_torch.kernels import cluster as K
+    from montecarlopathtracing_torch.scene.builtin import load_builtin_box
+
+    opts = RenderOptions(**RECOVERY_OPTS, compat=MODERN)
+    scene, _ = load_builtin_box(width=64, height=64, device=dev)
+    t0 = time.perf_counter()
+    clean, clean_rays = W.render_image_host_chunked(scene, None, opts, device=dev)
+    clean_film = api.render_progressive(scene, opts, device=dev)
+    image_checks(clean, "recovery")
+
+    real = W.render_pixels_refill
+    calls = {"n": 0}
+
+    def flaky(*args, **kw):
+        calls["n"] += 1
+        if calls["n"] == 2:  # fail the second dispatch once
+            raise RuntimeError("injected transient device fault")
+        return real(*args, **kw)
+
+    K.reset_launch_counts()
+    W.render_pixels_refill = flaky
+    try:
+        img, rays = W.render_image_host_chunked(scene, None, opts, retries=1,
+                                                device=dev)
+        retried_calls = calls["n"]
+        calls["n"] = 0
+        try:
+            W.render_image_host_chunked(scene, None, opts, device=dev)
+            propagated = False
+        except RuntimeError as exc:
+            propagated = "injected" in str(exc)
+    finally:
+        W.render_pixels_refill = real
+    check(retried_calls == len(W.spp_steps(opts)) + 1,
+          f"recovery: {retried_calls} dispatches under retries=1")
+    check(torch.equal(img, clean) and rays == clean_rays,
+          "recovery: the retried image differs from the uninterrupted one")
+    check(propagated, "recovery: with retries=0 the fault did not propagate")
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = os.path.join(d, "film.npz")
+        with open(ckpt, "wb") as fh:
+            fh.write(b"PK\x03\x04garbage-truncated-npz")
+        film = api.render_progressive(scene, opts, checkpoint_path=ckpt,
+                                      device=dev)
+    launches = K.launch_counts()
+    check(float(film.n_samples) == opts.spp
+          and torch.equal(film.radiance_sum, clean_film.radiance_sum),
+          "recovery: the restarted film differs from the uninterrupted one")
+    check_launched(launches, PATH_KERNELS["single"], "recovery")
+    emit({"phase": "recovery", "width": 64, "height": 64, **RECOVERY_OPTS,
+          "retry_dispatches": retried_calls, "retried_equal": True,
+          "fault_propagates_without_retries": True, "restart_equal": True,
+          "launches": launches, "seconds": time.perf_counter() - t0})
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+TORCHRUN_RENDER = ("--spp", "4", "--max-depth", "8")
+
+
+def phase_torchrun(dev):
+    """The CLI under torchrun: two ranks on the one card with --mesh-tile 2
+    (cli.py's gloo branch).  Exit code 0, and its PNG byte for byte the
+    one-process CLI's, or within the image limit."""
+    from montecarlopathtracing_torch import read_png
+    from montecarlopathtracing_torch.scene.builtin import write_box_scene
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as d:
+        write_box_scene(d, "box", width=64, height=64)
+        cli = ("-m", "montecarlopathtracing_torch", "render", d, "box",
+               *TORCHRUN_RENDER, "--device", dev)
+        runs = {
+            "one": [sys.executable, *cli, "--out-dir", os.path.join(d, "one")],
+            "torchrun": [sys.executable, "-m", "torch.distributed.run",
+                         "--nproc-per-node", "2", "--master-addr", "localhost",
+                         "--master-port", str(free_port()), *cli, "--out-dir",
+                         os.path.join(d, "torchrun"), "--mesh-tile", "2"],
+        }
+        secs, pngs = {}, {}
+        for name, cmd in runs.items():
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                                 timeout=600)
+            secs[name] = time.perf_counter() - t0
+            check(res.returncode == 0, f"torchrun: the {name} CLI exited "
+                                       f"{res.returncode}:\n{res.stderr[-3000:]}")
+            path = os.path.join(d, name, "box-SPP4.png")
+            check(os.path.isfile(path), f"torchrun: the {name} CLI wrote no PNG")
+            with open(path, "rb") as fh:
+                pngs[name] = fh.read()
+            pngs[name + "_pixels"] = read_png(path)
+    same = pngs["one"] == pngs["torchrun"]
+    agree = None
+    if not same:
+        agree = image_agreement(pngs["one_pixels"].astype(np.float32),
+                                pngs["torchrun_pixels"].astype(np.float32),
+                                "torchrun")
+    emit({"phase": "torchrun", "ranks": 2, "width": 64, "height": 64,
+          "args": list(TORCHRUN_RENDER) + ["--mesh-tile", "2"],
+          "png_bytes_equal": same, "image_agreement": agree,
+          "seconds_one": secs["one"], "seconds_torchrun": secs["torchrun"]})
+
+
+def phase_compat_frame(dev):
+    """The built-in box at 256 x 256, spp 4, compat (RenderOptions'
+    defaults), rendered whole through render_image_host_chunked on the card
+    and on the CPU, every pixel held to the image limit; rows 1 and 2
+    counted on the card's frame."""
+    from montecarlopathtracing_torch.config import RenderOptions
+    from montecarlopathtracing_torch.integrator.wavefront import (
+        render_image_host_chunked)
+    from montecarlopathtracing_torch.kernels import cluster as K
+    from montecarlopathtracing_torch.scene.builtin import load_builtin_box
+
+    opts = RenderOptions(spp=4)
+    imgs, rays, secs = {}, {}, {}
+    for name in (dev, "cpu"):
+        scene, _ = load_builtin_box(width=256, height=256, device=name)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        img, rays[name] = render_image_host_chunked(scene, None, opts, device=name)
+        sync(name)
+        secs[name] = time.perf_counter() - t0
+        if name == dev:
+            launches = K.launch_counts()
+        imgs[name] = img.cpu()
+    check_launched(launches, PATH_KERNELS["single"], "compat_frame")
+    image_checks(imgs[dev], "compat_frame")
+    res = image_agreement(imgs["cpu"], imgs[dev], "compat_frame")
+    emit({"phase": "compat_frame", "width": 256, "height": 256, "spp": 4,
+          "compat": True,
+          "pixels_outside": round(res["outside_share"] * res["pixels"]),
+          "rays_cuda": rays[dev], "rays_cpu": rays["cpu"], "launches": launches,
+          "seconds_cuda": secs[dev], "seconds_cpu": secs["cpu"], **res})
 
 
 BENCH_ARGS = ("--stages", "fwd,bwd,stats", "--size", "256", "--repeats", "1")
@@ -2400,9 +2712,14 @@ def main() -> int:
     phase_scan(dev)
     phase_grad(dev, state)
     phase_grad_chunked(dev, state)
+    phase_grad_scan(dev)
+    phase_grad_hbm(dev)
+    phase_compat_frame(dev)
+    phase_recovery(dev)
     phase_oracle(dev)
     phase_native(dev, state)
     phase_ranks(dev)
+    phase_torchrun(dev)
     phase_profile(dev)
     phase_bench()
     phase_timing(state)

@@ -16,7 +16,9 @@ Rank ``r`` sits at (r // spp, r % spp), the row-major order of the JAX
 package's ``devices.reshape(tile, spp)``.  Every rank holds the scene and the
 LBVH.  One sum all-reduce over all ranks both averages the spp shards and
 gathers the tiles, so every rank ends with the full (H, W, 3) image, as the
-JAX package's replicated output.  Only sum all-reduces are used: gloo takes
+JAX package's replicated output; in a differentiable render the backward
+pass sums the scene tensors' cotangents over all ranks, the transpose of the
+JAX package's replicated scene input.  Only sum all-reduces are used: gloo takes
 them on CUDA tensors, which is how two ranks share one card (NCCL refuses
 two ranks on one device); with one card per rank, NCCL.
 """
@@ -32,7 +34,7 @@ import torch.distributed as dist
 
 from ..config import RenderOptions
 from ..integrator.wavefront import render_pixels, render_pixels_refill
-from ..scene.types import SceneArrays
+from ..scene.types import SCENE_FIELDS, SceneArrays
 from ..utils.device import resolve_device
 
 
@@ -117,33 +119,79 @@ def _all_reduce(t):
     return t
 
 
+class _Replicated(torch.autograd.Function):
+    """The scene's tensors as a replicated input of the rank's render: the
+    identity forward; backward sums every cotangent over all ranks (the
+    transpose of the JAX package's ``P()`` input to its ``shard_map``).  One
+    node for all the tensors, so every rank runs the same all-reduces in the
+    same order."""
+
+    @staticmethod
+    def forward(ctx, *tensors):
+        return tuple(t.clone() for t in tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return tuple(_all_reduce(g.clone(memory_format=torch.contiguous_format))
+                     for g in grads)
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """``full`` summed over all ranks.  Every rank computes its loss of the
+    same replicated image, so the cotangent is already the same on every
+    rank and passes through unchanged.  The replicated scene tensors are
+    inputs too (with no gradient) so that their node's backward runs on
+    every rank, whichever of them this rank's samples reach."""
+
+    @staticmethod
+    def forward(ctx, full, *replicated):
+        ctx.n_replicated = len(replicated)
+        return _all_reduce(full.clone())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad,) + (None,) * ctx.n_replicated
+
+
+def _replicate_scene(scene: SceneArrays):
+    """(scene, replicated tensors): the scene's tensors that need a gradient
+    passed through ``_Replicated``."""
+    names = [f for f in SCENE_FIELDS if getattr(scene, f).requires_grad]
+    if not names:
+        return scene, ()
+    outs = _Replicated.apply(*(getattr(scene, f) for f in names))
+    return dataclasses.replace(scene, **dict(zip(names, outs))), outs
+
+
 def render_image_sharded(scene: SceneArrays, bvh, opts: RenderOptions,
                          mesh: Mesh, differentiable: bool = False, device=None):
     """Distributed full-frame render -> (H, W, 3) f32, the same on every rank.
 
     ``opts.spp`` is split evenly over the spp axis (it must divide).  With
-    ``differentiable`` the image is a function of the scene's parameter
-    tensors on this rank (the all-reduce passes the gradient back to every
-    rank's own samples)."""
+    ``differentiable`` the image is a function of the scene's tensors that
+    require a gradient, with the JAX package's contract: when every rank
+    computes the same loss of the image, ``torch.autograd.grad`` gives every
+    rank the whole image's gradient, the same on all ranks and equal to one
+    process's.  The rank's own samples give its share, and the shares are
+    summed over the ranks in backward."""
     dev = resolve_device(device)
     scene = scene.to(dev)
     h, w = scene.camera.height, scene.camera.width
     n = h * w
     local_opts, offset = _local_opts(opts, mesh)
     ids, per = _padded_ids(n, mesh.tile)
+    multi = _world()[0] > 1
+    replicated = ()
+    if multi and differentiable:
+        scene, replicated = _replicate_scene(scene)
     rad = _render_tile(scene, bvh, local_opts,
                        torch.as_tensor(ids[mesh.tile_index], device=dev),
                        differentiable, offset)
     full = torch.zeros((mesh.tile, per, 3), dtype=torch.float32, device=dev)
     full = full.index_copy(0, torch.tensor([mesh.tile_index], device=dev),
                            (rad / mesh.spp)[None])
-    if _world()[0] > 1:
-        if differentiable and full.requires_grad:
-            from torch.distributed.nn.functional import all_reduce
-
-            full = all_reduce(full)
-        else:
-            dist.all_reduce(full)
+    if multi:
+        full = _SumOverRanks.apply(full, *replicated)
     return full.reshape(mesh.tile * per, 3)[:n].reshape(h, w, 3)
 
 

@@ -12,6 +12,13 @@ padded), at tests/test_parallel.py's tolerances:
   order);
 * the step: loss rtol 1e-4, kd rtol 1e-3 / atol 1e-6.
 
+Each rank also takes d mean(image) / d (kd, light_radiance) through
+render_image_sharded(differentiable=True) on the 32 x 32 box, MODERN, the
+step's options: both ranks must hold the same gradient, the whole image's,
+equal to one process's at the tile or spp axis's tolerance above, and to the
+JAX package's jax.grad through its render_image_sharded on the same mesh of
+host devices within rtol 1e-4 / atol 1e-6.
+
 The same ranks' outputs are also held to the JAX package's
 render_image_sharded_jit and make_distributed_train_step on a 2 x 1 and a
 1 x 2 mesh of host devices, with the same box, options and zero target, so a
@@ -54,9 +61,25 @@ def _scene():
     return load_builtin_box(width=SIZE, height=SIZE, device="cpu")[0]
 
 
+def _sharded_grads(scene, mesh):
+    """d mean(image) / d (kd, light_radiance) through the sharded
+    differentiable render, as numpy arrays."""
+    from montecarlopathtracing_torch.config import MODERN, RenderOptions
+    from montecarlopathtracing_torch.diff.gradients import (
+        SceneParams, apply_params, param_grads)
+    from montecarlopathtracing_torch.parallel.mesh import render_image_sharded
+
+    leaves = SceneParams.from_scene(scene).leaves("cpu")
+    img = render_image_sharded(apply_params(scene, leaves), None,
+                               RenderOptions(**TRAIN, compat=MODERN), mesh,
+                               differentiable=True, device="cpu")
+    g = param_grads(img.mean(), leaves)
+    return g.kd.numpy(), g.light_radiance.numpy()
+
+
 def _worker(rank: int, world: int, port: int, tile: int, spp: int, out: str):
-    """One rank: the sharded render (compat and MODERN) and one distributed
-    step."""
+    """One rank: the sharded render (compat and MODERN), its gradient, and
+    one distributed step."""
     sys.path.insert(0, ROOT)
     torch.set_num_threads(1)
     from montecarlopathtracing_torch.config import MODERN, RenderOptions
@@ -72,6 +95,7 @@ def _worker(rank: int, world: int, port: int, tile: int, spp: int, out: str):
                                device="cpu")
     img_modern = render_image_sharded(
         scene, None, RenderOptions(**RENDER, compat=MODERN), mesh, device="cpu")
+    grad_kd, grad_light = _sharded_grads(scene, mesh)
     n = SIZE * SIZE
     ids, per = _padded_ids(n, mesh.tile)
     target = torch.zeros((n, 3))[torch.as_tensor(ids.reshape(-1)).long()]
@@ -80,7 +104,8 @@ def _worker(rank: int, world: int, port: int, tile: int, spp: int, out: str):
     params, loss = step(SceneParams.from_scene(scene),
                         target.reshape(mesh.tile, per, 3), ids)
     np.savez(out, img=img.numpy(), img_modern=img_modern.numpy(), loss=float(loss), kd=params.kd.numpy(),
-             light_radiance=params.light_radiance.numpy(), per=per)
+             light_radiance=params.light_radiance.numpy(), per=per,
+             grad_kd=grad_kd, grad_light_radiance=grad_light)
     torch.distributed.destroy_process_group()
 
 
@@ -135,6 +160,44 @@ def single():
                               RenderOptions(**TRAIN), torch.zeros((SIZE, SIZE, 3)),
                               lr=LR, device="cpu")
     return img.numpy(), float(loss), params
+
+
+@pytest.fixture(scope="module")
+def single_grads():
+    """The one-process gradient of mean(image) (world of one, 1 x 1 grid)."""
+    from montecarlopathtracing_torch.parallel.mesh import make_mesh
+
+    torch.set_num_threads(2)
+    return _sharded_grads(_scene(), make_mesh())
+
+
+@pytest.fixture(scope="module")
+def jax_sharded_grads():
+    """(tile, spp) -> jax.grad of mean(image) through the JAX package's
+    render_image_sharded on a mesh of two host devices, (kd, light_radiance)."""
+    import jax
+    import jax.numpy as jnp
+
+    from montecarlopathtracing_tpu.accel.lbvh import build_lbvh
+    from montecarlopathtracing_tpu.config import MODERN as JMODERN
+    from montecarlopathtracing_tpu.config import RenderOptions as JOpts
+    from montecarlopathtracing_tpu.diff.gradients import (
+        SceneParams as JParams, apply_params as japply)
+    from montecarlopathtracing_tpu.parallel.mesh import (
+        make_mesh as jmesh, render_image_sharded as jsharded)
+    from montecarlopathtracing_tpu.scene.builtin import load_builtin_box as jbox
+
+    scene, _ = jbox(width=SIZE, height=SIZE)
+    bvh = jax.jit(build_lbvh)(scene)
+    opts = JOpts(**TRAIN, compat=JMODERN)
+    out = {}
+    for tile, spp in GRIDS:
+        mesh = jmesh(tile=tile, spp=spp, devices=jax.devices()[:2])
+        g = jax.jit(jax.grad(lambda p: jnp.mean(jsharded(
+            japply(scene, p), bvh, opts, mesh, differentiable=True))))(
+                JParams.from_scene(scene))
+        out[(tile, spp)] = np.asarray(g.kd), np.asarray(g.light_radiance)
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -222,6 +285,27 @@ def test_distributed_step_matches_jax(grids, jax_grids, grid):
         np.testing.assert_allclose(r["kd"], ref["kd"], rtol=1e-3, atol=1e-6)
         np.testing.assert_allclose(r["light_radiance"], ref["light_radiance"],
                                    rtol=1e-3, atol=1e-6)
+
+
+@pytest.mark.parametrize("grid", GRIDS, ids=["tile2x1", "spp1x2"])
+def test_sharded_grad_matches_single(grids, single_grads, grid):
+    """Every rank holds the whole image's gradient: the same on both ranks
+    and equal to one process's (not its own samples' share, and not the
+    world size times it)."""
+    tol = dict(rtol=1e-5, atol=1e-6) if grid[1] == 1 else dict(rtol=1e-4, atol=1e-5)
+    ranks = grids[grid]
+    for key, want in zip(("grad_kd", "grad_light_radiance"), single_grads):
+        np.testing.assert_array_equal(ranks[0][key], ranks[1][key])
+        np.testing.assert_allclose(ranks[0][key], want, **tol)
+    assert single_grads[0].max() > 0 and single_grads[1].max() > 0
+
+
+@pytest.mark.parametrize("grid", GRIDS, ids=["tile2x1", "spp1x2"])
+def test_sharded_grad_matches_jax(grids, jax_sharded_grads, grid):
+    for r in grids[grid]:
+        for got, want in zip((r["grad_kd"], r["grad_light_radiance"]),
+                             jax_sharded_grads[grid]):
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
 
 
 def test_world_of_one(single):

@@ -24,6 +24,11 @@ kernelfrac  one fwd frame under torch.profiler: the key and intersect
             last: the frames timed after a profiled frame took 1.43x as long
             on the card (PERF.md section 6, PR 10).
 
+Every forward frame (fwd, modern, large, kernelfrac) replays its lane
+pool's blocks as CUDA graphs, captured anew in each dispatch and timed with
+it, as every forward frame on the card does (integrator/wavefront.py::
+_Blocks); the gradient's blocks run op by op.
+
 Every stage starts from the same state: gc.collect() and
 torch.cuda.empty_cache() run before it, and each stage's tensors are freed
 when it ends.

@@ -36,9 +36,12 @@ exits non-zero):
             api.render_scene, once with the default options (chunked plan)
             and once with large_mode="hbm_always" (supergroup plan); the two
             images must agree;
-            each of 4, 5 and 6 renders its frame twice: once timed, with the
-            launch counters zeroed just before and read just after, and once
-            with the intersect calls recorded for phase 8;
+            each of 4, 5 and 6 renders its frame twice: once timed, its
+            lane pool's blocks replayed as CUDA graphs, with the launch
+            counters zeroed just before and read just after, and once under
+            wavefront.eager() (one launch per op) with the intersect calls
+            recorded for phase 8; the two frames must be bit for bit equal,
+            with the same rays and launch counts;
 7. parity   a 64 x 64 MODERN render on the card against the same render on
             the CPU (plain versions);
    scan     render_pixels with refill=False (the scan over samples) against
@@ -113,8 +116,9 @@ exits non-zero):
             limits), with the walk's launches counted (no cluster kernel may
             run); (c) the 400k interior past a chunk cap of 4 under
             large_mode="chunked": resolve_plan gives the packet walk, and
-            the frame renders; each walk frame rendered twice, timed, then
-            recorded for the replay; the packet walk also on adversarial
+            the frame renders; each walk frame rendered twice, timed
+            (CUDA graphs), then under wavefront.eager() recorded for the
+            replay, bit for bit the same; the packet walk also on adversarial
             packets (equal-t ties in one fat leaf and across leaves, a ray
             that misses a node its packet enters and meets its own leaf
             later, small max_steps, packet sizes and leaf widths off their
@@ -145,6 +149,14 @@ exits non-zero):
    bench    (h) bench_torch.py run as a subprocess at a reduced size (the
             box at 256 x 256, stages fwd, bwd and stats, one timed run): exit
             code 0, correct: true, this card's name;
+   graphs   every forward frame above rendered with CUDA graphs and under
+            wavefront.eager() (phases 4-6, the walk frames, compat_frame,
+            recovery, the ranks' and the one process's sharded frames): per
+            frame the seconds of both, graphs captured, replays, capture and
+            instantiate ms, iterations and idle iterations past the drain,
+            and bit-equal (every one must be); a dispatch of more than one
+            block must capture a graph and replay every later block, and
+            the full-size frames more than one replay per dispatch;
    walk timing  every walk frame's recorded calls replayed: the kernel on
             the whole call against the plain walk on a slice of it (whole
             packets for the packet walk), and a few whole calls timed with
@@ -170,7 +182,8 @@ exits non-zero):
    last line {"ok": true, "device": {...}}.
 
 The recording renders and the replays of phase 8 come after the counters are
-read and are not counted.
+read and are not counted.  A replay runs no Python, so every render that
+records calls runs under wavefront.eager().
 Imports only numpy, torch and montecarlopathtracing_torch.
 """
 
@@ -974,25 +987,95 @@ class CaptureCall:
         return self.inner(accel, *args, **kw)
 
 
+# The forward frames' graph records (frame -> record), printed as the
+# "graphs" line; the full-size frames (MAIN_GRAPH_FRAMES) must replay graphs
+# more than once per dispatch.
+GRAPH_FRAMES = {}
+MAIN_GRAPH_FRAMES = ("box", "large", "large400_chunked", "large400_hbm",
+                     "box_bvh", "box_bvh_perray", "large_bvh",
+                     "large_bvh_perray", "large400_fallback")
+BLOCK = 8  # render_pixels_refill's check_every: iterations a graph replays
+
+
+def counted(fn, eager: bool = False):
+    """fn() (a render returning (image, rays)) with the kernels' launch
+    counters and the lane pool's loop stats zeroed just before and read just
+    after; inside wavefront.eager() when ``eager``.  Returns (image, rays,
+    seconds, launches, loop stats)."""
+    import contextlib
+
+    from montecarlopathtracing_torch.accel import lbvh as L
+    from montecarlopathtracing_torch.integrator import wavefront as W
+    from montecarlopathtracing_torch.kernels import cluster as K
+
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    L.reset_launch_counts()
+    W.reset_loop_stats()
+    t0 = time.perf_counter()
+    with W.eager() if eager else contextlib.nullcontext():
+        img, rays = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return (img, rays, secs, {**K.launch_counts(), **L.launch_counts()},
+            W.loop_stats())
+
+
+def hold_graphs(label: str, captured, eager):
+    """A frame rendered with its blocks replayed as CUDA graphs
+    (``captured``) against the same frame under wavefront.eager(), each a
+    counted() result: the image bit for bit, the same rays and the same
+    launch counts; every dispatch of more than one block captured a graph
+    and replayed every block after its first.  Records the frame for the
+    graphs line."""
+    img, rays, secs, launches, st = captured
+    img_e, rays_e, secs_e, launches_e, st_e = eager
+    equal = bool(torch.equal(img, img_e))
+    check(equal, f"{label}: the captured frame differs from the eager one")
+    check(float(rays) == float(rays_e),
+          f"{label}: rays {float(rays)} captured, {float(rays_e)} eager")
+    check(launches == launches_e, f"{label}: launches {launches} captured, "
+                                  f"{launches_e} eager")
+    d, blocks = st["dispatches"], st["iterations"] // BLOCK
+    check(d > 0 and st["iterations"] == st_e["iterations"]
+          and st["idle_iterations"] == st_e["idle_iterations"]
+          and st["eager_blocks"] == d and st["replays"] == blocks - d
+          and st["graphs"] >= min(1, blocks - d) and st_e["graphs"] == 0,
+          f"{label}: loop stats {st} captured, {st_e} eager")
+    if label in MAIN_GRAPH_FRAMES:
+        check(st["graphs"] >= d and st["replays"] > d,
+              f"{label}: fewer graphs or replays than the dispatches need: {st}")
+    GRAPH_FRAMES[label] = {
+        "seconds_captured": secs, "seconds_eager": secs_e,
+        "eager_over_captured": secs_e / secs, "dispatches": d,
+        "graphs": st["graphs"], "replays": st["replays"],
+        "capture_ms": st["capture_s"] * 1e3, "iterations": st["iterations"],
+        "idle_iterations": st["idle_iterations"], "bit_equal": equal}
+
+
 def phase_box(dev, state):
     from montecarlopathtracing_torch import api, read_png
     from montecarlopathtracing_torch.config import RenderOptions
-    from montecarlopathtracing_torch.kernels import cluster as K
     from montecarlopathtracing_torch.scene.builtin import write_box_scene
 
     with tempfile.TemporaryDirectory() as d:
         write_box_scene(d, "box", width=1024, height=1024)
-        stats = {}
-        K.reset_launch_counts()
-        img, path = api.render_scene(d, "box", spp=16,
-                                     options=RenderOptions(spp_chunk=16),
-                                     out_dir=os.path.join(d, "out"),
-                                     device=dev, stats=stats)
-        torch.cuda.synchronize()
-        launches = K.launch_counts()
+        stats, paths = {}, []
+
+        def render(out: str):
+            img, path = api.render_scene(d, "box", spp=16,
+                                         options=RenderOptions(spp_chunk=16),
+                                         out_dir=os.path.join(d, out),
+                                         device=dev, stats=stats)
+            paths.append(path)
+            return img, stats["rays"]
+
+        captured = counted(lambda: render("out"))
+        img, path, launches = captured[0], paths[0], captured[3]
+        phase2_s, phase1_s, rays = stats["phase2_s"], stats["phase1_s"], stats["rays"]
         with CaptureCall() as cap:
-            api.render_scene(d, "box", spp=16, options=RenderOptions(spp_chunk=16),
-                             out_dir=os.path.join(d, "capture"), device=dev)
+            hold_graphs("box", captured, counted(lambda: render("capture"),
+                                                 eager=True))
         state["calls_box"] = cap.calls
         check_launched(launches, PATH_KERNELS["single"], "box")
         mean = image_checks(img, "box")
@@ -1001,9 +1084,8 @@ def phase_box(dev, state):
         check(png.shape == (1024, 1024, 3) and png.max() > 0, "box: PNG")
     state["launches_box"] = launches
     emit({"phase": "box", "width": 1024, "height": 1024, "spp": 16,
-          "lanes": 65536, "seconds": stats["phase2_s"],
-          "load_seconds": stats["phase1_s"], "rays": stats["rays"],
-          "rays_per_s": stats["rays"] / stats["phase2_s"], "mean": mean,
+          "lanes": 65536, "seconds": phase2_s, "load_seconds": phase1_s,
+          "rays": rays, "rays_per_s": rays / phase2_s, "mean": mean,
           "launches": launches})
 
 
@@ -1018,15 +1100,13 @@ def phase_large(dev, state):
     plan = resolve_plan(opts, scene.num_tris_padded)
     check(plan[1] == 128 and scene.num_tris_padded == 131072,
           f"large: unexpected plan {plan}")
-    torch.cuda.synchronize()
-    K.reset_launch_counts()
-    t0 = time.perf_counter()
-    img, rays = render_image_host_chunked(scene, None, opts, device=dev)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    launches = K.launch_counts()
+    captured = counted(lambda: render_image_host_chunked(scene, None, opts,
+                                                         device=dev))
+    img, rays, secs, launches = captured[:4]
     with CaptureCall() as cap:
-        render_image_host_chunked(scene, None, opts, device=dev)
+        hold_graphs("large", captured, counted(
+            lambda: render_image_host_chunked(scene, None, opts, device=dev),
+            eager=True))
     state["calls_large"] = cap.calls
     check_launched(launches, PATH_KERNELS["single"], "large")
     # Candidate clusters per subtile on this frame's tiles and a bounce
@@ -1157,7 +1237,6 @@ def phase_large400(dev, state):
     from montecarlopathtracing_torch.config import RenderOptions
     from montecarlopathtracing_torch.integrator.wavefront import (
         render_image_host_chunked, resolve_plan)
-    from montecarlopathtracing_torch.kernels import cluster as K
 
     scene = state["large400"]
     check_interior_atlas(scene, "large400")
@@ -1171,16 +1250,14 @@ def phase_large400(dev, state):
         plan = resolve_plan(opts, scene.num_tris_padded)
         check(plan[0] == ("cluster" if plan_name == "chunked" else "cluster_hbm"),
               f"{label}: unexpected plan {plan}")
-        torch.cuda.synchronize()
-        K.reset_launch_counts()
-        t0 = time.perf_counter()
-        img, rays = render_image_host_chunked(scene, None, opts, device=dev)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        launches = K.launch_counts()
+        captured = counted(lambda: render_image_host_chunked(scene, None, opts,
+                                                             device=dev))
+        img, rays, secs, launches = captured[:4]
         check_launched(launches, PATH_KERNELS[plan_name], label)
         with CaptureCall(capture) as cap:
-            render_image_host_chunked(scene, None, opts, device=dev)
+            hold_graphs(label, captured, counted(
+                lambda: render_image_host_chunked(scene, None, opts, device=dev),
+                eager=True))
         state[f"calls_{label}"] = cap.calls
         check(len(cap.calls) > 0, f"{label}: no intersect call recorded")
         mean = image_checks(img, label)
@@ -2005,12 +2082,12 @@ def phase_walk_kernels(dev, state):
 
 def walk_frame(scene, opts, kind: str, label: str, dev):
     """One frame through render_image_host_chunked: timed with the counters
-    zeroed, then again with the walk's calls recorded.  Returns (image,
+    zeroed, then again under wavefront.eager() with the walk's calls
+    recorded and held bit for bit to the timed frame.  Returns (image,
     record, calls)."""
     from montecarlopathtracing_torch.accel import lbvh as L
     from montecarlopathtracing_torch.integrator.wavefront import (
         _tile_swizzled_ids, render_image_host_chunked, resolve_plan, swizzle_tile)
-    from montecarlopathtracing_torch.kernels import cluster as K
 
     opts = opts.replace(intersector=kind) if kind != "fallback" else opts
     plan = resolve_plan(opts, scene.num_tris_padded)
@@ -2019,16 +2096,14 @@ def walk_frame(scene, opts, kind: str, label: str, dev):
     bvh = L.build_lbvh_host(scene)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    K.reset_launch_counts()
-    L.reset_launch_counts()
-    t0 = time.perf_counter()
-    img, rays = render_image_host_chunked(scene, bvh, opts, device=dev)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    launches = {**K.launch_counts(), **L.launch_counts()}
+    captured = counted(lambda: render_image_host_chunked(scene, bvh, opts,
+                                                         device=dev))
+    img, rays, secs, launches = captured[:4]
     name = "bvh_intersect" if plan[0] == "bvh_perray" else "packet_intersect"
     with WalkCapture(name) as cap:
-        render_image_host_chunked(scene, bvh, opts, device=dev)
+        hold_graphs(label, captured, counted(
+            lambda: render_image_host_chunked(scene, bvh, opts, device=dev),
+            eager=True))
     walk = WALK_KERNELS[plan[0]]
     check(launches[walk] > 0, f"{label}: the {walk} kernel was not launched")
     check(all(v == 0 for k, v in launches.items() if k not in WALK_KERNELS.values()),
@@ -2357,8 +2432,9 @@ def sharded_grad(scene, mesh, dev: str):
 
 def rank_worker(rank: int, world: int, address: str, out_dir: str, dev: str):
     """One of two ranks on the card (gloo collectives on CUDA tensors): the
-    sharded render and its gradient on a 2 x 1 and a 1 x 2 grid, and one
-    distributed step on each grid."""
+    sharded render (captured, and under wavefront.eager(): bit for bit) and
+    its gradient on a 2 x 1 and a 1 x 2 grid, and one distributed step on
+    each grid."""
     from montecarlopathtracing_torch.config import RenderOptions
     from montecarlopathtracing_torch.diff.gradients import (
         SceneParams, make_distributed_train_step)
@@ -2373,8 +2449,15 @@ def rank_worker(rank: int, world: int, address: str, out_dir: str, dev: str):
     for tile, spp in ((2, 1), (1, 2)):
         mesh = make_mesh(tile=tile, spp=spp)
         scene, _ = load_builtin_box(width=64, height=64, device=dev)
-        img = render_image_sharded(scene, None, RenderOptions(**RANK_RENDER), mesh,
-                                   device=dev)
+
+        def render():  # render_image_sharded returns no ray count
+            return render_image_sharded(scene, None, RenderOptions(**RANK_RENDER),
+                                        mesh, device=dev), 0
+
+        label = f"ranks_{tile}x{spp}_rank{rank}"
+        captured = counted(render)
+        hold_graphs(label, captured, counted(render, eager=True))
+        img = captured[0]
         t0 = time.perf_counter()
         grads, grad_launches = sharded_grad(scene, mesh, dev)
         grad_secs = time.perf_counter() - t0
@@ -2387,15 +2470,18 @@ def rank_worker(rank: int, world: int, address: str, out_dir: str, dev: str):
         res[f"{tile}x{spp}"] = {"img": img.cpu(), "loss": float(loss),
                                 "kd": params.kd.cpu(), "per": per,
                                 "grads": vars(grads), "grad_launches": grad_launches,
-                                "grad_seconds": grad_secs}
+                                "grad_seconds": grad_secs,
+                                "graphs": GRAPH_FRAMES[label]}
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     torch.distributed.destroy_process_group()
 
 
 def phase_ranks(dev):
     """(f) Two ranks on the card, spawned here, gloo collectives on CUDA
-    tensors (NCCL refuses two ranks on one device): the sharded render and
-    the distributed step against one process, at tests/test_parallel.py's
+    tensors (NCCL refuses two ranks on one device): the sharded render
+    (each rank's and the one process's captured frame bit for bit its
+    frame under wavefront.eager()) and the distributed step against one
+    process, at tests/test_parallel.py's
     tolerances; the sharded gradient bit for bit the same on both ranks and
     within grad (a)'s tolerance of one process's, with rows 1 and 2
     launched in every rank."""
@@ -2404,12 +2490,16 @@ def phase_ranks(dev):
     from montecarlopathtracing_torch.config import RenderOptions
     from montecarlopathtracing_torch.diff.gradients import (
         PARAM_FIELDS, SceneParams, train_step)
-    from montecarlopathtracing_torch.integrator.wavefront import render_image
+    from montecarlopathtracing_torch.integrator.wavefront import render_image_stats
     from montecarlopathtracing_torch.parallel.mesh import make_mesh
     from montecarlopathtracing_torch.scene.builtin import load_builtin_box
 
     scene, _ = load_builtin_box(width=64, height=64, device=dev)
-    single = render_image(scene, None, RenderOptions(**RANK_RENDER), device=dev).cpu()
+    captured = counted(lambda: render_image_stats(
+        scene, None, RenderOptions(**RANK_RENDER), device=dev))
+    hold_graphs("ranks_single", captured, counted(lambda: render_image_stats(
+        scene, None, RenderOptions(**RANK_RENDER), device=dev), eager=True))
+    single = captured[0].cpu()
     single_grad, single_launches = sharded_grad(scene, make_mesh(), dev)
     small, _ = load_builtin_box(width=32, height=32, device=dev)
     p1, loss1 = train_step(SceneParams.from_scene(small), small, None,
@@ -2422,9 +2512,10 @@ def phase_ranks(dev):
                            join=True, start_method="spawn")
         ranks = [torch.load(os.path.join(d, f"rank{r}.pt")) for r in range(2)]
     secs = time.perf_counter() - t0
-    for r in ranks:
-        for res in r.values():
+    for rank, r in enumerate(ranks):
+        for grid, res in r.items():
             res["grads"] = SceneParams(**res["grads"])
+            GRAPH_FRAMES[f"ranks_{grid}_rank{rank}"] = res.pop("graphs")
     check(grads_finite(single_grad) and float(single_grad.kd.abs().max()) > 0,
           "ranks: the one-process gradient is not finite or is zero")
     out = {}
@@ -2468,8 +2559,9 @@ def phase_recovery(dev):
     64 box, MODERN, test_failure_recovery.py's options: a dispatch that
     raises once under retries=1, and a render_progressive that finds a
     truncated checkpoint and starts over, each film bit for bit the
-    uninterrupted card film's; with retries=0 the fault propagates.  Rows 1
-    and 2 are counted over the recovered renders."""
+    uninterrupted card film's (itself bit for bit under wavefront.eager());
+    with retries=0 the fault propagates.  Rows 1 and 2 are counted over the
+    recovered renders."""
     from montecarlopathtracing_torch import api
     from montecarlopathtracing_torch.config import MODERN, RenderOptions
     from montecarlopathtracing_torch.integrator import wavefront as W
@@ -2479,7 +2571,12 @@ def phase_recovery(dev):
     opts = RenderOptions(**RECOVERY_OPTS, compat=MODERN)
     scene, _ = load_builtin_box(width=64, height=64, device=dev)
     t0 = time.perf_counter()
-    clean, clean_rays = W.render_image_host_chunked(scene, None, opts, device=dev)
+    captured = counted(lambda: W.render_image_host_chunked(scene, None, opts,
+                                                           device=dev))
+    hold_graphs("recovery", captured, counted(
+        lambda: W.render_image_host_chunked(scene, None, opts, device=dev),
+        eager=True))
+    clean, clean_rays = captured[:2]
     clean_film = api.render_progressive(scene, opts, device=dev)
     image_checks(clean, "recovery")
 
@@ -2588,26 +2685,29 @@ def phase_torchrun(dev):
 def phase_compat_frame(dev):
     """The built-in box at 256 x 256, spp 4, compat (RenderOptions'
     defaults), rendered whole through render_image_host_chunked on the card
-    and on the CPU, every pixel held to the image limit; rows 1 and 2
-    counted on the card's frame."""
+    (captured, and under wavefront.eager(): bit for bit) and on the CPU,
+    every pixel held to the image limit; rows 1 and 2 counted on the card's
+    frame."""
     from montecarlopathtracing_torch.config import RenderOptions
     from montecarlopathtracing_torch.integrator.wavefront import (
         render_image_host_chunked)
-    from montecarlopathtracing_torch.kernels import cluster as K
     from montecarlopathtracing_torch.scene.builtin import load_builtin_box
 
     opts = RenderOptions(spp=4)
     imgs, rays, secs = {}, {}, {}
-    for name in (dev, "cpu"):
-        scene, _ = load_builtin_box(width=256, height=256, device=name)
-        K.reset_launch_counts()
-        t0 = time.perf_counter()
-        img, rays[name] = render_image_host_chunked(scene, None, opts, device=name)
-        sync(name)
-        secs[name] = time.perf_counter() - t0
-        if name == dev:
-            launches = K.launch_counts()
-        imgs[name] = img.cpu()
+    scene, _ = load_builtin_box(width=256, height=256, device=dev)
+    captured = counted(lambda: render_image_host_chunked(scene, None, opts,
+                                                         device=dev))
+    hold_graphs("compat_frame", captured, counted(
+        lambda: render_image_host_chunked(scene, None, opts, device=dev),
+        eager=True))
+    img, rays[dev], secs[dev], launches = captured[:4]
+    imgs[dev] = img.cpu()
+    scene, _ = load_builtin_box(width=256, height=256, device="cpu")
+    t0 = time.perf_counter()
+    img, rays["cpu"] = render_image_host_chunked(scene, None, opts, device="cpu")
+    secs["cpu"] = time.perf_counter() - t0
+    imgs["cpu"] = img
     check_launched(launches, PATH_KERNELS["single"], "compat_frame")
     image_checks(imgs[dev], "compat_frame")
     res = image_agreement(imgs["cpu"], imgs[dev], "compat_frame")
@@ -2722,6 +2822,7 @@ def main() -> int:
     phase_torchrun(dev)
     phase_profile(dev)
     phase_bench()
+    emit({"phase": "graphs", "block_iterations": BLOCK, "frames": GRAPH_FRAMES})
     phase_timing(state)
     phase_walk_timing(state)
 

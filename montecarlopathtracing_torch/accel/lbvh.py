@@ -364,12 +364,13 @@ def _walk_records(name: str, bvh: BVHArrays, scene):
 def _packets(origin, direction, packet_size: int):
     """Rays padded with parked ones (origin 1e9, direction (1,0,0)) to a
     multiple of packet_size, as (n_packets, packet_size, 3)."""
+    from ..kernels.cluster import _parked_directions
+
     r = origin.shape[0]
     pad = (-r) % packet_size
     if pad:
         origin = torch.cat([origin, origin.new_full((pad, 3), 1e9)])
-        direction = torch.cat([direction, direction.new_tensor(
-            [[1.0, 0.0, 0.0]]).expand(pad, 3)])
+        direction = torch.cat([direction, _parked_directions(direction, pad)])
     return (origin.reshape(-1, packet_size, 3),
             direction.reshape(-1, packet_size, 3))
 

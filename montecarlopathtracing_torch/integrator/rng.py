@@ -20,6 +20,8 @@ Per-bounce uniform slot layout:
 
 from __future__ import annotations
 
+import numbers
+
 import torch
 
 N_BASE_SLOTS = 5
@@ -31,10 +33,14 @@ _PRIMARY_STREAM = 0x7FFFFFFF
 
 
 def _u32(x):
-    """An int64 tensor of 32-bit words from any integer tensor or int."""
-    if not isinstance(x, torch.Tensor):
-        x = torch.tensor(x, dtype=torch.int64)
-    return x.to(torch.int64) & _MASK
+    """32-bit words: a Python int from an int, an int64 tensor from any
+    integer tensor.  Every operation below is exact on both, so an int (the
+    seed, a sample offset, a stream id) stays on the host and needs no
+    device tensor: nothing is copied from the host, which a CUDA graph
+    capture would refuse."""
+    if isinstance(x, numbers.Integral):
+        return int(x) & _MASK
+    return torch.as_tensor(x).to(torch.int64) & _MASK
 
 
 def _mulc(x, c: int):
@@ -63,8 +69,10 @@ def lane_keys(seed: int, pixel_ids, sample_idx):
     """One 64-bit stream key per lane as two words, (R, 2) int64.  pixel_ids
     (R,) integer; sample_idx an int or (R,) integer tensor."""
     pix = _u32(pixel_ids)
-    samp = _u32(sample_idx).to(pix.device)
-    k = _mix((_u32(seed).to(pix.device) + _GOLD) & _MASK)
+    samp = _u32(sample_idx)
+    if isinstance(samp, torch.Tensor):
+        samp = samp.to(pix.device)
+    k = _mix((_u32(seed) + _GOLD) & _MASK)
     k1 = _mix((_mix(k ^ pix) + _mulc((samp + 1) & _MASK, _GOLD2)) & _MASK)
     k2 = _mix(_mix((k + _mulc((pix + 1) & _MASK, _GOLD2)) & _MASK)
               ^ ((_mulc(samp, _GOLD) + 0x6A09E667) & _MASK))
@@ -73,8 +81,10 @@ def lane_keys(seed: int, pixel_ids, sample_idx):
 
 
 def _stream(keys, stream_id):
-    b = _mix(keys[..., 0] ^ _mulc((_u32(stream_id).to(keys.device) + 1) & _MASK,
-                                  _GOLD))
+    sid = _u32(stream_id)
+    if isinstance(sid, torch.Tensor):
+        sid = sid.to(keys.device)
+    b = _mix(keys[..., 0] ^ _mulc((sid + 1) & _MASK, _GOLD))
     return _mix((b + keys[..., 1]) & _MASK)
 
 

@@ -6,10 +6,14 @@ persistent pool of lanes carrying per-lane throughput, with the reference's
 event semantics (emitter short-circuit, one NEE sample per light, RR at 0.6,
 diffuse/specular/transmission weights, nearest-neighbour textures).
 
-The JAX ``lax.while_loop`` becomes a host loop over device tensors.  The
-termination predicate is read back only every ``check_every`` iterations:
-an iteration after the pool has drained changes nothing (no lane is active,
-none is refilled, nothing is staged), so the film does not depend on it.
+The JAX ``lax.while_loop`` becomes a host loop over blocks of
+``check_every`` iterations, and the termination predicate is read back only
+between blocks: an iteration after the pool has drained changes nothing (no
+lane is active, none is refilled, nothing is staged), so the film does not
+depend on it.  On a CUDA device every forward block after the first replays
+a CUDA graph (``_Blocks``), the counterpart of the JAX package's jitted
+loop; on the CPU, and inside ``eager()``, the same block function runs op by
+op.
 
 Two renderers: the lane pool (``render_pixels_refill``, the default) and the
 scan over samples (``render_pixels`` with ``refill=False``, a bounce loop at
@@ -32,16 +36,20 @@ cap; their tables are the scene's LBVH, passed as ``bvh`` or built here.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import time
 import warnings
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..accel.lbvh import _WRAPPERS as _WALK_WRAPPERS
 from ..accel.lbvh import (build_lbvh, brute_force_intersect, bvh_intersect,
                           packet_intersect)
 from ..config import RenderOptions
+from ..kernels.cluster import _WRAPPERS as _CLUSTER_WRAPPERS
 from ..kernels.cluster import (
     build_cluster_accel,
     build_cluster_accel_chunked,
@@ -748,6 +756,117 @@ def render_pixels(scene: SceneArrays, bvh, opts: RenderOptions, pixel_ids,
     return acc / opts.spp, rays
 
 
+# The launch counters of every kernel wrapper (kernels/cluster.py,
+# accel/lbvh.py), which _Blocks keeps right under graph replays.
+_COUNTED = (*_CLUSTER_WRAPPERS.values(), *_WALK_WRAPPERS.values())
+
+_eager = False
+_loop_stats = dict.fromkeys(("dispatches", "iterations", "idle_iterations",
+                             "eager_blocks", "graphs", "replays", "capture_s"), 0)
+
+
+@contextlib.contextmanager
+def eager():
+    """Inside this context the forward lane pool runs every block op by op on
+    the card too, as it does on the CPU: the counterpart of
+    ``jax.disable_jit()``, for debugging and for recording a frame's kernel
+    calls (a graph replay runs no Python, so a wrapper that records its
+    calls would see only the captures)."""
+    global _eager
+    before, _eager = _eager, True
+    try:
+        yield
+    finally:
+        _eager = before
+
+
+def loop_stats() -> dict:
+    """Totals over the forward lane-pool dispatches since the last reset:
+    dispatches, iterations, ``idle_iterations`` (iterations that started on
+    a drained pool: the last block's overrun), blocks run op by op, CUDA
+    graphs captured, graph replays, and ``capture_s``, the seconds spent
+    capturing and instantiating the graphs."""
+    return dict(_loop_stats)
+
+
+def reset_loop_stats() -> None:
+    for k in _loop_stats:
+        _loop_stats[k] = 0
+
+
+def _captures(dev) -> bool:
+    """Whether the forward lane pool replays CUDA graphs on ``dev``."""
+    return dev.type == "cuda" and not _eager
+
+
+class _CudaGraphs:
+    """The CUDA graphs of one dispatch: captured on one side stream into one
+    memory pool.  Every capture frees all it allocates before it ends (the
+    block's results are copied into buffers made outside the graphs), so the
+    graphs may share the pool in any order of replay."""
+
+    def __init__(self, dev):
+        self.dev, self.stream, self.pool = dev, None, None
+
+    def capture(self, fn):
+        """fn's CUDA work as a graph, instantiated; nothing runs."""
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(self.dev)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(self.dev), torch.cuda.graph(
+                graph, pool=self.pool, stream=self.stream,
+                capture_error_mode="thread_local"):
+            fn()
+        self.pool = graph.pool()
+        return graph
+
+
+class _Blocks:
+    """Runs the forward lane pool's loop body ``block(i0)`` (iterations i0 ..
+    i0 + check_every - 1 on fixed state buffers) one block at a time.
+
+    On the CPU, and on the card inside ``eager()``, a block runs op by op.
+    On the card the first block does too: it builds and loads the kernels at
+    first use, reads the tables' cached host values (``BVHArrays.finite``)
+    and fills the allocator's cache, none of which may happen under capture.
+    Every later block replays a CUDA graph, one for each flush phase
+    (``i0 % flush_every`` fixes where the block flushes), captured when its
+    phase first comes up.  Errors in a capture or a replay are raised: no
+    block falls back to running op by op.
+
+    A capture runs the block's Python once and launches nothing, and a
+    replay runs no Python.  So the launches the kernel wrappers count during
+    a capture are taken off their counters again and added on every replay:
+    ``launch_counts()`` reads the same in both modes."""
+
+    def __init__(self, block, dev, flush_every: int):
+        self.block, self.flush_every = block, flush_every
+        self.graphs = _CudaGraphs(dev) if _captures(dev) else None
+        self.replays = {}  # flush phase -> (graph, launches per replay)
+
+    def run(self, i0: int) -> None:
+        if self.graphs is None or i0 == 0:
+            self.block(i0)
+            _loop_stats["eager_blocks"] += 1
+            return
+        phase = i0 % self.flush_every
+        if phase not in self.replays:
+            before = [w.launches for w in _COUNTED]
+            t0 = time.perf_counter()
+            graph = self.graphs.capture(lambda: self.block(i0))
+            _loop_stats["capture_s"] += time.perf_counter() - t0
+            _loop_stats["graphs"] += 1
+            self.replays[phase] = graph, [w.launches - n for w, n
+                                          in zip(_COUNTED, before)]
+            for w, n in zip(_COUNTED, before):
+                w.launches = n
+        graph, launches = self.replays[phase]
+        graph.replay()
+        for w, n in zip(_COUNTED, launches):
+            w.launches += n
+        _loop_stats["replays"] += 1
+
+
 def render_pixels_refill(
     scene: SceneArrays,
     bvh,
@@ -777,6 +896,12 @@ def render_pixels_refill(
 
     Estimator and per-path RNG streams are those of the JAX package; every
     pixel is pinned to one lane, so the film does not depend on lane order.
+
+    The forward loop runs in blocks of ``check_every`` iterations, under
+    ``torch.no_grad()``, and reads the drain predicate back between blocks.
+    On a CUDA device every block after the first replays a CUDA graph
+    (``_Blocks``; ``eager()`` turns that off), bit for bit the block run op
+    by op.
 
     ``differentiable=True`` runs a static budget of iterations,
     ceil(n_pix * spp * e_seg / lanes) + max_depth + spp + 4 with e_seg =
@@ -1078,26 +1203,45 @@ def render_pixels_refill(
         n_rays = s["n_rays"] if drained() else -s["n_rays"]
         return film[:, :n_pix].T / spp, n_rays
 
-    def flush():
+    def flush(st):
         # Real slots are unique (each pixel completes once per dispatch), so
         # every film entry receives one add and the order is immaterial.
-        idx = s["pend_slot"].reshape(-1).long()
-        vals = torch.stack([s["pend_r"].reshape(-1), s["pend_g"].reshape(-1),
-                            s["pend_b"].reshape(-1)])
+        idx = st["pend_slot"].reshape(-1).long()
+        vals = torch.stack([st["pend_r"].reshape(-1), st["pend_g"].reshape(-1),
+                            st["pend_b"].reshape(-1)])
         film.index_add_(1, idx, vals)
-        s["pend_slot"] = dummy_pend
-        s["pend_count"] = torch.zeros((r,), **i32)
+        st["pend_slot"] = dummy_pend
+        st["pend_count"] = torch.zeros((r,), **i32)
 
     flush_every = max(1, n_pend * spp)
-    i = 0
-    while True:
-        if i % check_every == 0 and drained():
-            break
-        step(s, i)
-        if (i + 1) % flush_every == 0:
-            flush()
-        i += 1
-    flush()  # pendings staged since the last cadence boundary
+    with torch.no_grad():
+        # Fixed storage: each block starts from these buffers and copies its
+        # results back into them (the film is added to in place), so a
+        # captured block replays on the same addresses.  ``live`` counts the
+        # iterations that started before the pool drained.
+        s = {k: v.clone() for k, v in s.items()}
+        s["live"] = torch.zeros((), dtype=torch.int64, device=dev)
+
+        def block(i0: int):
+            st = dict(s)
+            for i in range(i0, i0 + check_every):
+                st["live"] = st["live"] + ((st["q"] < n_pix) | st["active"].any())
+                step(st, i)
+                if (i + 1) % flush_every == 0:
+                    flush(st)
+            for k, v in s.items():
+                v.copy_(st[k])
+
+        blocks = _Blocks(block, dev, flush_every)
+        i = 0
+        while not drained():
+            blocks.run(i)
+            i += check_every
+        del blocks  # the graphs and their pool go with the dispatch
+        flush(s)  # pendings staged since the last cadence boundary
+    _loop_stats["dispatches"] += 1
+    _loop_stats["iterations"] += i
+    _loop_stats["idle_iterations"] += i - int(s["live"])
     return film[:, :n_pix].T / spp, s["n_rays"]
 
 

@@ -939,6 +939,14 @@ def pack_rays(origin, direction, mt: bool = False, t_cap=None):
                      dim=1).contiguous()
 
 
+def _parked_directions(direction, pad: int):
+    """(pad, 3) rows (1, 0, 0) for parked rays, made by fills (no copy from
+    the host, which a CUDA graph capture would refuse)."""
+    rows = direction.new_zeros((pad, 3))
+    rows[:, 0] = 1.0
+    return rows
+
+
 def _shape_and_pad(origin, direction, tile: int, mega: int, t_cap=None):
     """The TPU entry points' shape rules: tile and mega clamped to the ray
     count, the rays padded to a multiple of tile * mega with parked dummies
@@ -950,8 +958,7 @@ def _shape_and_pad(origin, direction, tile: int, mega: int, t_cap=None):
     pad = (-r) % (tile * mega)
     if pad:
         origin = torch.cat([origin, origin.new_full((pad, 3), 1e9)])
-        direction = torch.cat([direction, direction.new_tensor(
-            [[1.0, 0.0, 0.0]]).expand(pad, 3)])
+        direction = torch.cat([direction, _parked_directions(direction, pad)])
         if t_cap is not None:
             t_cap = torch.cat([t_cap, t_cap.new_full((pad,), -1.0)])
     return origin, direction, t_cap, tile

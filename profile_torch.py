@@ -7,14 +7,18 @@
     python3 profile_torch.py --scene large --tris 100000   # single-table plan
     python3 profile_torch.py --grad           # full-width gradient of the box
     python3 profile_torch.py --intersector bvh_perray --scene large --tris 100000
+    python3 profile_torch.py --eager          # the same frame, op by op
 
 Renders the frame once unprofiled (wall time), then once under
 torch.profiler, and prints one JSON line: wall seconds, wavefront
 iterations, device busy time (sum of kernel times) and the idle share of
 the unprofiled wall time, CUDA kernel launches per iteration, the ported
 kernels' device time, the library sort kernels' device time, the
-intersector plan, and the 12 top kernels and host
-ops by time.  ``--large-mode`` is RenderOptions.large_mode: the default
+intersector plan, the lane pool's CUDA graphs (captured, replayed, seconds
+to capture and instantiate; integrator/wavefront.py::loop_stats), and the
+12 top kernels and host ops by time.  The frame replays its blocks as CUDA
+graphs, as every forward frame on the card does; ``--eager`` renders it
+under ``wavefront.eager()``, one launch per op, to compare the two.  ``--large-mode`` is RenderOptions.large_mode: the default
 "hbm" renders the 400k interior under the chunked plan, "hbm_always" under
 the supergroup plan.  ``--intersector`` is RenderOptions.intersector: "bvh"
 and "bvh_perray" render the frame through the packet walk or the per-ray
@@ -31,6 +35,7 @@ kernels per iteration and device idle share.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -140,6 +145,8 @@ def main(argv=None) -> int:
                     help="RenderOptions.intersector (default auto)")
     ap.add_argument("--grad", action="store_true",
                     help="profile the full-width gradient of the box instead")
+    ap.add_argument("--eager", action="store_true",
+                    help="render the forward frame op by op (wavefront.eager())")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch: CUDA is not available", file=sys.stderr)
@@ -149,11 +156,13 @@ def main(argv=None) -> int:
 
     from montecarlopathtracing_torch.accel import lbvh as L
     from montecarlopathtracing_torch.config import RenderOptions
+    from montecarlopathtracing_torch.integrator import wavefront as W
     from montecarlopathtracing_torch.integrator.wavefront import (
         render_image_host_chunked, resolve_plan)
     from montecarlopathtracing_torch.kernels import cluster as K
     from montecarlopathtracing_torch.scene.builtin import (load_builtin_box,
                                                            load_builtin_large)
+    from montecarlopathtracing_torch.utils.device import nvidia_smi_line
 
     if args.grad:
         scene, _ = load_builtin_box(width=1024, height=1024, device="cuda")
@@ -173,26 +182,33 @@ def main(argv=None) -> int:
     opts = RenderOptions(spp=spp, spp_chunk=spp, large_mode=args.large_mode,
                          intersector=args.intersector)
     plan = resolve_plan(opts, scene.num_tris_padded)
-    render_image_host_chunked(scene, None, opts.replace(spp=1, spp_chunk=1),
-                              device="cuda")  # warm-up (kernel build, caches)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    render_image_host_chunked(scene, None, opts, device="cuda")
-    torch.cuda.synchronize()
-    wall_plain = time.perf_counter() - t0  # the same frame, not profiled
-
-    K.reset_launch_counts()
-    L.reset_launch_counts()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        _, rays = render_image_host_chunked(scene, None, opts, device="cuda")
+    mode = W.eager() if args.eager else contextlib.nullcontext()
+    with mode:
+        render_image_host_chunked(scene, None, opts.replace(spp=1, spp_chunk=1),
+                                  device="cuda")  # warm-up (kernel build, caches)
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+        W.reset_loop_stats()
+        t0 = time.perf_counter()
+        render_image_host_chunked(scene, None, opts, device="cuda")
+        torch.cuda.synchronize()
+        wall_plain = time.perf_counter() - t0  # the same frame, not profiled
+        loop = W.loop_stats()
+
+        K.reset_launch_counts()
+        L.reset_launch_counts()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            _, rays = render_image_host_chunked(scene, None, opts, device="cuda")
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    iters = loop["iterations"]
     # One intersect launch per iteration, plus the bootstrap.
-    iters = max([K.launch_counts()[n] for n in (
+    launches = max([K.launch_counts()[n] for n in (
         "cluster_intersect", "cluster_intersect_ftb", "cluster_intersect_hbm")]
-                + list(L.launch_counts().values())) - 1
+                   + list(L.launch_counts().values()))
+    if launches != iters + 1:
+        raise RuntimeError(f"{launches} intersect launches for {iters} iterations")
 
     busy_us, n_kernels, kernels, host_ops = kernel_stats(prof)
     # By kernel-name prefix: both key kernels, the single-table intersect
@@ -205,10 +221,13 @@ def main(argv=None) -> int:
     sort_ms = sum(k[1] for k in kernels if "sort" in k[0].lower()) / 1e3
     print(json.dumps({
         "scene": args.scene, "spp": spp, "intersector": args.intersector,
-        "device": torch.cuda.get_device_name(0),
+        "eager": args.eager, "device": torch.cuda.get_device_name(0),
+        "nvidia_smi": nvidia_smi_line(),
         "tris_padded": scene.num_tris_padded, "plan": list(plan),
         "wall_s": wall_plain, "wall_s_profiled": wall, "rays": rays,
-        "iterations": iters, "device_busy_ms": busy_us / 1e3,
+        "iterations": iters, "idle_iterations": loop["idle_iterations"],
+        "graphs": loop["graphs"], "replays": loop["replays"],
+        "capture_s": loop["capture_s"], "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall_plain,
         "cuda_kernels": n_kernels,
         "cuda_kernels_per_iteration": n_kernels / max(iters, 1),

@@ -126,20 +126,29 @@ def test_two_light_post_sort_nee_matches_unsorted(scene_dir):
     np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("compat", [False, True], ids=["modern", "compat"])
-def test_termination_check_interval_is_invisible(scene_dir, compat):
-    """Reading the drain predicate every k iterations instead of every
-    iteration leaves the film bitwise unchanged (extra iterations are
-    no-ops)."""
-    opts = RenderOptions(**BASE, **({} if compat else {"compat": MODERN}))
+@pytest.mark.parametrize("compat,k,spp", [
+    pytest.param(False, 8, 4, id="modern"),
+    pytest.param(True, 8, 4, id="compat"),
+    pytest.param(False, 24, 4, id="modern-k24"),
+    pytest.param(True, 24, 4, id="compat-k24"),
+    pytest.param(False, 40, 3, id="modern-k40-spp3"),
+    pytest.param(True, 40, 3, id="compat-k40-spp3"),
+])
+def test_termination_check_interval_is_invisible(scene_dir, compat, k, spp):
+    """Reading the drain predicate every k iterations (the forward loop's
+    block length) instead of every iteration leaves the film bitwise
+    unchanged (extra iterations are no-ops), whether or not the flush
+    cadence (n_pend * spp = 8 at spp 4, 6 at spp 3) divides k."""
+    opts = RenderOptions(**{**BASE, "spp": spp},
+                         **({} if compat else {"compat": MODERN}))
     ts, _ = tbuild(scene_dir, "spec_glass", opts, device="cpu")
     ids, fn = twf._frame_ids(ts, opts)
     out = {}
-    for k in (1, 8):
-        out[k] = twf.render_pixels_refill(ts, None, opts, ids, lanes=96,
-                                          pixel_fn=fn, check_every=k)
-    assert torch.equal(out[1][0], out[8][0])
-    assert int(out[1][1]) == int(out[8][1])
+    for every in (1, k):
+        out[every] = twf.render_pixels_refill(ts, None, opts, ids, lanes=96,
+                                              pixel_fn=fn, check_every=every)
+    assert torch.equal(out[1][0], out[k][0])
+    assert int(out[1][1]) == int(out[k][1])
 
 
 def test_host_chunked_matches_one_shot(scene_dir):

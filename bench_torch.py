@@ -27,7 +27,9 @@ kernelfrac  one fwd frame under torch.profiler: the key and intersect
 Every forward frame (fwd, modern, large, kernelfrac) replays its lane
 pool's blocks as CUDA graphs, captured anew in each dispatch and timed with
 it, as every forward frame on the card does (integrator/wavefront.py::
-_Blocks); the gradient's blocks run op by op.
+_Blocks); so do both passes of the gradient (bwd): its forward blocks, and
+its backward blocks, each a recompute and its VJP
+(integrator/wavefront.py::_CheckpointedBlocks), captured anew in each pass.
 
 Every stage starts from the same state: gc.collect() and
 torch.cuda.empty_cache() run before it, and each stage's tensors are freed

@@ -55,8 +55,9 @@ exits non-zero):
             tests/test_gradients.py); (c) the full-width gradient, bench.py's
             backward configuration: the built-in box at 1024 x 1024, spp 16,
             max_depth 32, 65,536 lanes, bwd_seg_per_sample 2.15, d mean(image)
-            / d SceneParams, once to warm up and once timed (forward and
-            backward seconds, fwd+bwd rays/s, peak memory), the key and
+            / d SceneParams, once to warm up, once timed (forward and
+            backward seconds, fwd+bwd rays/s, peak memory) and once under
+            wavefront.eager(), the key and
             intersect launches counted in the forward pass (> 0) and in the
             backward pass (must be 0); (d) five diff.gradients.train_step
             calls at 256 x 256, spp 4, max_depth 8, from a grey red wall
@@ -73,6 +74,9 @@ exits non-zero):
             budgets and loss under large_mode="hbm_always" (the supergroup
             plan): rows 1 and 5 launched in the forward pass, none in the
             backward pass, card against CPU within (a)'s tolerance;
+            (a), (c), (e), (g) and the ranks' gradients on the card are
+            computed with both passes replayed as CUDA graphs and again
+            under wavefront.eager(), and held together (grad_graphs below);
    compat_frame  the box at 256 x 256, spp 4, compat, rendered whole
             through render_image_host_chunked on the card and on the CPU,
             every pixel held to the image limit (pixels outside printed);
@@ -149,6 +153,19 @@ exits non-zero):
    bench    (h) bench_torch.py run as a subprocess at a reduced size (the
             box at 256 x 256, stages fwd, bwd and stats, one timed run): exit
             code 0, correct: true, this card's name;
+   grad_graphs  every gradient of (a), (c), (e), (g) and the ranks (the one
+            process's and each rank's on both grids), computed with its
+            forward and backward blocks replayed as CUDA graphs and again
+            under wavefront.eager(): per gradient the forward and backward
+            seconds of both, blocks, graphs, replays and capture ms of each
+            pass, the launches of the forward pass (the backward's must be
+            0), whether the images are bit-equal (they must be, with the same
+            rays and launches) and each field's largest difference; each pass
+            must replay a graph, every block after its first (so more than
+            once past two blocks); a gradient field must equal the eager one
+            bit for bit unless a second eager gradient differs from the
+            first, and then agree within (a)'s tolerance
+            (``not_reproducible_eager`` lists such fields);
    graphs   every forward frame above rendered with CUDA graphs and under
             wavefront.eager() (phases 4-6, the walk frames, compat_frame,
             recovery, the ranks' and the one process's sharded frames): per
@@ -1334,38 +1351,170 @@ def grads_finite(g) -> bool:
     return all(bool(torch.isfinite(getattr(g, f)).all()) for f in PARAM_FIELDS)
 
 
+# The gradients' graph records (gradient -> record), printed as the
+# "grad_graphs" line.
+GRAD_FRAMES = {}
+
+
+def timed_gradient(forward, eager: bool = False) -> dict:
+    """One gradient: ``forward()`` returns (image, rays, loss, leaves), then
+    d loss / d leaves, with the kernels' launch counters and the lane pool's
+    loop stats zeroed just before and read after each pass; inside
+    wavefront.eager() when ``eager``.  Returns the image, rays, gradient,
+    each pass's seconds and launches, grad_loop_stats() and the peak memory
+    over the allocation before it."""
+    import contextlib
+
+    from montecarlopathtracing_torch.accel import lbvh as L
+    from montecarlopathtracing_torch.diff import gradients as G
+    from montecarlopathtracing_torch.integrator import wavefront as W
+    from montecarlopathtracing_torch.kernels import cluster as K
+
+    def launches():
+        return {**K.launch_counts(), **L.launch_counts()}
+
+    with W.eager() if eager else contextlib.nullcontext():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        L.reset_launch_counts()
+        W.reset_loop_stats()
+        t0 = time.perf_counter()
+        img, rays, loss, leaves = forward()
+        rays = int(rays)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fwd = launches()
+        K.reset_launch_counts()
+        L.reset_launch_counts()
+        grads = G.param_grads(loss, leaves)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    return {"img": img.detach(), "rays": rays, "grads": grads,
+            "forward_s": t1 - t0, "backward_s": t2 - t1, "launches_forward": fwd,
+            "launches_backward": launches(), "stats": W.grad_loop_stats(),
+            "peak_over_baseline": torch.cuda.max_memory_allocated() - base}
+
+
+def hold_grad_graphs(label: str, forward, captured=None) -> dict:
+    """A gradient with both passes replayed as CUDA graphs (``captured``, a
+    timed_gradient() result, or made here) against the same gradient under
+    wavefront.eager(): the image bit for bit and the same rays and launch
+    counts (none in backward); every gradient replays a forward and a
+    backward graph, and every block after each pass's first is a replay.
+    The gradient must equal the eager one bit for bit, except in a field
+    where a second eager gradient differs from the first (an operation that
+    does not reproduce itself); there it must agree within atol 1e-6 + 1e-4
+    x the field's largest magnitude.  Records the gradient for the
+    grad_graphs line and returns the captured result."""
+    from montecarlopathtracing_torch.diff.gradients import PARAM_FIELDS
+
+    cap = timed_gradient(forward) if captured is None else captured
+    eag = timed_gradient(forward, eager=True)
+    equal = bool(torch.equal(cap["img"], eag["img"]))
+    check(equal, f"{label}: the captured gradient's image differs from the "
+                 "eager one")
+    check(cap["rays"] == eag["rays"],
+          f"{label}: rays {cap['rays']} captured, {eag['rays']} eager")
+    for p in ("forward", "backward"):
+        check(cap[f"launches_{p}"] == eag[f"launches_{p}"],
+              f"{label}: {p} launches {cap[f'launches_{p}']} captured, "
+              f"{eag[f'launches_{p}']} eager")
+    check(not any(cap["launches_backward"].values()),
+          f"{label}: the backward pass launched key or intersect kernels: "
+          f"{cap['launches_backward']}")
+    st, st_e = cap["stats"], eag["stats"]
+    blocks = st["blocks"]
+    check(blocks == st_e["blocks"] > st["dispatches"]
+          and st_e["fwd_graphs"] == st_e["bwd_graphs"] == 0, f"{label}: grad loop "
+          f"stats {st} captured, {st_e} eager")
+    for p in ("fwd", "bwd"):
+        check(st[f"{p}_graphs"] >= 1 and st[f"{p}_eager_blocks"] == st["dispatches"]
+              and st[f"{p}_replays"] == blocks - st["dispatches"]
+              and (blocks <= 2 or st[f"{p}_replays"] > 1),
+              f"{label}: {p} graphs or replays missing: {st}")
+    diffs, unrepro, again = {}, [], None
+    for f in PARAM_FIELDS:
+        a, b = getattr(eag["grads"], f), getattr(cap["grads"], f)
+        diffs[f] = float((a - b).abs().max()) if a.numel() else 0.0
+        if torch.equal(a, b):
+            continue
+        if again is None:
+            again = timed_gradient(forward, eager=True)
+        check(not torch.equal(a, getattr(again["grads"], f)),
+              f"{label}: the captured {f} gradient differs from the eager one, "
+              f"which reproduces itself (max {diffs[f]})")
+        scale = float(a.abs().max())
+        check(bool(((a - b).abs() <= 1e-6 + 1e-4 * scale).all()),
+              f"{label}: the captured {f} gradient is outside the tolerance "
+              f"(max {diffs[f]} against {scale})")
+        unrepro.append(f)
+    GRAD_FRAMES[label] = {
+        "forward_s": cap["forward_s"], "backward_s": cap["backward_s"],
+        "forward_s_eager": eag["forward_s"], "backward_s_eager": eag["backward_s"],
+        "blocks": blocks, "dispatches": st["dispatches"],
+        **{f"{p}_{k}": st[f"{p}_{k}"] for p in ("fwd", "bwd")
+           for k in ("graphs", "replays")},
+        "fwd_capture_ms": st["fwd_capture_s"] * 1e3,
+        "bwd_capture_ms": st["bwd_capture_s"] * 1e3,
+        "launches_forward": cap["launches_forward"],
+        "launches_backward": sum(cap["launches_backward"].values()),
+        "image_bit_equal": equal, "grad_max_abs_diff": diffs,
+        "grad_bit_equal": not unrepro, "not_reproducible_eager": unrepro}
+    return cap
+
+
+def gradient_of(scene, opts, loss_fn, dev: str, render=None):
+    """A timed_gradient() forward: d loss_fn(image) / d SceneParams at the
+    scene's own parameters through ``render`` (render_image_stats with
+    differentiable=True by default) on ``dev``."""
+    from montecarlopathtracing_torch.diff import gradients as G
+    from montecarlopathtracing_torch.integrator.wavefront import render_image_stats
+
+    def forward():
+        leaves = G.SceneParams.from_scene(scene).leaves(dev)
+        sc = G.apply_params(scene, leaves)
+        img, rays = (render(sc) if render is not None else render_image_stats(
+            sc, None, opts, differentiable=True, device=dev))
+        return img, rays, loss_fn(img), leaves
+
+    return forward
+
+
 def phase_grad(dev, state):
     """Phase grad (a)-(d), see the module docstring."""
     import dataclasses
 
     from montecarlopathtracing_torch.config import MODERN, RenderOptions
     from montecarlopathtracing_torch.diff import gradients as G
-    from montecarlopathtracing_torch.integrator.wavefront import render_image_stats
-    from montecarlopathtracing_torch.kernels import cluster as K
     from montecarlopathtracing_torch.scene.builtin import load_builtin_box
 
     # (a) the card against the CPU.
     opts = RenderOptions(spp=4, max_depth=8, compat=MODERN, ns_gradient=True)
     target = np.random.default_rng(5).uniform(0.1, 0.6, (64, 64, 3)).astype(np.float32)
     grads, secs = {}, {}
-    for name in ("cuda", "cpu"):
-        scene, meta = load_builtin_box(width=64, height=64, with_specular=True,
-                                       with_glass=True, device=name)
-        t0 = time.perf_counter()
-        _, grads[name] = G.loss_and_grad(G.SceneParams.from_scene(scene), scene,
-                                         None, opts, torch.as_tensor(target),
-                                         device=name)
-        if name == "cuda":
-            torch.cuda.synchronize()
-            box64 = scene
-        secs[name] = time.perf_counter() - t0
+    box64, meta = load_builtin_box(width=64, height=64, with_specular=True,
+                                   with_glass=True, device=dev)
+    t0 = time.perf_counter()
+    grads["cuda"] = hold_grad_graphs("grad_a", gradient_of(
+        box64, opts, lambda img: torch.mean(
+            (img - torch.as_tensor(target, device=dev)) ** 2), dev))["grads"]
+    secs["cuda"] = time.perf_counter() - t0
+    scene, _ = load_builtin_box(width=64, height=64, with_specular=True,
+                                with_glass=True, device="cpu")
+    t0 = time.perf_counter()
+    _, grads["cpu"] = G.loss_and_grad(G.SceneParams.from_scene(scene), scene,
+                                      None, opts, torch.as_tensor(target),
+                                      device="cpu")
+    secs["cpu"] = time.perf_counter() - t0
     check(grads_finite(grads["cuda"]), "grad (a): non-finite gradients on the card")
     errs, ok = grad_errors(grads["cpu"], grads["cuda"])
     check(ok, f"grad (a): card gradients differ from the CPU's: {errs}")
     emit({"phase": "grad_card_vs_cpu", "width": 64, "height": 64, "spp": 4,
           "max_depth": 8, "tolerance": "atol 1e-6 + 1e-4 x field max",
-          "max_abs_err_and_scale": errs, "seconds_cuda": secs["cuda"],
-          "seconds_cpu": secs["cpu"]})
+          "max_abs_err_and_scale": errs, "seconds_cuda_captured_and_eager":
+          secs["cuda"], "seconds_cpu": secs["cpu"]})
 
     # (b) central finite differences on the card.
     fd_opts = opts.replace(ns_gradient=False)
@@ -1394,49 +1543,34 @@ def phase_grad(dev, state):
                     "autodiff": gval, "fd": fd, "rel_err": abs(gval - fd) / abs(fd)})
     emit({"phase": "grad_fd", "cases": fds})
 
-    # (c) the full-width gradient.
+    # (c) the full-width gradient: a warm-up, the timed gradient (both passes
+    # replayed as CUDA graphs), then the same gradient under eager().
     scene, meta = load_builtin_box(width=1024, height=1024, device=dev)
     opts = RenderOptions(spp=16, max_depth=32, chunk_size=65536,
                          bwd_seg_per_sample=2.15)
-    params = G.SceneParams.from_scene(scene)
-    for _ in range(2):  # a warm-up run, then the timed one
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        K.reset_launch_counts()
-        t0 = time.perf_counter()
-        leaves = params.leaves(dev)
-        img, rays = render_image_stats(G.apply_params(scene, leaves), None, opts,
-                                       differentiable=True, device=dev)
-        loss = img.mean()
-        rays = int(rays)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        fwd = K.launch_counts()
-        K.reset_launch_counts()
-        g = G.param_grads(loss, leaves)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        bwd = K.launch_counts()
-        peak = torch.cuda.max_memory_allocated() - base
-        del img, loss, leaves
+    forward = gradient_of(scene, opts, torch.mean, dev)
+    timed_gradient(forward)
+    res = hold_grad_graphs("grad_c_full_width", forward, timed_gradient(forward))
+    g, rays, fwd, bwd = (res["grads"], res["rays"], res["launches_forward"],
+                         res["launches_backward"])
+    t_fwd, t_bwd = res["forward_s"], res["backward_s"]
     check(rays > 0, f"grad (c): the budget truncated the render (n_rays {rays})")
     check(grads_finite(g), "grad (c): non-finite gradients")
     check(float(g.kd[meta.material_names.index("White"), 0]) > 0,
           "grad (c): the White kd gradient is not positive")
     check_launched(fwd, PATH_KERNELS["single"], "grad (c) forward")
-    check(all(v == 0 for v in bwd.values()),
-          f"grad (c): the backward pass launched key or intersect kernels: {bwd}")
     state["launches_grad_forward"], state["launches_grad_backward"] = fwd, bwd
     emit({"phase": "grad_full_width", "width": 1024, "height": 1024, "spp": 16,
           "max_depth": 32, "lanes": 65536, "bwd_seg_per_sample": 2.15,
-          "rays": rays, "forward_seconds": t1 - t0, "backward_seconds": t2 - t1,
-          "seconds": t2 - t0, "fwd_bwd_rays_per_s": rays / (t2 - t0),
-          "backward_over_forward": (t2 - t1) / (t1 - t0),
-          "peak_bytes_over_baseline": peak, "baseline_bytes": base,
+          "rays": rays, "forward_seconds": t_fwd, "backward_seconds": t_bwd,
+          "seconds": t_fwd + t_bwd, "fwd_bwd_rays_per_s": rays / (t_fwd + t_bwd),
+          "backward_over_forward": t_bwd / t_fwd,
+          "peak_bytes_over_baseline": res["peak_over_baseline"],
           "launches_forward": fwd, "launches_backward": bwd,
-          "kd_grad_white": float(g.kd[meta.material_names.index("White"), 0])})
-    del g
+          "kd_grad_white": float(g.kd[meta.material_names.index("White"), 0]),
+          "eager": {k: GRAD_FRAMES["grad_c_full_width"][k]
+                    for k in ("forward_s_eager", "backward_s_eager")}})
+    del g, res
     torch.cuda.empty_cache()
 
     # (d) inverse rendering.
@@ -1475,11 +1609,14 @@ def sync(dev: str) -> None:
         torch.cuda.synchronize()
 
 
-def grad_large_plan(dev: str, large_mode: str, want_plan, path: str):
+def grad_large_plan(dev: str, large_mode: str, want_plan, path: str,
+                    label: str):
     """A gradient of the 2k-triangle interior past lowered table budgets
     (tests/test_torch_large's), MODERN, 32 x 32, spp 2, max_depth 5,
-    subtiles of 16 rays, under ``large_mode``, on ``dev`` and on the CPU:
-    (plan, {device: gradient}, {device: (forward, backward) launches})."""
+    subtiles of 16 rays, under ``large_mode``, on ``dev`` (captured, held to
+    the same gradient under eager(): hold_grad_graphs's ``label``) and on
+    the CPU: (plan, {device: gradient}, {device: (forward, backward)
+    launches})."""
     from montecarlopathtracing_torch.config import MODERN, RenderOptions
     from montecarlopathtracing_torch.diff import gradients as G
     from montecarlopathtracing_torch.integrator import wavefront as W
@@ -1501,6 +1638,15 @@ def grad_large_plan(dev: str, large_mode: str, want_plan, path: str):
             plan = W.resolve_plan(opts, scene.num_tris_padded)
             check(plan == want_plan,
                   f"{path}: expected the plan {want_plan}, got {plan}")
+            if name == dev:
+                res = hold_grad_graphs(label, gradient_of(
+                    scene, opts, lambda img: torch.mean(
+                        (img - torch.as_tensor(target, device=dev)) ** 2), dev))
+                grads[name], rays = res["grads"], res["rays"]
+                launches[name] = (res["launches_forward"], res["launches_backward"])
+                check(rays > 0, f"{path}: the budget truncated the render on "
+                                f"{name} (n_rays {rays})")
+                continue
             leaves = G.SceneParams.from_scene(scene).leaves(name)
             K.reset_launch_counts()
             img, rays = W.render_image_stats(G.apply_params(scene, leaves), None,
@@ -1541,7 +1687,7 @@ def phase_grad_chunked(dev, state):
     max_depth 5, subtiles of 16 rays.  Keys and intersect are counted in the
     forward pass (rows 3 and 4, > 0) and in the backward pass (0)."""
     plan, grads, launches = grad_large_plan(dev, "hbm", ("cluster", 128, 1, 3),
-                                            "grad (e)")
+                                            "grad (e)", "grad_e_chunked")
     errs = check_grad_card_vs_cpu(grads, launches, dev, PATH_KERNELS["chunked"],
                                   "grad (e)")
     fwd, bwd = launches[dev]
@@ -1559,7 +1705,8 @@ def phase_grad_hbm(dev):
     tolerance of the CPU."""
     t0 = time.perf_counter()
     plan, grads, launches = grad_large_plan(dev, "hbm_always",
-                                            ("cluster_hbm", 128, 1, 1), "grad (g)")
+                                            ("cluster_hbm", 128, 1, 1), "grad (g)",
+                                            "grad_g_hbm")
     errs = check_grad_card_vs_cpu(grads, launches, dev, PATH_KERNELS["hbm"],
                                   "grad (g)")
     fwd, bwd = launches[dev]
@@ -2412,22 +2559,20 @@ RANK_RENDER = dict(spp=8, max_depth=4, chunk_size=256)
 RANK_TRAIN = dict(spp=4, max_depth=3, chunk_size=256)
 
 
-def sharded_grad(scene, mesh, dev: str):
+def sharded_grad(scene, mesh, dev: str, label: str):
     """d mean(image) / d SceneParams through render_image_sharded with
-    differentiable=True (MODERN, RANK_RENDER's options), and the key and
-    intersect launches of that forward and backward pass."""
+    differentiable=True (MODERN, RANK_RENDER's options), both passes
+    replayed as CUDA graphs and held to the same gradient under
+    wavefront.eager() (hold_grad_graphs's ``label``), and the key and
+    intersect launches of its forward pass."""
     from montecarlopathtracing_torch.config import MODERN, RenderOptions
-    from montecarlopathtracing_torch.diff import gradients as G
-    from montecarlopathtracing_torch.kernels import cluster as K
     from montecarlopathtracing_torch.parallel.mesh import render_image_sharded
 
-    K.reset_launch_counts()
-    leaves = G.SceneParams.from_scene(scene).leaves(dev)
-    img = render_image_sharded(G.apply_params(scene, leaves), None,
-                               RenderOptions(**RANK_RENDER, compat=MODERN), mesh,
-                               differentiable=True, device=dev)
-    grads = G.param_grads(img.mean(), leaves).to("cpu")
-    return grads, K.launch_counts()
+    opts = RenderOptions(**RANK_RENDER, compat=MODERN)
+    res = hold_grad_graphs(label, gradient_of(
+        scene, opts, torch.mean, dev, render=lambda sc: (render_image_sharded(
+            sc, None, opts, mesh, differentiable=True, device=dev), 0)))
+    return res["grads"].to("cpu"), res["launches_forward"]
 
 
 def rank_worker(rank: int, world: int, address: str, out_dir: str, dev: str):
@@ -2459,7 +2604,7 @@ def rank_worker(rank: int, world: int, address: str, out_dir: str, dev: str):
         hold_graphs(label, captured, counted(render, eager=True))
         img = captured[0]
         t0 = time.perf_counter()
-        grads, grad_launches = sharded_grad(scene, mesh, dev)
+        grads, grad_launches = sharded_grad(scene, mesh, dev, label + "_grad")
         grad_secs = time.perf_counter() - t0
         small, _ = load_builtin_box(width=32, height=32, device=dev)
         ids, per = _padded_ids(32 * 32, tile)
@@ -2471,7 +2616,8 @@ def rank_worker(rank: int, world: int, address: str, out_dir: str, dev: str):
                                 "kd": params.kd.cpu(), "per": per,
                                 "grads": vars(grads), "grad_launches": grad_launches,
                                 "grad_seconds": grad_secs,
-                                "graphs": GRAPH_FRAMES[label]}
+                                "graphs": GRAPH_FRAMES[label],
+                                "grad_graphs": GRAD_FRAMES[label + "_grad"]}
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     torch.distributed.destroy_process_group()
 
@@ -2500,7 +2646,8 @@ def phase_ranks(dev):
     hold_graphs("ranks_single", captured, counted(lambda: render_image_stats(
         scene, None, RenderOptions(**RANK_RENDER), device=dev), eager=True))
     single = captured[0].cpu()
-    single_grad, single_launches = sharded_grad(scene, make_mesh(), dev)
+    single_grad, single_launches = sharded_grad(scene, make_mesh(), dev,
+                                                "ranks_single_grad")
     small, _ = load_builtin_box(width=32, height=32, device=dev)
     p1, loss1 = train_step(SceneParams.from_scene(small), small, None,
                            RenderOptions(**RANK_TRAIN),
@@ -2516,6 +2663,7 @@ def phase_ranks(dev):
         for grid, res in r.items():
             res["grads"] = SceneParams(**res["grads"])
             GRAPH_FRAMES[f"ranks_{grid}_rank{rank}"] = res.pop("graphs")
+            GRAD_FRAMES[f"ranks_{grid}_rank{rank}_grad"] = res.pop("grad_graphs")
     check(grads_finite(single_grad) and float(single_grad.kd.abs().max()) > 0,
           "ranks: the one-process gradient is not finite or is zero")
     out = {}
@@ -2823,6 +2971,7 @@ def main() -> int:
     phase_profile(dev)
     phase_bench()
     emit({"phase": "graphs", "block_iterations": BLOCK, "frames": GRAPH_FRAMES})
+    emit({"phase": "grad_graphs", "gradients": GRAD_FRAMES})
     phase_timing(state)
     phase_walk_timing(state)
 

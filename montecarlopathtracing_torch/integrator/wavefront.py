@@ -21,10 +21,14 @@ full width per sample, ``trace_paths``).  ``differentiable=True`` makes
 either a function of the scene's material and light tensors that autograd
 can take apart: traversal, visibility and the sampled directions are
 detached (the JAX package's ``stop_gradient`` points), the loop runs a
-static budget in blocks checkpointed with ``torch.utils.checkpoint``, and
-intersect results and sort permutations are recorded on the forward pass and
-replayed when a block is recomputed for backward (``_Replay``), so backward
-launches no intersect kernel.
+static budget in checkpointed blocks, and intersect results and sort
+permutations are recorded on the forward pass and replayed when a block is
+recomputed for backward, so backward launches no intersect kernel.  The
+lane pool's blocks are one autograd node (``_CheckpointedBlocks``, the
+counterpart of the JAX package's jitted ``lax.scan`` over
+``jax.checkpoint``-ed blocks): on a CUDA device its forward blocks and its
+backward recompute-and-VJP blocks replay CUDA graphs too.  The scan renderer
+checkpoints with ``torch.utils.checkpoint`` and replays through ``_Replay``.
 
 A scene whose triangle table is past the single-table budget renders through
 the chunked or the supergroup ("HBM") cluster intersector, as
@@ -37,6 +41,7 @@ cap; their tables are the scene's LBVH, passed as ``bvh`` or built here.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import time
 import warnings
@@ -590,6 +595,74 @@ class _Replay:
         return self.saved[key]
 
 
+class _Residuals:
+    """The lane pool's counterpart of _Replay for a block of ``k_steps``
+    iterations: each iteration's intersect results and sort order with its
+    inverse (the JAX package's named residuals ``isect_*`` and
+    ``perm_inv``) in fixed buffers, one row per iteration of the block.
+    ``mode`` None computes them; ``"record"`` computes them and copies them
+    into the buffers; ``"replay"`` hands the rows back in place of computing
+    them, so a block recomputed for backward launches no intersect kernel
+    and sorts nothing.  The buffers (for ``k_steps`` iterations of
+    ``n_isect`` intersected rays and ``n_sort`` sorted lanes; none by
+    default) are made up front, outside any capture, and a captured block
+    reads and writes them in place."""
+
+    def __init__(self, k_steps: int = 0, n_isect: int = 0, n_sort: int = 0,
+                 dev=None):
+        self.mode, self.bufs = None, {}
+        if not k_steps:
+            return
+        self.bufs["isect"] = (
+            torch.zeros((k_steps, n_isect), dtype=torch.bool, device=dev),
+            torch.zeros((k_steps, n_isect), dtype=torch.float32, device=dev),
+            torch.zeros((k_steps, n_isect), dtype=_I32, device=dev))
+        if n_sort:
+            self.bufs["perm"] = tuple(
+                torch.zeros((k_steps, n_sort), dtype=torch.int64, device=dev)
+                for _ in range(2))
+
+    def __call__(self, key, fn):
+        name, k = key
+        if self.mode == "replay":
+            return tuple(b[k] for b in self.bufs[name])
+        out = fn()
+        if self.mode == "record":
+            for b, x in zip(self.bufs[name], out):
+                b[k].copy_(x)
+        return out
+
+    def copies(self) -> list:
+        return [b.clone() for bufs in self.bufs.values() for b in bufs]
+
+    def load(self, copies) -> None:
+        for b, c in zip((b for bufs in self.bufs.values() for b in bufs), copies):
+            b.copy_(c)
+
+
+def _grad_inputs(scene, tables) -> tuple:
+    """The tensors a lane-pool iteration reads that can carry a gradient:
+    the packed triangle and material tables (_shading_tables: the vertices,
+    normals, uvs and every material field), the texture atlas, and the
+    lights' radiance and total areas (the NEE weights).  The lights' CDFs
+    only pick a face, and the integer fields carry none."""
+    return (*tables, scene.atlas, scene.light_radiance, scene.light_total_area)
+
+
+def _grad_env(scene, xs):
+    """(scene, tables) that read the tensors ``xs`` in _grad_inputs' order."""
+    tab, mtab, atlas, radiance, area = xs
+    return (dataclasses.replace(scene, atlas=atlas, light_radiance=radiance,
+                                light_total_area=area), (tab, mtab))
+
+
+# The lane state that carries a gradient from one iteration to the next: the
+# throughput and the radiance sum.  The pend registers leave a block as its
+# outputs and enter the next reset; the ray origins, directions and hit
+# distances are detached or built from detached values.
+_GRAD_STATE = ("beta", "rad")
+
+
 def _sort_perm(sort_key, with_inverse: bool):
     """(stable ascending order of sort_key, its inverse or None)."""
     perm = torch.argsort(sort_key, stable=True)
@@ -763,15 +836,19 @@ _COUNTED = (*_CLUSTER_WRAPPERS.values(), *_WALK_WRAPPERS.values())
 _eager = False
 _loop_stats = dict.fromkeys(("dispatches", "iterations", "idle_iterations",
                              "eager_blocks", "graphs", "replays", "capture_s"), 0)
+_grad_stats = dict.fromkeys(
+    ("dispatches", "blocks")
+    + tuple(f"{p}_{k}" for p in ("fwd", "bwd")
+            for k in ("eager_blocks", "graphs", "replays", "capture_s")), 0)
 
 
 @contextlib.contextmanager
 def eager():
-    """Inside this context the forward lane pool runs every block op by op on
-    the card too, as it does on the CPU: the counterpart of
-    ``jax.disable_jit()``, for debugging and for recording a frame's kernel
-    calls (a graph replay runs no Python, so a wrapper that records its
-    calls would see only the captures)."""
+    """Inside this context the lane pool runs every block op by op on the
+    card too, as it does on the CPU, the forward frames and both passes of
+    a gradient: the counterpart of ``jax.disable_jit()``, for debugging and
+    for recording a frame's kernel calls (a graph replay runs no Python, so
+    a wrapper that records its calls would see only the captures)."""
     global _eager
     before, _eager = _eager, True
     try:
@@ -789,29 +866,53 @@ def loop_stats() -> dict:
     return dict(_loop_stats)
 
 
+def grad_loop_stats() -> dict:
+    """loop_stats' counterpart for the differentiable lane pool, totals since
+    the last reset: dispatches, blocks of the forward pass, and for the
+    forward (``fwd_``) and the backward (``bwd_``) pass apart the blocks run
+    op by op, graphs captured, replays and capture seconds.  A backward pass
+    runs each recorded block once, in reverse."""
+    return dict(_grad_stats)
+
+
 def reset_loop_stats() -> None:
-    for k in _loop_stats:
-        _loop_stats[k] = 0
+    for stats in (_loop_stats, _grad_stats):
+        for k in stats:
+            stats[k] = 0
 
 
 def _captures(dev) -> bool:
-    """Whether the forward lane pool replays CUDA graphs on ``dev``."""
+    """Whether the lane pool replays CUDA graphs on ``dev``."""
     return dev.type == "cuda" and not _eager
 
 
 class _CudaGraphs:
-    """The CUDA graphs of one dispatch: captured on one side stream into one
-    memory pool.  Every capture frees all it allocates before it ends (the
-    block's results are copied into buffers made outside the graphs), so the
-    graphs may share the pool in any order of replay."""
+    """The CUDA graphs of one dispatch (or of one backward pass): captured
+    on one side stream into one memory pool.  Every capture frees all it
+    allocates before it ends (the block's results are copied into buffers
+    made outside the graphs), so the graphs may share the pool in any order
+    of replay."""
 
     def __init__(self, dev):
-        self.dev, self.stream, self.pool = dev, None, None
+        self.dev, self.pool = dev, None
+        self.stream = torch.cuda.Stream(dev)
+
+    def warm_up(self, fn):
+        """fn run op by op on the capture stream, ordered after the current
+        stream's work and before its next: the first block, which builds and
+        loads the kernels and makes each library's state for that stream
+        (cuBLAS's workspace among it) before a capture could need it."""
+        current = torch.cuda.current_stream(self.dev)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            fn()
+        current.wait_stream(self.stream)
 
     def capture(self, fn):
-        """fn's CUDA work as a graph, instantiated; nothing runs."""
-        if self.stream is None:
-            self.stream = torch.cuda.Stream(self.dev)
+        """fn's CUDA work as a graph, instantiated; nothing runs.  Whatever
+        fn launches on the capture stream is captured, the autograd engine's
+        backward kernels included (they run on the stream of their forward
+        op)."""
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.device(self.dev), torch.cuda.graph(
                 graph, pool=self.pool, stream=self.stream,
@@ -822,40 +923,53 @@ class _CudaGraphs:
 
 
 class _Blocks:
-    """Runs the forward lane pool's loop body ``block(i0)`` (iterations i0 ..
-    i0 + check_every - 1 on fixed state buffers) one block at a time.
+    """Runs a lane-pool loop body ``block(i0)`` (a block of iterations on
+    fixed state buffers, starting at iteration i0) one block at a time.
 
     On the CPU, and on the card inside ``eager()``, a block runs op by op.
-    On the card the first block does too: it builds and loads the kernels at
-    first use, reads the tables' cached host values (``BVHArrays.finite``)
-    and fills the allocator's cache, none of which may happen under capture.
-    Every later block replays a CUDA graph, one for each flush phase
-    (``i0 % flush_every`` fixes where the block flushes), captured when its
-    phase first comes up.  Errors in a capture or a replay are raised: no
-    block falls back to running op by op.
+    On the card the first block does too, on the capture stream: it builds
+    and loads the kernels at first use, reads the tables' cached host values
+    (``BVHArrays.finite``) and makes the libraries' per-stream state, none
+    of which may happen under capture.  Every later block replays a CUDA
+    graph, one for each flush phase (``i0 % flush_every`` fixes where the
+    block flushes), captured when its phase first comes up.  Errors in a
+    capture or a replay are raised: no block falls back to running op by
+    op.
 
     A capture runs the block's Python once and launches nothing, and a
     replay runs no Python.  So the launches the kernel wrappers count during
     a capture are taken off their counters again and added on every replay:
-    ``launch_counts()`` reads the same in both modes."""
+    ``launch_counts()`` reads the same in both modes.  ``stats`` and
+    ``prefix`` name the counters this loop adds to."""
 
-    def __init__(self, block, dev, flush_every: int):
+    def __init__(self, block, dev, flush_every: int, stats=None,
+                 prefix: str = ""):
         self.block, self.flush_every = block, flush_every
+        self.stats = _loop_stats if stats is None else stats
+        self.prefix = prefix
         self.graphs = _CudaGraphs(dev) if _captures(dev) else None
+        self.warm = False
         self.replays = {}  # flush phase -> (graph, launches per replay)
 
+    def _add(self, key: str, n=1) -> None:
+        self.stats[self.prefix + key] += n
+
     def run(self, i0: int) -> None:
-        if self.graphs is None or i0 == 0:
-            self.block(i0)
-            _loop_stats["eager_blocks"] += 1
+        if not self.warm:
+            if self.graphs is None:
+                self.block(i0)
+            else:
+                self.graphs.warm_up(lambda: self.block(i0))
+                self.warm = True
+            self._add("eager_blocks")
             return
         phase = i0 % self.flush_every
         if phase not in self.replays:
             before = [w.launches for w in _COUNTED]
             t0 = time.perf_counter()
             graph = self.graphs.capture(lambda: self.block(i0))
-            _loop_stats["capture_s"] += time.perf_counter() - t0
-            _loop_stats["graphs"] += 1
+            self._add("capture_s", time.perf_counter() - t0)
+            self._add("graphs")
             self.replays[phase] = graph, [w.launches - n for w, n
                                           in zip(_COUNTED, before)]
             for w, n in zip(_COUNTED, before):
@@ -864,7 +978,122 @@ class _Blocks:
         graph.replay()
         for w, n in zip(_COUNTED, launches):
             w.launches += n
-        _loop_stats["replays"] += 1
+        self._add("replays")
+
+
+class _BlockScan:
+    """The differentiable lane pool's loop: up to ``n_blocks`` calls of
+    ``block(st, env, res)`` (one block of iterations on the state dict
+    ``st``, its entries replaced, ending with its pend registers flushed
+    and reset; returns the film columns and the (3, n) sums it staged), on
+    the fixed state buffers ``state``, the drain (``drained(state)``) read
+    between blocks.  ``env(xs)`` gives the (scene, tables) a block reads
+    from the tensors ``xs`` in _grad_inputs' order, ``inputs`` the scene's
+    own.
+
+    ``forward`` and ``backward`` are the two halves of the JAX package's
+    ``lax.scan`` over ``jax.checkpoint``-ed blocks that save only the named
+    residuals; _CheckpointedBlocks makes them one autograd node.  On the
+    card each half runs its first block op by op and replays one CUDA graph
+    for every later block (``_Blocks``)."""
+
+    def __init__(self, block, state, film, n_blocks: int, drained, env,
+                 inputs, res, dev):
+        self.block, self.state, self.film = block, state, film
+        self.n_blocks, self.drained, self.env = n_blocks, drained, env
+        self.inputs, self.res, self.dev = inputs, res, dev
+        self.entries, self.saved = [], []
+
+    def forward(self, record: bool):
+        """Runs the blocks without recording autograd, each adding its
+        staged sums into ``film`` in place; returns the film.  ``record``
+        keeps each block's entry state and residuals for ``backward``."""
+        self.res.mode = "record" if record else None
+        env = self.env(self.inputs)
+
+        def run(_):
+            st = dict(self.state)
+            slots, vals = self.block(st, env, self.res)
+            self.film.index_add_(1, slots, vals)
+            for k, v in self.state.items():
+                v.copy_(st[k])
+
+        blocks = _Blocks(run, self.dev, 1, _grad_stats, "fwd_")
+        with torch.no_grad():
+            for _ in range(self.n_blocks):
+                if self.drained(self.state):
+                    break
+                if record:
+                    self.entries.append({k: v.clone()
+                                         for k, v in self.state.items()})
+                blocks.run(0)
+                if record:
+                    self.saved.append(self.res.copies())
+                _grad_stats["blocks"] += 1
+        self.res.mode = None
+        return self.film
+
+    def backward(self, ct_film, needs) -> list:
+        """The inputs' gradients (None where ``needs`` is false) for the film
+        cotangent ``ct_film``: the recorded blocks in reverse order, each
+        recomputed from its entry state with its residuals replayed, under
+        autograd, and its VJP taken for its outputs (the film cotangent at
+        its staged columns) and its exit state (the cotangent the block after
+        it handed back).  Each input's gradient is summed over the blocks,
+        the last block's first; nothing a block saves outlives its call."""
+        leaves = [x.detach().requires_grad_(n) for x, n in zip(self.inputs, needs)]
+        wrt = [x for x in leaves if x.requires_grad]
+        env = self.env(leaves)
+        acc = [torch.zeros_like(x) for x in wrt]
+        ct_state = {f: torch.zeros_like(self.state[f]) for f in _GRAD_STATE}
+        self.res.mode = "replay"
+
+        def run(_):
+            with torch.enable_grad():
+                st = dict(self.state)
+                entry = [st[f].detach().requires_grad_() for f in _GRAD_STATE]
+                st.update(zip(_GRAD_STATE, entry))
+                slots, vals = self.block(st, env, self.res)
+                pairs = [(vals, ct_film.index_select(1, slots))] + [
+                    (st[f], ct_state[f]) for f in _GRAD_STATE]
+                pairs = [(o, c) for o, c in pairs if o.requires_grad]
+                grads = torch.autograd.grad(
+                    [o for o, _ in pairs], entry + wrt, [c for _, c in pairs],
+                    allow_unused=True)
+            for f, g in zip(_GRAD_STATE, grads):
+                if g is None:
+                    ct_state[f].zero_()
+                else:
+                    ct_state[f].copy_(g)
+            for a, g in zip(acc, grads[len(_GRAD_STATE):]):
+                if g is not None:
+                    a.add_(g)
+
+        blocks = _Blocks(run, self.dev, 1, _grad_stats, "bwd_")
+        while self.entries:
+            for k, v in self.entries.pop().items():
+                self.state[k].copy_(v)
+            self.res.load(self.saved.pop())
+            blocks.run(0)
+        self.res.mode = None
+        acc = iter(acc)
+        return [next(acc) if x.requires_grad else None for x in leaves]
+
+
+class _CheckpointedBlocks(torch.autograd.Function):
+    """The differentiable lane pool's blocks as one autograd node, the
+    film its output and the tensors of _grad_inputs its inputs
+    (_BlockScan.forward and .backward).  It holds each block's entry state
+    and residuals from forward to backward, and no activation."""
+
+    @staticmethod
+    def forward(ctx, scan, *inputs):
+        ctx.scan = scan
+        return scan.forward(record=True)
+
+    @staticmethod
+    def backward(ctx, ct_film):
+        return (None, *ctx.scan.backward(ct_film, ctx.needs_input_grad[1:]))
 
 
 def render_pixels_refill(
@@ -907,13 +1136,15 @@ def render_pixels_refill(
     ceil(n_pix * spp * e_seg / lanes) + max_depth + spp + 4 with e_seg =
     ``opts.bwd_seg_per_sample`` or 1.2 / (1 - rr_probability), in blocks of
     spp iterations (one pend slot per lane; a lane completes at most one
-    pixel per spp iterations).  Each block is checkpointed when a scene
-    tensor needs a gradient; its pend registers leave it as outputs and are
-    reset, and all blocks' outputs are added into the film once, out of
-    place, at the end.  The loop stops early at a block boundary once the
-    pool has drained (later iterations change nothing).  If the budget ends
-    with samples in flight, the ray count is negated: those samples are
-    missing from the film.
+    pixel per spp iterations); each block ends by adding its pend registers
+    into the film and resetting them.  The loop stops early at a block
+    boundary once the pool has drained (later iterations change nothing).
+    If the budget ends with samples in flight, the ray count is negated:
+    those samples are missing from the film.  When a scene tensor needs a
+    gradient the blocks are one autograd node (_CheckpointedBlocks) that
+    keeps each block's entry state and residuals and recomputes the block
+    for backward; on a CUDA device both passes replay CUDA graphs
+    (``eager()`` turns that off), bit for bit the blocks run op by op.
 
     Returns (mean radiance (n_pix, 3) aligned with pixel_ids, rays traced as
     an int64 scalar tensor).
@@ -939,7 +1170,6 @@ def render_pixels_refill(
         accel = intersector_tables(scene, opts, bvh)
 
     track = differentiable and _tracks_grad(scene)
-    replay = _Replay(track)
 
     def isect(o, d):
         return intersect_any(scene, bvh, o, d, opts, accel=accel)
@@ -948,10 +1178,14 @@ def render_pixels_refill(
         jitter = None if compat.no_pixel_jitter else rng.primary_uniforms(keys)
         return primary_rays(scene.camera, pix, jitter)
 
-    def step(s, it: int):
+    def step(s, it: int, env, replay):
         """Iteration ``it`` on the state dict ``s`` (its entries replaced,
         no tensor changed in place): shade arrivals, stage completed
-        pixels, intersect."""
+        pixels, intersect.  ``env`` is the (scene, shading tables) to shade
+        with (a backward recompute passes its leaves); ``replay`` (a
+        _Residuals) computes, records or replays the intersect results and
+        sort orders."""
+        scene, tables = env
         active, kind, depth, keys = s["active"], s["kind"], s["depth"], s["keys"]
         origin, direction, beta, rad = (s["origin"], s["direction"], s["beta"],
                                         s["rad"])
@@ -1167,40 +1401,42 @@ def render_pixels_refill(
     # Channel-major film with r * n_pend spare columns for the dummies.
     film = torch.zeros((3, n_pix + r * n_pend), **f32)
 
-    def drained() -> bool:
-        return not bool(((s["q"] < n_pix) | s["active"].any()).item())
+    def drained(st) -> bool:
+        return not bool(((st["q"] < n_pix) | st["active"].any()).item())
 
+    env = (scene, tables)
     if differentiable:
         e_seg = (opts.bwd_seg_per_sample if opts.bwd_seg_per_sample is not None
                  else 1.2 / (1.0 - opts.rr_probability))
         n_iter = int(np.ceil(n_pix * spp * e_seg / r)) + opts.max_depth + spp + 4
         k_steps = n_pend * spp
+        zero_count = torch.zeros((r,), **i32)
+        zero_pend = torch.zeros((r, n_pend), **f32)
 
-        def block(b: int, st):
-            st = dict(st)
+        def block(st, env, res):
             for k in range(k_steps):
-                step(st, b * k_steps + k)
-            out = (st["pend_slot"].reshape(-1),
-                   torch.stack([st[k].reshape(-1)
-                                for k in ("pend_r", "pend_g", "pend_b")]))
-            zero = torch.zeros((r, n_pend), **f32)
-            st.update(pend_slot=dummy_pend, pend_count=torch.zeros((r,), **i32),
-                      pend_r=zero, pend_g=zero, pend_b=zero)
-            return st, out
+                step(st, k, env, res)
+            slots = st["pend_slot"].reshape(-1).long()
+            vals = torch.stack([st[c].reshape(-1)
+                                for c in ("pend_r", "pend_g", "pend_b")])
+            st.update(pend_slot=dummy_pend, pend_count=zero_count,
+                      pend_r=zero_pend, pend_g=zero_pend, pend_b=zero_pend)
+            return slots, vals
 
-        outs = []
-        for b in range(-(-n_iter // k_steps)):
-            if drained():
-                break
-            s, out = (checkpoint(block, b, s, use_reentrant=False,
-                                 preserve_rng_state=False) if track
-                      else block(b, s))
-            outs.append(out)
-        # Real slots are unique over the frame; dummies repeat across blocks
-        # and land in the spare columns.
-        film = film.index_add(1, torch.cat([o[0] for o in outs]).long(),
-                              torch.cat([o[1] for o in outs], dim=1))
-        n_rays = s["n_rays"] if drained() else -s["n_rays"]
+        # Real slots are unique over the frame, so each film entry receives
+        # one add; dummies repeat across blocks and land in the spare columns.
+        s = {k: v.detach().clone() for k, v in s.items()}
+        inputs = _grad_inputs(scene, tables)
+        scan = _BlockScan(
+            block, s, film, -(-n_iter // k_steps), drained,
+            lambda xs: _grad_env(scene, xs), inputs,
+            _Residuals(k_steps, r * (1 + num_lights), r if do_sort else 0, dev)
+            if track else _Residuals(), dev)
+        film = (_CheckpointedBlocks.apply(scan, *inputs) if track
+                else scan.forward(record=False))
+        _grad_stats["dispatches"] += 1
+        # A copy: backward loads each block's entry state into these buffers.
+        n_rays = s["n_rays"].clone() if drained(s) else -s["n_rays"]
         return film[:, :n_pix].T / spp, n_rays
 
     def flush(st):
@@ -1214,6 +1450,7 @@ def render_pixels_refill(
         st["pend_count"] = torch.zeros((r,), **i32)
 
     flush_every = max(1, n_pend * spp)
+    res = _Residuals()
     with torch.no_grad():
         # Fixed storage: each block starts from these buffers and copies its
         # results back into them (the film is added to in place), so a
@@ -1226,7 +1463,7 @@ def render_pixels_refill(
             st = dict(s)
             for i in range(i0, i0 + check_every):
                 st["live"] = st["live"] + ((st["q"] < n_pix) | st["active"].any())
-                step(st, i)
+                step(st, i, env, res)
                 if (i + 1) % flush_every == 0:
                     flush(st)
             for k, v in s.items():
@@ -1234,7 +1471,7 @@ def render_pixels_refill(
 
         blocks = _Blocks(block, dev, flush_every)
         i = 0
-        while not drained():
+        while not drained(s):
             blocks.run(i)
             i += check_every
         del blocks  # the graphs and their pool go with the dispatch

@@ -27,9 +27,12 @@ walk (iterations then count the walk's launches).
 ``--grad`` profiles the gradient of mean(image) over SceneParams instead, in
 bench.py's backward configuration (the built-in box at 1024 x 1024, spp 16,
 max_depth 32, 65,536 lanes, bwd_seg_per_sample 2.15): the forward pass (the
-differentiable render) and the backward pass (block recomputes and autograd)
-are timed and profiled apart, each with its ms per wavefront iteration, CUDA
-kernels per iteration and device idle share.
+differentiable render) and the backward pass (block recomputes and their
+VJPs) are timed and profiled apart, each with its ms per wavefront
+iteration, CUDA kernels per iteration, device idle share and its blocks,
+graphs, replays and capture seconds (integrator/wavefront.py::
+grad_loop_stats).  Both passes replay CUDA graphs, as every gradient on the
+card does; with ``--eager`` both run op by op.
 """
 
 from __future__ import annotations
@@ -73,6 +76,7 @@ def profile_grad(scene, opts) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from montecarlopathtracing_torch.diff import gradients as G
+    from montecarlopathtracing_torch.integrator import wavefront as W
     from montecarlopathtracing_torch.integrator.wavefront import render_image_stats
     from montecarlopathtracing_torch.kernels import cluster as K
 
@@ -95,14 +99,18 @@ def profile_grad(scene, opts) -> dict:
     loss, _, leaves = forward()
     G.param_grads(loss, leaves)
     K.reset_launch_counts()
+    W.reset_loop_stats()
     fwd_s, (loss, rays, leaves) = timed(forward)
     iters = K.launch_counts()["cluster_intersect"] - 1  # less the bootstrap
     bwd_s, _ = timed(lambda: G.param_grads(loss, leaves))
+    loop = W.grad_loop_stats()
     del loss, leaves
 
     out = {"rays": rays, "iterations": iters, "forward_s": fwd_s,
            "backward_s": bwd_s, "fwd_bwd_rays_per_s": rays / (fwd_s + bwd_s),
-           "backward_over_forward": bwd_s / fwd_s}
+           "backward_over_forward": bwd_s / fwd_s, "blocks": loop["blocks"],
+           **{f"{p}_{k}": loop[f"{p}_{k}"] for p in ("fwd", "bwd")
+              for k in ("eager_blocks", "graphs", "replays", "capture_s")}}
     print(json.dumps({"part": "unprofiled", **out}), flush=True)
 
     def report(name, prof, wall):
@@ -146,7 +154,8 @@ def main(argv=None) -> int:
     ap.add_argument("--grad", action="store_true",
                     help="profile the full-width gradient of the box instead")
     ap.add_argument("--eager", action="store_true",
-                    help="render the forward frame op by op (wavefront.eager())")
+                    help="run the lane pool op by op (wavefront.eager()), "
+                         "the frame or both passes of --grad")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch: CUDA is not available", file=sys.stderr)
@@ -164,13 +173,17 @@ def main(argv=None) -> int:
                                                            load_builtin_large)
     from montecarlopathtracing_torch.utils.device import nvidia_smi_line
 
+    mode = W.eager() if args.eager else contextlib.nullcontext()
     if args.grad:
         scene, _ = load_builtin_box(width=1024, height=1024, device="cuda")
         opts = RenderOptions(spp=args.spp or 16, max_depth=32,
                              bwd_seg_per_sample=2.15)
+        with mode:
+            res = profile_grad(scene, opts)
         print(json.dumps({"grad": True, "scene": "box", "spp": opts.spp,
+                          "eager": args.eager,
                           "device": torch.cuda.get_device_name(0),
-                          **profile_grad(scene, opts)}), flush=True)
+                          "nvidia_smi": nvidia_smi_line(), **res}), flush=True)
         return 0
     if args.scene == "box":
         scene, _ = load_builtin_box(width=1024, height=1024, device="cuda")
@@ -182,7 +195,6 @@ def main(argv=None) -> int:
     opts = RenderOptions(spp=spp, spp_chunk=spp, large_mode=args.large_mode,
                          intersector=args.intersector)
     plan = resolve_plan(opts, scene.num_tris_padded)
-    mode = W.eager() if args.eager else contextlib.nullcontext()
     with mode:
         render_image_host_chunked(scene, None, opts.replace(spp=1, spp_chunk=1),
                                   device="cuda")  # warm-up (kernel build, caches)

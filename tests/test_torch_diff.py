@@ -42,6 +42,7 @@ from montecarlopathtracing_torch.kernels import cluster as tcl
 from montecarlopathtracing_torch.scene.builtin import load_builtin_large as tlarge
 from montecarlopathtracing_torch.scene.loader import build_scene as tbuild
 from montecarlopathtracing_torch.scene.types import scene_params_from_numpy
+from test_torch_graph_blocks import FakeGraphs
 
 torch.set_num_threads(2)
 
@@ -163,12 +164,18 @@ def test_differentiable_forward_is_bitwise_equal(scene_dir, refill):
     assert torch.equal(img, dimg.detach()) and int(rays) == int(drays) > 0
 
 
-def test_bwd_seg_budget(box_scene_dir):
+@pytest.mark.parametrize("with_grad", [False, True], ids=["no_grad", "grad"])
+def test_bwd_seg_budget(box_scene_dir, with_grad):
     """bwd_seg_per_sample sets the static budget: a sufficient one gives the
     default budget's film exactly and a positive ray count; a starved one
-    flags itself by a negative ray count (tests/test_gradients.py)."""
+    flags itself by a negative ray count (tests/test_gradients.py), also
+    when a scene tensor needs a gradient (the blocks are then recorded for
+    backward, and the truncated render's gradient is still taken)."""
     opts = RenderOptions(spp=2, max_depth=4, chunk_size=256)
     ts, _ = tbuild(box_scene_dir, "box", opts, device="cpu")
+    if with_grad:
+        leaves = SceneParams.from_scene(ts).leaves("cpu")
+        ts = tgrad.apply_params(ts, leaves)
     img0, nr0 = twf.render_image_stats(ts, None, opts, differentiable=True,
                                        device="cpu")
     assert int(nr0) > 0
@@ -177,10 +184,14 @@ def test_bwd_seg_budget(box_scene_dir):
         device="cpu")
     assert int(nr1) == int(nr0)
     assert torch.equal(img0, img1)
-    _, nr2 = twf.render_image_stats(
+    img2, nr2 = twf.render_image_stats(
         ts, None, opts.replace(bwd_seg_per_sample=0.01, max_depth=1),
         differentiable=True, device="cpu")
     assert int(nr2) < 0  # a truncated budget is flagged, not silent
+    assert img2.requires_grad == with_grad
+    if with_grad:
+        g = tgrad.param_grads(img2.mean(), leaves)
+        assert all(bool(torch.isfinite(getattr(g, f)).all()) for f in FIELDS)
 
 
 # -- gradients against the JAX package ---------------------------------------
@@ -365,7 +376,10 @@ def test_inverse_rendering_step_reduces_loss(box):
 
 def test_backward_launches_no_intersect(box, monkeypatch):
     """The forward pass intersects; backward replays the recorded results
-    and calls neither the key nor the intersect kernel's plain version."""
+    and calls neither the key nor the intersect kernel's plain version: the
+    lane pool, the scan renderer, and the lane pool on the card's path
+    (stand-in CUDA graphs, tests/test_torch_graph_blocks.py) with a forward
+    and a backward graph replayed."""
     calls = {"keys": 0, "isect": 0}
 
     def counting(name, fn):
@@ -379,7 +393,11 @@ def test_backward_launches_no_intersect(box, monkeypatch):
     monkeypatch.setattr(tcl, "cluster_intersect_padded_plain",
                         counting("isect", tcl.cluster_intersect_padded_plain))
     scene, _ = box
-    for refill in (True, False):
+    for refill, graphs in ((True, False), (False, False), (True, True)):
+        if graphs:
+            monkeypatch.setattr(twf, "_captures", lambda dev: True)
+            monkeypatch.setattr(twf, "_CudaGraphs", FakeGraphs)
+            twf.reset_loop_stats()
         opts = OPTS.replace(refill=refill, max_depth=6)
         leaves = SceneParams.from_scene(scene).leaves("cpu")
         img = tgrad.render_with_params(leaves, scene, None, opts, device="cpu")
@@ -388,6 +406,8 @@ def test_backward_launches_no_intersect(box, monkeypatch):
         g = tgrad.param_grads(img.mean(), leaves)
         assert calls == fwd, (refill, fwd, calls)
         assert float(g.kd.abs().max()) > 0
+    st = twf.grad_loop_stats()
+    assert st["fwd_replays"] > 0 and st["bwd_replays"] > 0
 
 
 def test_scene_params_from_numpy_keeps_values(box):

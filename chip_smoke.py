@@ -67,16 +67,45 @@ exits non-zero):
             budgets, 3 chunks, MODERN, 32 x 32) on the card against the CPU
             within (a)'s tolerance, rows 3 and 4 launched in the forward pass
             and no key or intersect kernel in the backward pass; (f) the scan
-            renderer's gradient (render_pixels with refill=False and
-            differentiable=True) on the scan box, card against CPU within
-            (a)'s tolerance, finite, keys and intersect counted in the
-            forward pass (> 0) and the backward pass (0); (g) (e)'s scene,
+            renderer's gradient: in scan_graphs below; (g) (e)'s scene,
             budgets and loss under large_mode="hbm_always" (the supergroup
             plan): rows 1 and 5 launched in the forward pass, none in the
             backward pass, card against CPU within (a)'s tolerance;
             (a), (c), (e), (g) and the ranks' gradients on the card are
             computed with both passes replayed as CUDA graphs and again
             under wavefront.eager(), and held together (grad_graphs below);
+   scan_graphs  the scan renderer (refill=False) with its blocks replayed
+            as CUDA graphs, one set of graphs a frame, each frame at full
+            width and at a check size (one chunk of 65,536 lanes) captured
+            and again under wavefront.eager(): image bit for bit, the same
+            rays, launches, bounces and idle bounces past the drain, every
+            kind of block captured after its first op-by-op run and every
+            later block a replay; per frame captured / eager seconds at the
+            check size, the full-width seconds, rays/s, graphs, replays,
+            capture ms and idle bounces:
+            box-1024-spp16-scan, the built-in box at 1024 x 1024, spp 16,
+            max_depth 32, 65,536 lanes, compat (bench_torch.py's fwd options
+            with refill=False; kernels 1 and 2): the check at 256 x 256, spp
+            4, through render_image and render_image_host_chunked; the full
+            frame (render_image) within rtol 1e-4 / atol 1e-5 of the lane
+            pool's frame of the same options, with equal rays, and at the
+            image limit of the port's CPU render at bench_torch.py's 65,536
+            pixel ids;
+            box-1024-spp16-scan-grad, d mean(image) / d SceneParams of that
+            frame (grad (c)'s loss), once, captured: its image bit for bit
+            the scan frame's (the bounces past the drain add nothing), its
+            gradient within grad (a)'s tolerance of grad (c)'s lane-pool
+            gradient, 0 launches in backward, its forward and backward
+            seconds and peak memory over the baseline; the check (grad (f))
+            on the 256 x 256 MODERN spec+glass box, spp 2, max_depth 32, d
+            mean((image - target)^2) / d SceneParams, captured against
+            eager(), loss_and_grad's gradient bit for bit the same, and the
+            card within grad (a)'s tolerance of the CPU;
+            interior-400k-720p-spp4-scan, the 400k interior at 1280 x 720,
+            spp 4, chunked plan (kernels 3 and 4), through
+            render_image_host_chunked, held to the CPU at 8,192 of
+            bench_torch.py's pixel ids; its check is one chunk of the
+            frame's pixel ids through render_pixels;
    compat_frame  the box at 256 x 256, spp 4, compat, rendered whole
             through render_image_host_chunked on the card and on the CPU,
             every pixel held to the image limit (pixels outside printed);
@@ -1358,11 +1387,11 @@ GRAD_FRAMES = {}
 
 def timed_gradient(forward, eager: bool = False) -> dict:
     """One gradient: ``forward()`` returns (image, rays, loss, leaves), then
-    d loss / d leaves, with the kernels' launch counters and the lane pool's
-    loop stats zeroed just before and read after each pass; inside
-    wavefront.eager() when ``eager``.  Returns the image, rays, gradient,
-    each pass's seconds and launches, grad_loop_stats() and the peak memory
-    over the allocation before it."""
+    d loss / d leaves, with the kernels' launch counters and the loop stats
+    zeroed just before and read after each pass; inside wavefront.eager()
+    when ``eager``.  Returns the image, rays, gradient, each pass's seconds
+    and launches, grad_loop_stats(), scan_stats() and the peak memory over
+    the allocation before it."""
     import contextlib
 
     from montecarlopathtracing_torch.accel import lbvh as L
@@ -1394,6 +1423,7 @@ def timed_gradient(forward, eager: bool = False) -> dict:
     return {"img": img.detach(), "rays": rays, "grads": grads,
             "forward_s": t1 - t0, "backward_s": t2 - t1, "launches_forward": fwd,
             "launches_backward": launches(), "stats": W.grad_loop_stats(),
+            "scan_stats": W.scan_stats(),
             "peak_over_baseline": torch.cuda.max_memory_allocated() - base}
 
 
@@ -1560,6 +1590,7 @@ def phase_grad(dev, state):
           "grad (c): the White kd gradient is not positive")
     check_launched(fwd, PATH_KERNELS["single"], "grad (c) forward")
     state["launches_grad_forward"], state["launches_grad_backward"] = fwd, bwd
+    state["grad_c"] = g
     emit({"phase": "grad_full_width", "width": 1024, "height": 1024, "spp": 16,
           "max_depth": 32, "lanes": 65536, "bwd_seg_per_sample": 2.15,
           "rays": rays, "forward_seconds": t_fwd, "backward_seconds": t_bwd,
@@ -1717,50 +1748,210 @@ def phase_grad_hbm(dev):
           "launches_backward": bwd, "seconds": time.perf_counter() - t0})
 
 
-def phase_grad_scan(dev):
-    """Phase grad (f): the scan renderer's gradient, render_pixels with
-    refill=False and differentiable=True, on the scan phase's 64 x 64
-    MODERN spec+glass box (spp 4, max_depth 8), d mean((radiance -
-    target)^2) / d SceneParams on the card and on the CPU: finite, within
-    grad (a)'s tolerance, key and intersect launches counted in the forward
-    pass (> 0) and the backward pass (0: the intersect results are
-    replayed)."""
+# The scan renderer's frames (refill=False): the full-width configurations
+# and the size of their bit-for-bit checks against eager().
+SCAN_BOX = dict(spp=16, max_depth=32, chunk_size=65536, spp_chunk=16)
+SCAN_CHECK = 256  # one chunk of 65,536 lanes
+
+
+def scan_counted(fn, eager: bool = False):
+    """counted() with the scan renderer's stats (wavefront.scan_stats) in
+    place of the lane pool's."""
+    from montecarlopathtracing_torch.integrator import wavefront as W
+
+    return counted(fn, eager)[:4] + (W.scan_stats(),)
+
+
+def scan_record(st, secs: float, rays) -> dict:
+    return {"seconds": secs, "rays": float(rays),
+            "rays_per_s": float(rays) / secs,
+            **{k: st[k] for k in ("calls", "samples", "bounces", "idle_bounces")},
+            **{f"{p}_{k}": st[f"{p}_{k}"] for p in ("fwd", "bwd")
+               for k in ("eager_blocks", "graphs", "replays")},
+            "fwd_capture_ms": st["fwd_capture_s"] * 1e3,
+            "bwd_capture_ms": st["bwd_capture_s"] * 1e3}
+
+
+def hold_scan(label: str, captured, eager, passes=("fwd",)) -> dict:
+    """A scan-renderer render with its blocks replayed as CUDA graphs
+    (``captured``) against the same render under wavefront.eager() (each a
+    scan_counted() result, or timed_scan_gradient()'s (image, rays,
+    seconds, forward launches, stats)): the image bit for bit, the same
+    rays, launches, bounces and idle bounces; one set of graphs (one frame)
+    that captured every kind of block after its first op-by-op run and
+    replayed every later block of each pass."""
+    img, rays, secs, launches, st = captured
+    img_e, rays_e, secs_e, launches_e, st_e = eager
+    equal = bool(torch.equal(img, img_e))
+    check(equal, f"{label}: the captured frame differs from the eager one")
+    check(float(rays) == float(rays_e),
+          f"{label}: rays {float(rays)} captured, {float(rays_e)} eager")
+    check(launches == launches_e, f"{label}: launches {launches} captured, "
+                                   f"{launches_e} eager")
+    for p in passes:
+        blocks = st_e[f"{p}_eager_blocks"]
+        check(st["frames"] == st_e["frames"] == 1
+              and st["bounces"] == st_e["bounces"]
+              and st["idle_bounces"] == st_e["idle_bounces"]
+              and st_e[f"{p}_graphs"] == 0 and st[f"{p}_graphs"] >= 1
+              and st[f"{p}_eager_blocks"] + st[f"{p}_replays"] == blocks
+              and st[f"{p}_replays"] > st[f"{p}_graphs"],
+              f"{label}: scan stats {st} captured, {st_e} eager")
+    return {"seconds_captured": secs, "seconds_eager": secs_e,
+            "bit_equal": equal, **scan_record(st, secs, rays)}
+
+
+def timed_scan_gradient(forward, eager: bool = False):
+    """timed_gradient() of a scan-renderer gradient, as hold_scan takes it
+    (image, rays, forward + backward seconds, launches of both passes,
+    scan_stats), and the whole timed_gradient() result."""
+    res = timed_gradient(forward, eager)
+    return ((res["img"], res["rays"], res["forward_s"] + res["backward_s"],
+             (res["launches_forward"], res["launches_backward"]),
+             res["scan_stats"]), res)
+
+
+def scan_cpu_check(img, scene, opts, n_ids: int, label: str) -> dict:
+    """bench_torch.py's check: ``n_ids`` pixel ids chosen from its seed,
+    the card's frame there against the port's CPU render of them, at the
+    image limit."""
+    from bench_torch import check_ids, cpu_pixels
+
+    t0 = time.perf_counter()
+    ids = check_ids(scene.camera.height, scene.camera.width, n_ids, 0)
+    got = img.reshape(-1, 3)[torch.as_tensor(ids, device=img.device)].cpu()
+    res = image_agreement(cpu_pixels(scene, opts, ids), got, label)
+    return {**res, "ids": len(ids), "seconds": time.perf_counter() - t0}
+
+
+def phase_scan_graphs(dev, state):
+    """The scan renderer's frames with CUDA graphs (the scan_graphs line,
+    see the module docstring)."""
     from montecarlopathtracing_torch.config import MODERN, RenderOptions
     from montecarlopathtracing_torch.diff import gradients as G
-    from montecarlopathtracing_torch.integrator.wavefront import render_pixels
-    from montecarlopathtracing_torch.kernels import cluster as K
+    from montecarlopathtracing_torch.integrator import wavefront as W
     from montecarlopathtracing_torch.scene.builtin import load_builtin_box
 
-    opts = RenderOptions(spp=4, max_depth=8, compat=MODERN, refill=False)
-    target = np.random.default_rng(5).uniform(0.1, 0.6, (64 * 64, 3)).astype(
-        np.float32)
-    grads, launches, secs = {}, {}, {}
+    t_phase = time.perf_counter()
+    out = {}
+    # box-1024-spp16-scan: the check size (render_image, then
+    # render_image_host_chunked in two spp steps) captured against eager().
+    opts = RenderOptions(refill=False, **SCAN_BOX)
+    small, _ = load_builtin_box(width=SCAN_CHECK, height=SCAN_CHECK, device=dev)
+    o4 = opts.replace(spp=4, spp_chunk=2)
+    box = {"check_render_image": hold_scan("scan box check", *(scan_counted(
+        lambda: W.render_image_stats(small, None, o4, device=dev), eager=e)
+        for e in (False, True))),
+           "check_host_chunked": hold_scan("scan box check chunked", *(
+               scan_counted(lambda: W.render_image_host_chunked(
+                   small, None, o4, device=dev), eager=e) for e in (False, True)))}
+    del small
+    # The full-width frame, captured; the lane pool's frame of the same
+    # options; the CPU at bench_torch.py's pixel ids.
+    big, meta = load_builtin_box(width=1024, height=1024, device=dev)
+    img, rays, secs, launches, st = scan_counted(
+        lambda: W.render_image_stats(big, None, opts, device=dev))
+    check_launched(launches, PATH_KERNELS["single"], "scan box")
+    image_checks(img, "scan box")
+    pool, pool_rays, pool_secs = counted(lambda: W.render_image_stats(
+        big, None, opts.replace(refill=True), device=dev))[:3]
+    check(float(rays) == float(pool_rays),
+          f"scan box: rays {float(rays)}, lane pool {float(pool_rays)}")
+    check(bool(torch.allclose(img, pool, rtol=1e-4, atol=1e-5)),
+          "scan box: the frame differs from the lane pool's beyond rtol 1e-4 "
+          "/ atol 1e-5")
+    box.update(full=scan_record(st, secs, rays), launches=launches,
+               lane_pool={"seconds": pool_secs,
+                          "max_abs_diff": float((img - pool).abs().max())},
+               cpu=scan_cpu_check(img, big, opts, 65536, "scan box"))
+    out["box-1024-spp16-scan"] = box
+
+    # box-1024-spp16-scan-grad.  The check size: d mean((image -
+    # target)^2) / d SceneParams (image_loss, what loss_and_grad takes) on
+    # the 256 x 256 MODERN spec+glass box, spp 2, captured against eager(),
+    # loss_and_grad itself captured against the same, and the card against
+    # the CPU (grad (a)'s tolerance).
+    go = RenderOptions(refill=False, spp=2, max_depth=32, chunk_size=65536,
+                       compat=MODERN, ns_gradient=True)
+    target = torch.as_tensor(np.random.default_rng(5).uniform(
+        0.1, 0.6, (SCAN_CHECK, SCAN_CHECK, 3)).astype(np.float32))
+    grads, grad = {}, {}
     for name in (dev, "cpu"):
-        scene, _ = load_builtin_box(width=64, height=64, with_specular=True,
-                                    with_glass=True, device=name)
-        ids = torch.arange(64 * 64, dtype=torch.int32, device=name)
+        sg, _ = load_builtin_box(width=SCAN_CHECK, height=SCAN_CHECK,
+                                 with_specular=True, with_glass=True, device=name)
+        W.reset_loop_stats()
         t0 = time.perf_counter()
-        leaves = G.SceneParams.from_scene(scene).leaves(name)
-        K.reset_launch_counts()
-        rad, rays = render_pixels(G.apply_params(scene, leaves), None, opts, ids,
-                                  differentiable=True)
-        loss = torch.mean((rad - torch.as_tensor(target, device=name)) ** 2)
+        _, grads[name] = G.loss_and_grad(G.SceneParams.from_scene(sg), sg, None,
+                                         go, target, device=name)
         sync(name)
-        fwd = K.launch_counts()
-        K.reset_launch_counts()
-        grads[name] = G.param_grads(loss, leaves)
-        sync(name)
-        launches[name] = (fwd, K.launch_counts())
-        secs[name] = time.perf_counter() - t0
-        check(int(rays) > 0, f"grad (f): no rays on {name}")
-    errs = check_grad_card_vs_cpu(grads, launches, dev, PATH_KERNELS["single"],
-                                  "grad (f)")
-    fwd, bwd = launches[dev]
-    emit({"phase": "grad_scan_card_vs_cpu", "width": 64, "height": 64, "spp": 4,
-          "max_depth": 8, "tolerance": "atol 1e-6 + 1e-4 x field max",
-          "max_abs_err_and_scale": errs, "launches_forward": fwd,
-          "launches_backward": bwd, "seconds_cuda": secs[dev],
-          "seconds_cpu": secs["cpu"]})
+        grad[f"loss_and_grad_seconds_{name}"] = time.perf_counter() - t0
+        if name != dev:
+            continue
+        st = W.scan_stats()
+        check(st["fwd_replays"] > 0 and st["bwd_replays"] > 0,
+              f"scan grad: loss_and_grad replayed no graph: {st}")
+        forward = gradient_of(sg, go, lambda im: torch.mean(
+            (im - target.to(dev)) ** 2), dev)
+        (cap, cap_full), (eag, eag_full) = (timed_scan_gradient(forward, e)
+                                            for e in (False, True))
+        grad["check"] = hold_scan("scan grad check", cap, eag, ("fwd", "bwd"))
+        check(not any(cap[3][1].values()),
+              f"scan grad check: the backward pass launched kernels: {cap[3][1]}")
+        same = {}
+        for f in G.PARAM_FIELDS:
+            a, b, c = (getattr(g, f) for g in (cap_full["grads"],
+                                               eag_full["grads"], grads[dev]))
+            same[f] = bool(torch.equal(a, b)) and bool(torch.equal(a, c))
+        check(all(same.values()), f"scan grad check: the captured gradient, "
+                                  f"the eager one and loss_and_grad's differ: {same}")
+        grad["check"].update(
+            forward_s=cap_full["forward_s"], backward_s=cap_full["backward_s"],
+            forward_s_eager=eag_full["forward_s"],
+            backward_s_eager=eag_full["backward_s"], grad_bit_equal=same)
+        del sg, cap, eag, cap_full, eag_full
+    check(grads_finite(grads[dev]), "scan grad: non-finite gradients on the card")
+    errs, ok = grad_errors(grads["cpu"], grads[dev])
+    check(ok, f"scan grad: card gradients differ from the CPU's: {errs}")
+    grad["card_vs_cpu"] = errs
+    # The full-width gradient, once, captured: d mean(image) / d SceneParams
+    # (grad (c)'s loss), its image bit for bit the scan frame above, the
+    # gradient within grad (a)'s tolerance of grad (c)'s (the lane pool).
+    (gimg, grays, gsecs, (lf, lb), gst), res = timed_scan_gradient(
+        gradient_of(big, opts, torch.mean, dev))
+    check(bool(torch.equal(gimg, img)) and float(grays) == float(rays),
+          "scan grad: the gradient's image or rays differ from the scan frame")
+    check(not any(lb.values()), f"scan grad: the backward pass launched {lb}")
+    check_launched(lf, PATH_KERNELS["single"], "scan grad forward")
+    check(grads_finite(res["grads"]), "scan grad: non-finite gradients")
+    errs, ok = grad_errors(state["grad_c"], res["grads"])
+    check(ok, f"scan grad: the gradient differs from the lane pool's (grad "
+              f"(c)): {errs}")
+    grad.update(full={**scan_record(gst, gsecs, grays),
+                      "forward_s": res["forward_s"], "backward_s": res["backward_s"],
+                      "peak_bytes_over_baseline": res["peak_over_baseline"],
+                      "launches_forward": lf, "image_bit_equal_forward": True},
+                vs_lane_pool_grad_c=errs)
+    out["box-1024-spp16-scan-grad"] = grad
+    del big, img, pool, gimg, res
+    torch.cuda.empty_cache()
+
+    # interior-400k-720p-spp4-scan (chunked plan): the check size is one
+    # chunk of the frame's pixel ids through render_pixels.
+    scene = state["large400"]
+    lo = RenderOptions(refill=False, spp=4, spp_chunk=4)
+    ids = W._frame_ids(scene, lo)[0][:65536]
+    large = {"check_render_pixels": hold_scan("scan 400k check", *(scan_counted(
+        lambda: W.render_pixels(scene, None, lo, ids), eager=e)
+        for e in (False, True)))}
+    img, rays, secs, launches, st = scan_counted(
+        lambda: W.render_image_host_chunked(scene, None, lo, device=dev))
+    check_launched(launches, PATH_KERNELS["chunked"], "scan 400k")
+    image_checks(img, "scan 400k")
+    large.update(full=scan_record(st, secs, rays), launches=launches,
+                 cpu=scan_cpu_check(img, scene, lo, 8192, "scan 400k"))
+    out["interior-400k-720p-spp4-scan"] = large
+    emit({"phase": "scan_graphs", "block_bounces": W._SCAN_BLOCK,
+          "frames": out, "seconds": time.perf_counter() - t_phase})
 
 
 def phase_parity(dev, state):
@@ -2960,7 +3151,7 @@ def main() -> int:
     phase_scan(dev)
     phase_grad(dev, state)
     phase_grad_chunked(dev, state)
-    phase_grad_scan(dev)
+    phase_scan_graphs(dev, state)
     phase_grad_hbm(dev)
     phase_compat_frame(dev)
     phase_recovery(dev)

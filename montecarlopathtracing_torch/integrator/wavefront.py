@@ -17,18 +17,19 @@ op.
 
 Two renderers: the lane pool (``render_pixels_refill``, the default) and the
 scan over samples (``render_pixels`` with ``refill=False``, a bounce loop at
-full width per sample, ``trace_paths``).  ``differentiable=True`` makes
-either a function of the scene's material and light tensors that autograd
-can take apart: traversal, visibility and the sampled directions are
-detached (the JAX package's ``stop_gradient`` points), the loop runs a
-static budget in checkpointed blocks, and intersect results and sort
-permutations are recorded on the forward pass and replayed when a block is
-recomputed for backward, so backward launches no intersect kernel.  The
-lane pool's blocks are one autograd node (``_CheckpointedBlocks``, the
-counterpart of the JAX package's jitted ``lax.scan`` over
-``jax.checkpoint``-ed blocks): on a CUDA device its forward blocks and its
-backward recompute-and-VJP blocks replay CUDA graphs too.  The scan renderer
-checkpoints with ``torch.utils.checkpoint`` and replays through ``_Replay``.
+full width per sample, ``trace_paths``; ``_ScanFrame``: blocks of bounces,
+the drain read between them, graphs captured once a frame).
+``differentiable=True`` makes either a function of the scene's material and
+light tensors that autograd can take apart: traversal, visibility and the
+sampled directions are detached (the JAX package's ``stop_gradient``
+points), the loop runs a static budget in checkpointed blocks, and
+intersect results and sort permutations are recorded on the forward pass
+and replayed when a block is recomputed for backward, so backward launches
+no intersect kernel.  The lane pool's blocks, and each scan-renderer call's
+samples, are one autograd node (``_CheckpointedBlocks``, the counterpart of
+the JAX package's jitted ``lax.scan`` over ``jax.checkpoint``-ed blocks or
+samples): on a CUDA device its forward blocks and its backward
+recompute-and-VJP blocks replay CUDA graphs too.
 
 A scene whose triangle table is past the single-table budget renders through
 the chunked or the supergroup ("HBM") cluster intersector, as
@@ -45,10 +46,10 @@ import dataclasses
 import functools
 import time
 import warnings
+import weakref
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from ..accel.lbvh import _WRAPPERS as _WALK_WRAPPERS
 from ..accel.lbvh import (build_lbvh, brute_force_intersect, bvh_intersect,
@@ -356,10 +357,12 @@ class _TableRows(torch.autograd.Function):
     """``table[idx]`` for a table of a few rows that every lane reads (the
     materials).  The forward pass is the plain row gather; the backward
     pass sums the cotangent rows per table row by a one-hot matrix product
-    (the JAX package's form for up to 64 materials), or by index_add past
-    64 rows, rather than by the indexing backward, which sorts the indices
-    and serialises on repeats: 6.7 ms a call at 65,536 lanes and six
-    materials (profile_torch.py --grad; NVIDIA H100 80GB HBM3, 700 W)."""
+    (the JAX package's form for up to 64 materials), past 64 rows 64 table
+    rows at a time, rather than by the indexing backward, which sorts the
+    indices and serialises on repeats: 6.7 ms a call at 65,536 lanes and six
+    materials (profile_torch.py --grad; NVIDIA H100 80GB HBM3, 700 W), or by
+    index_add_, whose CUDA kernel adds with atomics in no fixed order, so
+    its sums were not reproducible bit for bit."""
 
     @staticmethod
     def forward(ctx, table, idx):
@@ -373,7 +376,12 @@ class _TableRows(torch.autograd.Function):
         if ctx.rows <= 64:
             onehot = torch.nn.functional.one_hot(idx, ctx.rows).to(ct.dtype)
             return onehot.T @ ct, None
-        return ct.new_zeros((ctx.rows,) + ct.shape[1:]).index_add_(0, idx, ct), None
+        parts = []
+        for base in range(0, ctx.rows, 64):
+            rows = torch.arange(base, min(base + 64, ctx.rows), device=idx.device)
+            onehot = (idx[:, None] == rows[None, :]).to(ct.dtype)
+            parts.append(onehot.T @ ct)
+        return torch.cat(parts), None
 
 
 def _material_rows(mtab, mat):
@@ -568,45 +576,20 @@ def _tracks_grad(scene) -> bool:
         getattr(scene, f).requires_grad for f in SCENE_FIELDS)
 
 
-class _Replay:
-    """Results that do not depend on the scene's parameters (intersect
-    results, sort permutations and their inverses), recorded under a key on
-    the forward pass and handed back when torch.utils.checkpoint recomputes
-    a block for backward, so the recompute launches no intersect kernel and
-    sorts nothing (the JAX package saves the same residuals by name,
-    ``isect_*`` and ``perm_inv``).  Keys make the replay independent of the
-    order of nested recomputes; ``scope`` prefixes them.  Disabled, it just
-    calls."""
-
-    def __init__(self, enabled: bool, saved=None, prefix=()):
-        self.enabled = enabled
-        self.saved = {} if saved is None else saved
-        self.prefix = prefix
-
-    def scope(self, *key) -> "_Replay":
-        return _Replay(self.enabled, self.saved, self.prefix + key)
-
-    def __call__(self, key, fn):
-        if not self.enabled:
-            return fn()
-        key = self.prefix + key
-        if key not in self.saved:
-            self.saved[key] = fn()
-        return self.saved[key]
-
-
 class _Residuals:
-    """The lane pool's counterpart of _Replay for a block of ``k_steps``
-    iterations: each iteration's intersect results and sort order with its
+    """A block's results that do not depend on the scene's parameters, for
+    ``k_steps`` steps (iterations of the lane pool, bounces of the scan
+    renderer): each step's intersect results and sort order with its
     inverse (the JAX package's named residuals ``isect_*`` and
-    ``perm_inv``) in fixed buffers, one row per iteration of the block.
-    ``mode`` None computes them; ``"record"`` computes them and copies them
-    into the buffers; ``"replay"`` hands the rows back in place of computing
-    them, so a block recomputed for backward launches no intersect kernel
-    and sorts nothing.  The buffers (for ``k_steps`` iterations of
-    ``n_isect`` intersected rays and ``n_sort`` sorted lanes; none by
-    default) are made up front, outside any capture, and a captured block
-    reads and writes them in place."""
+    ``perm_inv``) in fixed buffers, one row per step.  ``mode`` None
+    computes them; ``"record"`` computes them and copies them into the
+    buffers; ``"replay"`` hands the rows back in place of computing them,
+    so a block recomputed for backward launches no intersect kernel and
+    sorts nothing.  The buffers (for ``k_steps`` steps of ``n_isect``
+    intersected rays and ``n_sort`` sorted lanes; none by default) are made
+    up front, outside any capture, and a captured block reads and writes
+    them in place.  A step whose rays go to several intersect calls gives
+    each call its ``rows`` of the step's row."""
 
     def __init__(self, k_steps: int = 0, n_isect: int = 0, n_sort: int = 0,
                  dev=None):
@@ -622,30 +605,32 @@ class _Residuals:
                 torch.zeros((k_steps, n_sort), dtype=torch.int64, device=dev)
                 for _ in range(2))
 
-    def __call__(self, key, fn):
+    def __call__(self, key, fn, rows=slice(None)):
         name, k = key
         if self.mode == "replay":
-            return tuple(b[k] for b in self.bufs[name])
+            return tuple(b[k, rows] for b in self.bufs[name])
         out = fn()
         if self.mode == "record":
             for b, x in zip(self.bufs[name], out):
-                b[k].copy_(x)
+                b[k, rows].copy_(x)
         return out
 
-    def copies(self) -> list:
-        return [b.clone() for bufs in self.bufs.values() for b in bufs]
+    def copies(self, k_steps=None) -> list:
+        """Copies of the first ``k_steps`` rows (all by default)."""
+        return [b[:k_steps].clone() for bufs in self.bufs.values() for b in bufs]
 
     def load(self, copies) -> None:
         for b, c in zip((b for bufs in self.bufs.values() for b in bufs), copies):
-            b.copy_(c)
+            b[:c.shape[0]].copy_(c)
 
 
 def _grad_inputs(scene, tables) -> tuple:
-    """The tensors a lane-pool iteration reads that can carry a gradient:
-    the packed triangle and material tables (_shading_tables: the vertices,
-    normals, uvs and every material field), the texture atlas, and the
-    lights' radiance and total areas (the NEE weights).  The lights' CDFs
-    only pick a face, and the integer fields carry none."""
+    """The tensors a lane-pool iteration or a scan bounce reads that can
+    carry a gradient: the packed triangle and material tables
+    (_shading_tables: the vertices, normals, uvs and every material field),
+    the texture atlas, and the lights' radiance and total areas (the NEE
+    weights).  The lights' CDFs only pick a face, and the integer fields
+    carry none."""
     return (*tables, scene.atlas, scene.light_radiance, scene.light_total_area)
 
 
@@ -678,12 +663,12 @@ def _direction_bin(d):
 
 
 def trace_paths(scene: SceneArrays, bvh, opts: RenderOptions, keys, origin,
-                direction, differentiable: bool = False, accel=None,
-                replay=None):
+                direction, differentiable: bool = False, accel=None):
     """Full light transport for a batch of primary rays, all lanes in
-    lockstep: a bounce loop at full width while any lane is alive, up to
-    ``max_depth`` bounces (exactly ``max_depth`` when ``differentiable``,
-    each bounce checkpointed when ``max_depth > 4``).
+    lockstep: bounces at full width in blocks of ``_SCAN_BLOCK``, the drain
+    read between blocks, up to ``max_depth`` bounces (exactly ``max_depth``
+    when ``differentiable``).  One sample of the scan renderer
+    (_ScanFrame), from the given rays.
 
     With sorting on and more lanes than one subtile, each bounce permutes
     the wavefront by (hit cluster, new direction bin) before its NEE and
@@ -692,141 +677,37 @@ def trace_paths(scene: SceneArrays, bvh, opts: RenderOptions, keys, origin,
 
     Returns (radiance (R,3), n_rays) where n_rays (int64 tensor) counts the
     primaries, one shadow ray per light per live lane and the bounce rays.
-    ``replay`` (a _Replay) records the intersect results and sort orders of
-    a differentiable render for its backward recompute.
     """
-    if accel is None:
-        accel = intersector_tables(scene, opts, bvh)
-    track = differentiable and _tracks_grad(scene)
-    if replay is None:
-        replay = _Replay(track)
-    tables = _shading_tables(scene)
-    num_lights = scene.num_lights
-    n_slots = rng.n_bounce_slots(num_lights)
-    r = origin.shape[0]
-    do_sort = _should_sort(opts, scene.num_tris_padded) and r > opts.cluster_rays
-
-    def isect(key, o, d):
-        return replay(key, lambda: intersect_any(scene, bvh, o, d, opts,
-                                                 accel=accel))
-
-    hit, t, tri = isect(("primary",), origin, direction)
-    mat0 = scene.mat_id[torch.clamp(tri, min=0).long()].long()
-    emit0 = hit & scene.is_emitter[mat0]
-    # A primary emitter hit returns the light radiance.
-    radiance = torch.where(emit0[:, None], _material_rows(scene.emission, mat0),
-                           0.0)
-    state = dict(alive=hit & ~emit0, origin=origin, direction=direction, t=t,
-                 tri=tri, beta=torch.ones_like(radiance), radiance=radiance,
-                 keys=keys, slot=torch.arange(r, dtype=_I32, device=origin.device),
-                 n_rays=torch.tensor(r, dtype=torch.int64, device=origin.device))
-
-    def bounce(st, depth: int):
-        alive, direction, keys, slot = (st["alive"], st["direction"], st["keys"],
-                                        st["slot"])
-        beta, radiance, tri = st["beta"], st["radiance"], st["tri"]
-        u = rng.bounce_uniforms(keys, depth, n_slots)
-        p, pn, matf, kd = _gather_hit(scene, opts, st["origin"], direction,
-                                      st["t"], tri, tables)
-        cont = alive & (u[:, 0] < opts.rr_probability)
-        new_o, new_d, ray_type, weight = _next_ray(scene, opts, p, pn, matf, kd,
-                                                   direction, u)
-        if do_sort:
-            cluster = torch.clamp(tri, min=0) // opts.cluster_width
-            sort_key = torch.where(alive, cluster * 64 + _direction_bin(new_d),
-                                   2 ** 30)
-            perm, inv = replay(("perm", depth),
-                               lambda: _sort_perm(sort_key, track))
-            (p, pn, kd, new_o, new_d, weight, beta, radiance, u), \
-                (ray_type, keys, slot, alive, cont) = _permute_rows(
-                    perm, (p, pn, kd, new_o, new_d, weight, beta, radiance, u),
-                    (ray_type, keys, slot, alive, cont), inv)
-
-        # Next-event estimation: one full nearest-hit shadow query per light.
-        so, dirn, contrib, ok, dist, smat = _nee_prep(scene, opts, p, pn, kd, u,
-                                                      alive, tables)
-        shadow = [isect(("shadow", depth, li), so[li], dirn[li])
-                  for li in range(num_lights)]
-        if num_lights:
-            l_dir = _nee_resolve(scene, opts, contrib, ok, dist, smat,
-                                 *(torch.stack(x) for x in zip(*shadow)))
-            radiance = radiance + torch.where(alive[:, None], beta * l_dir, 0.0)
-        beta2 = (beta / opts.rr_probability) * weight
-
-        # Russian-roulette-terminated lanes are parked.
-        new_o = torch.where(cont[:, None], new_o, 1e9)
-        hit2, t2, tri2 = isect(("bounce", depth), new_o, new_d)
-        mat2 = scene.mat_id[torch.clamp(tri2, min=0).long()].long()
-        emit2 = hit2 & scene.is_emitter[mat2]
-        alive2 = cont & hit2
-        # Specular and transmission bounces see emitters, diffuse ones do not.
-        sees_emitter = alive2 & emit2 & (ray_type != RAY_DIFFUSE)
-        radiance = radiance + torch.where(sees_emitter[:, None],
-                                          beta2 * _material_rows(scene.emission,
-                                                                 mat2), 0.0)
-        n_rays = st["n_rays"] + alive.sum() * num_lights + cont.sum()
-        return dict(alive=alive2 & ~emit2, origin=new_o, direction=new_d, t=t2,
-                    tri=tri2, beta=beta2, radiance=radiance, keys=keys,
-                    slot=slot, n_rays=n_rays)
-
-    if differentiable:
-        for depth in range(opts.max_depth):
-            if track and opts.max_depth > 4:
-                state = checkpoint(bounce, state, depth, use_reentrant=False,
-                                   preserve_rng_state=False)
-            else:
-                state = bounce(state, depth)
-    else:
-        depth = 0
-        while depth < opts.max_depth and bool(state["alive"].any()):
-            state = bounce(state, depth)
-            depth += 1
-    radiance = state["radiance"]
-    if do_sort:
-        radiance = torch.zeros_like(radiance).index_copy(
-            0, state["slot"].long(), radiance)
-    return radiance, state["n_rays"]
+    scan = _ScanFrame(scene, bvh, opts, origin.shape[0], differentiable, accel,
+                      rays=(keys, origin, direction))
+    return scan.render(None, 0, 1)
 
 
 def render_pixels(scene: SceneArrays, bvh, opts: RenderOptions, pixel_ids,
                   differentiable: bool = False, sample_offset: int = 0,
-                  accel=None):
+                  accel=None, scan=None):
     """Mean radiance over ``opts.spp`` samples for flat pixel ids (R,).
 
     With ``opts.refill`` (the default) this is the lane pool with one lane
-    per pixel (render_pixels_refill).  Otherwise a loop over sample indices
-    runs trace_paths at full width for each, checkpointed per sample when
-    ``differentiable``.  ``sample_offset`` slides the absolute sample
-    window, so the samples of a split render are those of a one-pass one.
+    per pixel (render_pixels_refill).  Otherwise the scan over samples runs
+    each sample at full width (_ScanFrame: a primary block, bounce blocks,
+    the radiance added into the sum); a differentiable render whose scene
+    needs a gradient is one autograd node that keeps each sample's
+    intersect results and sort orders and recomputes its bounces for
+    backward.  ``scan`` is the _ScanFrame of a frame's chunks (made for
+    this scene and these options at this width; one is made here when it
+    is None).  ``sample_offset`` slides the absolute sample window, so the
+    samples of a split render are those of a one-pass one.
 
     Returns (mean radiance (R,3), rays traced as an int64 tensor).
     """
     if opts.refill:
         return render_pixels_refill(scene, bvh, opts, pixel_ids, sample_offset,
                                     differentiable=differentiable, accel=accel)
-    if accel is None:
-        accel = intersector_tables(scene, opts, bvh)
-    track = differentiable and _tracks_grad(scene)
-    replay = _Replay(track)
-    compat = opts.compat
-
-    def sample(s: int):
-        keys = rng.lane_keys(opts.seed, pixel_ids, s + sample_offset)
-        jitter = None if compat.no_pixel_jitter else rng.primary_uniforms(keys)
-        origin, direction = primary_rays(scene.camera, pixel_ids, jitter)
-        return trace_paths(scene, bvh, opts, keys, origin, direction,
-                           differentiable, accel=accel, replay=replay.scope(s))
-
-    acc = torch.zeros((pixel_ids.shape[0], 3), dtype=torch.float32,
-                      device=scene.device)
-    rays = torch.zeros((), dtype=torch.int64, device=scene.device)
-    for s in range(opts.spp):
-        rad, n = (checkpoint(sample, s, use_reentrant=False,
-                               preserve_rng_state=False) if track
-                  else sample(s))
-        acc = acc + rad
-        rays = rays + n
-    return acc / opts.spp, rays
+    if scan is None:
+        scan = _ScanFrame(scene, bvh, opts, pixel_ids.shape[0], differentiable,
+                          accel)
+    return scan.render(pixel_ids, sample_offset, opts.spp)
 
 
 # The launch counters of every kernel wrapper (kernels/cluster.py,
@@ -840,13 +721,17 @@ _grad_stats = dict.fromkeys(
     ("dispatches", "blocks")
     + tuple(f"{p}_{k}" for p in ("fwd", "bwd")
             for k in ("eager_blocks", "graphs", "replays", "capture_s")), 0)
+_scan_stats = dict.fromkeys(
+    ("frames", "calls", "samples", "bounces", "idle_bounces")
+    + tuple(f"{p}_{k}" for p in ("fwd", "bwd")
+            for k in ("eager_blocks", "graphs", "replays", "capture_s")), 0)
 
 
 @contextlib.contextmanager
 def eager():
-    """Inside this context the lane pool runs every block op by op on the
-    card too, as it does on the CPU, the forward frames and both passes of
-    a gradient: the counterpart of ``jax.disable_jit()``, for debugging and
+    """Inside this context the lane pool and the scan renderer run every
+    block op by op on the card too, as they do on the CPU, the forward
+    frames and both passes of a gradient: the counterpart of ``jax.disable_jit()``, for debugging and
     for recording a frame's kernel calls (a graph replay runs no Python, so
     a wrapper that records its calls would see only the captures)."""
     global _eager
@@ -875,14 +760,26 @@ def grad_loop_stats() -> dict:
     return dict(_grad_stats)
 
 
+def scan_stats() -> dict:
+    """Totals over the scan renderer (``refill=False``) since the last
+    reset: frames (_ScanFrame sets of graphs made), calls (one per chunk and
+    spp step), samples, bounces run in forward passes and ``idle_bounces``
+    (bounces that started on a drained wavefront: the last block's overrun,
+    and in a differentiable render every bounce past the drain), and for
+    the forward (``fwd_``) and the backward (``bwd_``: the recompute and
+    the VJP) blocks apart the blocks run op by op, graphs captured, replays
+    and capture seconds."""
+    return dict(_scan_stats)
+
+
 def reset_loop_stats() -> None:
-    for stats in (_loop_stats, _grad_stats):
+    for stats in (_loop_stats, _grad_stats, _scan_stats):
         for k in stats:
             stats[k] = 0
 
 
 def _captures(dev) -> bool:
-    """Whether the lane pool replays CUDA graphs on ``dev``."""
+    """Whether the blocks replay CUDA graphs on ``dev``."""
     return dev.type == "cuda" and not _eager
 
 
@@ -940,14 +837,17 @@ class _Blocks:
     replay runs no Python.  So the launches the kernel wrappers count during
     a capture are taken off their counters again and added on every replay:
     ``launch_counts()`` reads the same in both modes.  ``stats`` and
-    ``prefix`` name the counters this loop adds to."""
+    ``prefix`` name the counters this loop adds to; ``graphs`` (a
+    _CudaGraphs) lets several loops capture into one pool."""
 
     def __init__(self, block, dev, flush_every: int, stats=None,
-                 prefix: str = ""):
+                 prefix: str = "", graphs=None):
         self.block, self.flush_every = block, flush_every
         self.stats = _loop_stats if stats is None else stats
         self.prefix = prefix
-        self.graphs = _CudaGraphs(dev) if _captures(dev) else None
+        if graphs is None and _captures(dev):
+            graphs = _CudaGraphs(dev)
+        self.graphs = graphs
         self.warm = False
         self.replays = {}  # flush phase -> (graph, launches per replay)
 
@@ -979,6 +879,33 @@ class _Blocks:
         for w, n in zip(_COUNTED, launches):
             w.launches += n
         self._add("replays")
+
+
+def _vjp_into(block, state, ct_state, wrt, acc) -> None:
+    """One block's VJP: ``block(st)`` recomputed under autograd on a copy of
+    the state buffers ``state`` whose _GRAD_STATE entries are fresh leaves
+    (it replaces the copy's entries and returns its other (output,
+    cotangent) pairs), and the gradients taken for those pairs and the exit
+    state's cotangents ``ct_state``.  ``ct_state`` becomes the entry state's
+    cotangents, in place, and the gradients of ``wrt`` are added into
+    ``acc``."""
+    with torch.enable_grad():
+        st = dict(state)
+        entry = [st[f].detach().requires_grad_() for f in _GRAD_STATE]
+        st.update(zip(_GRAD_STATE, entry))
+        pairs = list(block(st)) + [(st[f], ct_state[f]) for f in _GRAD_STATE]
+        pairs = [(o, c) for o, c in pairs if o.requires_grad]
+        grads = (torch.autograd.grad(
+            [o for o, _ in pairs], entry + wrt, [c for _, c in pairs],
+            allow_unused=True) if pairs else [None] * (len(entry) + len(wrt)))
+    for f, g in zip(_GRAD_STATE, grads):
+        if g is None:
+            ct_state[f].zero_()
+        else:
+            ct_state[f].copy_(g)
+    for a, g in zip(acc, grads[len(_GRAD_STATE):]):
+        if g is not None:
+            a.add_(g)
 
 
 class _BlockScan:
@@ -1048,26 +975,12 @@ class _BlockScan:
         ct_state = {f: torch.zeros_like(self.state[f]) for f in _GRAD_STATE}
         self.res.mode = "replay"
 
+        def block(st):
+            slots, vals = self.block(st, env, self.res)
+            return [(vals, ct_film.index_select(1, slots))]
+
         def run(_):
-            with torch.enable_grad():
-                st = dict(self.state)
-                entry = [st[f].detach().requires_grad_() for f in _GRAD_STATE]
-                st.update(zip(_GRAD_STATE, entry))
-                slots, vals = self.block(st, env, self.res)
-                pairs = [(vals, ct_film.index_select(1, slots))] + [
-                    (st[f], ct_state[f]) for f in _GRAD_STATE]
-                pairs = [(o, c) for o, c in pairs if o.requires_grad]
-                grads = torch.autograd.grad(
-                    [o for o, _ in pairs], entry + wrt, [c for _, c in pairs],
-                    allow_unused=True)
-            for f, g in zip(_GRAD_STATE, grads):
-                if g is None:
-                    ct_state[f].zero_()
-                else:
-                    ct_state[f].copy_(g)
-            for a, g in zip(acc, grads[len(_GRAD_STATE):]):
-                if g is not None:
-                    a.add_(g)
+            _vjp_into(block, self.state, ct_state, wrt, acc)
 
         blocks = _Blocks(run, self.dev, 1, _grad_stats, "bwd_")
         while self.entries:
@@ -1081,10 +994,12 @@ class _BlockScan:
 
 
 class _CheckpointedBlocks(torch.autograd.Function):
-    """The differentiable lane pool's blocks as one autograd node, the
-    film its output and the tensors of _grad_inputs its inputs
-    (_BlockScan.forward and .backward).  It holds each block's entry state
-    and residuals from forward to backward, and no activation."""
+    """A differentiable render's blocks as one autograd node, the tensors of
+    _grad_inputs its inputs: the lane pool's (a _BlockScan, the film its
+    output) or the samples of one scan-renderer call (a _ScanCall, the sum
+    of their radiance its output).  ``scan.forward`` and
+    ``scan.backward`` are its two passes; it holds the residuals (and the
+    lane pool's entry states) from one to the other, and no activation."""
 
     @staticmethod
     def forward(ctx, scan, *inputs):
@@ -1094,6 +1009,333 @@ class _CheckpointedBlocks(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct_film):
         return (None, *ctx.scan.backward(ct_film, ctx.needs_input_grad[1:]))
+
+
+_SCAN_BLOCK = 8  # bounces of a scan block, between two reads of the drain
+
+
+class _ScanFrame:
+    """The scan renderer (``refill=False``) on ``r`` lanes: the counterpart
+    of the JAX package's jitted ``lax.map`` over pixel chunks, ``lax.scan``
+    over samples and ``lax.while_loop`` over bounces.  One frame serves
+    every chunk of a render_image_stats or render_image_host_chunked call
+    (all of one width), so its graphs are captured once a frame.
+
+    A sample runs on fixed state buffers: a primary block (the camera rays
+    of the pixel ids ``pix`` at the sample index ``samp``, or the rays
+    given to trace_paths; their intersect; the emitter term), bounce blocks
+    of ``_SCAN_BLOCK`` bounces (the last cut at ``max_depth``), and a
+    finish block that adds the unscrambled radiance and the ray count into
+    ``acc`` and ``rays``.  The pixel ids and the sample index are device
+    buffers filled between blocks, and the bounce depth a device buffer
+    that each bounce advances: no graph holds a Python int that changes
+    between its replays.  A forward render reads the drain between bounce
+    blocks (a bounce past it changes nothing: it adds +0.0 and 0 rays, and
+    the stable sort of all-parked keys is the identity); a differentiable
+    one runs exactly ``max_depth`` bounces a sample, and when the scene
+    needs a gradient each call is one autograd node (_CheckpointedBlocks
+    over a _ScanCall) that keeps each sample's residuals.
+
+    On a CUDA device each kind of block (primary, bounce block, last bounce
+    block, finish; backward: recompute and VJP) runs op by op the first
+    time and replays one CUDA graph after (``_Blocks``), all in one pool;
+    on the CPU, and inside ``eager()``, every block runs op by op."""
+
+    def __init__(self, scene, bvh, opts: RenderOptions, r: int,
+                 differentiable: bool, accel=None, rays=None):
+        dev = scene.device
+        self.scene, self.bvh, self.opts, self.r, self.dev = (scene, bvh, opts,
+                                                             r, dev)
+        self.accel = intersector_tables(scene, opts, bvh) if accel is None else accel
+        self.differentiable = differentiable
+        self.track = differentiable and _tracks_grad(scene)
+        self.tables = _shading_tables(scene)
+        self.inputs = _grad_inputs(scene, self.tables)
+        self.n_slots = rng.n_bounce_slots(scene.num_lights)
+        self.do_sort = (_should_sort(opts, scene.num_tris_padded)
+                        and r > opts.cluster_rays)
+        self.sizes = [_SCAN_BLOCK] * (opts.max_depth // _SCAN_BLOCK)
+        if opts.max_depth % _SCAN_BLOCK:
+            self.sizes.append(opts.max_depth % _SCAN_BLOCK)
+        self.given = None if rays is None else tuple(x.detach() for x in rays)
+        i64 = dict(dtype=torch.int64, device=dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        i32 = dict(dtype=_I32, device=dev)
+        self.pix = None
+        self.samp = torch.zeros((), **i64)
+        self.iota = torch.arange(r, **i32)
+        self.state = dict(
+            keys=torch.zeros((r, 2), **i64), origin=torch.zeros((r, 3), **f32),
+            direction=torch.zeros((r, 3), **f32),
+            alive=torch.zeros((r,), dtype=torch.bool, device=dev),
+            t=torch.zeros((r,), **f32), tri=torch.zeros((r,), **i32),
+            beta=torch.zeros((r, 3), **f32), rad=torch.zeros((r, 3), **f32),
+            slot=torch.zeros((r,), **i32), n_rays=torch.zeros((), **i64),
+            depth=torch.zeros((), **i64), live=torch.zeros((), **i64),
+            acc=torch.zeros((r, 3), **f32), rays=torch.zeros((), **i64))
+        if self.track:
+            self.res_p = _Residuals(1, r, 0, dev)
+            self.res_b = _Residuals(_SCAN_BLOCK, r * (1 + scene.num_lights),
+                                    r if self.do_sort else 0, dev)
+        else:
+            self.res_p, self.res_b = _Residuals(), _Residuals()
+        self.graphs = _CudaGraphs(dev) if _captures(dev) else None
+        self.blocks = {}
+        self.leaves = None  # made by the first backward pass
+        _scan_stats["frames"] += 1
+
+    def render(self, pix, sample_offset: int, spp: int):
+        """(mean radiance (r, 3), rays) of ``spp`` samples from
+        ``sample_offset`` of the pixel ids ``pix`` (None: the given rays)."""
+        call = _ScanCall(self, pix, sample_offset, spp)
+        acc = (_CheckpointedBlocks.apply(call, *self.inputs) if self.track
+               else call.forward(record=False))
+        return acc / spp, self.state["rays"].clone()
+
+    def load(self, pix, s: int) -> None:
+        """Fills the pixel ids and the sample index of sample ``s``."""
+        if pix is not None:
+            if self.pix is None:
+                self.pix = pix.to(self.dev).clone()
+            else:
+                self.pix.copy_(pix)
+        self.samp.fill_(s)
+
+    def drained(self) -> bool:
+        return not bool(self.state["alive"].any())
+
+    def run(self, kind) -> None:
+        """Runs the block ``kind`` once: ("primary", mode), ("bounce", n,
+        mode) with the residuals' mode, ("finish",), or ("vjp", n), the
+        VJP of n bounces or (n = 0) of the primary block."""
+        blocks = self.blocks.get(kind)
+        if blocks is None:
+            prefix = "bwd_" if kind[0] == "vjp" or kind[-1] == "replay" else "fwd_"
+            blocks = self.blocks[kind] = _Blocks(
+                self._block_fn(kind), self.dev, 1, _scan_stats, prefix,
+                self.graphs)
+        blocks.run(0)
+
+    def _block_fn(self, kind):
+        # The frame holds its blocks, so their functions reach it through a
+        # weak proxy: a reference cycle would leave the frame and its CUDA
+        # graphs to the garbage collector, which may run inside a later
+        # capture, where destroying a graph breaks that capture.
+        f = weakref.proxy(self)
+        name = kind[0]
+        if name == "vjp":
+            n = kind[1]
+
+            def block(st):
+                f.res_p.mode = f.res_b.mode = "replay"
+                if n:
+                    f._bounces(st, f.env, f.res_b, n)
+                else:
+                    f._primary(st, f.env, f.res_p)
+                return []
+
+            return lambda _: _vjp_into(block, f.state, f.ct_state, f.wrt,
+                                       f.grad_acc)
+        env = (self.scene, self.tables)
+
+        def run(_):
+            f.res_p.mode = f.res_b.mode = kind[-1] if name != "finish" else None
+            st = dict(f.state)
+            if name == "primary":
+                f._primary(st, env, f.res_p)
+            elif name == "bounce":
+                f._bounces(st, env, f.res_b, kind[1])
+            else:
+                f._finish(st)
+            for k, v in f.state.items():
+                if st[k] is not v:
+                    v.copy_(st[k])
+
+        return run
+
+    def _isect(self, origin, direction):
+        return intersect_any(self.scene, self.bvh, origin, direction, self.opts,
+                             accel=self.accel)
+
+    def _primary(self, st, env, res):
+        scene, (_, mtab) = env
+        if self.given is None:
+            keys = rng.lane_keys(self.opts.seed, self.pix, self.samp)
+            jitter = (None if self.opts.compat.no_pixel_jitter
+                      else rng.primary_uniforms(keys))
+            origin, direction = primary_rays(scene.camera, self.pix, jitter)
+        else:
+            keys, origin, direction = self.given
+        hit, t, tri = res(("isect", 0), lambda: self._isect(origin, direction))
+        mat0 = scene.mat_id[torch.clamp(tri, min=0).long()].long()
+        emit0 = hit & scene.is_emitter[mat0]
+        # A primary emitter hit returns the light radiance.
+        rad = torch.where(emit0[:, None],
+                          _material_rows(mtab[:, _MF_EMIT], mat0), 0.0)
+        st.update(keys=keys, origin=origin, direction=direction,
+                  alive=hit & ~emit0, t=t, tri=tri, beta=torch.ones_like(rad),
+                  rad=rad, slot=self.iota,
+                  n_rays=torch.full((), self.r, dtype=torch.int64,
+                                    device=self.dev),
+                  depth=torch.zeros((), dtype=torch.int64, device=self.dev))
+
+    def _bounces(self, st, env, res, n: int):
+        for k in range(n):
+            self._bounce(st, env, res, k)
+
+    def _bounce(self, st, env, res, k: int):
+        """Bounce ``k`` of a block, at the depth in ``st["depth"]``."""
+        scene, tables = env
+        opts, r, num_lights = self.opts, self.r, scene.num_lights
+        alive, direction, keys, slot = (st["alive"], st["direction"], st["keys"],
+                                        st["slot"])
+        beta, rad, tri, depth = st["beta"], st["rad"], st["tri"], st["depth"]
+        live = st["live"] + alive.any()
+        u = rng.bounce_uniforms(keys, depth, self.n_slots)
+        p, pn, matf, kd = _gather_hit(scene, opts, st["origin"], direction,
+                                      st["t"], tri, tables)
+        cont = alive & (u[:, 0] < opts.rr_probability)
+        new_o, new_d, ray_type, weight = _next_ray(scene, opts, p, pn, matf, kd,
+                                                   direction, u)
+        if self.do_sort:
+            cluster = torch.clamp(tri, min=0) // opts.cluster_width
+            sort_key = torch.where(alive, cluster * 64 + _direction_bin(new_d),
+                                   2 ** 30)
+            perm, inv = res(("perm", k), lambda: _sort_perm(sort_key, self.track))
+            (p, pn, kd, new_o, new_d, weight, beta, rad, u), \
+                (ray_type, keys, slot, alive, cont) = _permute_rows(
+                    perm, (p, pn, kd, new_o, new_d, weight, beta, rad, u),
+                    (ray_type, keys, slot, alive, cont), inv)
+
+        # Next-event estimation: one full nearest-hit shadow query per light,
+        # light li's results in rows (li + 1) r .. (li + 2) r of the step.
+        so, dirn, contrib, ok, dist, smat = _nee_prep(scene, opts, p, pn, kd, u,
+                                                      alive, tables)
+        shadow = [res(("isect", k), lambda li=li: self._isect(so[li], dirn[li]),
+                      slice((li + 1) * r, (li + 2) * r))
+                  for li in range(num_lights)]
+        if num_lights:
+            l_dir = _nee_resolve(scene, opts, contrib, ok, dist, smat,
+                                 *(torch.stack(x) for x in zip(*shadow)))
+            rad = rad + torch.where(alive[:, None], beta * l_dir, 0.0)
+        beta2 = (beta / opts.rr_probability) * weight
+
+        # Russian-roulette-terminated lanes are parked.
+        new_o = torch.where(cont[:, None], new_o, 1e9)
+        hit2, t2, tri2 = res(("isect", k), lambda: self._isect(new_o, new_d),
+                             slice(0, r))
+        mat2 = scene.mat_id[torch.clamp(tri2, min=0).long()].long()
+        emit2 = hit2 & scene.is_emitter[mat2]
+        alive2 = cont & hit2
+        # Specular and transmission bounces see emitters, diffuse ones do not.
+        sees_emitter = alive2 & emit2 & (ray_type != RAY_DIFFUSE)
+        rad = rad + torch.where(
+            sees_emitter[:, None],
+            beta2 * _material_rows(tables[1][:, _MF_EMIT], mat2), 0.0)
+        n_rays = st["n_rays"] + alive.sum() * num_lights + cont.sum()
+        st.update(alive=alive2 & ~emit2, origin=new_o, direction=new_d, t=t2,
+                  tri=tri2, beta=beta2, rad=rad, keys=keys, slot=slot,
+                  n_rays=n_rays, depth=depth + 1, live=live)
+
+    def _finish(self, st):
+        rad = st["rad"]
+        if self.do_sort:
+            rad = torch.zeros_like(rad).index_copy(0, st["slot"].long(), rad)
+        st.update(acc=st["acc"] + rad, rays=st["rays"] + st["n_rays"])
+
+    def prepare_backward(self, needs) -> None:
+        """The backward passes' leaves (the inputs, detached), their
+        gradients' accumulators (zeroed), the cotangent buffers; made at
+        the first backward pass, and held for the captured VJPs."""
+        if self.leaves is None:
+            self.leaves = [x.detach().requires_grad_(n)
+                           for x, n in zip(self.inputs, needs)]
+            self.wrt = [x for x in self.leaves if x.requires_grad]
+            self.env = _grad_env(self.scene, self.leaves)
+            self.grad_acc = [torch.zeros_like(x) for x in self.wrt]
+            self.grad_ct = torch.zeros_like(self.state["acc"])
+            self.ct_state = {f: torch.zeros_like(self.state[f])
+                             for f in _GRAD_STATE}
+        for a in self.grad_acc:
+            a.zero_()
+
+
+class _ScanCall:
+    """One call on a _ScanFrame: ``spp`` samples from ``offset`` of the
+    pixel ids ``pix`` (None: the frame's given rays).  ``forward`` and
+    ``backward`` are _CheckpointedBlocks's two passes; ``saved`` holds each
+    recorded sample's residuals from one to the other."""
+
+    def __init__(self, frame: _ScanFrame, pix, offset: int, spp: int):
+        self.frame, self.pix, self.offset, self.spp = frame, pix, offset, spp
+        self.saved = []
+
+    def forward(self, record: bool):
+        """Runs the samples without recording autograd; returns the sum of
+        their radiance (a copy).  ``record`` keeps each sample's residuals
+        (the primary intersect; each bounce's intersects and sort order)."""
+        f = self.frame
+        mode = "record" if record else None
+        bounces = 0
+        for k in ("acc", "rays", "live"):
+            f.state[k].zero_()
+        with torch.no_grad():
+            for s in range(self.spp):
+                f.load(self.pix, self.offset + s)
+                f.run(("primary", mode))
+                saved = [f.res_p.copies()]  # empty unless recording
+                for n in f.sizes:
+                    if not f.differentiable and f.drained():
+                        break
+                    f.run(("bounce", n, mode))
+                    bounces += n
+                    saved.append(f.res_b.copies(n))
+                f.run(("finish",))
+                if record:
+                    self.saved.append(saved)
+        _scan_stats["calls"] += 1
+        _scan_stats["samples"] += self.spp
+        _scan_stats["bounces"] += bounces
+        _scan_stats["idle_bounces"] += bounces - int(f.state["live"])
+        return f.state["acc"].clone()
+
+    def backward(self, ct, needs) -> list:
+        """The inputs' gradients (None where ``needs`` is false) for the
+        cotangent ``ct`` of the radiance sum: the samples in reverse order,
+        each recomputed from its primary block with its residuals replayed
+        (keeping each bounce block's entry state), then the VJP of each
+        bounce block in reverse and of the primary block, the cotangents of
+        ``beta`` and ``rad`` passed from block to block.  Each input's
+        gradient is summed over the blocks, the last sample's last block
+        first."""
+        f = self.frame
+        f.prepare_backward(needs)
+        f.grad_ct.copy_(ct)
+        with torch.no_grad():
+            while self.saved:
+                saved = self.saved.pop()
+                f.load(self.pix, self.offset + len(self.saved))
+                f.res_p.load(saved[0])
+                f.run(("primary", "replay"))
+                entries = []
+                for n, res in zip(f.sizes, saved[1:]):
+                    entries.append({k: v.clone() for k, v in f.state.items()})
+                    f.res_b.load(res)
+                    f.run(("bounce", n, "replay"))
+                f.ct_state["rad"].copy_(
+                    f.grad_ct.index_select(0, f.state["slot"].long())
+                    if f.do_sort else f.grad_ct)
+                f.ct_state["beta"].zero_()
+                for n, res, entry in reversed(list(zip(f.sizes, saved[1:],
+                                                       entries))):
+                    for k, v in entry.items():
+                        f.state[k].copy_(v)
+                    f.res_b.load(res)
+                    f.run(("vjp", n))
+                f.res_p.load(saved[0])
+                f.run(("vjp", 0))
+        acc = iter(f.grad_acc)
+        return [next(acc).clone() if x.requires_grad else None for x in f.leaves]
 
 
 def render_pixels_refill(
@@ -1524,7 +1766,7 @@ def render_image_stats(scene: SceneArrays, bvh, opts: RenderOptions,
     With ``opts.refill`` the whole frame's queue drains through one
     ``opts.chunk_size`` lane pool; otherwise pixel chunks of
     ``opts.chunk_size`` lanes (the last padded with its last id) go through
-    the scan over samples one after another.  ``sample_offset`` slides the
+    the scan over samples one after another, on one _ScanFrame.  ``sample_offset`` slides the
     absolute sample window (progressive and resumed renders continue the
     same per-pixel RNG streams).  ``differentiable=True`` makes the image a
     function of the scene's material and light tensors for autograd
@@ -1541,10 +1783,12 @@ def render_image_stats(scene: SceneArrays, bvh, opts: RenderOptions,
                                          pixel_fn=pixel_fn)
         return _assemble_frame(out, scene, opts, 1), rays
     accel = intersector_tables(scene, opts, bvh)
+    scan = _ScanFrame(scene, bvh, opts, chunk, differentiable, accel)
     outs, rays = [], 0
     for pix in _chunked_ids(ids, chunk):
         out, n = render_pixels(scene, bvh, opts, pix, differentiable,
-                               sample_offset=sample_offset, accel=accel)
+                               sample_offset=sample_offset, accel=accel,
+                               scan=scan)
         outs.append(out)
         rays = rays + n
     return _assemble_frame(torch.cat(outs), scene, opts, 1), rays
@@ -1566,7 +1810,7 @@ def render_image_host_chunked(scene: SceneArrays, bvh, opts: RenderOptions,
     ``opts.refill`` each dispatch drains the whole frame's queue for a slice
     of the samples, chunk sizes balanced (spp 25 at spp_chunk 8 renders
     5 x 5, not 8+8+8+1); otherwise each pixel chunk is rendered in
-    ``spp_chunk`` slices by the scan over samples.  A dispatch that raises
+    ``spp_chunk`` slices by the scan over samples, all on one _ScanFrame.  A dispatch that raises
     is run again up to ``retries`` times: its samples are keyed by (pixel,
     absolute sample index), so a retry renders the same samples.
     Returns ((H, W, 3) f32 tensor on the render device, rays traced).
@@ -1593,12 +1837,14 @@ def render_image_host_chunked(scene: SceneArrays, bvh, opts: RenderOptions,
     steps = spp_steps(opts)
     if not opts.refill:
         chunks = _chunked_ids(ids, chunk)
+        scan = _ScanFrame(scene, bvh, opts, chunk, False, accel)
         outs = []
         for ci, pix in enumerate(chunks):
             acc, done = None, 0
             for k in steps:
                 rad, rays = dispatch(render_pixels, opts=opts.replace(spp=k),
-                                     pixel_ids=pix, sample_offset=done)
+                                     pixel_ids=pix, sample_offset=done,
+                                     scan=scan)
                 acc = rad * k if acc is None else acc + rad * k
                 total_rays += int(rays)
                 done += k

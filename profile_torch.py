@@ -8,6 +8,7 @@
     python3 profile_torch.py --grad           # full-width gradient of the box
     python3 profile_torch.py --intersector bvh_perray --scene large --tris 100000
     python3 profile_torch.py --eager          # the same frame, op by op
+    python3 profile_torch.py --scan [--grad] [--eager]   # the scan renderer
 
 Renders the frame once unprofiled (wall time), then once under
 torch.profiler, and prints one JSON line: wall seconds, wavefront
@@ -33,6 +34,20 @@ iteration, CUDA kernels per iteration, device idle share and its blocks,
 graphs, replays and capture seconds (integrator/wavefront.py::
 grad_loop_stats).  Both passes replay CUDA graphs, as every gradient on the
 card does; with ``--eager`` both run op by op.
+
+``--scan`` profiles the scan renderer (``refill=False``) on the box at 1024
+x 1024, spp 16, max_depth 32, 65,536 lanes, compat: the frame, or with
+``--grad`` its gradient of mean(image).  The whole frame (or gradient) is
+timed unprofiled; one chunk of its pixel ids (65,536 lanes, the width of
+every chunk) at spp 2 is timed unprofiled and then profiled, with device
+activity only (the whole frame launches ~4M kernels, its gradient ~20M).
+Times and kernels are per segment, a bounce of the wavefront or a sample's
+primary block (integrator/wavefront.py::scan_stats: samples + bounces):
+the device ms and kernels from the chunk's profile, the wall ms of the
+chunk and of the whole frame, and the device idle share of the whole frame
+as 1 - device ms / wall ms a segment (the chunk's own wall time holds its
+graphs' captures).  The graphs, replays, capture seconds and idle bounces
+past the drain are the scan renderer's.
 """
 
 from __future__ import annotations
@@ -66,6 +81,90 @@ def kernel_stats(prof):
     host_ops.sort(key=lambda k: -k[1])
     return (sum(k[1] for k in kernels), sum(k[2] for k in kernels), kernels,
             host_ops)
+
+
+SCAN_WINDOW_SPP = 2
+
+
+def scan_segments(stats) -> int:
+    """The scan renderer's segments in a forward pass: a primary block a
+    sample and every bounce."""
+    return stats["samples"] + stats["bounces"]
+
+
+def profile_scan(scene, opts, grad: bool) -> dict:
+    """The scan renderer's frame (or, with ``grad``, its gradient) whole and
+    unprofiled, then one chunk at spp 2 unprofiled and profiled, each pass
+    apart (see the module docstring).  Prints a JSON line after each
+    part."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from montecarlopathtracing_torch.diff import gradients as G
+    from montecarlopathtracing_torch.integrator import wavefront as W
+
+    ids = W._frame_ids(scene, opts)[0][:opts.chunk_size]
+    window_opts = opts.replace(spp=SCAN_WINDOW_SPP)
+
+    def forward(window: bool):
+        leaves = G.SceneParams.from_scene(scene).leaves("cuda") if grad else None
+        sc = G.apply_params(scene, leaves) if grad else scene
+        if window:
+            img, rays = W.render_pixels(sc, None, window_opts, ids,
+                                        differentiable=grad)
+        else:
+            img, rays = W.render_image_stats(sc, None, opts, differentiable=grad,
+                                             device="cuda")
+        return img.mean(), int(rays), leaves
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, res
+
+    def run(window: bool) -> dict:
+        """Seconds of each pass, rays, scan_stats."""
+        W.reset_loop_stats()
+        secs, (loss, rays, leaves) = timed(lambda: forward(window))
+        out = {"forward_s": secs, "rays": rays}
+        if grad:
+            out["backward_s"] = timed(lambda: G.param_grads(loss, leaves))[0]
+        return {**out, **W.scan_stats()}
+
+    run(True)  # warm-up: the kernels' build and first loads
+    out = {"frame": run(False), "window": run(True)}
+    out["frame"]["segments"] = scan_segments(out["frame"])
+    segments = out["window"]["segments"] = scan_segments(out["window"])
+    print(json.dumps({"part": "unprofiled", **out}), flush=True)
+    acts = [ProfilerActivity.CUDA]
+    with profile(activities=acts, acc_events=True) as prof:
+        loss, _, leaves = forward(True)
+        torch.cuda.synchronize()
+    parts = [("forward", prof)]
+    if grad:
+        with profile(activities=acts, acc_events=True) as prof:
+            G.param_grads(loss, leaves)
+            torch.cuda.synchronize()
+        parts.append(("backward", prof))
+    for name, prof in parts:
+        wall = out["window"][f"{name}_s"]
+        busy_us, n_kernels, kernels, _ = kernel_stats(prof)
+        out[name] = {
+            "ms_per_segment": wall * 1e3 / segments,
+            "frame_ms_per_segment": (out["frame"][f"{name}_s"] * 1e3
+                                     / out["frame"]["segments"]),
+            "device_busy_ms": busy_us / 1e3,
+            "device_ms_per_segment": busy_us / 1e3 / segments,
+            "window_idle_share": 1.0 - busy_us / 1e6 / wall,
+            "cuda_kernels": n_kernels,
+            "cuda_kernels_per_segment": n_kernels / segments,
+            "top_kernels_ms": [(k[0][:80], k[1] / 1e3, k[2]) for k in kernels[:TOP]],
+        }
+        out[name]["device_idle_share"] = 1.0 - (
+            out[name]["device_ms_per_segment"] / out[name]["frame_ms_per_segment"])
+        print(json.dumps({"part": name, **out[name]}), flush=True)
+    return out
 
 
 def profile_grad(scene, opts) -> dict:
@@ -154,8 +253,11 @@ def main(argv=None) -> int:
     ap.add_argument("--grad", action="store_true",
                     help="profile the full-width gradient of the box instead")
     ap.add_argument("--eager", action="store_true",
-                    help="run the lane pool op by op (wavefront.eager()), "
+                    help="run the blocks op by op (wavefront.eager()), "
                          "the frame or both passes of --grad")
+    ap.add_argument("--scan", action="store_true",
+                    help="the scan renderer (refill=False) on the box: the "
+                         "frame, or with --grad its gradient")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch: CUDA is not available", file=sys.stderr)
@@ -174,6 +276,16 @@ def main(argv=None) -> int:
     from montecarlopathtracing_torch.utils.device import nvidia_smi_line
 
     mode = W.eager() if args.eager else contextlib.nullcontext()
+    if args.scan:
+        scene, _ = load_builtin_box(width=1024, height=1024, device="cuda")
+        opts = RenderOptions(spp=args.spp or 16, max_depth=32, refill=False)
+        with mode:
+            res = profile_scan(scene, opts, args.grad)
+        print(json.dumps({"scan": True, "grad": args.grad, "scene": "box",
+                          "spp": opts.spp, "eager": args.eager,
+                          "device": torch.cuda.get_device_name(0),
+                          "nvidia_smi": nvidia_smi_line(), **res}), flush=True)
+        return 0
     if args.grad:
         scene, _ = load_builtin_box(width=1024, height=1024, device="cuda")
         opts = RenderOptions(spp=args.spp or 16, max_depth=32,

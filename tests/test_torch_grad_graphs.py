@@ -234,3 +234,20 @@ def test_without_grad_records_nothing(scene_dir, monkeypatch):
     assert img_g.requires_grad and scans[1].res.bufs
     assert len(scans[1].entries) == len(scans[1].saved) > 0
     assert torch.equal(img, img_g.detach()) and int(rays) == int(rays_g) > 0
+
+
+@pytest.mark.parametrize("rows", [6, 64, 65, 150])
+def test_table_rows_backward_sums_per_row(rows):
+    """_TableRows' backward (the material rows' cotangent sums): every
+    table row's sum against the float64 sum, for tables of up to 64 rows
+    (one one-hot product) and past 64 (64 rows at a time, a fixed order of
+    addition on the card too)."""
+    g = np.random.default_rng(rows)
+    idx = torch.as_tensor(g.integers(0, rows, 4096))
+    ct = torch.as_tensor(g.normal(size=(4096, 3)).astype(np.float32))
+    table = torch.zeros((rows, 3), requires_grad=True)
+    (grad,) = torch.autograd.grad(twf._TableRows.apply(table, idx), table, ct)
+    want = torch.zeros((rows, 3), dtype=torch.float64).index_add_(
+        0, idx, ct.double())
+    assert grad.shape == (rows, 3)
+    assert torch.allclose(grad.double(), want, rtol=1e-5, atol=1e-4)

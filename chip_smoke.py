@@ -89,23 +89,48 @@ exits non-zero):
             4, through render_image and render_image_host_chunked; the full
             frame (render_image) within rtol 1e-4 / atol 1e-5 of the lane
             pool's frame of the same options, with equal rays, and at the
-            image limit of the port's CPU render at bench_torch.py's 65,536
-            pixel ids;
+            image limit of the port's CPU render at 16,384 of
+            bench_torch.py's pixel ids;
             box-1024-spp16-scan-grad, d mean(image) / d SceneParams of that
             frame (grad (c)'s loss), once, captured: its image bit for bit
             the scan frame's (the bounces past the drain add nothing), its
             gradient within grad (a)'s tolerance of grad (c)'s lane-pool
-            gradient, 0 launches in backward, its forward and backward
-            seconds and peak memory over the baseline; the check (grad (f))
-            on the 256 x 256 MODERN spec+glass box, spp 2, max_depth 32, d
-            mean((image - target)^2) / d SceneParams, captured against
-            eager(), loss_and_grad's gradient bit for bit the same, and the
-            card within grad (a)'s tolerance of the CPU;
+            gradient, its backward pass (which recomputes every sample, the
+            JAX package's jax.checkpoint(sample_body)) launching each key
+            and intersect kernel exactly as often as its forward pass, its
+            forward and backward seconds and peak memory over the baseline
+            (under 1 GB: one sample's residuals are held at a time); the
+            check (grad (f)) on the 256 x 256 MODERN spec+glass box, spp 2,
+            max_depth 32, d mean((image - target)^2) / d SceneParams,
+            captured against eager(), loss_and_grad's gradient bit for bit
+            the same, the card within grad (a)'s tolerance of the CPU, and
+            every intersect call of its backward pass (recorded under
+            eager()) replayed: keys and intersect exactly their plain
+            versions;
+            box-256-scan-grad-memory, that gradient of the 256 x 256 box
+            (one chunk of 65,536 lanes) at spp 2 and at spp 16: the two
+            peaks over the baseline differ by less than one sample's
+            residual bytes (scan_stats' residual_bytes);
             interior-400k-720p-spp4-scan, the 400k interior at 1280 x 720,
             spp 4, chunked plan (kernels 3 and 4), through
-            render_image_host_chunked, held to the CPU at 8,192 of
+            render_image_host_chunked, held to the CPU at 4,096 of
             bench_torch.py's pixel ids; its check is one chunk of the
             frame's pixel ids through render_pixels;
+            interior-400k-720p-spp4-scan-grad, d mean(image) / d
+            SceneParams of that frame through render_image_stats, captured:
+            its image bit for bit the scan frame of the same options and
+            entry point, equal rays, backward launches equal to the
+            forward's, kernels 3 and 4 in both; seconds, launches and peak
+            memory of each pass; at 512 of bench_torch.py's pixel ids
+            through render_pixels(differentiable=True) the card (under
+            eager()) within grad (a)'s tolerance of the CPU, every intersect
+            call of its backward pass replayed, kernels 3 and 4 exactly
+            their plain versions;
+            interior-400k-720p-spp4-grad, the lane pool's gradient of the
+            same scene, options and loss (bwd_seg_per_sample 4: no sample
+            dropped, its image within rtol 1e-4 / atol 1e-5 of the lane
+            pool's frame), kernels 3 and 4 in forward, none in backward;
+            the scan gradient within grad (a)'s tolerance of it;
    compat_frame  the box at 256 x 256, spp 4, compat, rendered whole
             through render_image_host_chunked on the card and on the CPU,
             every pixel held to the image limit (pixels outside printed);
@@ -223,7 +248,8 @@ exits non-zero):
             (steps per ray mean, p99 and max, leaf tests, SIMT efficiency,
             clock cycles per step and their split, the blocks' end times;
             "bvh_walk_designs" lines);
-9. a "kernels" line with one row per ported kernel (the five cluster
+9. a "phase_seconds" line (each phase's wall seconds), a "kernels" line
+   with one row per ported kernel (the five cluster
    kernels and the two walks), then the card's nvidia-smi line, then the
    last line {"ok": true, "device": {...}}.
 
@@ -1824,6 +1850,174 @@ def scan_cpu_check(img, scene, opts, n_ids: int, label: str) -> dict:
     return {**res, "ids": len(ids), "seconds": time.perf_counter() - t0}
 
 
+# A scan gradient holds one sample's residuals at a time: ~72 MB at 65,536
+# lanes with one light, plus the graphs' pool (~0.3 GB on the box).
+SCAN_GRAD_PEAK_LIMIT = 1 << 30
+# The lane pool's segments a sample budgeted in the interior's gradient: past
+# what its paths need (they end within a few bounces), so no sample is dropped.
+LARGE400_SEG = 4.0
+# How many of bench_torch.py's pixel ids the scan frames and the interior's
+# scan gradient are held to the CPU at.  The CPU's plain versions set the
+# time: on an H100 machine's host the box frame took 28-34 s at 65,536 ids,
+# the interior frame 43-57 s at 8,192 and its gradient 411 s at 8,192 (32
+# bounces in both passes).
+SCAN_CPU_IDS = {"box": 16384, "400k": 4096, "400k_grad": 512}
+
+
+def check_scan_backward_launches(launches, kernels, label: str) -> None:
+    """A scan gradient's (forward, backward) launches: the path's kernels
+    in forward, and backward, which recomputes every sample, launching each
+    kernel exactly as often as forward did."""
+    fwd, bwd = launches
+    check_launched(fwd, kernels, f"{label} forward")
+    check(bwd == fwd, f"{label}: backward launches {bwd}, forward {fwd}")
+
+
+def backward_calls(forward, name: str):
+    """The gradient ``forward()`` (a gradient_of() forward) under
+    wavefront.eager() (a replay runs no Python), and the intersect calls
+    (``name``, as CaptureCall takes it) of its backward pass."""
+    from montecarlopathtracing_torch.diff import gradients as G
+    from montecarlopathtracing_torch.integrator import wavefront as W
+
+    with W.eager():
+        _, _, loss, leaves = forward()
+        with CaptureCall(name) as cap:
+            grads = G.param_grads(loss, leaves)
+    check(len(cap.calls) > 0, f"no {name} call in the backward pass")
+    return grads, cap.calls
+
+
+def scan_grad_memory(dev) -> dict:
+    """box-256-scan-grad-memory: the scan gradient of the 256 x 256 box (one
+    chunk of 65,536 lanes, SCAN_BOX's options), d mean(image), at spp 2 and
+    at spp 16.  The backward pass holds one sample's residual copies at a
+    time, so the two peaks over the baseline must differ by less than one
+    sample's residual bytes."""
+    from montecarlopathtracing_torch.config import RenderOptions
+    from montecarlopathtracing_torch.scene.builtin import load_builtin_box
+
+    box, _ = load_builtin_box(width=SCAN_CHECK, height=SCAN_CHECK, device=dev)
+    out = {}
+    for spp in (2, 16):
+        opts = RenderOptions(refill=False, **{**SCAN_BOX, "spp": spp,
+                                              "spp_chunk": spp})
+        res = timed_gradient(gradient_of(box, opts, torch.mean, dev))
+        label = f"scan grad memory spp {spp}"
+        check(res["rays"] > 0 and grads_finite(res["grads"]),
+              f"{label}: no rays or non-finite gradients")
+        check_scan_backward_launches(
+            (res["launches_forward"], res["launches_backward"]),
+            PATH_KERNELS["single"], label)
+        out[f"spp{spp}"] = {
+            "forward_s": res["forward_s"], "backward_s": res["backward_s"],
+            "peak_bytes_over_baseline": res["peak_over_baseline"],
+            "residual_bytes": res["scan_stats"]["residual_bytes"]}
+        del res
+        torch.cuda.empty_cache()
+    one = out["spp16"]["residual_bytes"]
+    grew = (out["spp16"]["peak_bytes_over_baseline"]
+            - out["spp2"]["peak_bytes_over_baseline"])
+    check(one == out["spp2"]["residual_bytes"] > 0 and abs(grew) < one,
+          f"scan grad memory: the peak grew by {grew} B from spp 2 to spp 16, "
+          f"one sample's residuals are {one} B: {out}")
+    out["peak_growth_bytes"] = grew
+    return out
+
+
+def scan_grad_400k(dev, scene, opts) -> dict:
+    """interior-400k-720p-spp4-scan-grad and interior-400k-720p-spp4-grad:
+    the scan renderer's and the lane pool's gradients of the 400k interior
+    at full width, d mean(image) / d SceneParams, each once, captured (see
+    the module docstring)."""
+    from bench_torch import check_ids
+
+    from montecarlopathtracing_torch.diff import gradients as G
+    from montecarlopathtracing_torch.integrator import wavefront as W
+
+    kernels = PATH_KERNELS["chunked"]
+    # The scan frame through render_image_stats, which the gradient takes.
+    img, rays = scan_counted(lambda: W.render_image_stats(
+        scene, None, opts, device=dev))[:2]
+    (gimg, grays, _, (lf, lb), gst), res = timed_scan_gradient(
+        gradient_of(scene, opts, torch.mean, dev))
+    check(bool(torch.equal(gimg, img)) and float(grays) == float(rays),
+          "scan grad 400k: the gradient's image or rays differ from the scan "
+          "frame")
+    check_scan_backward_launches((lf, lb), kernels, "scan grad 400k")
+    check(grads_finite(res["grads"]), "scan grad 400k: non-finite gradients")
+    scan = {"forward_s": res["forward_s"], "backward_s": res["backward_s"],
+            "peak_bytes_over_baseline": res["peak_over_baseline"],
+            "residual_bytes": gst["residual_bytes"],
+            **scan_record(gst, res["forward_s"] + res["backward_s"], grays),
+            "launches_forward": lf, "launches_backward": lb,
+            "image_bit_equal_forward": True}
+    scan_grads = res["grads"]
+    del img, gimg, res
+    torch.cuda.empty_cache()
+
+    # The lane pool's gradient of the same scene, options and loss.
+    po = opts.replace(refill=True, bwd_seg_per_sample=LARGE400_SEG)
+    frame = counted(lambda: W.render_image_stats(scene, None, po, device=dev))[0]
+    res = timed_gradient(gradient_of(scene, po, torch.mean, dev))
+    lf, lb = res["launches_forward"], res["launches_backward"]
+    check(res["rays"] > 0, f"grad 400k: the budget dropped samples (n_rays "
+                           f"{res['rays']})")
+    check(bool(torch.allclose(res["img"], frame, rtol=1e-4, atol=1e-5)),
+          "grad 400k: the gradient's image differs from the lane pool's frame "
+          "beyond rtol 1e-4 / atol 1e-5")
+    check_launched(lf, kernels, "grad 400k forward")
+    check(not any(lb.values()), f"grad 400k: the backward pass launched {lb}")
+    check(grads_finite(res["grads"]), "grad 400k: non-finite gradients")
+    errs, ok = grad_errors(res["grads"], scan_grads)
+    check(ok, f"scan grad 400k: the gradient differs from the lane pool's: "
+              f"{errs}")
+    st = res["stats"]
+    pool = {"forward_s": res["forward_s"], "backward_s": res["backward_s"],
+            "peak_bytes_over_baseline": res["peak_over_baseline"],
+            "rays": res["rays"], "bwd_seg_per_sample": LARGE400_SEG,
+            "blocks": st["blocks"], "launches_forward": lf,
+            "launches_backward": lb,
+            "image_max_abs_diff_frame": float((res["img"] - frame).abs().max())}
+    scan["vs_lane_pool"] = errs
+    del frame, res
+    torch.cuda.empty_cache()
+
+    # The card (op by op, its backward's calls recorded and held against
+    # the plain versions) against the CPU at bench_torch.py's pixel ids.
+    ids = check_ids(scene.camera.height, scene.camera.width,
+                    SCAN_CPU_IDS["400k_grad"], 0)
+    grads, secs = {}, {}
+    for name in (dev, "cpu"):
+        sc = scene if name == dev else scene.to("cpu")
+        pix = torch.as_tensor(np.asarray(ids, np.int32), device=name)
+
+        def forward():
+            leaves = G.SceneParams.from_scene(sc).leaves(name)
+            rad, n = W.render_pixels(G.apply_params(sc, leaves), None, opts,
+                                     pix, differentiable=True)
+            return rad, n, rad.mean(), leaves
+
+        t0 = time.perf_counter()
+        if name == dev:
+            grads[name], calls = backward_calls(forward,
+                                                "cluster_intersect_chunked")
+        else:
+            _, _, loss, leaves = forward()
+            grads[name] = G.param_grads(loss, leaves)
+        sync(name)
+        secs[name] = time.perf_counter() - t0
+    check(grads_finite(grads[dev]), "scan grad 400k: non-finite gradients at "
+                                    "the check ids")
+    errs, ok = grad_errors(grads["cpu"], grads[dev])
+    check(ok, f"scan grad 400k: card gradients differ from the CPU's: {errs}")
+    ftb_frame_stats(calls, chunked_call, 64, "scan_grad_400k_backward", kernels)
+    scan["card_vs_cpu"] = {"ids": len(ids), "max_abs_err_and_scale": errs,
+                           "seconds": secs, "backward_calls_held": len(calls)}
+    return {"interior-400k-720p-spp4-scan-grad": scan,
+            "interior-400k-720p-spp4-grad": pool}
+
+
 def phase_scan_graphs(dev, state):
     """The scan renderer's frames with CUDA graphs (the scan_graphs line,
     see the module docstring)."""
@@ -1863,7 +2057,8 @@ def phase_scan_graphs(dev, state):
     box.update(full=scan_record(st, secs, rays), launches=launches,
                lane_pool={"seconds": pool_secs,
                           "max_abs_diff": float((img - pool).abs().max())},
-               cpu=scan_cpu_check(img, big, opts, 65536, "scan box"))
+               cpu=scan_cpu_check(img, big, opts, SCAN_CPU_IDS["box"],
+                                  "scan box"))
     out["box-1024-spp16-scan"] = box
 
     # box-1024-spp16-scan-grad.  The check size: d mean((image -
@@ -1895,8 +2090,12 @@ def phase_scan_graphs(dev, state):
         (cap, cap_full), (eag, eag_full) = (timed_scan_gradient(forward, e)
                                             for e in (False, True))
         grad["check"] = hold_scan("scan grad check", cap, eag, ("fwd", "bwd"))
-        check(not any(cap[3][1].values()),
-              f"scan grad check: the backward pass launched kernels: {cap[3][1]}")
+        check_scan_backward_launches(cap[3], PATH_KERNELS["single"],
+                                     "scan grad check")
+        calls = backward_calls(forward, "cluster_intersect")[1]
+        frame_kernel_stats(calls, 64, "scan_grad_check_backward")
+        grad["check"]["backward_calls_held"] = len(calls)
+        del calls
         same = {}
         for f in G.PARAM_FIELDS:
             a, b, c = (getattr(g, f) for g in (cap_full["grads"],
@@ -1920,8 +2119,10 @@ def phase_scan_graphs(dev, state):
         gradient_of(big, opts, torch.mean, dev))
     check(bool(torch.equal(gimg, img)) and float(grays) == float(rays),
           "scan grad: the gradient's image or rays differ from the scan frame")
-    check(not any(lb.values()), f"scan grad: the backward pass launched {lb}")
-    check_launched(lf, PATH_KERNELS["single"], "scan grad forward")
+    check_scan_backward_launches((lf, lb), PATH_KERNELS["single"], "scan grad")
+    check(res["peak_over_baseline"] < SCAN_GRAD_PEAK_LIMIT,
+          f"scan grad: {res['peak_over_baseline']} B over the baseline, not "
+          f"under {SCAN_GRAD_PEAK_LIMIT}")
     check(grads_finite(res["grads"]), "scan grad: non-finite gradients")
     errs, ok = grad_errors(state["grad_c"], res["grads"])
     check(ok, f"scan grad: the gradient differs from the lane pool's (grad "
@@ -1929,11 +2130,14 @@ def phase_scan_graphs(dev, state):
     grad.update(full={**scan_record(gst, gsecs, grays),
                       "forward_s": res["forward_s"], "backward_s": res["backward_s"],
                       "peak_bytes_over_baseline": res["peak_over_baseline"],
-                      "launches_forward": lf, "image_bit_equal_forward": True},
+                      "residual_bytes": gst["residual_bytes"],
+                      "launches_forward": lf, "launches_backward": lb,
+                      "image_bit_equal_forward": True},
                 vs_lane_pool_grad_c=errs)
     out["box-1024-spp16-scan-grad"] = grad
     del big, img, pool, gimg, res
     torch.cuda.empty_cache()
+    out["box-256-scan-grad-memory"] = scan_grad_memory(dev)
 
     # interior-400k-720p-spp4-scan (chunked plan): the check size is one
     # chunk of the frame's pixel ids through render_pixels.
@@ -1948,8 +2152,11 @@ def phase_scan_graphs(dev, state):
     check_launched(launches, PATH_KERNELS["chunked"], "scan 400k")
     image_checks(img, "scan 400k")
     large.update(full=scan_record(st, secs, rays), launches=launches,
-                 cpu=scan_cpu_check(img, scene, lo, 8192, "scan 400k"))
+                 cpu=scan_cpu_check(img, scene, lo, SCAN_CPU_IDS["400k"],
+                                    "scan 400k"))
     out["interior-400k-720p-spp4-scan"] = large
+    del img
+    out.update(scan_grad_400k(dev, scene, lo))
     emit({"phase": "scan_graphs", "block_bounces": W._SCAN_BLOCK,
           "frames": out, "seconds": time.perf_counter() - t_phase})
 
@@ -3140,31 +3347,41 @@ def main() -> int:
         regs = [ln.strip() for ln in b["log"].splitlines() if "registers" in ln]
         info[name] = {"seconds": b["seconds"], "ptxas": regs}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "kernels": info})
-    phase_kernels(dev, state)
-    phase_kernels_large400(dev, state)
-    phase_box(dev, state)
-    phase_large(dev, state)
-    phase_large400(dev, state)
-    phase_walk_kernels(dev, state)
-    phase_walk_frames(dev, state)
-    phase_parity(dev, state)
-    phase_scan(dev)
-    phase_grad(dev, state)
-    phase_grad_chunked(dev, state)
-    phase_scan_graphs(dev, state)
-    phase_grad_hbm(dev)
-    phase_compat_frame(dev)
-    phase_recovery(dev)
-    phase_oracle(dev)
-    phase_native(dev, state)
-    phase_ranks(dev)
-    phase_torchrun(dev)
-    phase_profile(dev)
-    phase_bench()
+    # Each phase's wall seconds, printed as the "phase_seconds" line: what
+    # to cut when the script nears its time limit.
+    phase_seconds = {}
+
+    def run(phase, *args):
+        t = time.perf_counter()
+        phase(*args)
+        phase_seconds[phase.__name__[len("phase_"):]] = time.perf_counter() - t
+
+    run(phase_kernels, dev, state)
+    run(phase_kernels_large400, dev, state)
+    run(phase_box, dev, state)
+    run(phase_large, dev, state)
+    run(phase_large400, dev, state)
+    run(phase_walk_kernels, dev, state)
+    run(phase_walk_frames, dev, state)
+    run(phase_parity, dev, state)
+    run(phase_scan, dev)
+    run(phase_grad, dev, state)
+    run(phase_grad_chunked, dev, state)
+    run(phase_scan_graphs, dev, state)
+    run(phase_grad_hbm, dev)
+    run(phase_compat_frame, dev)
+    run(phase_recovery, dev)
+    run(phase_oracle, dev)
+    run(phase_native, dev, state)
+    run(phase_ranks, dev)
+    run(phase_torchrun, dev)
+    run(phase_profile, dev)
+    run(phase_bench)
     emit({"phase": "graphs", "block_iterations": BLOCK, "frames": GRAPH_FRAMES})
     emit({"phase": "grad_graphs", "gradients": GRAD_FRAMES})
-    phase_timing(state)
-    phase_walk_timing(state)
+    run(phase_timing, state)
+    run(phase_walk_timing, state)
+    emit({"phase": "phase_seconds", **phase_seconds})
 
     csrc = "montecarlopathtracing_torch/kernels/csrc/"
     tpu = "montecarlopathtracing_tpu/kernels/cluster.py:"

@@ -22,14 +22,18 @@ the drain read between them, graphs captured once a frame).
 ``differentiable=True`` makes either a function of the scene's material and
 light tensors that autograd can take apart: traversal, visibility and the
 sampled directions are detached (the JAX package's ``stop_gradient``
-points), the loop runs a static budget in checkpointed blocks, and
-intersect results and sort permutations are recorded on the forward pass
-and replayed when a block is recomputed for backward, so backward launches
-no intersect kernel.  The lane pool's blocks, and each scan-renderer call's
-samples, are one autograd node (``_CheckpointedBlocks``, the counterpart of
-the JAX package's jitted ``lax.scan`` over ``jax.checkpoint``-ed blocks or
-samples): on a CUDA device its forward blocks and its backward
-recompute-and-VJP blocks replay CUDA graphs too.
+points), and the loop runs a static budget in checkpointed blocks.  The
+lane pool records its intersect results and sort permutations on the
+forward pass and replays them when a block is recomputed for backward, so
+its backward launches no intersect kernel; the scan renderer keeps nothing
+of a sample and recomputes it whole for backward, recording them there, so
+its backward launches the forward's keys and intersects again and holds
+one sample's residuals at a time.  The lane pool's blocks, and each
+scan-renderer call's samples, are one autograd node
+(``_CheckpointedBlocks``, the counterpart of the JAX package's jitted
+``lax.scan`` over ``jax.checkpoint``-ed blocks or samples): on a CUDA
+device its forward blocks and its backward recompute-and-VJP blocks replay
+CUDA graphs too.
 
 A scene whose triangle table is past the single-table budget renders through
 the chunked or the supergroup ("HBM") cluster intersector, as
@@ -692,11 +696,11 @@ def render_pixels(scene: SceneArrays, bvh, opts: RenderOptions, pixel_ids,
     per pixel (render_pixels_refill).  Otherwise the scan over samples runs
     each sample at full width (_ScanFrame: a primary block, bounce blocks,
     the radiance added into the sum); a differentiable render whose scene
-    needs a gradient is one autograd node that keeps each sample's
-    intersect results and sort orders and recomputes its bounces for
-    backward.  ``scan`` is the _ScanFrame of a frame's chunks (made for
-    this scene and these options at this width; one is made here when it
-    is None).  ``sample_offset`` slides the absolute sample window, so the
+    needs a gradient is one autograd node that keeps nothing of its samples
+    and recomputes each one for backward (the JAX package's
+    ``jax.checkpoint(sample_body)``).  ``scan`` is the _ScanFrame of a
+    frame's chunks (made for this scene and these options at this width;
+    one is made here when it is None).  ``sample_offset`` slides the absolute sample window, so the
     samples of a split render are those of a one-pass one.
 
     Returns (mean radiance (R,3), rays traced as an int64 tensor).
@@ -722,7 +726,7 @@ _grad_stats = dict.fromkeys(
     + tuple(f"{p}_{k}" for p in ("fwd", "bwd")
             for k in ("eager_blocks", "graphs", "replays", "capture_s")), 0)
 _scan_stats = dict.fromkeys(
-    ("frames", "calls", "samples", "bounces", "idle_bounces")
+    ("frames", "calls", "samples", "bounces", "idle_bounces", "residual_bytes")
     + tuple(f"{p}_{k}" for p in ("fwd", "bwd")
             for k in ("eager_blocks", "graphs", "replays", "capture_s")), 0)
 
@@ -768,7 +772,8 @@ def scan_stats() -> dict:
     and in a differentiable render every bounce past the drain), and for
     the forward (``fwd_``) and the backward (``bwd_``: the recompute and
     the VJP) blocks apart the blocks run op by op, graphs captured, replays
-    and capture seconds."""
+    and capture seconds; ``residual_bytes``, the most bytes of residual
+    copies a backward pass held at once (one sample's bounce blocks)."""
     return dict(_scan_stats)
 
 
@@ -998,13 +1003,16 @@ class _CheckpointedBlocks(torch.autograd.Function):
     _grad_inputs its inputs: the lane pool's (a _BlockScan, the film its
     output) or the samples of one scan-renderer call (a _ScanCall, the sum
     of their radiance its output).  ``scan.forward`` and
-    ``scan.backward`` are its two passes; it holds the residuals (and the
-    lane pool's entry states) from one to the other, and no activation."""
+    ``scan.backward`` are its two passes.  Between them it holds no
+    activation: the lane pool's blocks' entry states and named residuals
+    (the JAX package's ``save_only_these_names``), and of a scan call only
+    which samples to redo (its ``jax.checkpoint(sample_body)``)."""
 
     @staticmethod
     def forward(ctx, scan, *inputs):
         ctx.scan = scan
-        return scan.forward(record=True)
+        return (scan.forward(record=True) if isinstance(scan, _BlockScan)
+                else scan.forward())
 
     @staticmethod
     def backward(ctx, ct_film):
@@ -1034,12 +1042,14 @@ class _ScanFrame:
     the stable sort of all-parked keys is the identity); a differentiable
     one runs exactly ``max_depth`` bounces a sample, and when the scene
     needs a gradient each call is one autograd node (_CheckpointedBlocks
-    over a _ScanCall) that keeps each sample's residuals.
+    over a _ScanCall) that recomputes each sample in backward, recording
+    its residuals there.
 
     On a CUDA device each kind of block (primary, bounce block, last bounce
-    block, finish; backward: recompute and VJP) runs op by op the first
-    time and replays one CUDA graph after (``_Blocks``), all in one pool;
-    on the CPU, and inside ``eager()``, every block runs op by op."""
+    block, finish; backward: the recompute that records and the VJP) runs
+    op by op the first time and replays one CUDA graph after (``_Blocks``),
+    all in one pool; on the CPU, and inside ``eager()``, every block runs
+    op by op."""
 
     def __init__(self, scene, bvh, opts: RenderOptions, r: int,
                  differentiable: bool, accel=None, rays=None):
@@ -1089,7 +1099,7 @@ class _ScanFrame:
         ``sample_offset`` of the pixel ids ``pix`` (None: the given rays)."""
         call = _ScanCall(self, pix, sample_offset, spp)
         acc = (_CheckpointedBlocks.apply(call, *self.inputs) if self.track
-               else call.forward(record=False))
+               else call.forward())
         return acc / spp, self.state["rays"].clone()
 
     def load(self, pix, s: int) -> None:
@@ -1106,11 +1116,12 @@ class _ScanFrame:
 
     def run(self, kind) -> None:
         """Runs the block ``kind`` once: ("primary", mode), ("bounce", n,
-        mode) with the residuals' mode, ("finish",), or ("vjp", n), the
-        VJP of n bounces or (n = 0) of the primary block."""
+        mode) with the residuals' mode (None, or "record" in backward),
+        ("finish",), or ("vjp", n), the VJP of n bounces or (n = 0) of the
+        primary block."""
         blocks = self.blocks.get(kind)
         if blocks is None:
-            prefix = "bwd_" if kind[0] == "vjp" or kind[-1] == "replay" else "fwd_"
+            prefix = "bwd_" if kind[0] == "vjp" or kind[-1] == "record" else "fwd_"
             blocks = self.blocks[kind] = _Blocks(
                 self._block_fn(kind), self.dev, 1, _scan_stats, prefix,
                 self.graphs)
@@ -1263,36 +1274,31 @@ class _ScanFrame:
 class _ScanCall:
     """One call on a _ScanFrame: ``spp`` samples from ``offset`` of the
     pixel ids ``pix`` (None: the frame's given rays).  ``forward`` and
-    ``backward`` are _CheckpointedBlocks's two passes; ``saved`` holds each
-    recorded sample's residuals from one to the other."""
+    ``backward`` are _CheckpointedBlocks's two passes, the two halves of
+    the JAX package's ``lax.scan`` over ``jax.checkpoint(sample_body)``:
+    between them the call holds only ``pix``, ``offset`` and ``spp``, and
+    backward recomputes each sample."""
 
     def __init__(self, frame: _ScanFrame, pix, offset: int, spp: int):
         self.frame, self.pix, self.offset, self.spp = frame, pix, offset, spp
-        self.saved = []
 
-    def forward(self, record: bool):
-        """Runs the samples without recording autograd; returns the sum of
-        their radiance (a copy).  ``record`` keeps each sample's residuals
-        (the primary intersect; each bounce's intersects and sort order)."""
+    def forward(self):
+        """Runs the samples without recording autograd and keeps nothing of
+        them; returns the sum of their radiance (a copy)."""
         f = self.frame
-        mode = "record" if record else None
         bounces = 0
         for k in ("acc", "rays", "live"):
             f.state[k].zero_()
         with torch.no_grad():
             for s in range(self.spp):
                 f.load(self.pix, self.offset + s)
-                f.run(("primary", mode))
-                saved = [f.res_p.copies()]  # empty unless recording
+                f.run(("primary", None))
                 for n in f.sizes:
                     if not f.differentiable and f.drained():
                         break
-                    f.run(("bounce", n, mode))
+                    f.run(("bounce", n, None))
                     bounces += n
-                    saved.append(f.res_b.copies(n))
                 f.run(("finish",))
-                if record:
-                    self.saved.append(saved)
         _scan_stats["calls"] += 1
         _scan_stats["samples"] += self.spp
         _scan_stats["bounces"] += bounces
@@ -1301,41 +1307,47 @@ class _ScanCall:
 
     def backward(self, ct, needs) -> list:
         """The inputs' gradients (None where ``needs`` is false) for the
-        cotangent ``ct`` of the radiance sum: the samples in reverse order,
-        each recomputed from its primary block with its residuals replayed
-        (keeping each bounce block's entry state), then the VJP of each
-        bounce block in reverse and of the primary block, the cotangents of
-        ``beta`` and ``rad`` passed from block to block.  Each input's
-        gradient is summed over the blocks, the last sample's last block
-        first."""
+        cotangent ``ct`` of the radiance sum: the samples in reverse order
+        (_sample_backward), each input's gradient summed over their blocks,
+        the last sample's last block first."""
         f = self.frame
         f.prepare_backward(needs)
         f.grad_ct.copy_(ct)
         with torch.no_grad():
-            while self.saved:
-                saved = self.saved.pop()
-                f.load(self.pix, self.offset + len(self.saved))
-                f.res_p.load(saved[0])
-                f.run(("primary", "replay"))
-                entries = []
-                for n, res in zip(f.sizes, saved[1:]):
-                    entries.append({k: v.clone() for k, v in f.state.items()})
-                    f.res_b.load(res)
-                    f.run(("bounce", n, "replay"))
-                f.ct_state["rad"].copy_(
-                    f.grad_ct.index_select(0, f.state["slot"].long())
-                    if f.do_sort else f.grad_ct)
-                f.ct_state["beta"].zero_()
-                for n, res, entry in reversed(list(zip(f.sizes, saved[1:],
-                                                       entries))):
-                    for k, v in entry.items():
-                        f.state[k].copy_(v)
-                    f.res_b.load(res)
-                    f.run(("vjp", n))
-                f.res_p.load(saved[0])
-                f.run(("vjp", 0))
+            for s in reversed(range(self.spp)):
+                self._sample_backward(s)
         acc = iter(f.grad_acc)
         return [next(acc).clone() if x.requires_grad else None for x in f.leaves]
+
+    def _sample_backward(self, s: int) -> None:
+        """Sample ``s`` recomputed from its primary block, recording its
+        residuals (the primary intersect stays in its buffer; each bounce
+        block's intersects and sort orders are copied out, with the block's
+        entry state), then the VJP of each bounce block in reverse with its
+        residuals replayed, and of the primary block, the cotangents of
+        ``beta`` and ``rad`` passed from block to block.  The copies are
+        one sample's and die with the call."""
+        f = self.frame
+        f.load(self.pix, self.offset + s)
+        f.run(("primary", "record"))
+        entries, saved = [], []
+        for n in f.sizes:
+            entries.append({k: v.clone() for k, v in f.state.items()})
+            f.run(("bounce", n, "record"))
+            saved.append(f.res_b.copies(n))
+        _scan_stats["residual_bytes"] = max(
+            _scan_stats["residual_bytes"],
+            sum(c.nbytes for copies in saved for c in copies))
+        f.ct_state["rad"].copy_(
+            f.grad_ct.index_select(0, f.state["slot"].long())
+            if f.do_sort else f.grad_ct)
+        f.ct_state["beta"].zero_()
+        for n, res, entry in reversed(list(zip(f.sizes, saved, entries))):
+            for k, v in entry.items():
+                f.state[k].copy_(v)
+            f.res_b.load(res)
+            f.run(("vjp", n))
+        f.run(("vjp", 0))
 
 
 def render_pixels_refill(

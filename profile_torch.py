@@ -6,9 +6,10 @@
     python3 profile_torch.py --scene large --large-mode hbm_always
     python3 profile_torch.py --scene large --tris 100000   # single-table plan
     python3 profile_torch.py --grad           # full-width gradient of the box
+    python3 profile_torch.py --grad --scene large   # the 400k interior's gradient
     python3 profile_torch.py --intersector bvh_perray --scene large --tris 100000
     python3 profile_torch.py --eager          # the same frame, op by op
-    python3 profile_torch.py --scan [--grad] [--eager]   # the scan renderer
+    python3 profile_torch.py --scan [--grad] [--eager] [--spp N]   # the scan renderer
 
 Renders the frame once unprofiled (wall time), then once under
 torch.profiler, and prints one JSON line: wall seconds, wavefront
@@ -27,10 +28,13 @@ walk (iterations then count the walk's launches).
 
 ``--grad`` profiles the gradient of mean(image) over SceneParams instead, in
 bench.py's backward configuration (the built-in box at 1024 x 1024, spp 16,
-max_depth 32, 65,536 lanes, bwd_seg_per_sample 2.15): the forward pass (the
-differentiable render) and the backward pass (block recomputes and their
+max_depth 32, 65,536 lanes, bwd_seg_per_sample 2.15; with ``--scene
+large`` the interior at 1280 x 720, spp 4, bwd_seg_per_sample 4): the
+forward pass (the differentiable render) and the backward pass (block recomputes and their
 VJPs) are timed and profiled apart, each with its ms per wavefront
-iteration, CUDA kernels per iteration, device idle share and its blocks,
+iteration, CUDA kernels per iteration, device idle share, the device ms of
+its matrix-product kernels (``matmul_ms``: in backward the material rows'
+one-hot products, _TableRows.backward) and its blocks,
 graphs, replays and capture seconds (integrator/wavefront.py::
 grad_loop_stats).  Both passes replay CUDA graphs, as every gradient on the
 card does; with ``--eager`` both run op by op.
@@ -47,7 +51,10 @@ the device ms and kernels from the chunk's profile, the wall ms of the
 chunk and of the whole frame, and the device idle share of the whole frame
 as 1 - device ms / wall ms a segment (the chunk's own wall time holds its
 graphs' captures).  The graphs, replays, capture seconds and idle bounces
-past the drain are the scan renderer's.
+past the drain are the scan renderer's, and each run's peak of allocated
+bytes over the allocation before it; a gradient's backward pass recomputes
+each sample and holds one sample's residual copies (``residual_bytes``).
+``--spp`` sets the frame's samples (16 by default).
 """
 
 from __future__ import annotations
@@ -56,12 +63,22 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import sys
 import time
 
 import torch
 
 TOP = 12
+# The lane pool's segments a sample budgeted in the interior's gradient (as
+# chip_smoke.py's LARGE400_SEG): no sample is dropped.
+LARGE_SEG = 4.0
+# The intersect kernels of the cluster plans: one launch an iteration.
+ISECT_KERNELS = ("cluster_intersect", "cluster_intersect_ftb",
+                 "cluster_intersect_hbm")
+# Matrix-product kernels by name (cuBLAS / CUTLASS); in a gradient's
+# backward pass the material rows' one-hot products (_TableRows.backward).
+MATMUL = re.compile(r"gemm|xmma|cutlass", re.IGNORECASE)
 
 
 def kernel_stats(prof):
@@ -124,12 +141,17 @@ def profile_scan(scene, opts, grad: bool) -> dict:
         return time.perf_counter() - t0, res
 
     def run(window: bool) -> dict:
-        """Seconds of each pass, rays, scan_stats."""
+        """Seconds of each pass, rays, the peak of allocated bytes over the
+        allocation before the forward pass, scan_stats."""
         W.reset_loop_stats()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         secs, (loss, rays, leaves) = timed(lambda: forward(window))
         out = {"forward_s": secs, "rays": rays}
         if grad:
             out["backward_s"] = timed(lambda: G.param_grads(loss, leaves))[0]
+        del loss, leaves
+        out["peak_bytes_over_baseline"] = torch.cuda.max_memory_allocated() - base
         return {**out, **W.scan_stats()}
 
     run(True)  # warm-up: the kernels' build and first loads
@@ -200,7 +222,8 @@ def profile_grad(scene, opts) -> dict:
     K.reset_launch_counts()
     W.reset_loop_stats()
     fwd_s, (loss, rays, leaves) = timed(forward)
-    iters = K.launch_counts()["cluster_intersect"] - 1  # less the bootstrap
+    # One intersect launch an iteration, less the bootstrap's.
+    iters = max(K.launch_counts()[k] for k in ISECT_KERNELS) - 1
     bwd_s, _ = timed(lambda: G.param_grads(loss, leaves))
     loop = W.grad_loop_stats()
     del loss, leaves
@@ -221,6 +244,8 @@ def profile_grad(scene, opts) -> dict:
             "device_idle_share": 1.0 - busy_us / 1e6 / wall,
             "cuda_kernels": n_kernels,
             "cuda_kernels_per_iteration": n_kernels / iters,
+            "matmul_ms": sum(k[1] for k in kernels
+                             if MATMUL.search(k[0])) / 1e3,
             "top_kernels_ms": [(k[0][:80], k[1] / 1e3, k[2]) for k in kernels[:TOP]],
         }
         print(json.dumps({"part": name, **out[name]}), flush=True)
@@ -251,7 +276,7 @@ def main(argv=None) -> int:
                     choices=["auto", "bvh", "bvh_perray"],
                     help="RenderOptions.intersector (default auto)")
     ap.add_argument("--grad", action="store_true",
-                    help="profile the full-width gradient of the box instead")
+                    help="profile the full-width gradient of --scene instead")
     ap.add_argument("--eager", action="store_true",
                     help="run the blocks op by op (wavefront.eager()), "
                          "the frame or both passes of --grad")
@@ -287,12 +312,19 @@ def main(argv=None) -> int:
                           "nvidia_smi": nvidia_smi_line(), **res}), flush=True)
         return 0
     if args.grad:
-        scene, _ = load_builtin_box(width=1024, height=1024, device="cuda")
-        opts = RenderOptions(spp=args.spp or 16, max_depth=32,
-                             bwd_seg_per_sample=2.15)
+        if args.scene == "box":
+            scene, _ = load_builtin_box(width=1024, height=1024, device="cuda")
+            opts = RenderOptions(spp=args.spp or 16, max_depth=32,
+                                 bwd_seg_per_sample=2.15)
+        else:
+            scene, _ = load_builtin_large(n_tris=args.tris, width=1280,
+                                          height=720, device="cuda")
+            opts = RenderOptions(spp=args.spp or 4, max_depth=32,
+                                 large_mode=args.large_mode,
+                                 bwd_seg_per_sample=LARGE_SEG)
         with mode:
             res = profile_grad(scene, opts)
-        print(json.dumps({"grad": True, "scene": "box", "spp": opts.spp,
+        print(json.dumps({"grad": True, "scene": args.scene, "spp": opts.spp,
                           "eager": args.eager,
                           "device": torch.cuda.get_device_name(0),
                           "nvidia_smi": nvidia_smi_line(), **res}), flush=True)

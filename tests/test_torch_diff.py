@@ -375,11 +375,13 @@ def test_inverse_rendering_step_reduces_loss(box):
 
 
 def test_backward_launches_no_intersect(box, monkeypatch):
-    """The forward pass intersects; backward replays the recorded results
-    and calls neither the key nor the intersect kernel's plain version: the
-    lane pool, the scan renderer, and the lane pool on the card's path
-    (stand-in CUDA graphs, tests/test_torch_graph_blocks.py) with a forward
-    and a backward graph replayed."""
+    """The forward pass intersects.  The lane pool's backward replays the
+    recorded results and calls neither the key nor the intersect kernel's
+    plain version, op by op and on the card's path (stand-in CUDA graphs,
+    tests/test_torch_graph_blocks.py) with a forward and a backward graph
+    replayed; the scan renderer's backward recomputes every sample (the
+    JAX package's jax.checkpoint(sample_body)) and calls each exactly as
+    often as its forward pass did."""
     calls = {"keys": 0, "isect": 0}
 
     def counting(name, fn):
@@ -404,7 +406,10 @@ def test_backward_launches_no_intersect(box, monkeypatch):
         fwd = dict(calls)
         assert fwd["keys"] > 0 and fwd["isect"] > 0
         g = tgrad.param_grads(img.mean(), leaves)
-        assert calls == fwd, (refill, fwd, calls)
+        bwd = {k: calls[k] - fwd[k] for k in calls}
+        assert bwd == (dict.fromkeys(calls, 0) if refill else fwd), (
+            refill, fwd, bwd)
+        calls.update(dict.fromkeys(calls, 0))
         assert float(g.kd.abs().max()) > 0
     st = twf.grad_loop_stats()
     assert st["fwd_replays"] > 0 and st["bwd_replays"] > 0

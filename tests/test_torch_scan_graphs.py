@@ -28,7 +28,12 @@ every later replay runs it again with the launch counters held still):
   as the blocks pass them, bit for bit the RNG with Python ints;
 * one set of graphs per frame, shared by every chunk and spp step, freed
   with the frame when its last user lets go of it;
-* no key or intersect launch in the backward pass.
+* the backward pass recomputes every sample (the JAX package's
+  ``jax.checkpoint(sample_body)``): its key and intersect launches are
+  exactly the forward pass's, kernel by kernel; a tracked call holds
+  nothing of its samples between the passes, and the backward pass holds
+  one sample's residual copies at a time, whatever ``spp`` and the number
+  of chunks (``scan_stats()["residual_bytes"]``).
 """
 
 import gc
@@ -146,7 +151,8 @@ def test_captured_scan_is_bitwise_eager(scene_dir, counting, monkeypatch, name,
     if name == "tex":
         assert float(g.atlas.abs().max()) > 0
     assert fwd == fwd_e and fwd["cluster_intersect"] > 0
-    assert bwd == bwd_e and not any(bwd.values())
+    # Backward recomputes every sample: the forward's launches again.
+    assert bwd == bwd_e == fwd
     for s, s_e, passes in ((st, st_e, ("fwd",)), (gst, gst_e, ("fwd", "bwd"))):
         assert s["frames"] == s_e["frames"] == 1
         assert s["calls"] == s_e["calls"] == 2  # two chunks
@@ -343,3 +349,69 @@ def test_captured_scan_gradient_matches_jax(scene_dir, monkeypatch):
         err = np.abs(a - b)
         assert a.shape == b.shape and (err <= 1e-6 + 1e-4 * scale).all(), (
             f"{f}: max error {err.max()} against largest magnitude {scale}")
+
+
+def _held_bytes(obj, seen=None) -> int:
+    """Bytes of the tensors a scan call or frame holds: its attributes,
+    through dicts, lists, tuples and _Residuals (each tensor once)."""
+    seen = set() if seen is None else seen
+    if id(obj) in seen:
+        return 0
+    seen.add(id(obj))
+    if isinstance(obj, torch.Tensor):
+        return obj.nbytes
+    if isinstance(obj, dict):
+        return sum(_held_bytes(v, seen) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return sum(_held_bytes(v, seen) for v in obj)
+    if isinstance(obj, (twf._Residuals, twf._ScanCall, twf._ScanFrame)):
+        return _held_bytes(vars(obj), seen)
+    return 0
+
+
+def test_tracked_scan_call_holds_no_residuals(scene_dir, monkeypatch):
+    """Between the passes a tracked call keeps only which samples to redo
+    (the pixel ids, the sample offset, spp), and the call and its frame
+    hold the same bytes at spp 1, 3 and 5: nothing per sample."""
+    calls = []
+    init = twf._ScanCall.__init__
+
+    def tracked(self, *a, **kw):
+        init(self, *a, **kw)
+        calls.append(self)
+
+    monkeypatch.setattr(twf._ScanCall, "__init__", tracked)
+    held = []
+    for spp in (1, 3, 5):
+        opts = _opts(spp, 32, False)
+        ts, _ = tbuild(scene_dir, "sg16", opts, device="cpu")
+        leaves = SceneParams.from_scene(ts).leaves("cpu")
+        calls.clear()
+        img, _ = _captured(monkeypatch, lambda: twf.render_image_stats(
+            tgrad.apply_params(ts, leaves), None, opts, differentiable=True,
+            device="cpu"))
+        assert len(calls) == 2  # two chunks
+        for call in calls:
+            assert set(vars(call)) == {"frame", "pix", "offset", "spp"}
+            assert call.spp == spp
+        held.append(_held_bytes(calls))
+        g = _captured(monkeypatch, lambda: tgrad.param_grads(img.mean(), leaves))
+        assert float(g.kd.abs().max()) > 0
+    assert held[0] == held[1] == held[2] > 0
+
+
+@pytest.mark.parametrize("depth", [6, 32])
+def test_backward_holds_one_sample_of_residuals(scene_dir, monkeypatch, depth):
+    """scan_stats()["residual_bytes"], the most bytes of residual copies
+    held at once in backward, is one sample's at spp 1, 3 and 5 over two
+    chunks of 128 lanes: ``max_depth`` bounces of the intersect results of
+    [bounce rays; one shadow ray per light] (hit, t, tri: 9 bytes a ray)
+    and the sort order with its inverse (16 bytes a lane)."""
+    r = 128
+    for spp in (1, 3, 5):
+        opts = _opts(spp, depth, True)
+        ts, _ = tbuild(scene_dir, "tex", opts, device="cpu")
+        *_, st = _captured(monkeypatch, lambda: _gradient(ts, opts))
+        assert st["calls"] == 2 and st["samples"] == 2 * spp
+        assert st["residual_bytes"] == depth * r * (
+            (1 + ts.num_lights) * 9 + 16), (spp, st["residual_bytes"])

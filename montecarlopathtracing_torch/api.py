@@ -26,6 +26,7 @@ from .integrator.wavefront import (render_image, render_image_host_chunked,
 from .scene.types import SceneArrays, SceneMeta
 from .utils.device import resolve_device
 from .utils.logging import get_logger
+from .utils.timing import span
 
 log = get_logger(__name__)
 
@@ -36,24 +37,26 @@ def load_scene(scene_dir: str, name: str, options: Optional[RenderOptions] = Non
 
     Tries the C++ parser first (scene/native.py) and falls back to the
     Python parser (scene/loader.py); both give the same fields.  Logs which
-    one ran."""
+    one ran.  The load is one span, ``load_scene``, over ``parse``,
+    ``build`` and ``upload``."""
     options = options or RenderOptions()
     device = resolve_device(device)
-    if use_native:
-        try:
-            from .scene.native import build_scene_native
+    with span("load_scene"):
+        if use_native:
+            try:
+                from .scene.native import build_scene_native
 
-            out = build_scene_native(scene_dir, name, options, device=device)
-            log.info("scene '%s' parsed by the native loader", name)
-            return out
-        except Exception as exc:
-            log.info("native loader unavailable (%s); using the python parser",
-                     exc)
-    from .scene.loader import build_scene
+                out = build_scene_native(scene_dir, name, options, device=device)
+                log.info("scene '%s' parsed by the native loader", name)
+                return out
+            except Exception as exc:
+                log.info("native loader unavailable (%s); using the python "
+                         "parser", exc)
+        from .scene.loader import build_scene
 
-    out = build_scene(scene_dir, name, options, device=device)
-    log.info("scene '%s' parsed by the python loader", name)
-    return out
+        out = build_scene(scene_dir, name, options, device=device)
+        log.info("scene '%s' parsed by the python loader", name)
+        return out
 
 
 def _walk_bvh(scene: SceneArrays, options: RenderOptions,

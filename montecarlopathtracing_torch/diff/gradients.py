@@ -28,6 +28,7 @@ from ..config import RenderOptions
 from ..integrator.wavefront import render_image_stats, render_pixels
 from ..scene.types import SceneArrays
 from ..utils.device import resolve_device
+from ..utils.timing import span
 
 PARAM_FIELDS = ("kd", "ks", "ns", "light_radiance", "atlas")
 
@@ -100,11 +101,17 @@ def image_loss(params: SceneParams, scene: SceneArrays, bvh,
 
 def loss_and_grad(params: SceneParams, scene: SceneArrays, bvh,
                   opts: RenderOptions, target, device=None):
-    """(loss, gradient of image_loss as a SceneParams), both detached."""
-    dev = resolve_device(device)
-    leaves = params.leaves(dev)
-    loss = image_loss(leaves, scene, bvh, opts, target, device=dev)
-    return loss.detach(), param_grads(loss, leaves)
+    """(loss, gradient of image_loss as a SceneParams), both detached.  The
+    step is one span, ``grad_step`` (its request the seed), over its two
+    passes, ``forward`` and ``backward``."""
+    with span("grad_step", request=opts.seed):
+        dev = resolve_device(device)
+        leaves = params.leaves(dev)
+        with span("forward"):
+            loss = image_loss(leaves, scene, bvh, opts, target, device=dev)
+        with span("backward"):
+            grads = param_grads(loss, leaves)
+        return loss.detach(), grads
 
 
 def train_step(params: SceneParams, scene: SceneArrays, bvh,

@@ -81,6 +81,7 @@ from ..ops.sampling import (
 )
 from ..scene.types import SCENE_FIELDS, SceneArrays
 from ..utils.device import resolve_device
+from ..utils.timing import record, span
 from . import rng
 from .camera import primary_rays
 
@@ -720,7 +721,8 @@ _COUNTED = (*_CLUSTER_WRAPPERS.values(), *_WALK_WRAPPERS.values())
 
 _eager = False
 _loop_stats = dict.fromkeys(("dispatches", "iterations", "idle_iterations",
-                             "eager_blocks", "graphs", "replays", "capture_s"), 0)
+                             "eager_blocks", "graphs", "replays", "capture_s",
+                             "query_rows", "rays"), 0)
 _grad_stats = dict.fromkeys(
     ("dispatches", "blocks")
     + tuple(f"{p}_{k}" for p in ("fwd", "bwd")
@@ -750,8 +752,12 @@ def loop_stats() -> dict:
     """Totals over the forward lane-pool dispatches since the last reset:
     dispatches, iterations, ``idle_iterations`` (iterations that started on
     a drained pool: the last block's overrun), blocks run op by op, CUDA
-    graphs captured, graph replays, and ``capture_s``, the seconds spent
-    capturing and instantiating the graphs."""
+    graphs captured, graph replays, ``capture_s``, the seconds spent
+    capturing and instantiating the graphs, ``query_rows``, the rows of the
+    iterations' combined intersect calls (lanes x (1 + lights) each, a dead
+    lane's rows parked), and ``rays``, the rays those rows carried (the
+    dispatches' ray counts): rays over query_rows is the share of rows
+    that did work."""
     return dict(_loop_stats)
 
 
@@ -861,26 +867,30 @@ class _Blocks:
 
     def run(self, i0: int) -> None:
         if not self.warm:
-            if self.graphs is None:
-                self.block(i0)
-            else:
-                self.graphs.warm_up(lambda: self.block(i0))
-                self.warm = True
+            with span("eager_block"):
+                if self.graphs is None:
+                    self.block(i0)
+                else:
+                    self.graphs.warm_up(lambda: self.block(i0))
+                    self.warm = True
             self._add("eager_blocks")
             return
         phase = i0 % self.flush_every
         if phase not in self.replays:
             before = [w.launches for w in _COUNTED]
-            t0 = time.perf_counter()
+            t0 = time.monotonic_ns()
             graph = self.graphs.capture(lambda: self.block(i0))
-            self._add("capture_s", time.perf_counter() - t0)
+            t1 = time.monotonic_ns()
+            self._add("capture_s", (t1 - t0) * 1e-9)
+            record("capture", t0, t1, {"phase": phase})
             self._add("graphs")
             self.replays[phase] = graph, [w.launches - n for w, n
                                           in zip(_COUNTED, before)]
             for w, n in zip(_COUNTED, before):
                 w.launches = n
         graph, launches = self.replays[phase]
-        graph.replay()
+        with span("replay"):
+            graph.replay()
         for w, n in zip(_COUNTED, launches):
             w.launches += n
         self._add("replays")
@@ -1112,7 +1122,8 @@ class _ScanFrame:
         self.samp.fill_(s)
 
     def drained(self) -> bool:
-        return not bool(self.state["alive"].any())
+        with span("drain_read"):
+            return not bool(self.state["alive"].any())
 
     def run(self, kind) -> None:
         """Runs the block ``kind`` once: ("primary", mode), ("bounce", n,
@@ -1406,6 +1417,10 @@ def render_pixels_refill(
     dev = scene.device
     n_pix = pixel_ids.shape[0]
     r = min(lanes or n_pix, n_pix)
+    # Closed by hand where the first block starts: the set-up below is too
+    # long to indent under a ``with``.
+    setup = span("pool_setup", {"lanes": r})
+    setup.__enter__()
     spp = opts.spp
     n_slots = rng.n_bounce_slots(scene.num_lights)
     do_sort = _should_sort(opts, scene.num_tris_padded) and r > opts.cluster_rays
@@ -1656,7 +1671,8 @@ def render_pixels_refill(
     film = torch.zeros((3, n_pix + r * n_pend), **f32)
 
     def drained(st) -> bool:
-        return not bool(((st["q"] < n_pix) | st["active"].any()).item())
+        with span("drain_read"):
+            return not bool(((st["q"] < n_pix) | st["active"].any()).item())
 
     env = (scene, tables)
     if differentiable:
@@ -1686,6 +1702,7 @@ def render_pixels_refill(
             lambda xs: _grad_env(scene, xs), inputs,
             _Residuals(k_steps, r * (1 + num_lights), r if do_sort else 0, dev)
             if track else _Residuals(), dev)
+        setup.__exit__(None, None, None)
         film = (_CheckpointedBlocks.apply(scan, *inputs) if track
                 else scan.forward(record=False))
         _grad_stats["dispatches"] += 1
@@ -1724,15 +1741,20 @@ def render_pixels_refill(
                 v.copy_(st[k])
 
         blocks = _Blocks(block, dev, flush_every)
+        setup.__exit__(None, None, None)
         i = 0
         while not drained(s):
             blocks.run(i)
             i += check_every
-        del blocks  # the graphs and their pool go with the dispatch
-        flush(s)  # pendings staged since the last cadence boundary
+        with span("release"):
+            del blocks  # the graphs and their pool go with the dispatch
+            flush(s)  # pendings staged since the last cadence boundary
+            live, rays = torch.stack((s["live"], s["n_rays"])).tolist()
     _loop_stats["dispatches"] += 1
     _loop_stats["iterations"] += i
-    _loop_stats["idle_iterations"] += i - int(s["live"])
+    _loop_stats["idle_iterations"] += i - live
+    _loop_stats["query_rows"] += i * r * (1 + num_lights)
+    _loop_stats["rays"] += rays
     return film[:, :n_pix].T / spp, s["n_rays"]
 
 
@@ -1765,9 +1787,10 @@ def _assemble_frame(acc, scene, opts: RenderOptions, spp: int):
     its first slot is read, so each pixel's gradient is counted once, as in
     the JAX package's scatter."""
     h, w = scene.camera.height, scene.camera.width
-    first = _first_slots(h, w, swizzle_tile(opts, scene.num_tris_padded))
-    return (acc.index_select(0, torch.as_tensor(first, device=acc.device))
-            / spp).reshape(h, w, 3)
+    with span("assemble"):
+        first = _first_slots(h, w, swizzle_tile(opts, scene.num_tris_padded))
+        return (acc.index_select(0, torch.as_tensor(first, device=acc.device))
+                / spp).reshape(h, w, 3)
 
 
 def render_image_stats(scene: SceneArrays, bvh, opts: RenderOptions,
@@ -1826,57 +1849,62 @@ def render_image_host_chunked(scene: SceneArrays, bvh, opts: RenderOptions,
     is run again up to ``retries`` times: its samples are keyed by (pixel,
     absolute sample index), so a retry renders the same samples.
     Returns ((H, W, 3) f32 tensor on the render device, rays traced).
+    The frame is one span, ``frame``, its request the seed.
     """
-    scene = scene.to(resolve_device(device))
-    h, w = scene.camera.height, scene.camera.width
-    chunk = min(opts.chunk_size, max(1024, h * w))
-    ids, pixel_fn = _frame_ids(scene, opts)
-    accel = intersector_tables(scene, opts, bvh)
+    with span("frame", {"spp": opts.spp}, request=opts.seed):
+        scene = scene.to(resolve_device(device))
+        h, w = scene.camera.height, scene.camera.width
+        chunk = min(opts.chunk_size, max(1024, h * w))
+        ids, pixel_fn = _frame_ids(scene, opts)
+        accel = intersector_tables(scene, opts, bvh)
 
-    def dispatch(fn, **kw):
-        for attempt in range(retries + 1):
-            try:
-                out = fn(scene, bvh, accel=accel, **kw)
-                if out[0].is_cuda:
-                    torch.cuda.synchronize(out[0].device)  # surface faults here
-                return out
-            except Exception:
-                if attempt == retries:
-                    raise
-        raise AssertionError("unreachable")
+        def dispatch(fn, **kw):
+            for attempt in range(retries + 1):
+                try:
+                    with span("dispatch", {"spp": kw["opts"].spp,
+                                           "attempt": attempt}):
+                        out = fn(scene, bvh, accel=accel, **kw)
+                        with span("sync"):  # surface faults here
+                            if out[0].is_cuda:
+                                torch.cuda.synchronize(out[0].device)
+                    return out
+                except Exception:
+                    if attempt == retries:
+                        raise
+            raise AssertionError("unreachable")
 
-    total_rays = 0
-    steps = spp_steps(opts)
-    if not opts.refill:
-        chunks = _chunked_ids(ids, chunk)
-        scan = _ScanFrame(scene, bvh, opts, chunk, False, accel)
-        outs = []
-        for ci, pix in enumerate(chunks):
-            acc, done = None, 0
-            for k in steps:
-                rad, rays = dispatch(render_pixels, opts=opts.replace(spp=k),
-                                     pixel_ids=pix, sample_offset=done,
-                                     scan=scan)
-                acc = rad * k if acc is None else acc + rad * k
-                total_rays += int(rays)
-                done += k
-            outs.append(acc)
+        total_rays = 0
+        steps = spp_steps(opts)
+        if not opts.refill:
+            chunks = _chunked_ids(ids, chunk)
+            scan = _ScanFrame(scene, bvh, opts, chunk, False, accel)
+            outs = []
+            for ci, pix in enumerate(chunks):
+                acc, done = None, 0
+                for k in steps:
+                    rad, rays = dispatch(render_pixels, opts=opts.replace(spp=k),
+                                         pixel_ids=pix, sample_offset=done,
+                                         scan=scan)
+                    acc = rad * k if acc is None else acc + rad * k
+                    total_rays += int(rays)
+                    done += k
+                outs.append(acc)
+                if progress is not None:
+                    progress(ci + 1, chunks.shape[0])
+            return (_assemble_frame(torch.cat(outs), scene, opts, opts.spp),
+                    float(total_rays))
+
+        acc, done = None, 0
+        for step, k in enumerate(steps):
+            rad, rays = dispatch(render_pixels_refill, opts=opts.replace(spp=k),
+                                 pixel_ids=ids, sample_offset=done, lanes=chunk,
+                                 pixel_fn=pixel_fn)
+            acc = rad * k if acc is None else acc + rad * k
+            total_rays += int(rays)
+            done += k
             if progress is not None:
-                progress(ci + 1, chunks.shape[0])
-        return (_assemble_frame(torch.cat(outs), scene, opts, opts.spp),
-                float(total_rays))
-
-    acc, done = None, 0
-    for step, k in enumerate(steps):
-        rad, rays = dispatch(render_pixels_refill, opts=opts.replace(spp=k),
-                             pixel_ids=ids, sample_offset=done, lanes=chunk,
-                             pixel_fn=pixel_fn)
-        acc = rad * k if acc is None else acc + rad * k
-        total_rays += int(rays)
-        done += k
-        if progress is not None:
-            progress(step + 1, len(steps))
-    return _assemble_frame(acc, scene, opts, opts.spp), float(total_rays)
+                progress(step + 1, len(steps))
+        return _assemble_frame(acc, scene, opts, opts.spp), float(total_rays)
 
 
 def spp_steps(opts: RenderOptions) -> list:

@@ -31,6 +31,7 @@ from ..config import RenderOptions
 from ..film.film import read_png
 from ..utils.device import resolve_device
 from ..utils.logging import get_logger
+from ..utils.timing import span
 from .types import CameraArrays, SceneArrays, SceneMeta, pad_pow2
 
 log = get_logger(__name__)
@@ -299,19 +300,28 @@ def build_scene(
     the card).
 
     ``parsed`` optionally injects pre-parsed host data (used by
-    ``scene.builtin.load_builtin_large``).
+    ``scene.builtin.load_builtin_large``).  The parse, the host-side build
+    and the upload are three spans, ``parse``, ``build`` and ``upload``.
     """
     device = resolve_device(device)
     options = options or RenderOptions()
     base = os.path.join(scene_dir, name)
 
     if parsed is None:
-        materials = parse_mtl(base + ".mtl")
-        mat_index = {m.name: i for i, m in enumerate(materials)}
-        vs, vns, vts, f_v, f_vt, f_vn, f_mat = parse_obj(base + ".obj", mat_index)
-        cam, light_list = parse_camera(base + ".camera")
+        with span("parse") as sp:
+            materials = parse_mtl(base + ".mtl")
+            mat_index = {m.name: i for i, m in enumerate(materials)}
+            vs, vns, vts, f_v, f_vt, f_vn, f_mat = parse_obj(base + ".obj",
+                                                             mat_index)
+            cam, light_list = parse_camera(base + ".camera")
+            sp.note(faces=len(f_mat))
     else:
         materials, mat_index, (vs, vns, vts, f_v, f_vt, f_vn, f_mat), cam, light_list = parsed
+
+    # Closed by hand before the upload: the build is too long to indent
+    # under a ``with``.
+    build = span("build")
+    build.__enter__()
 
     if not materials:
         materials = [MaterialRecord("default")]
@@ -531,38 +541,40 @@ def build_scene(
             "the parked-ray sentinel (origin 1e9, all-parked threshold 5e8) "
             "in kernels/cluster.py")
 
+    padded = {k: pad3(a) for k, a in (
+        ("v0", p0), ("v1", p1), ("v2", p2), ("n0", nn0), ("n1", nn1),
+        ("n2", nn2), ("uv0", t0), ("uv1", t1), ("uv2", t2), ("geom_n", gn))}
+    build.__exit__(None, None, None)
+
     def up(a, dtype=None):
         return torch.as_tensor(np.asarray(a, dtype), device=device)
 
-    camera = CameraArrays(
-        eye=up(cam["eye"], np.float32),
-        look_at=up(cam["lookat"], np.float32),
-        up=up(cam["up"], np.float32),
-        fovy=up(cam["fovy"], np.float32),
-        width=int(cam["width"]),
-        height=int(cam["height"]),
-    )
-
-    scene = SceneArrays(
-        v0=up(pad3(p0)), v1=up(pad3(p1)), v2=up(pad3(p2)),
-        n0=up(pad3(nn0)), n1=up(pad3(nn1)), n2=up(pad3(nn2)),
-        uv0=up(pad3(t0)), uv1=up(pad3(t1)), uv2=up(pad3(t2)),
-        geom_n=up(pad3(gn)),
-        mat_id=up(mat_id),
-        tri_valid=up(tri_valid),
-        kd=up(kd), ks=up(ks), ns=up(ns), ni=up(ni),
-        emission=up(emission),
-        is_emitter=up(is_emitter),
-        has_texture=up(has_tex),
-        tex_offset=up(tex_off), tex_h=up(tex_h), tex_w=up(tex_w),
-        atlas=up(atlas),
-        light_mat=up(light_mat.reshape(-1) if num_lights else np.zeros(0, np.int32)),
-        light_radiance=up(light_rad if num_lights else np.zeros((0, 3), np.float32)),
-        light_face_tri=up(light_face_tri[:num_lights] if num_lights else np.zeros((0, fmax), np.int32)),
-        light_face_cum_area=up(light_face_cum[:num_lights] if num_lights else np.zeros((0, fmax), np.float32)),
-        light_total_area=up(light_total[:num_lights] if num_lights else np.zeros(0, np.float32)),
-        camera=camera,
-    )
+    with span("upload"):
+        camera = CameraArrays(
+            eye=up(cam["eye"], np.float32),
+            look_at=up(cam["lookat"], np.float32),
+            up=up(cam["up"], np.float32),
+            fovy=up(cam["fovy"], np.float32),
+            width=int(cam["width"]),
+            height=int(cam["height"]),
+        )
+        scene = SceneArrays(
+            **{k: up(a) for k, a in padded.items()},
+            mat_id=up(mat_id),
+            tri_valid=up(tri_valid),
+            kd=up(kd), ks=up(ks), ns=up(ns), ni=up(ni),
+            emission=up(emission),
+            is_emitter=up(is_emitter),
+            has_texture=up(has_tex),
+            tex_offset=up(tex_off), tex_h=up(tex_h), tex_w=up(tex_w),
+            atlas=up(atlas),
+            light_mat=up(light_mat.reshape(-1) if num_lights else np.zeros(0, np.int32)),
+            light_radiance=up(light_rad if num_lights else np.zeros((0, 3), np.float32)),
+            light_face_tri=up(light_face_tri[:num_lights] if num_lights else np.zeros((0, fmax), np.int32)),
+            light_face_cum_area=up(light_face_cum[:num_lights] if num_lights else np.zeros((0, fmax), np.float32)),
+            light_total_area=up(light_total[:num_lights] if num_lights else np.zeros(0, np.float32)),
+            camera=camera,
+        )
     meta = SceneMeta(
         name=name,
         material_names=[m.name for m in materials],

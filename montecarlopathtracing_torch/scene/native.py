@@ -20,6 +20,8 @@ from typing import Optional
 
 import numpy as np
 
+from ..utils.timing import span
+
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -121,10 +123,12 @@ def build_scene_native(scene_dir: str, name: str, options, device=None):
     from .loader import build_scene, parse_camera, parse_mtl
 
     base = os.path.join(scene_dir, name)
-    materials = parse_mtl(base + ".mtl")
-    mat_index = {m.name: i for i, m in enumerate(materials)}
-    obj = parse_obj_native(base + ".obj", mat_index)
-    cam, light_list = parse_camera(base + ".camera")
+    with span("parse") as sp:
+        materials = parse_mtl(base + ".mtl")
+        mat_index = {m.name: i for i, m in enumerate(materials)}
+        obj = parse_obj_native(base + ".obj", mat_index)
+        cam, light_list = parse_camera(base + ".camera")
+        sp.note(faces=len(obj[-1]))
     return build_scene(scene_dir, name, options,
                        parsed=(materials, mat_index, obj, cam, light_list),
                        device=device)

@@ -1061,11 +1061,13 @@ class CaptureCall:
 
 # The forward frames' graph records (frame -> record), printed as the
 # "graphs" line; the full-size frames (MAIN_GRAPH_FRAMES) must replay graphs
-# more than once per dispatch.
+# more than once per dispatch, and each builds one lane pool unless
+# hold_graphs is told otherwise.
 GRAPH_FRAMES = {}
 MAIN_GRAPH_FRAMES = ("box", "large", "large400_chunked", "large400_hbm",
                      "box_bvh", "box_bvh_perray", "large_bvh",
-                     "large_bvh_perray", "large400_fallback")
+                     "large_bvh_perray", "large400_fallback", "box_pool",
+                     "box_kept", "large_pool", "large_kept")
 BLOCK = 8  # render_pixels_refill's check_every: iterations a graph replays
 
 
@@ -1093,13 +1095,17 @@ def counted(fn, eager: bool = False):
             W.loop_stats())
 
 
-def hold_graphs(label: str, captured, eager):
+def hold_graphs(label: str, captured, eager, pools=None):
     """A frame rendered with its blocks replayed as CUDA graphs
     (``captured``) against the same frame under wavefront.eager(), each a
     counted() result: the image bit for bit, the same rays and the same
-    launch counts; every dispatch of more than one block captured a graph
-    and replayed every block after its first.  Records the frame for the
-    graphs line."""
+    launch counts; every block replayed a graph but the first block of each
+    new lane pool (a dispatch on a kept pool runs none op by op, and one
+    that captured nothing counts in ``pool_reuses``).  ``pools``, where
+    given (1 for a full-size frame by default), is the number of lane pools
+    the frame builds: each captures a graph; a frame that builds none
+    captures nothing and counts every dispatch in ``pool_reuses``.  Records
+    the frame for the graphs line."""
     img, rays, secs, launches, st = captured
     img_e, rays_e, secs_e, launches_e, st_e = eager
     equal = bool(torch.equal(img, img_e))
@@ -1111,18 +1117,52 @@ def hold_graphs(label: str, captured, eager):
     d, blocks = st["dispatches"], st["iterations"] // BLOCK
     check(d > 0 and st["iterations"] == st_e["iterations"]
           and st["idle_iterations"] == st_e["idle_iterations"]
-          and st["eager_blocks"] == d and st["replays"] == blocks - d
-          and st["graphs"] >= min(1, blocks - d) and st_e["graphs"] == 0,
+          and st["eager_blocks"] + st["replays"] == blocks
+          and st["eager_blocks"] + st["pool_reuses"] <= d
+          and st_e["graphs"] == st_e["pool_reuses"] == 0,
           f"{label}: loop stats {st} captured, {st_e} eager")
     if label in MAIN_GRAPH_FRAMES:
-        check(st["graphs"] >= d and st["replays"] > d,
-              f"{label}: fewer graphs or replays than the dispatches need: {st}")
+        check(st["replays"] > d,
+              f"{label}: fewer replays than the dispatches need: {st}")
+        pools = 1 if pools is None else pools
+    if pools is not None:
+        check(st["eager_blocks"] == pools
+              and (st["graphs"] >= pools if pools else
+                   st["graphs"] == 0 and st["pool_reuses"] == d),
+              f"{label}: {pools} new lane pools expected, loop stats {st}")
     GRAPH_FRAMES[label] = {
         "seconds_captured": secs, "seconds_eager": secs_e,
         "eager_over_captured": secs_e / secs, "dispatches": d,
         "graphs": st["graphs"], "replays": st["replays"],
+        "pool_reuses": st["pool_reuses"],
         "capture_ms": st["capture_s"] * 1e3, "iterations": st["iterations"],
         "idle_iterations": st["idle_iterations"], "bit_equal": equal}
+
+
+def kept_frames(label: str, scene, opts, dev):
+    """Two frames of ``opts`` (spp in dispatches of ``spp_chunk``) on one
+    scene, of seeds 1 and 2, each held bit for bit to the same frame under
+    wavefront.eager() (hold_graphs): the first builds a lane pool, whose
+    later dispatches replay the graphs its first dispatch captured; the
+    second runs on the kept pool alone, with a new seed word and sample
+    offsets written into the buffers its graphs read."""
+    from montecarlopathtracing_torch.integrator.wavefront import (
+        render_image_host_chunked)
+
+    def frame(seed: int):
+        return lambda: render_image_host_chunked(
+            scene, None, opts.replace(seed=seed), device=dev)
+
+    first = counted(frame(1))
+    hold_graphs(f"{label}_pool", first, counted(frame(1), eager=True), pools=1)
+    second = counted(frame(2))
+    hold_graphs(f"{label}_kept", second, counted(frame(2), eager=True), pools=0)
+    st = first[4]
+    check(st["dispatches"] > 1 and st["pool_reuses"] == st["dispatches"] - 1,
+          f"{label}_pool: a later dispatch did not replay the first's graphs "
+          f"alone: {st}")
+    check(not torch.equal(first[0], second[0]),
+          f"{label}: the frames of seeds 1 and 2 are equal")
 
 
 def phase_box(dev, state):
@@ -1154,6 +1194,11 @@ def phase_box(dev, state):
         check(img.shape == (1024, 1024, 3), "box: image shape")
         png = read_png(path)
         check(png.shape == (1024, 1024, 3) and png.max() > 0, "box: PNG")
+        # The benchmark's box frames' dispatch shape (spp 5: five flush
+        # phases) on a scene loaded once.
+        scene, _ = api.load_scene(d, "box", device=dev)
+        kept_frames("box", scene, RenderOptions(spp=10, spp_chunk=5), dev)
+        del scene
     state["launches_box"] = launches
     emit({"phase": "box", "width": 1024, "height": 1024, "spp": 16,
           "lanes": 65536, "seconds": phase2_s, "load_seconds": phase1_s,
@@ -1181,6 +1226,8 @@ def phase_large(dev, state):
             eager=True))
     state["calls_large"] = cap.calls
     check_launched(launches, PATH_KERNELS["single"], "large")
+    # The benchmark's interior frames' dispatch shape (spp 10 in two of 5).
+    kept_frames("large", scene, RenderOptions(spp=10, spp_chunk=5), dev)
     # Candidate clusters per subtile on this frame's tiles and a bounce
     # wavefront (the key kernel on the card), as bench.py's stats stage
     # reports them.

@@ -65,14 +65,25 @@ def n_bounce_slots(num_lights: int) -> int:
     return N_BASE_SLOTS + 4 * num_lights
 
 
+def seed_word(seed: int) -> int:
+    """The word every lane key of ``seed`` starts from: lane_keys' first
+    step, apart so that a caller can hold it in a device buffer."""
+    return _mix((_u32(seed) + _GOLD) & _MASK)
+
+
 def lane_keys(seed: int, pixel_ids, sample_idx):
     """One 64-bit stream key per lane as two words, (R, 2) int64.  pixel_ids
     (R,) integer; sample_idx an int or (R,) integer tensor."""
+    return word_lane_keys(seed_word(seed), pixel_ids, sample_idx)
+
+
+def word_lane_keys(k, pixel_ids, sample_idx):
+    """lane_keys from the seed's word ``k`` (seed_word: an int, or a 0-d
+    int64 tensor holding it), the same keys bit for bit."""
     pix = _u32(pixel_ids)
     samp = _u32(sample_idx)
     if isinstance(samp, torch.Tensor):
         samp = samp.to(pix.device)
-    k = _mix((_u32(seed) + _GOLD) & _MASK)
     k1 = _mix((_mix(k ^ pix) + _mulc((samp + 1) & _MASK, _GOLD2)) & _MASK)
     k2 = _mix(_mix((k + _mulc((pix + 1) & _MASK, _GOLD2)) & _MASK)
               ^ ((_mulc(samp, _GOLD) + 0x6A09E667) & _MASK))

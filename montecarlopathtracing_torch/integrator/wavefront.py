@@ -45,6 +45,7 @@ cap; their tables are the scene's LBVH, passed as ``bvh`` or built here.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -722,7 +723,7 @@ _COUNTED = (*_CLUSTER_WRAPPERS.values(), *_WALK_WRAPPERS.values())
 _eager = False
 _loop_stats = dict.fromkeys(("dispatches", "iterations", "idle_iterations",
                              "eager_blocks", "graphs", "replays", "capture_s",
-                             "query_rows", "rays"), 0)
+                             "query_rows", "rays", "pool_reuses"), 0)
 _grad_stats = dict.fromkeys(
     ("dispatches", "blocks")
     + tuple(f"{p}_{k}" for p in ("fwd", "bwd")
@@ -755,9 +756,11 @@ def loop_stats() -> dict:
     graphs captured, graph replays, ``capture_s``, the seconds spent
     capturing and instantiating the graphs, ``query_rows``, the rows of the
     iterations' combined intersect calls (lanes x (1 + lights) each, a dead
-    lane's rows parked), and ``rays``, the rays those rows carried (the
+    lane's rows parked), ``rays``, the rays those rows carried (the
     dispatches' ray counts): rays over query_rows is the share of rows
-    that did work."""
+    that did work; and ``pool_reuses``, the dispatches that ran no block op
+    by op and captured no graph, every block a replay of a graph that an
+    earlier dispatch on the same kept pool had captured."""
     return dict(_loop_stats)
 
 
@@ -794,8 +797,30 @@ def _captures(dev) -> bool:
     return dev.type == "cuda" and not _eager
 
 
+# Graph captures in progress, and the kept entries (_SceneCache) whose scene
+# died meanwhile: they are freed when the capture ends.
+_capturing = 0
+_doomed = []
+
+
+@contextlib.contextmanager
+def _capture_guard():
+    """Around a graph capture: a kept entry whose scene dies inside (the
+    garbage collector may run there) is freed when the block ends, since
+    destroying a graph inside a capture breaks the capture."""
+    global _capturing
+    _capturing += 1
+    try:
+        yield
+    finally:
+        _capturing -= 1
+        if not _capturing:
+            _doomed.clear()
+
+
 class _CudaGraphs:
-    """The CUDA graphs of one dispatch (or of one backward pass): captured
+    """The CUDA graphs of one lane pool (kept with it from one dispatch to
+    the next), of one backward pass or of one scan frame: captured
     on one side stream into one memory pool.  Every capture frees all it
     allocates before it ends (the block's results are copied into buffers
     made outside the graphs), so the graphs may share the pool in any order
@@ -822,7 +847,7 @@ class _CudaGraphs:
         backward kernels included (they run on the stream of their forward
         op)."""
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(self.dev), torch.cuda.graph(
+        with _capture_guard(), torch.cuda.device(self.dev), torch.cuda.graph(
                 graph, pool=self.pool, stream=self.stream,
                 capture_error_mode="thread_local"):
             fn()
@@ -1361,99 +1386,139 @@ class _ScanCall:
         f.run(("vjp", 0))
 
 
-def render_pixels_refill(
-    scene: SceneArrays,
-    bvh,
-    opts: RenderOptions,
-    pixel_ids,
-    sample_offset: int = 0,
-    lanes: int | None = None,
-    differentiable: bool = False,
-    pixel_fn=None,
-    check_every: int = 8,
-    accel=None,
-):
-    """Persistent-wavefront renderer with pixel-pinned lane refill.
+class _SceneCache:
+    """Values built from a scene and kept from one call to the next, under a
+    key, while the scene's tensors live.
 
-    A pool of ``lanes`` lanes drains a queue of pixel slots (``pixel_ids``);
-    a lane runs all ``spp`` samples of its pixel back to back, summing their
-    radiance in its own register, and stages the sum in its pend registers
-    when the pixel completes.  The staged sums are added to a channel-major
-    film every ``n_pend * spp`` iterations.  In compat mode the first
-    sample's primary hit is cached and reused by the pixel's later samples
-    (quirk #1: identical primaries), whose rays are parked.
+    An entry holds the scene only through an alias (each tensor
+    ``detach()``-ed: the same storage, other tensor objects) and the
+    caller's tensors by weak reference, so it keeps none of them alive: when
+    the caller drops a tensor of the scene the entry goes, freed at once by
+    reference counting (inside a graph capture, where freeing a graph would
+    break the capture, right after it).  An entry is keyed by the tensors'
+    identity, and holds their version counters and the identity of the
+    objects it was built on (``held``): where a tensor was changed in place
+    since, or another object is given, the entry is replaced, not joined by
+    a second one.  At most ``size`` entries are kept, the least recently
+    used dropped first."""
 
-    Each iteration shades the lanes' arrivals, builds the NEE shadow rays
-    and the next segments, sorts the wavefront by (hit cluster, direction
-    bin) when sorting is on, and makes one combined intersect call over
-    [next arrivals; every light's shadow rays].
+    def __init__(self, size: int):
+        self.size, self.entries = size, collections.OrderedDict()
 
-    Estimator and per-path RNG streams are those of the JAX package; every
-    pixel is pinned to one lane, so the film does not depend on lane order.
+    def get(self, scene, key, build, held=()):
+        """(value, whether it was kept from an earlier call): the entry of
+        ``key`` and ``scene``'s tensors, built on the objects ``held`` (the
+        value holds them), or a new one, ``build(alias)``."""
+        cam = scene.camera
+        tensors = ([getattr(scene, f) for f in SCENE_FIELDS]
+                   + [cam.eye, cam.look_at, cam.up, cam.fovy])
+        key = (key, cam.width, cam.height, tuple(id(t) for t in tensors))
+        stamp = (tuple(t._version for t in tensors), tuple(id(o) for o in held))
+        entry = self.entries.get(key)
+        if entry is not None and entry[2] == stamp:
+            self.entries.move_to_end(key)
+            return entry[0], True
+        # A stale entry goes before its replacement is built.
+        del entry
+        self._drop(key, None)
+        alias = SceneArrays(
+            **{f: getattr(scene, f).detach() for f in SCENE_FIELDS},
+            camera=dataclasses.replace(
+                cam, eye=cam.eye.detach(), look_at=cam.look_at.detach(),
+                up=cam.up.detach(), fovy=cam.fovy.detach()))
+        value = build(alias)
+        drop = functools.partial(self._drop, key)
+        self.entries[key] = (value, [weakref.ref(t, drop) for t in tensors],
+                             stamp)
+        while len(self.entries) > self.size:
+            self.entries.popitem(last=False)
+        return value, False
 
-    The forward loop runs in blocks of ``check_every`` iterations, under
-    ``torch.no_grad()``, and reads the drain predicate back between blocks.
-    On a CUDA device every block after the first replays a CUDA graph
-    (``_Blocks``; ``eager()`` turns that off), bit for bit the block run op
-    by op.
+    def _drop(self, key, _ref) -> None:
+        entry = self.entries.pop(key, None)
+        if entry is not None and _capturing:
+            _doomed.append(entry)
 
-    ``differentiable=True`` runs a static budget of iterations,
-    ceil(n_pix * spp * e_seg / lanes) + max_depth + spp + 4 with e_seg =
-    ``opts.bwd_seg_per_sample`` or 1.2 / (1 - rr_probability), in blocks of
-    spp iterations (one pend slot per lane; a lane completes at most one
-    pixel per spp iterations); each block ends by adding its pend registers
-    into the film and resetting them.  The loop stops early at a block
-    boundary once the pool has drained (later iterations change nothing).
-    If the budget ends with samples in flight, the ray count is negated:
-    those samples are missing from the film.  When a scene tensor needs a
-    gradient the blocks are one autograd node (_CheckpointedBlocks) that
-    keeps each block's entry state and residuals and recomputes the block
-    for backward; on a CUDA device both passes replay CUDA graphs
-    (``eager()`` turns that off), bit for bit the blocks run op by op.
+    def clear(self) -> None:
+        self.entries.clear()
 
-    Returns (mean radiance (n_pix, 3) aligned with pixel_ids, rays traced as
-    an int64 scalar tensor).
-    """
-    dev = scene.device
-    n_pix = pixel_ids.shape[0]
-    r = min(lanes or n_pix, n_pix)
-    # Closed by hand where the first block starts: the set-up below is too
-    # long to indent under a ``with``.
-    setup = span("pool_setup", {"lanes": r})
-    setup.__enter__()
-    spp = opts.spp
-    n_slots = rng.n_bounce_slots(scene.num_lights)
-    do_sort = _should_sort(opts, scene.num_tris_padded) and r > opts.cluster_rays
-    compat = opts.compat
-    num_lights = scene.num_lights
-    reuse_primary = compat.no_pixel_jitter
-    lane_iota = torch.arange(r, dtype=_I32, device=dev)
-    # Out-of-range dummies: the film has r * n_pend spare columns past
-    # n_pix where non-pending lanes' flushes land; they are sliced off.
-    dummy_slot = n_pix + lane_iota
-    n_pend = 1 if differentiable else max(1, min(2, -(-16 // spp)))
-    pend_iota = torch.arange(n_pend, dtype=_I32, device=dev)
-    dummy_pend = n_pix + lane_iota[:, None] * n_pend + pend_iota[None, :]
-    tables = _shading_tables(scene)
-    if accel is None:
-        accel = intersector_tables(scene, opts, bvh)
 
-    track = differentiable and _tracks_grad(scene)
+# The forward lane pools kept between dispatches, and each frame's pixel ids
+# and intersector tables (render_image_host_chunked), on a CUDA device
+# outside eager().
+_POOLS = _SceneCache(4)
+_FRAME_TABLES = _SceneCache(4)
 
-    def isect(o, d):
-        return intersect_any(scene, bvh, o, d, opts, accel=accel)
 
-    def primary_for(pix, keys):
-        jitter = None if compat.no_pixel_jitter else rng.primary_uniforms(keys)
-        return primary_rays(scene.camera, pix, jitter)
+class _LanePool:
+    """The lane pool of render_pixels_refill: ``r`` lanes over ``n_pix``
+    pixel slots of ``scene`` under ``opts``, its constants, its shading and
+    intersector tables, and its iteration (``step``).
 
-    def step(s, it: int, env, replay):
+    Each dispatch gives the pool its inputs (``for_dispatch``): the pixel
+    ids (which the step reads when there is no ``pixel_fn``), the seed's
+    word and the sample offset.  A forward pool also holds what its blocks
+    read and write by address, made at its first dispatch: the state
+    buffers ``s`` (``live`` among them), the film, and its _Blocks; it
+    takes the inputs into buffers of its own (the word and the offset as
+    0-d device buffers, so no graph holds a number that changes between
+    dispatches), outside any capture, and runs the blocks (``run``).  On a
+    CUDA device, outside ``eager()``, render_pixels_refill keeps the pool
+    for the next dispatch of the same shape (_POOLS), whose blocks replay
+    the graphs this one captured.  A differentiable call's pool serves that
+    call alone, and holds the inputs as they are.
+
+    The block function reaches the pool through a weak proxy: a reference
+    cycle would leave the pool and its graphs to the garbage collector,
+    which may run inside another loop's capture, where destroying a graph
+    breaks that capture."""
+
+    def __init__(self, scene, bvh, opts: RenderOptions, r: int, n_pix: int,
+                 differentiable: bool, pixel_fn=None, accel=None,
+                 check_every: int = 8):
+        dev = scene.device
+        self.scene, self.bvh, self.opts, self.r, self.n_pix, self.dev = (
+            scene, bvh, opts, r, n_pix, dev)
+        self.pixel_fn, self.check_every = pixel_fn, check_every
+        self.spp = opts.spp
+        self.n_slots = rng.n_bounce_slots(scene.num_lights)
+        self.do_sort = (_should_sort(opts, scene.num_tris_padded)
+                        and r > opts.cluster_rays)
+        self.num_lights = scene.num_lights
+        self.differentiable = differentiable
+        self.lane_iota = torch.arange(r, dtype=_I32, device=dev)
+        # Out-of-range dummies: the film has r * n_pend spare columns past
+        # n_pix where non-pending lanes' flushes land; they are sliced off.
+        self.dummy_slot = n_pix + self.lane_iota
+        self.n_pend = 1 if differentiable else max(1, min(2, -(-16 // opts.spp)))
+        self.pend_iota = torch.arange(self.n_pend, dtype=_I32, device=dev)
+        self.dummy_pend = (n_pix + self.lane_iota[:, None] * self.n_pend
+                           + self.pend_iota[None, :])
+        self.tables = _shading_tables(scene)
+        self.accel = intersector_tables(scene, opts, bvh) if accel is None else accel
+        self.track = differentiable and _tracks_grad(scene)
+        self.pixel_ids = self.word = self.offset = None
+        self.s = self.film = self.blocks = None
+
+    def isect(self, o, d):
+        return intersect_any(self.scene, self.bvh, o, d, self.opts,
+                             accel=self.accel)
+
+    def primary_for(self, pix, keys):
+        jitter = (None if self.opts.compat.no_pixel_jitter
+                  else rng.primary_uniforms(keys))
+        return primary_rays(self.scene.camera, pix, jitter)
+
+    def step(self, s, it: int, env, replay):
         """Iteration ``it`` on the state dict ``s`` (its entries replaced,
         no tensor changed in place): shade arrivals, stage completed
         pixels, intersect.  ``env`` is the (scene, shading tables) to shade
         with (a backward recompute passes its leaves); ``replay`` (a
         _Residuals) computes, records or replays the intersect results and
         sort orders."""
+        opts, r, n_pix, spp = self.opts, self.r, self.n_pix, self.spp
+        n_slots, do_sort, num_lights = self.n_slots, self.do_sort, self.num_lights
+        n_pend = self.n_pend
         scene, tables = env
         active, kind, depth, keys = s["active"], s["kind"], s["depth"], s["keys"]
         origin, direction, beta, rad = (s["origin"], s["direction"], s["beta"],
@@ -1515,17 +1580,17 @@ def render_pixels_refill(
         rank = torch.cumsum(pixel_done.to(_I32), dim=0, dtype=_I32) - 1
         new_slot = q + rank
         take = pixel_done & (new_slot < n_pix)
-        slot_done = torch.where(pixel_done, slot, dummy_slot)
+        slot_done = torch.where(pixel_done, slot, self.dummy_slot)
         safe_slot = torch.clamp(new_slot, max=n_pix - 1)
-        pix_new = (pixel_fn(safe_slot) if pixel_fn is not None
-                   else pixel_ids[safe_slot.long()])
+        pix_new = (self.pixel_fn(safe_slot) if self.pixel_fn is not None
+                   else self.pixel_ids[safe_slot.long()])
         restart = next_samp | take
         pix2 = torch.where(take, pix_new, pix)
-        samp2 = torch.where(take, sample_offset,
+        samp2 = torch.where(take, self.offset,
                             torch.where(next_samp, samp + 1, samp))
-        keys2 = rng.lane_keys(opts.seed, pix2, samp2)
-        o_prim, d_prim = primary_for(pix2, keys2)
-        reuse = (next_samp & prim_ok if reuse_primary
+        keys2 = rng.word_lane_keys(self.word, pix2, samp2)
+        o_prim, d_prim = self.primary_for(pix2, keys2)
+        reuse = (next_samp & prim_ok if opts.compat.no_pixel_jitter
                  else torch.zeros_like(next_samp))
 
         active = (active & ~sample_done) | restart
@@ -1555,7 +1620,8 @@ def render_pixels_refill(
             sort_key = torch.where(
                 active & was_fresh, bucket * 64 + _direction_bin(direction),
                 torch.where(active, 1 << 27, 2 ** 30))
-            perm, inv = replay(("perm", it), lambda: _sort_perm(sort_key, track))
+            perm, inv = replay(("perm", it),
+                               lambda: _sort_perm(sort_key, self.track))
             ints = (slot, pix, samp, samp_left, keys, depth, kind, active,
                     was_fresh, prim_ok, prim_hit, prim_tri, pend_slot,
                     pend_count, shade, take, pixel_done, slot_done)
@@ -1596,7 +1662,7 @@ def render_pixels_refill(
         ray_o = torch.where((active & was_fresh)[:, None], origin, 1e9)
         all_o = torch.cat([ray_o] + [so_s[i] for i in range(num_lights)])
         all_d = torch.cat([direction] + [dirn_s[i] for i in range(num_lights)])
-        hit_q, t_q, tri_q = replay(("isect", it), lambda: isect(all_o, all_d))
+        hit_q, t_q, tri_q = replay(("isect", it), lambda: self.isect(all_o, all_d))
         hit2, t2, tri2 = hit_q[:r], t_q[:r], tri_q[:r]
         hs = hit_q[r:].reshape(num_lights, r)
         ts = t_q[r:].reshape(num_lights, r)
@@ -1610,7 +1676,7 @@ def render_pixels_refill(
         # lane completes at most one pixel per spp iterations, so n_pend
         # slots are flushed (every n_pend * spp iterations) before reuse.
         pc = torch.clamp(pend_count, max=n_pend - 1)
-        stage = (pend_iota[None, :] == pc[:, None]) & pixel_done[:, None]
+        stage = (self.pend_iota[None, :] == pc[:, None]) & pixel_done[:, None]
         pend_slot = torch.where(stage, slot_done[:, None], pend_slot)
         pend_r = torch.where(stage, rad[:, 0:1], pend_r)
         pend_g = torch.where(stage, rad[:, 1:2], pend_g)
@@ -1632,130 +1698,274 @@ def render_pixels_refill(
             origin=origin, direction=direction, beta=beta, rad=rad,
             pend_r=pend_r, pend_g=pend_g, pend_b=pend_b)
 
-    # Bootstrap: the loop carries each lane's arrival, so the first batch of
-    # primaries is intersected once up front.
-    pix0 = pixel_ids[:r]
-    keys0 = rng.lane_keys(opts.seed, pix0, sample_offset)
-    o0, d0 = primary_for(pix0, keys0)
-    hit0, t0, tri0 = isect(o0, d0)
-    i32 = dict(dtype=_I32, device=dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    s = dict(
-        q=torch.tensor(r, **i32),
-        n_rays=torch.zeros((), dtype=torch.int64, device=dev),
-        active=torch.ones((r,), dtype=torch.bool, device=dev),
-        slot=lane_iota.clone(),
-        pix=pix0,
-        samp=torch.full((r,), sample_offset, **i32),
-        samp_left=torch.full((r,), spp - 1, **i32),
-        keys=keys0,
-        depth=torch.zeros((r,), **i32),
-        kind=torch.full((r,), KIND_PRIMARY, **i32),
-        was_fresh=torch.ones((r,), dtype=torch.bool, device=dev),
-        hit_a=hit0, t_a=t0, tri_a=tri0,
-        prim_ok=torch.zeros((r,), dtype=torch.bool, device=dev),
-        prim_hit=torch.zeros((r,), dtype=torch.bool, device=dev),
-        prim_t=torch.zeros((r,), **f32),
-        prim_tri=torch.zeros((r,), **i32),
-        pend_slot=dummy_pend.clone(),
-        pend_count=torch.zeros((r,), **i32),
-        origin=o0.contiguous(), direction=d0,
-        beta=torch.ones((r, 3), **f32),
-        rad=torch.zeros((r, 3), **f32),
-        pend_r=torch.zeros((r, n_pend), **f32),
-        pend_g=torch.zeros((r, n_pend), **f32),
-        pend_b=torch.zeros((r, n_pend), **f32),
-    )
+    def bootstrap(self, pixel_ids, seed: int, sample_offset: int) -> dict:
+        """The state the loop starts from.  The loop carries each lane's
+        arrival, so the first batch of primaries is intersected once up
+        front."""
+        r, dev = self.r, self.dev
+        pix0 = pixel_ids[:r]
+        keys0 = rng.lane_keys(seed, pix0, sample_offset)
+        o0, d0 = self.primary_for(pix0, keys0)
+        hit0, t0, tri0 = self.isect(o0, d0)
+        i32 = dict(dtype=_I32, device=dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        n_pend = self.n_pend
+        return dict(
+            q=torch.tensor(r, **i32),
+            n_rays=torch.zeros((), dtype=torch.int64, device=dev),
+            active=torch.ones((r,), dtype=torch.bool, device=dev),
+            slot=self.lane_iota.clone(),
+            pix=pix0,
+            samp=torch.full((r,), sample_offset, **i32),
+            samp_left=torch.full((r,), self.spp - 1, **i32),
+            keys=keys0,
+            depth=torch.zeros((r,), **i32),
+            kind=torch.full((r,), KIND_PRIMARY, **i32),
+            was_fresh=torch.ones((r,), dtype=torch.bool, device=dev),
+            hit_a=hit0, t_a=t0, tri_a=tri0,
+            prim_ok=torch.zeros((r,), dtype=torch.bool, device=dev),
+            prim_hit=torch.zeros((r,), dtype=torch.bool, device=dev),
+            prim_t=torch.zeros((r,), **f32),
+            prim_tri=torch.zeros((r,), **i32),
+            pend_slot=self.dummy_pend.clone(),
+            pend_count=torch.zeros((r,), **i32),
+            origin=o0.contiguous(), direction=d0,
+            beta=torch.ones((r, 3), **f32),
+            rad=torch.zeros((r, 3), **f32),
+            pend_r=torch.zeros((r, n_pend), **f32),
+            pend_g=torch.zeros((r, n_pend), **f32),
+            pend_b=torch.zeros((r, n_pend), **f32),
+        )
 
-    # Channel-major film with r * n_pend spare columns for the dummies.
-    film = torch.zeros((3, n_pix + r * n_pend), **f32)
-
-    def drained(st) -> bool:
+    def drained(self, st) -> bool:
         with span("drain_read"):
-            return not bool(((st["q"] < n_pix) | st["active"].any()).item())
+            return not bool(((st["q"] < self.n_pix) | st["active"].any()).item())
 
-    env = (scene, tables)
-    if differentiable:
-        e_seg = (opts.bwd_seg_per_sample if opts.bwd_seg_per_sample is not None
-                 else 1.2 / (1.0 - opts.rr_probability))
-        n_iter = int(np.ceil(n_pix * spp * e_seg / r)) + opts.max_depth + spp + 4
-        k_steps = n_pend * spp
-        zero_count = torch.zeros((r,), **i32)
-        zero_pend = torch.zeros((r, n_pend), **f32)
+    def for_dispatch(self, pixel_ids, seed: int, sample_offset: int) -> dict:
+        """Takes a dispatch's inputs, the pixel ids, the seed ``seed``'s
+        word and the sample offset, and returns the state the loop starts
+        from (bootstrapped): a differentiable pool's a copy, a forward
+        pool's its buffers ``s``, filled with the film and ``live`` zeroed.
+        A forward pool makes its buffers at its first dispatch and writes
+        every later one into the same tensors, whose addresses the graphs
+        hold."""
+        word = rng.seed_word(seed)
+        if self.differentiable:
+            self.pixel_ids, self.word, self.offset = pixel_ids, word, sample_offset
+            return {k: v.detach().clone() for k, v
+                    in self.bootstrap(pixel_ids, seed, sample_offset).items()}
+        with torch.no_grad():
+            boot = self.bootstrap(pixel_ids, seed, sample_offset)
+            if self.s is None:
+                # Fixed storage: each block starts from these buffers and
+                # copies its results back into them (the film is added to
+                # in place), so a captured block replays on the same
+                # addresses.  ``live`` counts the iterations that started
+                # before the pool drained.  The film is channel-major, with
+                # r * n_pend spare columns for the dummies.
+                i64 = dict(dtype=torch.int64, device=self.dev)
+                self.s = {k: torch.empty_like(v) for k, v in boot.items()}
+                self.s["live"] = torch.zeros((), **i64)
+                self.film = torch.empty((3, self.n_pix + self.r * self.n_pend),
+                                        dtype=torch.float32, device=self.dev)
+                self.word = torch.zeros((), **i64)
+                self.offset = torch.zeros((), **i64)
+                if self.pixel_fn is None:
+                    self.pixel_ids = torch.empty_like(pixel_ids)
+                self.blocks = _Blocks(self._block_fn(), self.dev,
+                                      max(1, self.n_pend * self.spp))
+            for k, v in boot.items():
+                self.s[k].copy_(v)
+            self.s["live"].zero_()
+            self.film.zero_()
+            if self.pixel_ids is not None:
+                self.pixel_ids.copy_(pixel_ids)
+            self.word.fill_(word)
+            self.offset.fill_(sample_offset)
+        return self.s
 
-        def block(st, env, res):
-            for k in range(k_steps):
-                step(st, k, env, res)
-            slots = st["pend_slot"].reshape(-1).long()
-            vals = torch.stack([st[c].reshape(-1)
-                                for c in ("pend_r", "pend_g", "pend_b")])
-            st.update(pend_slot=dummy_pend, pend_count=zero_count,
-                      pend_r=zero_pend, pend_g=zero_pend, pend_b=zero_pend)
-            return slots, vals
-
-        # Real slots are unique over the frame, so each film entry receives
-        # one add; dummies repeat across blocks and land in the spare columns.
-        s = {k: v.detach().clone() for k, v in s.items()}
-        inputs = _grad_inputs(scene, tables)
-        scan = _BlockScan(
-            block, s, film, -(-n_iter // k_steps), drained,
-            lambda xs: _grad_env(scene, xs), inputs,
-            _Residuals(k_steps, r * (1 + num_lights), r if do_sort else 0, dev)
-            if track else _Residuals(), dev)
-        setup.__exit__(None, None, None)
-        film = (_CheckpointedBlocks.apply(scan, *inputs) if track
-                else scan.forward(record=False))
-        _grad_stats["dispatches"] += 1
-        # A copy: backward loads each block's entry state into these buffers.
-        n_rays = s["n_rays"].clone() if drained(s) else -s["n_rays"]
-        return film[:, :n_pix].T / spp, n_rays
-
-    def flush(st):
+    def _add_pend(self, st) -> None:
         # Real slots are unique (each pixel completes once per dispatch), so
         # every film entry receives one add and the order is immaterial.
         idx = st["pend_slot"].reshape(-1).long()
         vals = torch.stack([st["pend_r"].reshape(-1), st["pend_g"].reshape(-1),
                             st["pend_b"].reshape(-1)])
-        film.index_add_(1, idx, vals)
-        st["pend_slot"] = dummy_pend
-        st["pend_count"] = torch.zeros((r,), **i32)
+        self.film.index_add_(1, idx, vals)
 
-    flush_every = max(1, n_pend * spp)
-    res = _Residuals()
-    with torch.no_grad():
-        # Fixed storage: each block starts from these buffers and copies its
-        # results back into them (the film is added to in place), so a
-        # captured block replays on the same addresses.  ``live`` counts the
-        # iterations that started before the pool drained.
-        s = {k: v.clone() for k, v in s.items()}
-        s["live"] = torch.zeros((), dtype=torch.int64, device=dev)
+    def _block_fn(self):
+        f = weakref.proxy(self)
+        n_pix, check_every = self.n_pix, self.check_every
+        flush_every = max(1, self.n_pend * self.spp)
+        i32 = dict(dtype=_I32, device=self.dev)
+        env, res = (self.scene, self.tables), _Residuals()
 
         def block(i0: int):
-            st = dict(s)
+            st = dict(f.s)
             for i in range(i0, i0 + check_every):
                 st["live"] = st["live"] + ((st["q"] < n_pix) | st["active"].any())
-                step(st, i, env, res)
+                f.step(st, i, env, res)
                 if (i + 1) % flush_every == 0:
-                    flush(st)
-            for k, v in s.items():
+                    f._add_pend(st)
+                    st["pend_slot"] = f.dummy_pend
+                    st["pend_count"] = torch.zeros((f.r,), **i32)
+            for k, v in f.s.items():
                 v.copy_(st[k])
 
-        blocks = _Blocks(block, dev, flush_every)
-        setup.__exit__(None, None, None)
-        i = 0
-        while not drained(s):
-            blocks.run(i)
-            i += check_every
-        with span("release"):
-            del blocks  # the graphs and their pool go with the dispatch
-            flush(s)  # pendings staged since the last cadence boundary
-            live, rays = torch.stack((s["live"], s["n_rays"])).tolist()
-    _loop_stats["dispatches"] += 1
-    _loop_stats["iterations"] += i
-    _loop_stats["idle_iterations"] += i - live
-    _loop_stats["query_rows"] += i * r * (1 + num_lights)
-    _loop_stats["rays"] += rays
-    return film[:, :n_pix].T / spp, s["n_rays"]
+        return block
+
+    def run(self):
+        """Runs the loaded dispatch's blocks until the pool drains:
+        (mean radiance (n_pix, 3), rays traced (a copy))."""
+        s, stats = self.s, _loop_stats
+        before = stats["eager_blocks"], stats["graphs"]
+        with torch.no_grad():
+            i = 0
+            while not self.drained(s):
+                self.blocks.run(i)
+                i += self.check_every
+            with span("release"):
+                self._add_pend(s)  # pendings staged since the last flush
+                live, rays = torch.stack((s["live"], s["n_rays"])).tolist()
+        stats["dispatches"] += 1
+        stats["pool_reuses"] += (stats["eager_blocks"], stats["graphs"]) == before
+        stats["iterations"] += i
+        stats["idle_iterations"] += i - live
+        stats["query_rows"] += i * self.r * (1 + self.num_lights)
+        stats["rays"] += rays
+        return self.film[:, :self.n_pix].T / self.spp, s["n_rays"].clone()
+
+
+def _forward_pool(scene, bvh, opts: RenderOptions, r: int, n_pix: int,
+                  pixel_fn, check_every: int, accel):
+    """(the forward _LanePool for this dispatch, whether it was kept from an
+    earlier one).  Where the blocks replay CUDA graphs, a pool is kept for
+    every dispatch whose blocks' Python would be the same: the options but
+    the seed, the lanes, pixel slots and block length, the device, the
+    ``pixel_fn``, ``accel`` and ``bvh`` given (by identity; the pool holds
+    them) and the scene's tensors (_SceneCache).  A pool of the same options
+    and scene built on other tables, or before a scene tensor changed in
+    place, is replaced.  Elsewhere every dispatch makes its own."""
+    def build(sc):
+        return _LanePool(sc, bvh, opts, r, n_pix, False, pixel_fn, accel,
+                         check_every)
+
+    if not _captures(scene.device):
+        return build(scene), False
+    key = (opts.replace(seed=0), r, n_pix, check_every, scene.device,
+           pixel_fn is None, accel is None, bvh is None)
+    return _POOLS.get(scene, key, build, (pixel_fn, accel, bvh))
+
+
+def render_pixels_refill(
+    scene: SceneArrays,
+    bvh,
+    opts: RenderOptions,
+    pixel_ids,
+    sample_offset: int = 0,
+    lanes: int | None = None,
+    differentiable: bool = False,
+    pixel_fn=None,
+    check_every: int = 8,
+    accel=None,
+):
+    """Persistent-wavefront renderer with pixel-pinned lane refill.
+
+    A pool of ``lanes`` lanes drains a queue of pixel slots (``pixel_ids``);
+    a lane runs all ``spp`` samples of its pixel back to back, summing their
+    radiance in its own register, and stages the sum in its pend registers
+    when the pixel completes.  The staged sums are added to a channel-major
+    film every ``n_pend * spp`` iterations.  In compat mode the first
+    sample's primary hit is cached and reused by the pixel's later samples
+    (quirk #1: identical primaries), whose rays are parked.
+
+    Each iteration shades the lanes' arrivals, builds the NEE shadow rays
+    and the next segments, sorts the wavefront by (hit cluster, direction
+    bin) when sorting is on, and makes one combined intersect call over
+    [next arrivals; every light's shadow rays].
+
+    Estimator and per-path RNG streams are those of the JAX package; every
+    pixel is pinned to one lane, so the film does not depend on lane order.
+
+    The forward loop runs in blocks of ``check_every`` iterations, under
+    ``torch.no_grad()``, and reads the drain predicate back between blocks.
+    On a CUDA device every block after the first replays a CUDA graph
+    (``_Blocks``; ``eager()`` turns that off), bit for bit the block run op
+    by op; the pool (_LanePool), its buffers and its graphs are kept for
+    the next dispatch of the same shape, which replays them.
+
+    ``differentiable=True`` runs a static budget of iterations,
+    ceil(n_pix * spp * e_seg / lanes) + max_depth + spp + 4 with e_seg =
+    ``opts.bwd_seg_per_sample`` or 1.2 / (1 - rr_probability), in blocks of
+    spp iterations (one pend slot per lane; a lane completes at most one
+    pixel per spp iterations); each block ends by adding its pend registers
+    into the film and resetting them.  The loop stops early at a block
+    boundary once the pool has drained (later iterations change nothing).
+    If the budget ends with samples in flight, the ray count is negated:
+    those samples are missing from the film.  When a scene tensor needs a
+    gradient the blocks are one autograd node (_CheckpointedBlocks) that
+    keeps each block's entry state and residuals and recomputes the block
+    for backward; on a CUDA device both passes replay CUDA graphs
+    (``eager()`` turns that off), bit for bit the blocks run op by op.
+
+    Returns (mean radiance (n_pix, 3) aligned with pixel_ids, rays traced as
+    an int64 scalar tensor).
+    """
+    dev = scene.device
+    n_pix = pixel_ids.shape[0]
+    r = min(lanes or n_pix, n_pix)
+    if not differentiable:
+        with span("pool_setup", {"lanes": r}) as setup:
+            pool, reused = _forward_pool(scene, bvh, opts, r, n_pix, pixel_fn,
+                                         check_every, accel)
+            setup.note(reused=int(reused))
+            pool.for_dispatch(pixel_ids, opts.seed, sample_offset)
+        return pool.run()
+
+    # Closed by hand where the first block starts: the set-up below is too
+    # long to indent under a ``with``.
+    setup = span("pool_setup", {"lanes": r})
+    setup.__enter__()
+    pool = _LanePool(scene, bvh, opts, r, n_pix, True, pixel_fn, accel)
+    spp, n_pend, num_lights = opts.spp, pool.n_pend, scene.num_lights
+    track = pool.track
+    # The budget's blocks run on copies of the bootstrapped state.
+    s = pool.for_dispatch(pixel_ids, opts.seed, sample_offset)
+    i32 = dict(dtype=_I32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    # Channel-major film with r * n_pend spare columns for the dummies.
+    film = torch.zeros((3, n_pix + r * n_pend), **f32)
+    e_seg = (opts.bwd_seg_per_sample if opts.bwd_seg_per_sample is not None
+             else 1.2 / (1.0 - opts.rr_probability))
+    n_iter = int(np.ceil(n_pix * spp * e_seg / r)) + opts.max_depth + spp + 4
+    k_steps = n_pend * spp
+    zero_count = torch.zeros((r,), **i32)
+    zero_pend = torch.zeros((r, n_pend), **f32)
+
+    def block(st, env, res):
+        for k in range(k_steps):
+            pool.step(st, k, env, res)
+        slots = st["pend_slot"].reshape(-1).long()
+        vals = torch.stack([st[c].reshape(-1)
+                            for c in ("pend_r", "pend_g", "pend_b")])
+        st.update(pend_slot=pool.dummy_pend, pend_count=zero_count,
+                  pend_r=zero_pend, pend_g=zero_pend, pend_b=zero_pend)
+        return slots, vals
+
+    # Real slots are unique over the frame, so each film entry receives
+    # one add; dummies repeat across blocks and land in the spare columns.
+    inputs = _grad_inputs(scene, pool.tables)
+    scan = _BlockScan(
+        block, s, film, -(-n_iter // k_steps), pool.drained,
+        lambda xs: _grad_env(scene, xs), inputs,
+        _Residuals(k_steps, r * (1 + num_lights), r if pool.do_sort else 0, dev)
+        if track else _Residuals(), dev)
+    setup.__exit__(None, None, None)
+    film = (_CheckpointedBlocks.apply(scan, *inputs) if track
+            else scan.forward(record=False))
+    _grad_stats["dispatches"] += 1
+    # A copy: backward loads each block's entry state into these buffers.
+    n_rays = s["n_rays"].clone() if pool.drained(s) else -s["n_rays"]
+    return film[:, :n_pix].T / spp, n_rays
 
 
 @functools.lru_cache(maxsize=16)
@@ -1772,6 +1982,22 @@ def _frame_ids(scene, opts: RenderOptions):
     tile = swizzle_tile(opts, scene.num_tris_padded)
     ids = torch.as_tensor(_tile_swizzled_ids(h, w, tile), device=scene.device)
     return ids, _swizzle_pixel_fn(h, w, tile)
+
+
+def _frame_tables(scene, bvh, opts: RenderOptions):
+    """(pixel ids, their pixel_fn, intersector tables) of a frame
+    (_frame_ids, intersector_tables).  Where the blocks replay CUDA graphs
+    they are kept from one frame to the next (_FRAME_TABLES, by the options
+    but the seed, ``bvh`` and the scene's tensors), so that the frames'
+    dispatches find their kept lane pools."""
+    def build(sc):
+        # ``bvh`` is held with the tables: the entry is built on it.
+        return (*_frame_ids(sc, opts), intersector_tables(sc, opts, bvh), bvh)
+
+    if not _captures(scene.device):
+        return build(scene)[:3]
+    return _FRAME_TABLES.get(scene, (opts.replace(seed=0), bvh is None), build,
+                             (bvh,))[0][:3]
 
 
 def _chunked_ids(ids, chunk: int):
@@ -1855,8 +2081,7 @@ def render_image_host_chunked(scene: SceneArrays, bvh, opts: RenderOptions,
         scene = scene.to(resolve_device(device))
         h, w = scene.camera.height, scene.camera.width
         chunk = min(opts.chunk_size, max(1024, h * w))
-        ids, pixel_fn = _frame_ids(scene, opts)
-        accel = intersector_tables(scene, opts, bvh)
+        ids, pixel_fn, accel = _frame_tables(scene, bvh, opts)
 
         def dispatch(fn, **kw):
             for attempt in range(retries + 1):

@@ -18,7 +18,13 @@ These tests hold, on the CPU:
   iteration plus the bootstrap's, however the iterations are grouped;
 * the block-structured render to the JAX package's ``render_pixels_refill``
   (Pallas in interpret mode) at tests/test_torch_render.py's whole-render
-  tolerance.
+  tolerance;
+* the kept lane pools (``wavefront._POOLS``): frames of several dispatches
+  and seeds through ``render_image_host_chunked`` on one pool, bit for bit
+  the frames run op by op, its graphs captured once over them; a new pool
+  for a new key; a pool that goes with its scene.  The stand-in replays
+  run the captured block's Python again, so a seed or a sample offset
+  baked into a block would show.
 
 On the CPU the kernel wrappers run their plain versions and count nothing,
 so the launch-count tests count through a stand-in for the card's wrappers
@@ -26,7 +32,10 @@ that adds one launch of each kernel of the single-table plan per intersect
 call.
 """
 
+import contextlib
+import gc
 import os
+import weakref
 
 import jax.numpy as jnp
 import numpy as np
@@ -43,6 +52,7 @@ from montecarlopathtracing_torch.config import MODERN, RenderOptions
 from montecarlopathtracing_torch.integrator import wavefront as twf
 from montecarlopathtracing_torch.kernels import cluster as K
 from montecarlopathtracing_torch.scene.loader import build_scene as tbuild
+from montecarlopathtracing_torch.utils import timing
 
 torch.set_num_threads(2)
 
@@ -259,3 +269,143 @@ def test_block_render_matches_jax_refill(scene_dir, fake_graphs, length):
     assert _outside(ji, ti).any(axis=1).mean() <= 0.005
     assert abs(ti.mean() - ji.mean()) <= 1e-4 * abs(ji.mean())
     assert abs(int(tr) - float(jr)) <= 0.005 * float(jr)
+
+
+@pytest.fixture
+def kept_pools(monkeypatch):
+    """The card's path on the CPU with the stand-in graphs, ``eager()``
+    turning it off as on the card, and no pool kept from another test."""
+    monkeypatch.setattr(twf, "_captures", lambda dev: not twf._eager)
+    monkeypatch.setattr(twf, "_CudaGraphs", FakeGraphs)
+    for cache in (twf._POOLS, twf._FRAME_TABLES):
+        cache.clear()
+    yield
+    for cache in (twf._POOLS, twf._FRAME_TABLES):
+        cache.clear()
+
+
+def _frames(scene, opts, seeds):
+    return [twf.render_image_host_chunked(scene, None, opts.replace(seed=k),
+                                          device="cpu") for k in seeds]
+
+
+def _pool_opts(spp: int, spp_chunk: int, modern: bool = False, **kw):
+    return _opts(spp, modern, spp_chunk=spp_chunk, chunk_size=LANES, **kw)
+
+
+# Frame spp in dispatches of spp_chunk samples: a flush every 4 iterations
+# (dispatches of 2: blocks of 8 meet one flush phase), every 6 (of 3: phases
+# 0, 2, 4) or every 10 (of 5: phases 0, 8, 6, 4, 2; on 48 lanes, so that
+# the first dispatch runs past its fifth block and meets phase 0 again).
+@pytest.mark.parametrize("spp,spp_chunk,modern,lanes", [
+    pytest.param(4, 2, False, LANES, id="spp4-by2-compat"),
+    pytest.param(6, 3, True, LANES, id="spp6-by3-modern"),
+    pytest.param(10, 5, False, 48, id="spp10-by5-compat")])
+def test_frames_on_a_kept_pool_match_op_by_op(scene_dir, kept_pools,
+                                              monkeypatch, spp, spp_chunk,
+                                              modern, lanes):
+    opts = _pool_opts(spp, spp_chunk, modern).replace(chunk_size=lanes)
+    scene, _ = tbuild(scene_dir, "box", opts, device="cpu")
+    starts = []  # each block's first iteration, in order
+    run = twf._Blocks.run
+
+    def recorded(blocks, i0):
+        starts.append(i0)
+        return run(blocks, i0)
+
+    monkeypatch.setattr(twf._Blocks, "run", recorded)
+    twf.reset_loop_stats()
+    frames = _frames(scene, opts, (3, 4))
+    st = twf.loop_stats()
+    with twf.eager():
+        eager = _frames(scene, opts, (3, 4))
+    assert frames[0][1] != frames[1][1]  # the seeds differ
+    for (img, rays), (img_e, rays_e) in zip(frames, eager):
+        assert torch.equal(img, img_e) and rays == rays_e > 0
+    n = 2 * len(twf.spp_steps(opts))
+    assert twf.spp_steps(opts) == [spp_chunk] * (spp // spp_chunk)
+    assert st["dispatches"] == n and len(twf._POOLS.entries) == 1
+    # The pool's first block ran op by op; every later block replays the
+    # graph of its flush phase, captured where the phase first came up.
+    starts = starts[:st["iterations"] // 8]
+    flush_every = 2 * spp_chunk  # n_pend * spp of a dispatch
+    assert st["eager_blocks"] == 1
+    assert st["graphs"] == len({i0 % flush_every for i0 in starts[1:]})
+    assert st["replays"] == len(starts) - 1
+    # Every dispatch after the first met only captured phases.
+    bounds = [k for k, i0 in enumerate(starts) if i0 == 0] + [len(starts)]
+    assert len(bounds) == n + 1
+    captured = {i0 % flush_every for i0 in starts[1:bounds[1]]}
+    for a, b in zip(bounds[1:], bounds[2:]):
+        assert {i0 % flush_every for i0 in starts[a:b]} <= captured
+    assert st["pool_reuses"] == n - 1
+
+
+# What one frame changes after a frame of spp 4 in dispatches of 2 on 96
+# lanes: nothing, the dispatch's spp, the lanes, one option, the scene (the
+# same files loaded again: other tensors), a scene tensor in place (as an
+# optimizer step would: the stale pool is replaced, not kept beside).
+CHANGES = {"nothing": {}, "dispatch_spp": dict(spp=6, spp_chunk=3),
+           "lanes": dict(chunk_size=64), "option": dict(max_depth=5),
+           "scene": {}, "in_place": {}}
+
+
+@pytest.mark.parametrize("change", list(CHANGES))
+def test_a_changed_key_makes_a_new_pool(scene_dir, kept_pools, change):
+    opts = _pool_opts(4, 2)
+    scene, _ = tbuild(scene_dir, "box", opts, device="cpu")
+    _frames(scene, opts, (3,))
+    assert len(twf._POOLS.entries) == 1
+    first = scene  # held: its pool stays
+    if change == "scene":
+        scene = tbuild(scene_dir, "box", opts, device="cpu")[0]
+    if change == "in_place":
+        with torch.no_grad():
+            scene.kd.mul_(0.75)
+    opts = opts.replace(**CHANGES[change])
+    twf.reset_loop_stats()
+    with timing.tracing() as tr:
+        ((img, rays),) = _frames(scene, opts, (4,))
+    st = twf.loop_stats()
+    with twf.eager():
+        ((img_e, rays_e),) = _frames(scene, opts, (4,))
+    assert torch.equal(img, img_e) and rays == rays_e > 0
+    reused = [s["counts"]["reused"] for s in tr.spans
+              if s["name"] == "pool_setup"]
+    assert len(reused) == st["dispatches"] == 2
+    if change == "nothing":
+        assert reused == [1, 1] and st["eager_blocks"] == 0
+        assert st["pool_reuses"] == 2 and len(twf._POOLS.entries) == 1
+    else:
+        assert reused == [0, 1] and st["eager_blocks"] == 1
+        kept = 1 if change == "in_place" else 2
+        assert len(twf._POOLS.entries) == len(twf._FRAME_TABLES.entries) == kept
+    del first
+
+
+@pytest.mark.parametrize("inside_capture", [False, True],
+                         ids=["outside_capture", "inside_capture"])
+def test_a_dropped_scene_takes_its_pool_along(scene_dir, kept_pools,
+                                              inside_capture):
+    """The kept pool and frame tables hold the scene by alias: when the
+    caller drops the scene they go, by reference counting alone (no cycle
+    is left to the collector); inside a capture, when it ends."""
+    opts = _pool_opts(4, 2)
+    scene, _ = tbuild(scene_dir, "box", opts, device="cpu")
+    _frames(scene, opts, (3, 4))
+    ((pool, *_),) = twf._POOLS.entries.values()
+    pool = weakref.ref(pool)
+    kd = weakref.ref(scene.kd)
+    assert len(twf._FRAME_TABLES.entries) == 1
+    gc.disable()
+    try:
+        with twf._capture_guard() if inside_capture else contextlib.nullcontext():
+            del scene
+            assert kd() is None
+            assert not twf._POOLS.entries and not twf._FRAME_TABLES.entries
+            assert (pool() is not None) == inside_capture
+        assert pool() is None and not twf._doomed
+    finally:
+        gc.enable()
+    gc.collect()
+    assert not twf._POOLS.entries and not twf._FRAME_TABLES.entries

@@ -6,7 +6,9 @@ On the CPU every block runs op by op, so a frame's dispatches hold one
 ``eager_block`` span a block and no ``capture`` or ``replay``; the card's
 capture and replay spans are held here through a stand-in for the CUDA
 graphs (as tests/test_torch_graph_blocks.py does), against the
-``capture_s`` counter they share their clock readings with.
+``capture_s`` counter they share their clock readings with.  There the
+lane pool is kept from one dispatch to the next, so only a pool's first
+dispatch runs a block op by op and captures.
 """
 
 import json
@@ -56,7 +58,10 @@ def _children(spans, parent):
     return [s for s in spans if s["parent"] == parent["id"]]
 
 
-def test_frame_spans_nest_under_frame_and_dispatch(scene):
+@pytest.mark.parametrize("graphs", [False, True], ids=["op_by_op", "graphs"])
+def test_frame_spans_nest_under_frame_and_dispatch(scene, request, graphs):
+    if graphs:
+        request.getfixturevalue("fake_graphs")
     twf.reset_loop_stats()
     with timing.tracing() as tr:
         _frame(scene)
@@ -70,20 +75,31 @@ def test_frame_spans_nest_under_frame_and_dispatch(scene):
     assert [d["counts"] for d in dispatches] == [{"spp": 2, "attempt": 0}] * 2
     assert {s["name"] for s in _children(spans, frame)} == {"dispatch",
                                                            "assemble"}
-    for d in dispatches:
+    for k, d in enumerate(dispatches):
         kids = _children(spans, d)
-        assert {s["name"] for s in kids} == {"pool_setup", "eager_block",
-                                             "drain_read", "release", "sync"}
+        # With graphs the first dispatch makes the pool: its first block
+        # runs op by op, and the flush phase of the blocks after it (one:
+        # blocks of 8 iterations, a flush every 4) is captured once; the
+        # second dispatch replays every block on the kept pool.
+        names = ({"pool_setup", "replay", "drain_read", "release", "sync"}
+                 | ({"eager_block", "capture"} if k == 0 else set())
+                 if graphs else
+                 {"pool_setup", "eager_block", "drain_read", "release", "sync"})
+        assert {s["name"] for s in kids} == names
         (setup,) = [s for s in kids if s["name"] == "pool_setup"]
-        assert setup["counts"] == {"lanes": 64}
-        blocks = [s for s in kids if s["name"] == "eager_block"]
+        assert setup["counts"] == {"lanes": 64, "reused": int(graphs and k > 0)}
+        blocks = [s for s in kids if s["name"] in ("eager_block", "replay")]
         # The drain is read before every block and once after the last.
         assert sum(s["name"] == "drain_read" for s in kids) == len(blocks) + 1
         assert setup["end_ns"] <= min(b["start_ns"] for b in blocks)
         for s in kids:
             assert d["start_ns"] <= s["start_ns"] <= s["end_ns"] <= d["end_ns"]
     assert sum(s["name"] == "eager_block" for s in spans) == stats["eager_blocks"]
-    assert not any(s["name"] in ("capture", "replay") for s in spans)
+    assert sum(s["name"] == "capture" for s in spans) == stats["graphs"]
+    assert sum(s["name"] == "replay" for s in spans) == stats["replays"]
+    assert stats["eager_blocks"] == (1 if graphs else stats["iterations"] // 8)
+    assert stats["graphs"] == int(graphs)
+    assert stats["pool_reuses"] == int(graphs)
     assert len(_by_id(spans)) == len(spans)
     assert {s["name"] for s in spans} <= WORK | {"frame", "dispatch"}
 
@@ -163,6 +179,19 @@ def test_load_scene_has_parse_build_and_upload(box_dir, native):
     assert kids[-2]["end_ns"] <= kids[-1]["start_ns"]
 
 
+@pytest.fixture
+def fake_graphs(monkeypatch):
+    """The card's path on the CPU through the stand-in graphs below, with
+    no lane pool kept from an earlier test."""
+    monkeypatch.setattr(twf, "_captures", lambda dev: not twf._eager)
+    monkeypatch.setattr(twf, "_CudaGraphs", _FakeGraphs)
+    twf._POOLS.clear()
+    twf._FRAME_TABLES.clear()
+    yield
+    twf._POOLS.clear()
+    twf._FRAME_TABLES.clear()
+
+
 class _FakeGraph:
     """A captured block on the CPU: the capture ran it, so the first replay
     does nothing; later replays run it with the launch counters held."""
@@ -192,9 +221,7 @@ class _FakeGraphs:
         return _FakeGraph(fn)
 
 
-def test_capture_spans_sum_to_the_capture_counter(scene, monkeypatch):
-    monkeypatch.setattr(twf, "_captures", lambda dev: True)
-    monkeypatch.setattr(twf, "_CudaGraphs", _FakeGraphs)
+def test_capture_spans_sum_to_the_capture_counter(scene, fake_graphs):
     twf.reset_loop_stats()
     with timing.tracing() as tr:
         graphed, _ = _frame(scene)
@@ -203,14 +230,18 @@ def test_capture_spans_sum_to_the_capture_counter(scene, monkeypatch):
     captures = [s for s in spans if s["name"] == "capture"]
     assert len(captures) == st["graphs"] > 0
     assert sum(s["name"] == "replay" for s in spans) == st["replays"] > 0
-    assert sum(s["name"] == "eager_block" for s in spans) == st["eager_blocks"] == 2
+    # One pool serves both dispatches: its first block alone runs op by op.
+    assert sum(s["name"] == "eager_block" for s in spans) == st["eager_blocks"] == 1
     total = sum(s["end_ns"] - s["start_ns"] for s in captures) * 1e-9
     assert abs(total - st["capture_s"]) <= 1e-6 * len(captures)
     by_id = _by_id(spans)
+    first = min((s for s in spans if s["name"] == "dispatch"),
+                key=lambda s: s["start_ns"])
+    assert {s["parent"] for s in captures} == {first["id"]}
     assert {by_id[s["parent"]]["name"] for s in captures} == {"dispatch"}
     assert all(s["counts"]["phase"] in range(4) for s in captures)
-    monkeypatch.undo()
-    assert torch.equal(graphed, _frame(scene)[0])
+    with twf.eager():
+        assert torch.equal(graphed, _frame(scene)[0])
 
 
 def test_spans_a_raising_block_left_open_close_with_their_parent():

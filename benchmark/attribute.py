@@ -220,6 +220,9 @@ def measure(cell: core.Cell, seed: int, repeats: int, dev) -> dict:
     from montecarlopathtracing_torch.utils import timing
 
     kind = cell.traffic["kind"]
+    if kind not in ("frames", "grad_steps"):
+        raise core.HarnessError(f"attribute.py takes frames or gradient steps on "
+                                f"one device, not {kind!r}")
     run = core.Run(cell, seed, 0.0, True, dev.type)
     try:
         opts = program.render_options(cell.options)

@@ -18,6 +18,12 @@ few pixels whose paths part, and a wrong loss shows in the gradient.
 
 ``frame_numbers`` and ``step_numbers`` return {name: value}; ``judge``
 pairs them with the cell's limits.  A number that is not finite fails.
+
+The control (``control_scene``), which has to fail the check: the
+reference itself with every float of the scene held in bfloat16 and its
+arithmetic in float32 (the step below the configuration's float32 that
+would tempt a later change: the scene's tables in bfloat16), compared with
+the float64 reference as the program is.
 """
 
 from __future__ import annotations
@@ -34,6 +40,12 @@ BAD_PIXEL_GAP = 1e-3
 # Floor of the per-pixel denominator: black pixels compare in absolute terms.
 PIXEL_FLOOR = 1e-6
 GRAD_FIELDS = ("kd", "ks", "ns", "light_radiance", "atlas")
+CONTROL_STORAGE = torch.bfloat16
+CONTROL_MATH = torch.float32
+
+
+def control_scene(ref):
+    return ref.rounded(CONTROL_STORAGE).to(dtype=CONTROL_MATH)
 
 
 def pixel_gap(prog, ref):

@@ -9,8 +9,13 @@ top level beside it, the render options, the source and what was reduced
 from it); the traffic mix is ``traffic/<mix>.json`` (the loop that drives
 it, by kind, and its parameters).  The loop is ``loops/<kind>.py``, the
 scene generator ``scenes/<geometry>.py``, and each per-layer metric a
-reader ``metrics/<metric>.py``.  A later cell, mix, configuration or
-metric is a new file: nothing here names one.
+reader ``metrics/<metric>.py``.  A loop names its end-to-end metrics
+(``METRICS``), runs a run (``run``), and gives the check's numbers of a
+seed for the program or the control (``numbers``, on what its ``session``
+sets up), which ``readings.py`` and the tests call.  A later cell, mix,
+loop, configuration or metric is a new file: nothing here names one.  A
+loop over more than one device starts its other ranks through
+``ranks.py``.
 
 A run builds its scene as text in its own directory under ``TMPDIR``,
 loads it through the program's ``api.load_scene``, warms up
@@ -170,6 +175,12 @@ class Run:
         self.t0 = time.monotonic() if t0 is None else t0
         self.workdir = workdir
         self.spans: Dict[str, float] = {}
+        # "module:function" called with its rank in every process of a
+        # run on more than one device, once it has joined the group (the
+        # tests plant faults with it); and what those processes held of
+        # FORBIDDEN, as "rank <r>: <module>".
+        self.rank_hook: Optional[str] = None
+        self.loaded_elsewhere: List[str] = []
 
     def write_scene(self) -> str:
         """The scene's text and textures in a directory of this run's own
@@ -294,12 +305,16 @@ def main(argv=None, t0: Optional[float] = None) -> int:
         print(f"benchmark: cell {cell.name} needs {cell.chips} CUDA device(s), "
               f"found {have}", file=sys.stderr)
         return 2
-    run = Run(cell, args.seed, args.seconds, bool(args.trace), "cuda", t0)
+    return finish(Run(cell, args.seed, args.seconds, bool(args.trace), "cuda", t0))
+
+
+def finish(run: Run) -> int:
+    """Execute the run and print its result: the exit code of ``main``."""
     try:
         out = execute(run)
     finally:
         run.cleanup()
-    bad = forbidden_modules()
+    bad = forbidden_modules() + run.loaded_elsewhere
     if bad:
         print(f"benchmark: the run loaded {', '.join(bad)}", file=sys.stderr)
         return 3

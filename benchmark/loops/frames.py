@@ -10,8 +10,9 @@ the two below), ``render_options`` (the frame's spp), ``check_frames`` and
 from the seed), ``trace_frames`` (frames profiled with ``--trace 1``).
 Frame 0 is rendered ``core.WARMUP_UNITS`` times in set-up.
 
-``frame`` and ``kept`` are the unit's two halves; ``readings.py`` calls
-them too, so the readings that set the check's limits come from this path.
+``frame`` and ``kept`` are the unit's two halves; ``numbers``, which
+``readings.py`` calls, renders through them too, so the readings that set
+the check's limits come from this path.
 
 End-to-end metric: ``samples_per_s`` (W x H x spp of every frame done in
 the window over the window's seconds).
@@ -25,6 +26,7 @@ import torch
 
 from benchmark import checks, core, profiling, program
 from benchmark.reference import scene as reference_scene
+from benchmark.reference import tracer
 
 TAG_PIXELS, TAG_FRAMES = 1, 2
 METRICS = ("samples_per_s",)
@@ -56,6 +58,33 @@ def kept(img, seed: int, k: int, n_check: int, spp: int) -> dict:
     pix = check_pixels(seed, k, img.shape[0] * img.shape[1], n_check)
     return {"seed": core.unit_seed(seed, k), "pixels": pix, "spp": spp,
             "values": img.reshape(-1, 3).index_select(0, pix.to(img.device)).cpu()}
+
+
+def control_item(ctl, cell, seed: int, k: int, n_check: int, dev) -> dict:
+    """Frame k's check item with the control in the program's place: the
+    same pixels as ``kept`` draws, rendered by the control scene."""
+    spp = int(cell.options["spp"])
+    pix = check_pixels(seed, k, ctl.width * ctl.height, n_check)
+    s = core.unit_seed(seed, k)
+    return {"seed": s, "pixels": pix, "spp": spp,
+            "values": tracer.render(ctl, cell.options, s, pix.to(dev), spp).cpu()}
+
+
+session = program.session
+
+
+def numbers(cell, opts, scene, ref, ctl, who: str, seed: int, dev) -> dict:
+    """The check's numbers of frames 1 .. check_frames of a run with
+    ``seed``: the program's (``who`` "program", through ``frame`` and
+    ``kept``), or the control's in the program's place at the same pixels."""
+    n_check = int(cell.traffic["check_pixels"])
+    ks = range(1, int(cell.traffic["check_frames"]) + 1)
+    if who == "program":
+        items = [kept(frame(scene, opts, seed, k, dev)[0], seed, k, n_check, opts.spp)
+                 for k in ks]
+    else:
+        items = [control_item(ctl, cell, seed, k, n_check, dev) for k in ks]
+    return checks.frame_numbers(ref, cell.options, items)
 
 
 def run(run: core.Run) -> dict:

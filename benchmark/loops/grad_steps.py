@@ -15,7 +15,8 @@ options, against a target that is the step's own frame everywhere but at
 target.  Its loss and gradient are then those of the supervised pixels
 alone, which the float64 reference can differentiate in a run's time (a
 whole frame it cannot), normalised by the whole frame as the program's
-mean is.  ``readings.py`` calls ``check_step`` too.
+mean is.  ``numbers``, which ``readings.py`` calls, takes ``check_step``
+too.
 
 Mix parameters: ``render_options`` (spp), ``supervised_pixels``,
 ``check_steps`` (steps held to the reference, drawn from the seed) and
@@ -73,6 +74,42 @@ def check_step(scene, params, opts, seed: int, k: int, target, sup, dev) -> dict
             "target": target.reshape(-1, 3).index_select(0, sup).clone(),
             "values": values.cpu(), "loss": float(loss),
             "grads": {f: getattr(grads, f).cpu() for f in G.PARAM_FIELDS}}
+
+
+session = program.session
+
+
+def numbers(cell, opts, scene, ref, ctl, who: str, seed: int, dev) -> dict:
+    """The check's numbers of step 1 of a run with ``seed``: the program's
+    (``who`` "program", through ``check_step``), or the control's
+    supervised loss and gradient in the program's place.  Also ``detail``:
+    each field's gap and norms, and for the program how far two frames of
+    one seed part (``check_step``'s target is the frame itself outside the
+    supervised pixels: that gap says how exact that is)."""
+    target = target_image(seed, ref.height, ref.width)
+    sup = supervised(seed, ref.width * ref.height,
+                     int(cell.traffic["supervised_pixels"]))
+    detail = {}
+    if who == "program":
+        from montecarlopathtracing_torch.diff import gradients as G
+
+        params = G.SceneParams.from_scene(scene)
+        item = check_step(scene, params, opts, seed, 1, target, sup, dev)
+        o = opts.replace(seed=item["seed"])
+        a, b = (G.render_with_params(params.leaves(dev), scene, None, o,
+                                     device=dev).detach() for _ in range(2))
+        detail["frame_repeat_gap"] = float((a - b).abs().max())
+        del a, b
+    else:
+        item = {"seed": core.unit_seed(seed, 1), "pixels": sup, "spp": opts.spp,
+                "frame_pixels": ref.width * ref.height,
+                "target": target.reshape(-1, 3).index_select(0, sup)}
+        pred, loss, grads = checks.reference_step(ctl, cell.options, item,
+                                                  dtype=checks.CONTROL_MATH)
+        item.update(values=pred, loss=loss, grads=grads)
+    out = checks.step_numbers(ref, cell.options, [item], detail)
+    out["detail"] = detail
+    return out
 
 
 def finite(loss, grads, fields) -> bool:

@@ -89,8 +89,12 @@ def busy_and_gaps(events, top: int = 10):
 
 
 def is_copy(name: str) -> bool:
-    """Whether a device activity is a copy or a fill, not a kernel."""
-    return name.startswith(("Memcpy", "Memset"))
+    """Whether a device activity is a copy or a fill, not a kernel: the
+    profiler's ``Memcpy ...`` and ``Memset ...``, and the memcpy and memset
+    nodes of a CUDA graph captured before the profiler started, which it
+    reports by the driver's names (``memset32``, ``memcpy32_post``,
+    ``memcpy128``)."""
+    return name.startswith(("Memcpy", "Memset", "memcpy", "memset"))
 
 
 def short_name(name: str, limit: int = 120) -> str:

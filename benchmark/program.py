@@ -4,6 +4,7 @@ program's entry points themselves; the reference imports none of this."""
 
 from __future__ import annotations
 
+import contextlib
 import gc
 
 import torch
@@ -27,13 +28,23 @@ def sync(dev) -> None:
 def load_scene(run, opts, dev):
     """Write the cell's scene text (span ``scene_write_s``) and load it
     through ``api.load_scene`` (span ``scene_load_s``)."""
+    run.span("scene_write_s", run.write_scene)
+    return load_written(run, opts, dev)
+
+
+def session(run, opts, dev):
+    """A one-device loop's ``session``: what its ``numbers`` renders the
+    program with, the scene written and loaded as a run loads it."""
+    return contextlib.nullcontext(load_scene(run, opts, dev))
+
+
+def load_written(run, opts, dev):
+    """The scene the run wrote, loaded through ``api.load_scene`` (span
+    ``scene_load_s``)."""
     from montecarlopathtracing_torch import api
 
-    scene_dir = run.span("scene_write_s", run.write_scene)
-    name = run.cell.scene_name
-
     def load():
-        scene, _ = api.load_scene(scene_dir, name, opts, device=dev)
+        scene, _ = api.load_scene(run.workdir, run.cell.scene_name, opts, device=dev)
         sync(dev)
         return scene
 

@@ -1,26 +1,26 @@
 """The control, the reference with the scene held in bfloat16 and computed
 in float32 put in the program's place, fails each cell's check at a tiny
 size here; at the cells' own sizes it runs on the card
-(``benchmark/readings.py``, and the ``card`` test below)."""
+(``benchmark/readings.py``, and the ``card`` test below).  Every cell is
+taken, through its traffic loop's own ``numbers``."""
 
 import pytest
 import torch
 
-from benchmark import checks, core, program, readings
+from benchmark import checks, core, program
 from benchmark.reference import scene as RS
 from benchmark.tests import _tiny
 
-NAMES = ["cornell-1024-spp25", "interior-720p-spp10", "interior-720p-grad-spp4"]
+NAMES = core.names("workloads", ".json")
 
 
 def control_numbers(cell, dev, seed):
     r = core.Run(cell, seed, 0.0, False, str(dev))
     try:
         ref = RS.load(r.write_scene(), cell.scene_name, device=dev)
-        numbers = (readings.frame_numbers if cell.traffic["kind"] == "frames"
-                   else readings.step_numbers)(
-            cell, program.render_options(cell.options), None, ref,
-            readings.control_scene(ref), "control", seed, dev)
+        numbers = cell.loop.numbers(cell, program.render_options(cell.options),
+                                    None, ref, checks.control_scene(ref),
+                                    "control", seed, dev)
         numbers.pop("detail", None)
         return numbers
     finally:

@@ -126,3 +126,32 @@ def test_a_new_cell_and_a_new_reader_are_found_by_name():
     finally:
         for path in files:
             os.remove(path)
+
+
+def test_a_new_traffic_loop_is_a_new_file():
+    """A loop kind of its own is found by its mix's ``kind``; the run, the
+    readings and the tests take its metrics and its check from it."""
+    bench = core.BENCH
+    files = {
+        os.path.join(bench, "loops", "zz_test_loop.py"):
+            "METRICS = ('zz_per_s',)\n\n"
+            "def numbers(cell, opts, prog, ref, ctl, who, seed, dev):\n"
+            "    return {'zz_gap': float(seed)}\n",
+        os.path.join(bench, "traffic", "zz-test-loop-mix.json"): json.dumps(
+            {"kind": "zz_test_loop", "render_options": {"spp": 1}}),
+        os.path.join(bench, "workloads", "zz-test-loop-cell.json"): json.dumps(
+            {"name": "zz-test-loop-cell", "config": "cornell-box-1024",
+             "traffic": "zz-test-loop-mix", "chips": 1, "why": "a test's cell",
+             "limits": {"zz_gap": 1.0}}),
+    }
+    try:
+        for path, text in files.items():
+            with open(path, "w") as fh:
+                fh.write(text)
+        cell = core.Cell("zz-test-loop-cell")
+        assert cell.loop.METRICS == ("zz_per_s",)
+        assert cell.loop.numbers(cell, None, None, None, None, "control", 3,
+                                 None) == {"zz_gap": 3.0}
+    finally:
+        for path in files:
+            os.remove(path)

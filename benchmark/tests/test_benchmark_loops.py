@@ -10,10 +10,6 @@ import pytest
 from benchmark import core
 from benchmark.tests import _tiny
 
-E2E = {"frames": {"samples_per_s", "setup_s"},
-       "grad_steps": {"grad_step_s", "grad_peak_gb", "setup_s"}}
-
-
 def cells():
     return [(n, core.Cell(n).traffic["kind"]) for n in core.names("workloads", ".json")]
 
@@ -34,7 +30,6 @@ def test_a_run_of_each_kind(name, kind, trace):
         assert set(out["breakdown"]) == {"device_ops", "idle_gaps"}
     else:
         assert set(out["metrics"]) == set(cell.loop.METRICS) | {"setup_s"}
-        assert set(out["metrics"]) == E2E[kind]
         assert all(m["value"] >= 0 for m in out["metrics"].values())
     assert out["device"]["platform"] == "cpu"
 

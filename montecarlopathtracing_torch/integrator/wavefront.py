@@ -439,7 +439,8 @@ def _nee_prep(scene, opts: RenderOptions, p, pn, kd, u, alive, tables):
     """Per-light NEE shadow rays and visibility-independent contributions.
 
     Returns (so (L,R,3), dirn (L,R,3), contrib (L,R,3), ok (L,R), dist (L,R),
-    smat (L,R)); dead / black-kd lanes' shadow rays are parked at 1e9.
+    smat (L,R), lit (R,)); the shadow rays of lanes that are not ``lit``
+    (dead or black-kd lanes) are parked at 1e9.
     """
     compat = opts.compat
     tab, _ = tables
@@ -448,7 +449,7 @@ def _nee_prep(scene, opts: RenderOptions, p, pn, kd, u, alive, tables):
     if num_lights == 0:
         e3 = p.new_zeros((0, r, 3))
         return e3, e3, e3, alive.new_zeros((0, r)), p.new_zeros((0, r)), \
-            torch.zeros((0, r), dtype=_I32, device=p.device)
+            torch.zeros((0, r), dtype=_I32, device=p.device), alive.new_zeros((r,))
     pn_len = torch.linalg.vector_norm(pn, dim=-1)
     pick_total = scene.light_total_area[0] if compat.frozen_light_pick else None
     # Quirk #4 fall-through: a not-found pick reuses the previous light's
@@ -495,7 +496,7 @@ def _nee_prep(scene, opts: RenderOptions, p, pn, kd, u, alive, tables):
         so_l.append(so); dirn_l.append(dirn); contrib_l.append(contrib)
         ok_l.append(ok); dist_l.append(dist_real); smat_l.append(smat)
     return (torch.stack(so_l), torch.stack(dirn_l), torch.stack(contrib_l),
-            torch.stack(ok_l), torch.stack(dist_l), torch.stack(smat_l))
+            torch.stack(ok_l), torch.stack(dist_l), torch.stack(smat_l), lit)
 
 
 def _nee_resolve(scene, opts: RenderOptions, contrib, ok, dist_real, smat,
@@ -723,7 +724,8 @@ _COUNTED = (*_CLUSTER_WRAPPERS.values(), *_WALK_WRAPPERS.values())
 _eager = False
 _loop_stats = dict.fromkeys(("dispatches", "iterations", "idle_iterations",
                              "eager_blocks", "graphs", "replays", "capture_s",
-                             "query_rows", "rays", "pool_reuses"), 0)
+                             "query_rows", "rays", "pool_reuses",
+                             "shadow_rows", "shadow_rays"), 0)
 _grad_stats = dict.fromkeys(
     ("dispatches", "blocks")
     + tuple(f"{p}_{k}" for p in ("fwd", "bwd")
@@ -760,7 +762,12 @@ def loop_stats() -> dict:
     dispatches' ray counts): rays over query_rows is the share of rows
     that did work; and ``pool_reuses``, the dispatches that ran no block op
     by op and captured no graph, every block a replay of a graph that an
-    earlier dispatch on the same kept pool had captured."""
+    earlier dispatch on the same kept pool had captured; ``shadow_rows``,
+    the NEE rows of those calls (lanes x lights an iteration), and
+    ``shadow_rays``, the shadow rays they carried (a lane that shades a
+    surface of non-black kd sends one to each light; the other rows are
+    parked): shadow_rays over shadow_rows is the share of NEE rows that
+    did work.  Both are read at a dispatch's end with ``rays``."""
     return dict(_loop_stats)
 
 
@@ -818,17 +825,33 @@ def _capture_guard():
             _doomed.clear()
 
 
+_CAPTURE_STREAMS = {}
+
+
+def _capture_stream(dev):
+    """The side stream every capture on ``dev`` runs on, one per device.
+    The libraries keep state for each stream that ran their calls and never
+    free it (cuBLAS's workspace, 32 MiB on an H100, for each stream that
+    ran a matrix product), so a stream made for each loop would leave that
+    behind every gradient step."""
+    dev = torch.device(dev)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    if index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[index] = torch.cuda.Stream(index)
+    return _CAPTURE_STREAMS[index]
+
+
 class _CudaGraphs:
     """The CUDA graphs of one lane pool (kept with it from one dispatch to
     the next), of one backward pass or of one scan frame: captured
-    on one side stream into one memory pool.  Every capture frees all it
+    on the device's side stream (_capture_stream) into one memory pool.  Every capture frees all it
     allocates before it ends (the block's results are copied into buffers
     made outside the graphs), so the graphs may share the pool in any order
     of replay."""
 
     def __init__(self, dev):
         self.dev, self.pool = dev, None
-        self.stream = torch.cuda.Stream(dev)
+        self.stream = _capture_stream(dev)
 
     def warm_up(self, fn):
         """fn run op by op on the capture stream, ordered after the current
@@ -973,8 +996,9 @@ class _BlockScan:
 
     def forward(self, record: bool):
         """Runs the blocks without recording autograd, each adding its
-        staged sums into ``film`` in place; returns the film.  ``record``
-        keeps each block's entry state and residuals for ``backward``."""
+        staged sums into ``film`` in place; returns the film and keeps no
+        reference to it.  ``record`` keeps each block's entry state and
+        residuals for ``backward``."""
         self.res.mode = "record" if record else None
         env = self.env(self.inputs)
 
@@ -998,7 +1022,11 @@ class _BlockScan:
                     self.saved.append(self.res.copies())
                 _grad_stats["blocks"] += 1
         self.res.mode = None
-        return self.film
+        # The scan lets go of its output: the output's autograd node holds
+        # the scan, and a reference back would be a cycle that keeps the
+        # scan's buffers until the garbage collector runs.
+        film, self.film = self.film, None
+        return film
 
     def backward(self, ct_film, needs) -> list:
         """The inputs' gradients (None where ``needs`` is false) for the film
@@ -1256,8 +1284,8 @@ class _ScanFrame:
 
         # Next-event estimation: one full nearest-hit shadow query per light,
         # light li's results in rows (li + 1) r .. (li + 2) r of the step.
-        so, dirn, contrib, ok, dist, smat = _nee_prep(scene, opts, p, pn, kd, u,
-                                                      alive, tables)
+        so, dirn, contrib, ok, dist, smat, _ = _nee_prep(
+            scene, opts, p, pn, kd, u, alive, tables)
         shadow = [res(("isect", k), lambda li=li: self._isect(so[li], dirn[li]),
                       slice((li + 1) * r, (li + 2) * r))
                   for li in range(num_lights)]
@@ -1485,6 +1513,8 @@ class _LanePool:
         self.do_sort = (_should_sort(opts, scene.num_tris_padded)
                         and r > opts.cluster_rays)
         self.num_lights = scene.num_lights
+        # With >= 2 lights and sorting, the NEE prep runs after the sort.
+        self.post_nee = self.do_sort and self.num_lights >= 2
         self.differentiable = differentiable
         self.lane_iota = torch.arange(r, dtype=_I32, device=dev)
         # Out-of-range dummies: the film has r * n_pend spare columns past
@@ -1559,11 +1589,11 @@ class _LanePool:
         # With >= 2 lights the NEE prep runs after the sort on the permuted
         # inputs, with uniforms re-derived from the permuted keys (the same
         # streams); with one light it runs here and its outputs ride the sort.
-        post_nee = do_sort and num_lights >= 2
+        post_nee = self.post_nee
         if post_nee:
             beta_nee, keys_nee, depth_nee = beta, keys, depth
         else:
-            so_s, dirn_s, contrib, ok_n, dist_n, smat_n = _nee_prep(
+            so_s, dirn_s, contrib, ok_n, dist_n, smat_n, lit = _nee_prep(
                 scene, opts, p, pn, kd, u, shade, tables)
             contrib = contrib * beta[None]
         cont = shade & (u[:, 0] < opts.rr_probability)
@@ -1634,7 +1664,7 @@ class _LanePool:
                     ints + (keys_nee, depth_nee), inv)
                 keys_nee, depth_nee = ints_p[-2:]
                 u2 = rng.bounce_uniforms(keys_nee, depth_nee, n_slots)
-                so_s, dirn_s, contrib, ok_n, dist_n, smat_n = _nee_prep(
+                so_s, dirn_s, contrib, ok_n, dist_n, smat_n, lit = _nee_prep(
                     scene, opts, p_s, pn_s, kd_s, u2, ints_p[14], tables)
                 contrib = contrib * beta_nee[None]
             else:
@@ -1671,6 +1701,10 @@ class _LanePool:
         l_dir = _nee_resolve(scene, opts, contrib, ok_n, dist_n, smat_n,
                              hs, ts, tris)
         rad = rad + torch.where(shade[:, None], l_dir, 0.0)
+        if not self.differentiable:
+            # Each lane's iterations whose shadow rows carried rays (one row
+            # per light each), summed at the dispatch's end: one kernel here.
+            s["n_lit"] = s["n_lit"] + lit
 
         # Stage completed pixel sums into the lane's next free pend slot; a
         # lane completes at most one pixel per spp iterations, so n_pend
@@ -1735,6 +1769,7 @@ class _LanePool:
             pend_r=torch.zeros((r, n_pend), **f32),
             pend_g=torch.zeros((r, n_pend), **f32),
             pend_b=torch.zeros((r, n_pend), **f32),
+            **({} if self.differentiable else {"n_lit": torch.zeros((r,), **i32)}),
         )
 
     def drained(self, st) -> bool:
@@ -1825,13 +1860,16 @@ class _LanePool:
                 i += self.check_every
             with span("release"):
                 self._add_pend(s)  # pendings staged since the last flush
-                live, rays = torch.stack((s["live"], s["n_rays"])).tolist()
+                live, rays, lit = torch.stack(
+                    (s["live"], s["n_rays"], s["n_lit"].sum())).tolist()
         stats["dispatches"] += 1
         stats["pool_reuses"] += (stats["eager_blocks"], stats["graphs"]) == before
         stats["iterations"] += i
         stats["idle_iterations"] += i - live
         stats["query_rows"] += i * self.r * (1 + self.num_lights)
         stats["rays"] += rays
+        stats["shadow_rows"] += i * self.r * self.num_lights
+        stats["shadow_rays"] += lit * self.num_lights
         return self.film[:, :self.n_pix].T / self.spp, s["n_rays"].clone()
 
 
@@ -1917,7 +1955,8 @@ def render_pixels_refill(
         with span("pool_setup", {"lanes": r}) as setup:
             pool, reused = _forward_pool(scene, bvh, opts, r, n_pix, pixel_fn,
                                          check_every, accel)
-            setup.note(reused=int(reused))
+            setup.note(reused=int(reused), lights=pool.num_lights,
+                       post_nee=int(pool.post_nee))
             pool.for_dispatch(pixel_ids, opts.seed, sample_offset)
         return pool.run()
 
@@ -1926,6 +1965,7 @@ def render_pixels_refill(
     setup = span("pool_setup", {"lanes": r})
     setup.__enter__()
     pool = _LanePool(scene, bvh, opts, r, n_pix, True, pixel_fn, accel)
+    setup.note(lights=pool.num_lights, post_nee=int(pool.post_nee))
     spp, n_pend, num_lights = opts.spp, pool.n_pend, scene.num_lights
     track = pool.track
     # The budget's blocks run on copies of the bootstrapped state.

@@ -91,3 +91,24 @@ def test_a_dropped_scene_gives_its_pool_memory_back(box):
     torch.cuda.synchronize()
     assert not twf._POOLS.entries and not twf._FRAME_TABLES.entries
     assert torch.cuda.memory_allocated() == before
+
+
+@pytest.mark.card
+def test_gradient_steps_leave_no_memory_behind(box):
+    """Each step's lane pool, graphs and buffers are freed when the step
+    returns (no reference cycle), and its captures run on the device's one
+    side stream, so no library keeps per-stream state for a step: what is
+    allocated after a step is the same after every step."""
+    from montecarlopathtracing_torch.diff import gradients as G
+
+    scene = _load(box)
+    params = G.SceneParams.from_scene(scene)
+    target = torch.zeros(256, 256, 3, device="cuda")
+    opts = RenderOptions(spp=2)
+    after = []
+    for seed in range(4):
+        G.loss_and_grad(params, scene, None, opts.replace(seed=seed), target,
+                        device="cuda")
+        torch.cuda.synchronize()
+        after.append(torch.cuda.memory_allocated())
+    assert after[1] == after[2] == after[3], after

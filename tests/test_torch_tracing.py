@@ -11,6 +11,7 @@ lane pool is kept from one dispatch to the next, so only a pool's first
 dispatch runs a block op by op and captures.
 """
 
+import gc
 import json
 import os
 
@@ -87,7 +88,9 @@ def test_frame_spans_nest_under_frame_and_dispatch(scene, request, graphs):
                  {"pool_setup", "eager_block", "drain_read", "release", "sync"})
         assert {s["name"] for s in kids} == names
         (setup,) = [s for s in kids if s["name"] == "pool_setup"]
-        assert setup["counts"] == {"lanes": 64, "reused": int(graphs and k > 0)}
+        # 64 lanes > cluster_rays sort the wavefront; one light: no post-sort NEE.
+        assert setup["counts"] == {"lanes": 64, "reused": int(graphs and k > 0),
+                                   "lights": 1, "post_nee": 0}
         blocks = [s for s in kids if s["name"] in ("eager_block", "replay")]
         # The drain is read before every block and once after the last.
         assert sum(s["name"] == "drain_read" for s in kids) == len(blocks) + 1
@@ -127,6 +130,8 @@ def test_query_rows_count_every_row_and_rays_the_rows_that_carried_one(scene):
     assert st["query_rows"] == st["iterations"] * 64 * (1 + scene.num_lights)
     assert st["rays"] == rays
     assert 0 < st["rays"] <= st["query_rows"]
+    assert st["shadow_rows"] == st["iterations"] * 64 * scene.num_lights
+    assert 0 < st["shadow_rays"] <= st["shadow_rows"]
 
 
 def test_loss_and_grad_nests_forward_and_backward_under_grad_step(scene):
@@ -290,3 +295,26 @@ def test_profiler_trace_lays_the_spans_over_the_profiled_ops(scene, tmp_path):
     assert len(inside) >= 0.9 * len(ops) > 0
     assert sum(e.get("ph") == "M" and e["args"].get("name") == "program spans"
                for e in events) == 1
+
+
+def test_a_gradient_step_leaves_nothing_to_the_garbage_collector(scene):
+    """A step's lane pool, its blocks and their buffers are freed when the
+    step returns, not by a later collection: the step's timing and its
+    memory peak do not depend on when the collector runs."""
+    opts = RenderOptions(spp=1, max_depth=3, chunk_size=256, cluster_width=4,
+                         cluster_rays=16, seed=5)
+    params = G.SceneParams.from_scene(scene)
+    target = torch.zeros(scene.camera.height, scene.camera.width, 3)
+    G.loss_and_grad(params, scene, None, opts, target, device="cpu")
+    gc.collect()
+    gc.disable()
+    try:
+        G.loss_and_grad(params, scene, None, opts, target, device="cpu")
+        gc.set_debug(gc.DEBUG_SAVEALL)
+        gc.collect()
+        kinds = {type(o).__name__ for o in gc.garbage}
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+        gc.enable()
+    assert not kinds & {"_BlockScan", "_LanePool", "_Residuals", "Tensor"}, kinds

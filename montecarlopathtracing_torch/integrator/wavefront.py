@@ -348,15 +348,19 @@ def _shading_tables(scene):
     per-material (M, 16) shading tables, one row gather per hit."""
     tab = torch.cat([scene.v0, scene.v1, scene.v2, scene.n0, scene.n1, scene.n2,
                      scene.uv0, scene.uv1, scene.uv2], dim=1)
+    return tab, _material_table(scene)
+
+
+def _material_table(scene):
+    """_shading_tables' per-material (M, 16) table."""
     f = torch.float32
-    mtab = torch.cat([
+    return torch.cat([
         scene.kd, scene.ks, scene.emission,
         scene.ns[:, None], scene.ni[:, None],
         scene.is_emitter[:, None].to(f), scene.has_texture[:, None].to(f),
         scene.tex_offset[:, None].to(f), scene.tex_h[:, None].to(f),
         scene.tex_w[:, None].to(f),
     ], dim=1)
-    return tab, mtab
 
 
 class _TableRows(torch.autograd.Function):
@@ -727,9 +731,10 @@ _loop_stats = dict.fromkeys(("dispatches", "iterations", "idle_iterations",
                              "query_rows", "rays", "pool_reuses",
                              "shadow_rows", "shadow_rays"), 0)
 _grad_stats = dict.fromkeys(
-    ("dispatches", "blocks")
+    ("dispatches", "blocks", "bwd_passes")
     + tuple(f"{p}_{k}" for p in ("fwd", "bwd")
-            for k in ("eager_blocks", "graphs", "replays", "capture_s")), 0)
+            for k in ("eager_blocks", "graphs", "replays", "capture_s",
+                      "pool_reuses")), 0)
 _scan_stats = dict.fromkeys(
     ("frames", "calls", "samples", "bounces", "idle_bounces", "residual_bytes")
     + tuple(f"{p}_{k}" for p in ("fwd", "bwd")
@@ -773,10 +778,13 @@ def loop_stats() -> dict:
 
 def grad_loop_stats() -> dict:
     """loop_stats' counterpart for the differentiable lane pool, totals since
-    the last reset: dispatches, blocks of the forward pass, and for the
-    forward (``fwd_``) and the backward (``bwd_``) pass apart the blocks run
-    op by op, graphs captured, replays and capture seconds.  A backward pass
-    runs each recorded block once, in reverse."""
+    the last reset: dispatches (forward passes), blocks of the forward
+    passes, ``bwd_passes``, and for the forward (``fwd_``) and the backward
+    (``bwd_``) pass apart the blocks run op by op, graphs captured, replays,
+    capture seconds and ``pool_reuses``, the passes that ran no block op by
+    op and captured no graph, every block a replay of a graph that an
+    earlier call on the same kept pool had captured.  A backward pass runs
+    each recorded block once, in reverse."""
     return dict(_grad_stats)
 
 
@@ -972,44 +980,46 @@ def _vjp_into(block, state, ct_state, wrt, acc) -> None:
 
 
 class _BlockScan:
-    """The differentiable lane pool's loop: up to ``n_blocks`` calls of
-    ``block(st, env, res)`` (one block of iterations on the state dict
-    ``st``, its entries replaced, ending with its pend registers flushed
-    and reset; returns the film columns and the (3, n) sums it staged), on
-    the fixed state buffers ``state``, the drain (``drained(state)``) read
-    between blocks.  ``env(xs)`` gives the (scene, tables) a block reads
-    from the tensors ``xs`` in _grad_inputs' order, ``inputs`` the scene's
-    own.
+    """One call of the differentiable lane pool's loop: up to ``n_blocks``
+    calls of ``block(st, env, res)`` (the pool's ``grad_block``: one block
+    of iterations on the state dict ``st``, its entries replaced, ending
+    with its pend registers flushed and reset; returns the film columns and
+    the (3, n) sums it staged), on the pool's state buffers ``state``, the
+    drain (``drained(state)``) read between blocks.  ``env(xs)`` gives the
+    (scene, tables) a block reads from the tensors ``xs`` in _grad_inputs'
+    order, ``inputs`` the call's own.
 
     ``forward`` and ``backward`` are the two halves of the JAX package's
     ``lax.scan`` over ``jax.checkpoint``-ed blocks that save only the named
-    residuals; _CheckpointedBlocks makes them one autograd node.  On the
-    card each half runs its first block op by op and replays one CUDA graph
-    for every later block (``_Blocks``)."""
+    residuals; _CheckpointedBlocks makes them one autograd node.  The pool
+    (_LanePool) holds what the blocks of both passes read and write by
+    address, and the passes' _Blocks (``pool.fwd``, and ``pool.backward_for``
+    for each mask of the inputs that need a gradient): on the card each
+    runs its first block op by op and replays one CUDA graph for every later
+    block, kept with the pool for later calls.  The scan holds what is the
+    call's own: its inputs and its ``dispatch`` (pixel ids, seed, sample
+    offset: _LanePool.take), which each pass copies into the pool's buffers
+    before its first block, and each recorded block's entry state and
+    residuals.  So two calls on one kept pool may both run forward before
+    either runs backward."""
 
-    def __init__(self, block, state, film, n_blocks: int, drained, env,
-                 inputs, res, dev):
-        self.block, self.state, self.film = block, state, film
-        self.n_blocks, self.drained, self.env = n_blocks, drained, env
-        self.inputs, self.res, self.dev = inputs, res, dev
+    def __init__(self, pool, inputs, dispatch):
+        self.pool, self.inputs, self.dispatch = pool, inputs, dispatch
+        self.block, self.state, self.film = pool.grad_block, pool.s, pool.film
+        self.n_blocks, self.drained, self.env = (pool.n_blocks, pool.drained,
+                                                 pool.grad_env)
+        self.res = pool.res
         self.entries, self.saved = [], []
 
     def forward(self, record: bool):
         """Runs the blocks without recording autograd, each adding its
-        staged sums into ``film`` in place; returns the film and keeps no
-        reference to it.  ``record`` keeps each block's entry state and
-        residuals for ``backward``."""
+        staged sums into the pool's film in place; returns a copy of the
+        film.  ``record`` keeps each block's entry state and residuals for
+        ``backward``."""
+        stats = _grad_stats
+        before = stats["fwd_eager_blocks"], stats["fwd_graphs"]
+        self.pool.load(self.inputs)
         self.res.mode = "record" if record else None
-        env = self.env(self.inputs)
-
-        def run(_):
-            st = dict(self.state)
-            slots, vals = self.block(st, env, self.res)
-            self.film.index_add_(1, slots, vals)
-            for k, v in self.state.items():
-                v.copy_(st[k])
-
-        blocks = _Blocks(run, self.dev, 1, _grad_stats, "fwd_")
         with torch.no_grad():
             for _ in range(self.n_blocks):
                 if self.drained(self.state):
@@ -1017,15 +1027,14 @@ class _BlockScan:
                 if record:
                     self.entries.append({k: v.clone()
                                          for k, v in self.state.items()})
-                blocks.run(0)
+                self.pool.fwd.run(0)
                 if record:
                     self.saved.append(self.res.copies())
-                _grad_stats["blocks"] += 1
+                stats["blocks"] += 1
+            film = self.film.clone()
         self.res.mode = None
-        # The scan lets go of its output: the output's autograd node holds
-        # the scan, and a reference back would be a cycle that keeps the
-        # scan's buffers until the garbage collector runs.
-        film, self.film = self.film, None
+        stats["fwd_pool_reuses"] += (stats["fwd_eager_blocks"],
+                                     stats["fwd_graphs"]) == before
         return film
 
     def backward(self, ct_film, needs) -> list:
@@ -1036,29 +1045,23 @@ class _BlockScan:
         its staged columns) and its exit state (the cotangent the block after
         it handed back).  Each input's gradient is summed over the blocks,
         the last block's first; nothing a block saves outlives its call."""
-        leaves = [x.detach().requires_grad_(n) for x, n in zip(self.inputs, needs)]
-        wrt = [x for x in leaves if x.requires_grad]
-        env = self.env(leaves)
-        acc = [torch.zeros_like(x) for x in wrt]
-        ct_state = {f: torch.zeros_like(self.state[f]) for f in _GRAD_STATE}
+        stats = _grad_stats
+        before = stats["bwd_eager_blocks"], stats["bwd_graphs"]
+        blocks, acc = self.pool.backward_for(ct_film, needs)
+        self.pool.load(self.inputs)
+        self.pool.take(*self.dispatch)
         self.res.mode = "replay"
-
-        def block(st):
-            slots, vals = self.block(st, env, self.res)
-            return [(vals, ct_film.index_select(1, slots))]
-
-        def run(_):
-            _vjp_into(block, self.state, ct_state, wrt, acc)
-
-        blocks = _Blocks(run, self.dev, 1, _grad_stats, "bwd_")
         while self.entries:
             for k, v in self.entries.pop().items():
                 self.state[k].copy_(v)
             self.res.load(self.saved.pop())
             blocks.run(0)
         self.res.mode = None
+        stats["bwd_passes"] += 1
+        stats["bwd_pool_reuses"] += (stats["bwd_eager_blocks"],
+                                     stats["bwd_graphs"]) == before
         acc = iter(acc)
-        return [next(acc) if x.requires_grad else None for x in leaves]
+        return [next(acc).clone() if n else None for n in needs]
 
 
 class _CheckpointedBlocks(torch.autograd.Function):
@@ -1428,19 +1431,27 @@ class _SceneCache:
     objects it was built on (``held``): where a tensor was changed in place
     since, or another object is given, the entry is replaced, not joined by
     a second one.  At most ``size`` entries are kept, the least recently
-    used dropped first."""
+    used dropped first.
+
+    Fields named ``loose`` (a gradient step's parameters, new tensors every
+    step) are keyed by shape and dtype alone: the entry holds no reference
+    to them, and its alias holds copies of their values at the first call,
+    of its own storage."""
 
     def __init__(self, size: int):
         self.size, self.entries = size, collections.OrderedDict()
 
-    def get(self, scene, key, build, held=()):
+    def get(self, scene, key, build, held=(), loose=()):
         """(value, whether it was kept from an earlier call): the entry of
         ``key`` and ``scene``'s tensors, built on the objects ``held`` (the
         value holds them), or a new one, ``build(alias)``."""
         cam = scene.camera
-        tensors = ([getattr(scene, f) for f in SCENE_FIELDS]
+        fields = [f for f in SCENE_FIELDS if f not in loose]
+        tensors = ([getattr(scene, f) for f in fields]
                    + [cam.eye, cam.look_at, cam.up, cam.fovy])
-        key = (key, cam.width, cam.height, tuple(id(t) for t in tensors))
+        key = (key, cam.width, cam.height, tuple(id(t) for t in tensors),
+               tuple((getattr(scene, f).shape, getattr(scene, f).dtype)
+                     for f in loose))
         stamp = (tuple(t._version for t in tensors), tuple(id(o) for o in held))
         entry = self.entries.get(key)
         if entry is not None and entry[2] == stamp:
@@ -1450,7 +1461,8 @@ class _SceneCache:
         del entry
         self._drop(key, None)
         alias = SceneArrays(
-            **{f: getattr(scene, f).detach() for f in SCENE_FIELDS},
+            **{f: getattr(scene, f).detach() for f in fields},
+            **{f: getattr(scene, f).detach().clone() for f in loose},
             camera=dataclasses.replace(
                 cam, eye=cam.eye.detach(), look_at=cam.look_at.detach(),
                 up=cam.up.detach(), fovy=cam.fovy.detach()))
@@ -1471,11 +1483,19 @@ class _SceneCache:
         self.entries.clear()
 
 
-# The forward lane pools kept between dispatches, and each frame's pixel ids
-# and intersector tables (render_image_host_chunked), on a CUDA device
-# outside eager().
+# The forward lane pools kept between dispatches, each frame's pixel ids and
+# intersector tables (render_image_host_chunked), and the differentiable
+# lane pools kept between calls: three caches of the one kind, on a CUDA
+# device outside eager().
 _POOLS = _SceneCache(4)
 _FRAME_TABLES = _SceneCache(4)
+_GRAD_POOLS = _SceneCache(4)
+
+# The scene fields a gradient step hands in anew with every call: the
+# parameters' leaves (diff/gradients.py) and the emission table that
+# apply_params rebuilds from the lights' radiance.  A kept differentiable
+# pool keys them by shape and dtype, and each call copies their values in.
+_STEP_FIELDS = ("kd", "ks", "ns", "emission", "atlas", "light_radiance")
 
 
 class _LanePool:
@@ -1485,25 +1505,29 @@ class _LanePool:
 
     Each dispatch gives the pool its inputs (``for_dispatch``): the pixel
     ids (which the step reads when there is no ``pixel_fn``), the seed's
-    word and the sample offset.  A forward pool also holds what its blocks
-    read and write by address, made at its first dispatch: the state
-    buffers ``s`` (``live`` among them), the film, and its _Blocks; it
+    word and the sample offset.  The pool holds what its blocks read and
+    write by address, made at its first dispatch: the state buffers ``s``
+    (a forward pool's ``live`` among them), the film, and its _Blocks; it
     takes the inputs into buffers of its own (the word and the offset as
     0-d device buffers, so no graph holds a number that changes between
-    dispatches), outside any capture, and runs the blocks (``run``).  On a
-    CUDA device, outside ``eager()``, render_pixels_refill keeps the pool
-    for the next dispatch of the same shape (_POOLS), whose blocks replay
-    the graphs this one captured.  A differentiable call's pool serves that
-    call alone, and holds the inputs as they are.
+    dispatches), outside any capture.  A forward pool runs its blocks
+    itself (``run``).  A differentiable pool (``track``: the call records
+    for backward) also holds copies of the gradient's inputs (``xs``, in
+    _grad_inputs' order; the triangle table is its own), the residual
+    buffers, the cotangent buffers and the _Blocks of both passes, in one
+    graph pool; a _BlockScan runs them for each call.  On a CUDA device,
+    outside ``eager()``, render_pixels_refill keeps the pool for the next
+    dispatch of the same shape (_POOLS, _GRAD_POOLS), whose blocks replay
+    the graphs this one captured.
 
-    The block function reaches the pool through a weak proxy: a reference
+    The block functions reach the pool through a weak proxy: a reference
     cycle would leave the pool and its graphs to the garbage collector,
     which may run inside another loop's capture, where destroying a graph
     breaks that capture."""
 
     def __init__(self, scene, bvh, opts: RenderOptions, r: int, n_pix: int,
                  differentiable: bool, pixel_fn=None, accel=None,
-                 check_every: int = 8):
+                 check_every: int = 8, track: bool = False):
         dev = scene.device
         self.scene, self.bvh, self.opts, self.r, self.n_pix, self.dev = (
             scene, bvh, opts, r, n_pix, dev)
@@ -1526,7 +1550,16 @@ class _LanePool:
                            + self.pend_iota[None, :])
         self.tables = _shading_tables(scene)
         self.accel = intersector_tables(scene, opts, bvh) if accel is None else accel
-        self.track = differentiable and _tracks_grad(scene)
+        self.track = track
+        if differentiable:
+            # The static budget, in blocks of spp iterations (one pend slot
+            # per lane: a lane completes at most one pixel a block).
+            e_seg = (opts.bwd_seg_per_sample if opts.bwd_seg_per_sample is not None
+                     else 1.2 / (1.0 - opts.rr_probability))
+            n_iter = (int(np.ceil(n_pix * opts.spp * e_seg / r)) + opts.max_depth
+                      + opts.spp + 4)
+            self.k_steps = self.n_pend * opts.spp
+            self.n_blocks = -(-n_iter // self.k_steps)
         self.pixel_ids = self.word = self.offset = None
         self.s = self.film = self.blocks = None
 
@@ -1778,17 +1811,11 @@ class _LanePool:
 
     def for_dispatch(self, pixel_ids, seed: int, sample_offset: int) -> dict:
         """Takes a dispatch's inputs, the pixel ids, the seed ``seed``'s
-        word and the sample offset, and returns the state the loop starts
-        from (bootstrapped): a differentiable pool's a copy, a forward
-        pool's its buffers ``s``, filled with the film and ``live`` zeroed.
-        A forward pool makes its buffers at its first dispatch and writes
-        every later one into the same tensors, whose addresses the graphs
-        hold."""
-        word = rng.seed_word(seed)
-        if self.differentiable:
-            self.pixel_ids, self.word, self.offset = pixel_ids, word, sample_offset
-            return {k: v.detach().clone() for k, v
-                    in self.bootstrap(pixel_ids, seed, sample_offset).items()}
+        word and the sample offset, and returns the pool's state buffers
+        ``s``, filled with the state the loop starts from (bootstrapped),
+        the film zeroed (and a forward pool's ``live``).  The pool makes its
+        buffers at its first dispatch and writes every later one into the
+        same tensors, whose addresses the graphs hold."""
         with torch.no_grad():
             boot = self.bootstrap(pixel_ids, seed, sample_offset)
             if self.s is None:
@@ -1800,24 +1827,135 @@ class _LanePool:
                 # r * n_pend spare columns for the dummies.
                 i64 = dict(dtype=torch.int64, device=self.dev)
                 self.s = {k: torch.empty_like(v) for k, v in boot.items()}
-                self.s["live"] = torch.zeros((), **i64)
                 self.film = torch.empty((3, self.n_pix + self.r * self.n_pend),
                                         dtype=torch.float32, device=self.dev)
                 self.word = torch.zeros((), **i64)
                 self.offset = torch.zeros((), **i64)
                 if self.pixel_fn is None:
                     self.pixel_ids = torch.empty_like(pixel_ids)
-                self.blocks = _Blocks(self._block_fn(), self.dev,
-                                      max(1, self.n_pend * self.spp))
+                if self.differentiable:
+                    self._grad_buffers()
+                else:
+                    self.s["live"] = torch.zeros((), **i64)
+                    self.blocks = _Blocks(self._block_fn(), self.dev,
+                                          max(1, self.n_pend * self.spp))
             for k, v in boot.items():
                 self.s[k].copy_(v)
-            self.s["live"].zero_()
+            if not self.differentiable:
+                self.s["live"].zero_()
             self.film.zero_()
+        self.take(pixel_ids, seed, sample_offset)
+        return self.s
+
+    def take(self, pixel_ids, seed: int, sample_offset: int) -> None:
+        """A dispatch's inputs into the buffers the step reads: the pixel
+        ids (without ``pixel_fn``), the seed's word, the sample offset."""
+        with torch.no_grad():
             if self.pixel_ids is not None:
                 self.pixel_ids.copy_(pixel_ids)
-            self.word.fill_(word)
+            self.word.fill_(rng.seed_word(seed))
             self.offset.fill_(sample_offset)
-        return self.s
+
+    def _grad_buffers(self) -> None:
+        """A differentiable pool's buffers beside ``s`` and the film: the
+        blocks' constants, the residuals (when it records), the copies of
+        the gradient's inputs, the cotangents' buffers, and the forward
+        pass's _Blocks, whose graphs share one pool with the backward
+        passes' (backward_for)."""
+        r, dev = self.r, self.dev
+        self.zero_count = torch.zeros((r,), dtype=_I32, device=dev)
+        self.zero_pend = torch.zeros((r, self.n_pend), dtype=torch.float32,
+                                     device=dev)
+        self.res = (_Residuals(self.k_steps, r * (1 + self.num_lights),
+                               r if self.do_sort else 0, dev)
+                    if self.track else _Residuals())
+        # The triangle table is the pool's own (it carries no gradient when
+        # the pool is kept: _grad_pool); every other input is copied in by
+        # each pass (load).
+        xs = _grad_inputs(self.scene, self.tables)
+        self.xs = [xs[0].detach()] + [x.detach().clone() for x in xs[1:]]
+        self.ct_film = torch.zeros_like(self.film)
+        self.ct_state = {f: torch.zeros_like(self.s[f]) for f in _GRAD_STATE}
+        self.graphs = _CudaGraphs(dev) if _captures(dev) else None
+        self.fwd = _Blocks(self._grad_fwd_fn(), dev, 1, _grad_stats, "fwd_",
+                           self.graphs)
+        self.bwd = {}
+
+    def grad_env(self, xs):
+        """(scene, tables) that read the tensors ``xs`` in _grad_inputs'
+        order.  The pool's scene is read for the fields that are no inputs:
+        a kept pool's parameter fields are the first call's, and no block
+        reads them."""
+        return _grad_env(self.scene, xs)
+
+    def load(self, inputs) -> None:
+        """Copies a call's gradient inputs (_grad_inputs' order, the pool's
+        own triangle table first) into the buffers the blocks read."""
+        with torch.no_grad():
+            for x, y in zip(self.xs[1:], inputs[1:]):
+                x.copy_(y)
+
+    def grad_block(self, st, env, res):
+        """One block of the differentiable loop on the state dict ``st``
+        (its entries replaced): ``k_steps`` iterations, then the pend
+        registers reset; returns the film columns and the (3, n) sums they
+        staged.  ``env`` is the (scene, tables) to shade with, ``res`` the
+        residuals' mode and buffers."""
+        for k in range(self.k_steps):
+            self.step(st, k, env, res)
+        slots = st["pend_slot"].reshape(-1).long()
+        vals = torch.stack([st[c].reshape(-1)
+                            for c in ("pend_r", "pend_g", "pend_b")])
+        st.update(pend_slot=self.dummy_pend, pend_count=self.zero_count,
+                  pend_r=self.zero_pend, pend_g=self.zero_pend,
+                  pend_b=self.zero_pend)
+        return slots, vals
+
+    def _grad_fwd_fn(self):
+        f = weakref.proxy(self)
+        s, film, res, env = self.s, self.film, self.res, self.grad_env(self.xs)
+
+        def run(_):
+            # Real slots are unique over the frame, so each film entry
+            # receives one add; dummies repeat across blocks and land in
+            # the spare columns.
+            st = dict(s)
+            slots, vals = f.grad_block(st, env, res)
+            film.index_add_(1, slots, vals)
+            for k, v in s.items():
+                v.copy_(st[k])
+
+        return run
+
+    def backward_for(self, ct_film, needs):
+        """(the backward pass's _Blocks for the mask ``needs`` of the inputs
+        that need a gradient, its gradient buffers ``acc``), made at the
+        mask's first call, with the film cotangent ``ct_film`` copied in,
+        ``acc`` and the state cotangents zeroed.  Its block recomputes a
+        block under autograd on leaves that alias the input buffers
+        (_vjp_into)."""
+        if needs not in self.bwd:
+            leaves = [x.detach().requires_grad_(n) for x, n in zip(self.xs, needs)]
+            wrt = [x for x in leaves if x.requires_grad]
+            acc = [torch.zeros_like(x) for x in wrt]
+            f, env = weakref.proxy(self), self.grad_env(leaves)
+            s, res, ct_state, ct_film_b = self.s, self.res, self.ct_state, self.ct_film
+
+            def block(st):
+                slots, vals = f.grad_block(st, env, res)
+                return [(vals, ct_film_b.index_select(1, slots))]
+
+            def run(_):
+                _vjp_into(block, s, ct_state, wrt, acc)
+
+            self.bwd[needs] = (_Blocks(run, self.dev, 1, _grad_stats, "bwd_",
+                                       self.graphs), acc)
+        blocks, acc = self.bwd[needs]
+        with torch.no_grad():
+            self.ct_film.copy_(ct_film)
+            for x in acc + list(self.ct_state.values()):
+                x.zero_()
+        return blocks, acc
 
     def _add_pend(self, st) -> None:
         # Real slots are unique (each pixel completes once per dispatch), so
@@ -1894,6 +2032,32 @@ def _forward_pool(scene, bvh, opts: RenderOptions, r: int, n_pix: int,
     return _POOLS.get(scene, key, build, (pixel_fn, accel, bvh))
 
 
+def _grad_pool(scene, bvh, opts: RenderOptions, r: int, n_pix: int,
+               pixel_ids, pixel_fn, accel, track: bool):
+    """(the differentiable _LanePool for this call, whether it was kept from
+    an earlier one).  Where the blocks replay CUDA graphs, a pool is kept
+    for every call whose blocks' Python would be the same, keyed as
+    _forward_pool's and by whether the call records for backward
+    (``track``), the pixel ids' dtype, and the step fields (_STEP_FIELDS)
+    by shape and dtype alone: each call copies their values into the pool
+    (_BlockScan), so a step's new parameter tensors find the pool that the
+    step before captured.  A scene whose other tensors need a gradient (its
+    geometry) makes a pool for every call, as every call on the CPU and
+    under ``eager()`` does."""
+    def build(sc):
+        return _LanePool(sc, bvh, opts, r, n_pix, True, pixel_fn, accel,
+                         track=track)
+
+    if not _captures(scene.device) or any(
+            getattr(scene, f).requires_grad for f in SCENE_FIELDS
+            if f not in _STEP_FIELDS):
+        return build(scene), False
+    key = (opts.replace(seed=0), r, n_pix, pixel_ids.dtype, scene.device, track,
+           pixel_fn is None, accel is None, bvh is None)
+    return _GRAD_POOLS.get(scene, key, build, (pixel_fn, accel, bvh),
+                           loose=_STEP_FIELDS)
+
+
 def render_pixels_refill(
     scene: SceneArrays,
     bvh,
@@ -1943,12 +2107,13 @@ def render_pixels_refill(
     gradient the blocks are one autograd node (_CheckpointedBlocks) that
     keeps each block's entry state and residuals and recomputes the block
     for backward; on a CUDA device both passes replay CUDA graphs
-    (``eager()`` turns that off), bit for bit the blocks run op by op.
+    (``eager()`` turns that off), bit for bit the blocks run op by op, and
+    the pool, its buffers and both passes' graphs are kept for the next
+    call of the same shape, whatever its parameters' values (_grad_pool).
 
     Returns (mean radiance (n_pix, 3) aligned with pixel_ids, rays traced as
     an int64 scalar tensor).
     """
-    dev = scene.device
     n_pix = pixel_ids.shape[0]
     r = min(lanes or n_pix, n_pix)
     if not differentiable:
@@ -1960,52 +2125,22 @@ def render_pixels_refill(
             pool.for_dispatch(pixel_ids, opts.seed, sample_offset)
         return pool.run()
 
-    # Closed by hand where the first block starts: the set-up below is too
-    # long to indent under a ``with``.
-    setup = span("pool_setup", {"lanes": r})
-    setup.__enter__()
-    pool = _LanePool(scene, bvh, opts, r, n_pix, True, pixel_fn, accel)
-    setup.note(lights=pool.num_lights, post_nee=int(pool.post_nee))
-    spp, n_pend, num_lights = opts.spp, pool.n_pend, scene.num_lights
-    track = pool.track
-    # The budget's blocks run on copies of the bootstrapped state.
-    s = pool.for_dispatch(pixel_ids, opts.seed, sample_offset)
-    i32 = dict(dtype=_I32, device=dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    # Channel-major film with r * n_pend spare columns for the dummies.
-    film = torch.zeros((3, n_pix + r * n_pend), **f32)
-    e_seg = (opts.bwd_seg_per_sample if opts.bwd_seg_per_sample is not None
-             else 1.2 / (1.0 - opts.rr_probability))
-    n_iter = int(np.ceil(n_pix * spp * e_seg / r)) + opts.max_depth + spp + 4
-    k_steps = n_pend * spp
-    zero_count = torch.zeros((r,), **i32)
-    zero_pend = torch.zeros((r, n_pend), **f32)
-
-    def block(st, env, res):
-        for k in range(k_steps):
-            pool.step(st, k, env, res)
-        slots = st["pend_slot"].reshape(-1).long()
-        vals = torch.stack([st[c].reshape(-1)
-                            for c in ("pend_r", "pend_g", "pend_b")])
-        st.update(pend_slot=pool.dummy_pend, pend_count=zero_count,
-                  pend_r=zero_pend, pend_g=zero_pend, pend_b=zero_pend)
-        return slots, vals
-
-    # Real slots are unique over the frame, so each film entry receives
-    # one add; dummies repeat across blocks and land in the spare columns.
-    inputs = _grad_inputs(scene, pool.tables)
-    scan = _BlockScan(
-        block, s, film, -(-n_iter // k_steps), pool.drained,
-        lambda xs: _grad_env(scene, xs), inputs,
-        _Residuals(k_steps, r * (1 + num_lights), r if pool.do_sort else 0, dev)
-        if track else _Residuals(), dev)
-    setup.__exit__(None, None, None)
+    with span("pool_setup", {"lanes": r}) as setup:
+        track = _tracks_grad(scene)
+        pool, reused = _grad_pool(scene, bvh, opts, r, n_pix, pixel_ids,
+                                  pixel_fn, accel, track)
+        setup.note(reused=int(reused), lights=pool.num_lights,
+                   post_nee=int(pool.post_nee))
+        s = pool.for_dispatch(pixel_ids, opts.seed, sample_offset)
+        inputs = _grad_inputs(scene, (pool.tables[0], _material_table(scene)))
+        scan = _BlockScan(pool, inputs, (pixel_ids, opts.seed, sample_offset))
     film = (_CheckpointedBlocks.apply(scan, *inputs) if track
             else scan.forward(record=False))
     _grad_stats["dispatches"] += 1
-    # A copy: backward loads each block's entry state into these buffers.
+    # A copy: backward loads each block's entry state into these buffers,
+    # and the next call on a kept pool bootstraps into them.
     n_rays = s["n_rays"].clone() if pool.drained(s) else -s["n_rays"]
-    return film[:, :n_pix].T / spp, n_rays
+    return film[:, :n_pix].T / opts.spp, n_rays
 
 
 @functools.lru_cache(maxsize=16)

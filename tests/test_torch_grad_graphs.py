@@ -21,10 +21,19 @@ every later replay runs it again with the launch counters held still):
 * the gradient against the JAX package's jitted gradient (interpret-mode
   Pallas) at tests/test_torch_diff.py's tolerance;
 * ``launch_counts()`` the same captured and under ``eager()``: the key and
-  intersect launches of the forward pass, none in backward.
+  intersect launches of the forward pass, none in backward;
+* the kept gradient pools (``wavefront._GRAD_POOLS``): four gradient steps
+  on one scene, each with another seed and new parameter values, replaying
+  the graphs the first step captured, bit for bit the steps run op by op;
+  two forward passes before either backward; a new pool for a new key (a
+  new backward graph for other fields); a pool that goes with its scene.
 """
 
+import contextlib
+import dataclasses
+import gc
 import os
+import weakref
 
 import jax.numpy as jnp
 import numpy as np
@@ -44,6 +53,7 @@ from montecarlopathtracing_torch.kernels import cluster as K
 from montecarlopathtracing_torch.scene.builtin import write_box_scene
 from montecarlopathtracing_torch.scene.loader import build_scene as tbuild
 from montecarlopathtracing_torch.scene.types import scene_params_from_numpy
+from montecarlopathtracing_torch.utils import timing
 from test_torch_graph_blocks import FakeGraphs, counting  # noqa: F401 (fixture)
 
 torch.set_num_threads(2)
@@ -251,3 +261,210 @@ def test_table_rows_backward_sums_per_row(rows):
         0, idx, ct.double())
     assert grad.shape == (rows, 3)
     assert torch.allclose(grad.double(), want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.fixture
+def kept_grad_pools(monkeypatch):
+    """The card's path on the CPU with the stand-in graphs, ``eager()``
+    turning it off as on the card, and no gradient pool kept from another
+    test."""
+    monkeypatch.setattr(twf, "_captures", lambda dev: not twf._eager)
+    monkeypatch.setattr(twf, "_CudaGraphs", FakeGraphs)
+    twf._GRAD_POOLS.clear()
+    twf.reset_loop_stats()
+    yield
+    twf._GRAD_POOLS.clear()
+
+
+def _step_opts(spp: int = 3, **kw):
+    return _opts(spp, True).replace(chunk_size=LANES, **kw)
+
+
+def _target(scene):
+    h, w = scene.camera.height, scene.camera.width
+    return torch.as_tensor(np.random.default_rng(7).uniform(
+        0.1, 0.6, (h, w, 3)).astype(np.float32))
+
+
+def _images(monkeypatch):
+    """The frames that loss_and_grad renders, in order (its own forward
+    pass's image, recorded on the way)."""
+    frames, real = [], tgrad.render_with_params
+
+    def recorded(*a, **kw):
+        img = real(*a, **kw)
+        frames.append(img.detach().clone())
+        return img
+
+    monkeypatch.setattr(tgrad, "render_with_params", recorded)
+    return frames
+
+
+def _sgd_steps(scene, opts, seeds, frames):
+    """loss_and_grad steps with an out-of-place SGD update between them:
+    [(image, loss, gradient)] a step."""
+    params, out = SceneParams.from_scene(scene), []
+    target = _target(scene)
+    for seed in seeds:
+        loss, g = tgrad.loss_and_grad(params, scene, None,
+                                      opts.replace(seed=seed), target,
+                                      device="cpu")
+        out.append((frames[-1], loss, g))
+        params = params.map(lambda p, d: p.detach() - 0.05 * d, g)
+    return out
+
+
+@pytest.mark.parametrize("name", ["sg16", "tex"])
+def test_steps_on_a_kept_pool_are_bitwise_eager(scene_dir, kept_grad_pools,
+                                                monkeypatch, name):
+    """Four gradient steps on one scene, each with another seed and new
+    parameter values, replay the graphs the first step captured: every
+    image, loss and field's gradient bit for bit the step run op by op.
+    The stand-in replays run the block's Python again, so a seed or a
+    parameter that a graph had frozen would show."""
+    opts = _step_opts()
+    scene, _ = tbuild(scene_dir, name, opts, device="cpu")
+    frames = _images(monkeypatch)
+    seeds = (11, 12, 13, 14)
+    steps = _sgd_steps(scene, opts, seeds, frames)
+    st = twf.grad_loop_stats()
+    with twf.eager():
+        eager = _sgd_steps(scene, opts, seeds, frames)
+    assert not torch.equal(steps[0][0], steps[1][0])
+    for (img, loss, g), (img_e, loss_e, g_e) in zip(steps, eager):
+        assert torch.equal(img, img_e) and torch.equal(loss, loss_e)
+        for f in PARAM_FIELDS:
+            assert torch.equal(getattr(g, f), getattr(g_e, f)), f
+        assert float(g.kd.abs().max()) > 0
+        if name == "tex":
+            assert float(g.atlas.abs().max()) > 0
+    ((pool, *_),) = twf._GRAD_POOLS.entries.values()
+    # The stand-in replays read the pool's attributes again; a card's graph
+    # reads addresses, so the seed's word and the offset are device buffers.
+    assert all(isinstance(t, torch.Tensor) and t.dim() == 0
+               for t in (pool.word, pool.offset))
+    assert st["dispatches"] == st["bwd_passes"] == 4
+    assert st["fwd_graphs"] == st["bwd_graphs"] == 1
+    assert st["fwd_eager_blocks"] == st["bwd_eager_blocks"] == 1
+    assert st["fwd_pool_reuses"] == st["bwd_pool_reuses"] == 3
+    assert st["fwd_replays"] == st["blocks"] - 1 > 4
+
+
+def test_two_forwards_before_either_backward(scene_dir, kept_grad_pools):
+    """Two differentiable renders on one kept pool, then their backward
+    passes in reverse order: each pass copies its own call's inputs in, so
+    both gradients are those of each render alone, run op by op."""
+    opts = _step_opts()
+    scene, _ = tbuild(scene_dir, "tex", opts, device="cpu")
+    base = SceneParams.from_scene(scene)
+    other = base.map(lambda p: p * 0.8)
+    weights = _weights(scene.camera.height * scene.camera.width).reshape(
+        scene.camera.height, scene.camera.width, 3)
+
+    def forward(params, seed):
+        leaves = params.leaves("cpu")
+        img = tgrad.render_with_params(leaves, scene, None,
+                                       opts.replace(seed=seed), device="cpu")
+        return img, leaves
+
+    def backward(img, leaves):
+        return tgrad.param_grads(torch.sum(img * weights), leaves)
+
+    a, b = forward(base, 21), forward(other, 22)
+    g_b, g_a = backward(*b), backward(*a)
+    st = twf.grad_loop_stats()
+    with twf.eager():
+        alone = [(img.detach(), backward(img, leaves)) for img, leaves
+                 in (forward(base, 21), forward(other, 22))]
+    for (img, _), g, (img_e, g_e) in zip((a, b), (g_a, g_b), alone):
+        assert torch.equal(img.detach(), img_e)
+        for f in PARAM_FIELDS:
+            assert torch.equal(getattr(g, f), getattr(g_e, f)), f
+    assert not torch.equal(g_a.kd, g_b.kd)
+    assert len(twf._GRAD_POOLS.entries) == 1
+    assert st["fwd_pool_reuses"] == st["bwd_pool_reuses"] == 1
+
+
+# What a second gradient step changes after a first on the spec+glass box:
+# nothing, the samples, the resolution, a geometry tensor in place (the
+# stale pool is replaced, not kept beside), the fields that need a
+# gradient (the same pool, a backward graph of its own).
+GRAD_CHANGES = ("nothing", "spp", "resolution", "in_place", "needs")
+
+
+@pytest.mark.parametrize("change", GRAD_CHANGES)
+def test_a_changed_key_makes_a_new_grad_pool(scene_dir, kept_grad_pools,
+                                             change):
+    opts = _step_opts()
+    scene, _ = tbuild(scene_dir, "sg16", opts, device="cpu")
+    first = scene  # held: its pool stays
+    params = SceneParams.from_scene(scene)
+
+    def step(scene, opts, needs=PARAM_FIELDS):
+        leaves = params.leaves("cpu")
+        leaves = SceneParams(**{f: getattr(leaves, f).requires_grad_(f in needs)
+                                for f in PARAM_FIELDS})
+        img = tgrad.render_with_params(leaves, scene, None, opts, device="cpu")
+        wrt = [getattr(leaves, f) for f in needs]
+        return img.detach(), torch.autograd.grad(img.sum(), wrt)
+
+    step(scene, opts.replace(seed=3))
+    needs = PARAM_FIELDS
+    if change == "spp":
+        opts = opts.replace(spp=2)
+    if change == "resolution":
+        cam = dataclasses.replace(scene.camera, width=12, height=12)
+        scene = dataclasses.replace(scene, camera=cam)
+    if change == "in_place":
+        with torch.no_grad():
+            scene.v0.mul_(1.001)
+    if change == "needs":
+        needs = ("kd", "light_radiance")
+    twf.reset_loop_stats()
+    with timing.tracing() as tr:
+        img, g = step(scene, opts.replace(seed=4), needs)
+    st = twf.grad_loop_stats()
+    with twf.eager():
+        img_e, g_e = step(scene, opts.replace(seed=4), needs)
+    assert torch.equal(img, img_e)
+    assert all(torch.equal(a, b) for a, b in zip(g, g_e))
+    (reused,) = [s["counts"]["reused"] for s in tr.spans
+                 if s["name"] == "pool_setup"]
+    kept = change in ("nothing", "needs")
+    assert reused == int(kept) and st["fwd_pool_reuses"] == int(kept)
+    assert st["fwd_eager_blocks"] == 1 - int(kept)
+    assert st["bwd_pool_reuses"] == int(change == "nothing")
+    assert st["bwd_graphs"] == 1 - int(change == "nothing")
+    entries = 1 if kept or change == "in_place" else 2
+    assert len(twf._GRAD_POOLS.entries) == entries
+    del first
+
+
+@pytest.mark.parametrize("inside_capture", [False, True],
+                         ids=["outside_capture", "inside_capture"])
+def test_a_dropped_scene_takes_its_grad_pool_along(scene_dir, kept_grad_pools,
+                                                   inside_capture):
+    """The kept gradient pool holds the scene by alias and its parameters
+    by copy: when the caller drops the scene it goes, by reference counting
+    alone (no cycle is left to the collector); inside a capture, when it
+    ends.  The step's own parameter tensors dying between steps does not
+    drop it."""
+    opts = _step_opts()
+    scene, _ = tbuild(scene_dir, "sg16", opts, device="cpu")
+    target = _target(scene)
+    for seed in (3, 4):
+        tgrad.loss_and_grad(SceneParams.from_scene(scene), scene, None,
+                            opts.replace(seed=seed), target, device="cpu")
+    assert twf.grad_loop_stats()["fwd_pool_reuses"] == 1
+    ((pool, *_),) = twf._GRAD_POOLS.entries.values()
+    pool = weakref.ref(pool)
+    v0 = weakref.ref(scene.v0)
+    gc.disable()
+    try:
+        with twf._capture_guard() if inside_capture else contextlib.nullcontext():
+            del scene
+            assert v0() is None and not twf._GRAD_POOLS.entries
+            assert (pool() is not None) == inside_capture
+        assert pool() is None and not twf._doomed
+    finally:
+        gc.enable()

@@ -1,7 +1,7 @@
-"""The kept lane pools (integrator/wavefront.py::_POOLS) on the card, with
-real CUDA graphs: frames that replay the graphs an earlier frame captured,
-bit for bit the frames run op by op, and the memory a dropped scene's pool
-gives back.
+"""The kept lane pools (integrator/wavefront.py::_POOLS, _GRAD_POOLS) on
+the card, with real CUDA graphs: frames and gradient steps that replay the
+graphs an earlier frame or step captured, bit for bit the frames and steps
+run op by op, and the memory a dropped scene's pool gives back.
 
 Every test here needs a CUDA card and skips without one.  The file imports
 no JAX (tests/conftest.py does), so on the card it runs alone:
@@ -31,10 +31,10 @@ def box(tmp_path):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the lane pool captures graphs only there")
     write_box_scene(str(tmp_path), "box", width=256, height=256)
-    for cache in (twf._POOLS, twf._FRAME_TABLES):
+    for cache in (twf._POOLS, twf._FRAME_TABLES, twf._GRAD_POOLS):
         cache.clear()
     yield str(tmp_path)
-    for cache in (twf._POOLS, twf._FRAME_TABLES):
+    for cache in (twf._POOLS, twf._FRAME_TABLES, twf._GRAD_POOLS):
         cache.clear()
 
 
@@ -95,10 +95,11 @@ def test_a_dropped_scene_gives_its_pool_memory_back(box):
 
 @pytest.mark.card
 def test_gradient_steps_leave_no_memory_behind(box):
-    """Each step's lane pool, graphs and buffers are freed when the step
-    returns (no reference cycle), and its captures run on the device's one
-    side stream, so no library keeps per-stream state for a step: what is
-    allocated after a step is the same after every step."""
+    """The gradient's lane pool, its graphs and buffers are kept from one
+    step to the next (wavefront._GRAD_POOLS), and a step frees all else it
+    made when it returns (no reference cycle); the captures run on the
+    device's one side stream, so no library keeps per-stream state for a
+    step: what is allocated after a step is the same after every step."""
     from montecarlopathtracing_torch.diff import gradients as G
 
     scene = _load(box)
@@ -111,4 +112,60 @@ def test_gradient_steps_leave_no_memory_behind(box):
                         device="cuda")
         torch.cuda.synchronize()
         after.append(torch.cuda.memory_allocated())
-    assert after[1] == after[2] == after[3], after
+    assert after[0] == after[1] == after[2] == after[3], after
+    assert len(twf._GRAD_POOLS.entries) == 1
+    del scene
+    assert not twf._GRAD_POOLS.entries
+
+
+def _sgd_steps(scene, opts, seeds):
+    """Box gradient steps with an out-of-place SGD update between them:
+    [(image, loss, gradient)] a step, and grad_loop_stats() of the steps
+    after the first."""
+    from montecarlopathtracing_torch.diff import gradients as G
+
+    params, out, stats = G.SceneParams.from_scene(scene), [], []
+    h, w = scene.camera.height, scene.camera.width
+    target = torch.rand((h, w, 3), generator=torch.Generator().manual_seed(5))
+    target = target.to("cuda")
+    for k, seed in enumerate(seeds):
+        leaves = params.leaves("cuda")
+        o = opts.replace(seed=seed)
+        img = G.render_with_params(leaves, scene, None, o, device="cuda")
+        loss = torch.mean((img - target) ** 2)
+        g = G.param_grads(loss, leaves)
+        torch.cuda.synchronize()
+        out.append((img.detach(), loss.detach(), g))
+        params = params.map(lambda p, d: p.detach() - 0.05 * d, g)
+        if k == 0:
+            twf.reset_loop_stats()
+    return out, twf.grad_loop_stats()
+
+
+@pytest.mark.card
+def test_gradient_steps_replay_kept_graphs_bit_for_bit(box):
+    """Box gradient steps 2-4, each with another seed and new parameter
+    values, capture nothing and run no block op by op: both passes replay
+    the graphs step 1 captured, and every image, loss and gradient is bit
+    for bit the step run op by op."""
+    from montecarlopathtracing_torch.diff import gradients as G
+
+    scene = _load(box)
+    opts = RenderOptions(spp=4)
+    seeds = (31, 32, 33, 34)
+    with timing.tracing() as tr:
+        steps, st = _sgd_steps(scene, opts, seeds)
+    with twf.eager():
+        eager, _ = _sgd_steps(scene, opts, seeds)
+    assert not torch.equal(steps[0][0], steps[1][0])
+    for (img, loss, g), (img_e, loss_e, g_e) in zip(steps, eager):
+        assert torch.equal(img, img_e) and torch.equal(loss, loss_e)
+        for f in G.PARAM_FIELDS:
+            assert torch.equal(getattr(g, f), getattr(g_e, f)), f
+    assert st["dispatches"] == st["bwd_passes"] == 3
+    assert st["fwd_graphs"] == st["bwd_graphs"] == 0
+    assert st["fwd_eager_blocks"] == st["bwd_eager_blocks"] == 0
+    assert st["fwd_pool_reuses"] == st["bwd_pool_reuses"] == 3
+    reused = [s["counts"]["reused"] for s in tr.spans
+              if s["name"] == "pool_setup"]
+    assert reused == [0, 1, 1, 1]

@@ -1068,7 +1068,6 @@ MAIN_GRAPH_FRAMES = ("box", "large", "large400_chunked", "large400_hbm",
                      "box_bvh", "box_bvh_perray", "large_bvh",
                      "large_bvh_perray", "large400_fallback", "box_pool",
                      "box_kept", "large_pool", "large_kept")
-BLOCK = 8  # render_pixels_refill's check_every: iterations a graph replays
 
 
 def counted(fn, eager: bool = False):
@@ -1106,6 +1105,8 @@ def hold_graphs(label: str, captured, eager, pools=None):
     the frame builds: each captures a graph; a frame that builds none
     captures nothing and counts every dispatch in ``pool_reuses``.  Records
     the frame for the graphs line."""
+    from montecarlopathtracing_torch.integrator import wavefront as W
+
     img, rays, secs, launches, st = captured
     img_e, rays_e, secs_e, launches_e, st_e = eager
     equal = bool(torch.equal(img, img_e))
@@ -1114,7 +1115,7 @@ def hold_graphs(label: str, captured, eager, pools=None):
           f"{label}: rays {float(rays)} captured, {float(rays_e)} eager")
     check(launches == launches_e, f"{label}: launches {launches} captured, "
                                   f"{launches_e} eager")
-    d, blocks = st["dispatches"], st["iterations"] // BLOCK
+    d, blocks = st["dispatches"], st["iterations"] // W._CHECK_EVERY
     check(d > 0 and st["iterations"] == st_e["iterations"]
           and st["idle_iterations"] == st_e["idle_iterations"]
           and st["eager_blocks"] + st["replays"] == blocks
@@ -1504,8 +1505,9 @@ def hold_grad_graphs(label: str, forward, captured=None) -> dict:
     """A gradient with both passes replayed as CUDA graphs (``captured``, a
     timed_gradient() result, or made here) against the same gradient under
     wavefront.eager(): the image bit for bit and the same rays and launch
-    counts (none in backward); every gradient replays a forward and a
-    backward graph, and every block after each pass's first is a replay.
+    counts (none in backward); every block of each pass is a replay but the
+    first of a pass on a new lane pool, which runs op by op and captures (a
+    pass on a pool kept from an earlier call captures nothing).
     The gradient must equal the eager one bit for bit, except in a field
     where a second eager gradient differs from the first (an operation that
     does not reproduce itself); there it must agree within atol 1e-6 + 1e-4
@@ -1533,8 +1535,10 @@ def hold_grad_graphs(label: str, forward, captured=None) -> dict:
           and st_e["fwd_graphs"] == st_e["bwd_graphs"] == 0, f"{label}: grad loop "
           f"stats {st} captured, {st_e} eager")
     for p in ("fwd", "bwd"):
-        check(st[f"{p}_graphs"] >= 1 and st[f"{p}_eager_blocks"] == st["dispatches"]
-              and st[f"{p}_replays"] == blocks - st["dispatches"]
+        fresh = st["dispatches"] - st[f"{p}_pool_reuses"]
+        check((st[f"{p}_graphs"] >= 1 if fresh else st[f"{p}_graphs"] == 0)
+              and st[f"{p}_eager_blocks"] == fresh
+              and st[f"{p}_replays"] == blocks - fresh
               and (blocks <= 2 or st[f"{p}_replays"] > 1),
               f"{label}: {p} graphs or replays missing: {st}")
     diffs, unrepro, again = {}, [], None
@@ -3375,6 +3379,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from montecarlopathtracing_torch.integrator import wavefront as W
     from montecarlopathtracing_torch.kernels import build as B
     from montecarlopathtracing_torch.utils.device import nvidia_smi_line
 
@@ -3424,7 +3429,8 @@ def main() -> int:
     run(phase_torchrun, dev)
     run(phase_profile, dev)
     run(phase_bench)
-    emit({"phase": "graphs", "block_iterations": BLOCK, "frames": GRAPH_FRAMES})
+    emit({"phase": "graphs", "block_iterations": W._CHECK_EVERY,
+          "frames": GRAPH_FRAMES})
     emit({"phase": "grad_graphs", "gradients": GRAD_FRAMES})
     run(phase_timing, state)
     run(phase_walk_timing, state)

@@ -7,7 +7,7 @@ event semantics (emitter short-circuit, one NEE sample per light, RR at 0.6,
 diffuse/specular/transmission weights, nearest-neighbour textures).
 
 The JAX ``lax.while_loop`` becomes a host loop over blocks of
-``check_every`` iterations, and the termination predicate is read back only
+``_CHECK_EVERY`` iterations, and the termination predicate is read back only
 between blocks: an iteration after the pool has drained changes nothing (no
 lane is active, none is refilled, nothing is staged), so the film does not
 depend on it.  On a CUDA device every forward block after the first replays
@@ -907,11 +907,10 @@ class _Blocks:
     ``prefix`` name the counters this loop adds to; ``graphs`` (a
     _CudaGraphs) lets several loops capture into one pool."""
 
-    def __init__(self, block, dev, flush_every: int, stats=None,
+    def __init__(self, block, dev, flush_every: int, stats: dict,
                  prefix: str = "", graphs=None):
         self.block, self.flush_every = block, flush_every
-        self.stats = _loop_stats if stats is None else stats
-        self.prefix = prefix
+        self.stats, self.prefix = stats, prefix
         if graphs is None and _captures(dev):
             graphs = _CudaGraphs(dev)
         self.graphs = graphs
@@ -920,6 +919,15 @@ class _Blocks:
 
     def _add(self, key: str, n=1) -> None:
         self.stats[self.prefix + key] += n
+
+    @contextlib.contextmanager
+    def one_pass(self):
+        """Around one pass over these blocks: counts it in ``pool_reuses``
+        when it ran no block op by op and captured no graph."""
+        keys = [self.prefix + k for k in ("eager_blocks", "graphs")]
+        before = [self.stats[k] for k in keys]
+        yield
+        self._add("pool_reuses", [self.stats[k] for k in keys] == before)
 
     def run(self, i0: int) -> None:
         if not self.warm:
@@ -952,137 +960,100 @@ class _Blocks:
         self._add("replays")
 
 
-def _vjp_into(block, state, ct_state, wrt, acc) -> None:
-    """One block's VJP: ``block(st)`` recomputed under autograd on a copy of
-    the state buffers ``state`` whose _GRAD_STATE entries are fresh leaves
-    (it replaces the copy's entries and returns its other (output,
-    cotangent) pairs), and the gradients taken for those pairs and the exit
-    state's cotangents ``ct_state``.  ``ct_state`` becomes the entry state's
-    cotangents, in place, and the gradients of ``wrt`` are added into
-    ``acc``."""
-    with torch.enable_grad():
-        st = dict(state)
-        entry = [st[f].detach().requires_grad_() for f in _GRAD_STATE]
-        st.update(zip(_GRAD_STATE, entry))
-        pairs = list(block(st)) + [(st[f], ct_state[f]) for f in _GRAD_STATE]
-        pairs = [(o, c) for o, c in pairs if o.requires_grad]
-        grads = (torch.autograd.grad(
-            [o for o, _ in pairs], entry + wrt, [c for _, c in pairs],
-            allow_unused=True) if pairs else [None] * (len(entry) + len(wrt)))
-    for f, g in zip(_GRAD_STATE, grads):
-        if g is None:
-            ct_state[f].zero_()
-        else:
-            ct_state[f].copy_(g)
-    for a, g in zip(acc, grads[len(_GRAD_STATE):]):
-        if g is not None:
-            a.add_(g)
+class _Backward:
+    """The backward passes of a checkpointed loop (_CheckpointedBlocks)
+    whose inputs are ``xs`` (in _grad_inputs' order) and whose state
+    buffers are ``state``: for each mask ``needs`` of the inputs that need
+    a gradient, made at its first pass, the leaves (the inputs detached:
+    the same storage), the (scene, tables) that read them, ``wrt`` (the
+    leaves that need a gradient) and their gradients' accumulators; the
+    cotangents ``ct_state`` of the state's _GRAD_STATE entries; and the
+    reverse loop.  A captured VJP reads them by address."""
 
+    def __init__(self, scene, xs, state):
+        self.scene, self.xs = scene, xs
+        self.ct_state = {f: torch.zeros_like(state[f]) for f in _GRAD_STATE}
+        self.masks = {}
 
-class _BlockScan:
-    """One call of the differentiable lane pool's loop: up to ``n_blocks``
-    calls of ``block(st, env, res)`` (the pool's ``grad_block``: one block
-    of iterations on the state dict ``st``, its entries replaced, ending
-    with its pend registers flushed and reset; returns the film columns and
-    the (3, n) sums it staged), on the pool's state buffers ``state``, the
-    drain (``drained(state)``) read between blocks.  ``env(xs)`` gives the
-    (scene, tables) a block reads from the tensors ``xs`` in _grad_inputs'
-    order, ``inputs`` the call's own.
-
-    ``forward`` and ``backward`` are the two halves of the JAX package's
-    ``lax.scan`` over ``jax.checkpoint``-ed blocks that save only the named
-    residuals; _CheckpointedBlocks makes them one autograd node.  The pool
-    (_LanePool) holds what the blocks of both passes read and write by
-    address, and the passes' _Blocks (``pool.fwd``, and ``pool.backward_for``
-    for each mask of the inputs that need a gradient): on the card each
-    runs its first block op by op and replays one CUDA graph for every later
-    block, kept with the pool for later calls.  The scan holds what is the
-    call's own: its inputs and its ``dispatch`` (pixel ids, seed, sample
-    offset: _LanePool.take), which each pass copies into the pool's buffers
-    before its first block, and each recorded block's entry state and
-    residuals.  So two calls on one kept pool may both run forward before
-    either runs backward."""
-
-    def __init__(self, pool, inputs, dispatch):
-        self.pool, self.inputs, self.dispatch = pool, inputs, dispatch
-        self.block, self.state, self.film = pool.grad_block, pool.s, pool.film
-        self.n_blocks, self.drained, self.env = (pool.n_blocks, pool.drained,
-                                                 pool.grad_env)
-        self.res = pool.res
-        self.entries, self.saved = [], []
-
-    def forward(self, record: bool):
-        """Runs the blocks without recording autograd, each adding its
-        staged sums into the pool's film in place; returns a copy of the
-        film.  ``record`` keeps each block's entry state and residuals for
-        ``backward``."""
-        stats = _grad_stats
-        before = stats["fwd_eager_blocks"], stats["fwd_graphs"]
-        self.pool.load(self.inputs)
-        self.res.mode = "record" if record else None
+    def mask(self, needs) -> None:
+        """Makes the mask ``needs``'s leaves at its first pass; zeroes its
+        accumulators and ``ct_state``."""
+        if needs not in self.masks:
+            leaves = [x.detach().requires_grad_(n) for x, n in zip(self.xs, needs)]
+            wrt = [x for x in leaves if x.requires_grad]
+            self.masks[needs] = (_grad_env(self.scene, leaves), wrt,
+                                 [torch.zeros_like(x) for x in wrt])
         with torch.no_grad():
-            for _ in range(self.n_blocks):
-                if self.drained(self.state):
-                    break
-                if record:
-                    self.entries.append({k: v.clone()
-                                         for k, v in self.state.items()})
-                self.pool.fwd.run(0)
-                if record:
-                    self.saved.append(self.res.copies())
-                stats["blocks"] += 1
-            film = self.film.clone()
-        self.res.mode = None
-        stats["fwd_pool_reuses"] += (stats["fwd_eager_blocks"],
-                                     stats["fwd_graphs"]) == before
-        return film
+            for x in self.masks[needs][2] + list(self.ct_state.values()):
+                x.zero_()
 
-    def backward(self, ct_film, needs) -> list:
-        """The inputs' gradients (None where ``needs`` is false) for the film
-        cotangent ``ct_film``: the recorded blocks in reverse order, each
-        recomputed from its entry state with its residuals replayed, under
-        autograd, and its VJP taken for its outputs (the film cotangent at
-        its staged columns) and its exit state (the cotangent the block after
-        it handed back).  Each input's gradient is summed over the blocks,
-        the last block's first; nothing a block saves outlives its call."""
-        stats = _grad_stats
-        before = stats["bwd_eager_blocks"], stats["bwd_graphs"]
-        blocks, acc = self.pool.backward_for(ct_film, needs)
-        self.pool.load(self.inputs)
-        self.pool.take(*self.dispatch)
-        self.res.mode = "replay"
-        while self.entries:
-            for k, v in self.entries.pop().items():
-                self.state[k].copy_(v)
-            self.res.load(self.saved.pop())
-            blocks.run(0)
-        self.res.mode = None
-        stats["bwd_passes"] += 1
-        stats["bwd_pool_reuses"] += (stats["bwd_eager_blocks"],
-                                     stats["bwd_graphs"]) == before
-        acc = iter(acc)
+    def vjp(self, block, state, needs) -> None:
+        """One block's VJP: ``block(st, env)`` recomputed under autograd
+        with the mask's ``env`` on a copy of ``state`` whose _GRAD_STATE
+        entries are fresh leaves (it replaces the copy's entries and
+        returns its other (output, cotangent) pairs), and the gradients
+        taken for those pairs and the exit state's cotangents ``ct_state``,
+        which become the entry state's, in place; the gradients of ``wrt``
+        are added into the accumulators."""
+        env, wrt, acc = self.masks[needs]
+        ct_state = self.ct_state
+        with torch.enable_grad():
+            st = dict(state)
+            entry = [st[f].detach().requires_grad_() for f in _GRAD_STATE]
+            st.update(zip(_GRAD_STATE, entry))
+            pairs = list(block(st, env)) + [(st[f], ct_state[f])
+                                            for f in _GRAD_STATE]
+            pairs = [(o, c) for o, c in pairs if o.requires_grad]
+            grads = (torch.autograd.grad(
+                [o for o, _ in pairs], entry + wrt, [c for _, c in pairs],
+                allow_unused=True) if pairs else [None] * (len(entry) + len(wrt)))
+        for f, g in zip(_GRAD_STATE, grads):
+            if g is None:
+                ct_state[f].zero_()
+            else:
+                ct_state[f].copy_(g)
+        for a, g in zip(acc, grads[len(_GRAD_STATE):]):
+            if g is not None:
+                a.add_(g)
+
+    def reverse(self, state, res, entries, saved, vjp) -> None:
+        """The recorded blocks, the last first: block i's entry state
+        (``entries``) copied back into ``state``, its residuals (``saved``)
+        loaded into ``res`` to be replayed, and its VJP ``vjp(i)`` run.
+        Each block's copies go as soon as they are loaded."""
+        res.mode = "replay"
+        while entries:
+            for k, v in entries.pop().items():
+                state[k].copy_(v)
+            res.load(saved.pop())
+            vjp(len(entries))
+        res.mode = None
+
+    def grads(self, needs) -> list:
+        """Copies of the mask's gradients, None where ``needs`` is false."""
+        acc = iter(self.masks[needs][2])
         return [next(acc).clone() if n else None for n in needs]
 
 
 class _CheckpointedBlocks(torch.autograd.Function):
     """A differentiable render's blocks as one autograd node, the tensors of
-    _grad_inputs its inputs: the lane pool's (a _BlockScan, the film its
-    output) or the samples of one scan-renderer call (a _ScanCall, the sum
-    of their radiance its output).  ``scan.forward`` and
-    ``scan.backward`` are its two passes.  Between them it holds no
-    activation: the lane pool's blocks' entry states and named residuals
-    (the JAX package's ``save_only_these_names``), and of a scan call only
-    which samples to redo (its ``jax.checkpoint(sample_body)``)."""
+    _grad_inputs its inputs: one call of the lane pool's gradient loop (a
+    _GradCall, the film its output) or the samples of one scan-renderer
+    call (a _ScanCall, the sum of their radiance its output).
+    ``call.forward`` and ``call.backward`` are its two passes.  Between
+    them it holds no activation: the lane pool's blocks' entry states and
+    named residuals (the JAX package's ``save_only_these_names``), and of a
+    scan call only which samples to redo (its
+    ``jax.checkpoint(sample_body)``)."""
 
     @staticmethod
-    def forward(ctx, scan, *inputs):
-        ctx.scan = scan
-        return (scan.forward(record=True) if isinstance(scan, _BlockScan)
-                else scan.forward())
+    def forward(ctx, call, *inputs):
+        ctx.call = call
+        return call.forward()
 
     @staticmethod
-    def backward(ctx, ct_film):
-        return (None, *ctx.scan.backward(ct_film, ctx.needs_input_grad[1:]))
+    def backward(ctx, ct):
+        return (None, *ctx.call.backward(ct, ctx.needs_input_grad[1:]))
 
 
 _SCAN_BLOCK = 8  # bounces of a scan block, between two reads of the drain
@@ -1157,7 +1128,7 @@ class _ScanFrame:
             self.res_p, self.res_b = _Residuals(), _Residuals()
         self.graphs = _CudaGraphs(dev) if _captures(dev) else None
         self.blocks = {}
-        self.leaves = None  # made by the first backward pass
+        self.bwd = None  # made by the first backward pass (_ScanCall.backward)
         _scan_stats["frames"] += 1
 
     def render(self, pix, sample_offset: int, spp: int):
@@ -1184,8 +1155,8 @@ class _ScanFrame:
     def run(self, kind) -> None:
         """Runs the block ``kind`` once: ("primary", mode), ("bounce", n,
         mode) with the residuals' mode (None, or "record" in backward),
-        ("finish",), or ("vjp", n), the VJP of n bounces or (n = 0) of the
-        primary block."""
+        ("finish",), or ("vjp", n, needs), the VJP of n bounces or (n = 0)
+        of the primary block for the mask ``needs``."""
         blocks = self.blocks.get(kind)
         if blocks is None:
             prefix = "bwd_" if kind[0] == "vjp" or kind[-1] == "record" else "fwd_"
@@ -1202,18 +1173,18 @@ class _ScanFrame:
         f = weakref.proxy(self)
         name = kind[0]
         if name == "vjp":
-            n = kind[1]
+            n, needs = kind[1:]
+            bwd = self.bwd
 
-            def block(st):
+            def block(st, env):
                 f.res_p.mode = f.res_b.mode = "replay"
                 if n:
-                    f._bounces(st, f.env, f.res_b, n)
+                    f._bounces(st, env, f.res_b, n)
                 else:
-                    f._primary(st, f.env, f.res_p)
+                    f._primary(st, env, f.res_p)
                 return []
 
-            return lambda _: _vjp_into(block, f.state, f.ct_state, f.wrt,
-                                       f.grad_acc)
+            return lambda _: bwd.vjp(block, f.state, needs)
         env = (self.scene, self.tables)
 
         def run(_):
@@ -1321,22 +1292,6 @@ class _ScanFrame:
             rad = torch.zeros_like(rad).index_copy(0, st["slot"].long(), rad)
         st.update(acc=st["acc"] + rad, rays=st["rays"] + st["n_rays"])
 
-    def prepare_backward(self, needs) -> None:
-        """The backward passes' leaves (the inputs, detached), their
-        gradients' accumulators (zeroed), the cotangent buffers; made at
-        the first backward pass, and held for the captured VJPs."""
-        if self.leaves is None:
-            self.leaves = [x.detach().requires_grad_(n)
-                           for x, n in zip(self.inputs, needs)]
-            self.wrt = [x for x in self.leaves if x.requires_grad]
-            self.env = _grad_env(self.scene, self.leaves)
-            self.grad_acc = [torch.zeros_like(x) for x in self.wrt]
-            self.grad_ct = torch.zeros_like(self.state["acc"])
-            self.ct_state = {f: torch.zeros_like(self.state[f])
-                             for f in _GRAD_STATE}
-        for a in self.grad_acc:
-            a.zero_()
-
 
 class _ScanCall:
     """One call on a _ScanFrame: ``spp`` samples from ``offset`` of the
@@ -1378,15 +1333,17 @@ class _ScanCall:
         (_sample_backward), each input's gradient summed over their blocks,
         the last sample's last block first."""
         f = self.frame
-        f.prepare_backward(needs)
+        if f.bwd is None:  # held for the captured VJPs
+            f.bwd = _Backward(f.scene, f.inputs, f.state)
+            f.grad_ct = torch.zeros_like(f.state["acc"])
+        f.bwd.mask(needs)
         f.grad_ct.copy_(ct)
         with torch.no_grad():
             for s in reversed(range(self.spp)):
-                self._sample_backward(s)
-        acc = iter(f.grad_acc)
-        return [next(acc).clone() if x.requires_grad else None for x in f.leaves]
+                self._sample_backward(s, needs)
+        return f.bwd.grads(needs)
 
-    def _sample_backward(self, s: int) -> None:
+    def _sample_backward(self, s: int, needs) -> None:
         """Sample ``s`` recomputed from its primary block, recording its
         residuals (the primary intersect stays in its buffer; each bounce
         block's intersects and sort orders are copied out, with the block's
@@ -1405,16 +1362,14 @@ class _ScanCall:
         _scan_stats["residual_bytes"] = max(
             _scan_stats["residual_bytes"],
             sum(c.nbytes for copies in saved for c in copies))
-        f.ct_state["rad"].copy_(
+        ct_state = f.bwd.ct_state
+        ct_state["rad"].copy_(
             f.grad_ct.index_select(0, f.state["slot"].long())
             if f.do_sort else f.grad_ct)
-        f.ct_state["beta"].zero_()
-        for n, res, entry in reversed(list(zip(f.sizes, saved, entries))):
-            for k, v in entry.items():
-                f.state[k].copy_(v)
-            f.res_b.load(res)
-            f.run(("vjp", n))
-        f.run(("vjp", 0))
+        ct_state["beta"].zero_()
+        f.bwd.reverse(f.state, f.res_b, entries, saved,
+                      lambda i: f.run(("vjp", f.sizes[i], needs)))
+        f.run(("vjp", 0, needs))
 
 
 class _SceneCache:
@@ -1497,41 +1452,38 @@ _GRAD_POOLS = _SceneCache(4)
 # pool keys them by shape and dtype, and each call copies their values in.
 _STEP_FIELDS = ("kd", "ks", "ns", "emission", "atlas", "light_radiance")
 
+# Iterations of a forward lane-pool block, between two reads of the drain.
+_CHECK_EVERY = 8
+
 
 class _LanePool:
     """The lane pool of render_pixels_refill: ``r`` lanes over ``n_pix``
-    pixel slots of ``scene`` under ``opts``, its constants, its shading and
-    intersector tables, and its iteration (``step``).
+    pixel slots of ``scene`` under ``opts``, ``n_pend`` pend registers a
+    lane, its constants, its shading and intersector tables, and its
+    iteration (``step``); its two kinds are the frame loop (_FramePool) and
+    the gradient's (_GradPool), each with its ``kept`` and ``loose``
+    (_kept_pool).  ``track``: the iterations record for backward.
 
-    Each dispatch gives the pool its inputs (``for_dispatch``): the pixel
-    ids (which the step reads when there is no ``pixel_fn``), the seed's
-    word and the sample offset.  The pool holds what its blocks read and
-    write by address, made at its first dispatch: the state buffers ``s``
-    (a forward pool's ``live`` among them), the film, and its _Blocks; it
-    takes the inputs into buffers of its own (the word and the offset as
-    0-d device buffers, so no graph holds a number that changes between
-    dispatches), outside any capture.  A forward pool runs its blocks
-    itself (``run``).  A differentiable pool (``track``: the call records
-    for backward) also holds copies of the gradient's inputs (``xs``, in
-    _grad_inputs' order; the triangle table is its own), the residual
-    buffers, the cotangent buffers and the _Blocks of both passes, in one
-    graph pool; a _BlockScan runs them for each call.  On a CUDA device,
-    outside ``eager()``, render_pixels_refill keeps the pool for the next
-    dispatch of the same shape (_POOLS, _GRAD_POOLS), whose blocks replay
-    the graphs this one captured.
+    Each dispatch fills the buffers that its blocks read and write by
+    address (``for_dispatch``), made at the pool's first dispatch: the
+    state ``s``, the film, what its kind adds (``_make_buffers``), and the
+    dispatch's inputs (``take``; the seed's word and the offset as 0-d
+    device buffers, so no graph holds a number that changes between
+    dispatches).
 
     The block functions reach the pool through a weak proxy: a reference
     cycle would leave the pool and its graphs to the garbage collector,
     which may run inside another loop's capture, where destroying a graph
     breaks that capture."""
 
+    loose, track = (), False
+
     def __init__(self, scene, bvh, opts: RenderOptions, r: int, n_pix: int,
-                 differentiable: bool, pixel_fn=None, accel=None,
-                 check_every: int = 8, track: bool = False):
+                 n_pend: int, pixel_fn=None, accel=None):
         dev = scene.device
         self.scene, self.bvh, self.opts, self.r, self.n_pix, self.dev = (
             scene, bvh, opts, r, n_pix, dev)
-        self.pixel_fn, self.check_every = pixel_fn, check_every
+        self.pixel_fn, self.n_pend = pixel_fn, n_pend
         self.spp = opts.spp
         self.n_slots = rng.n_bounce_slots(scene.num_lights)
         self.do_sort = (_should_sort(opts, scene.num_tris_padded)
@@ -1539,29 +1491,17 @@ class _LanePool:
         self.num_lights = scene.num_lights
         # With >= 2 lights and sorting, the NEE prep runs after the sort.
         self.post_nee = self.do_sort and self.num_lights >= 2
-        self.differentiable = differentiable
         self.lane_iota = torch.arange(r, dtype=_I32, device=dev)
         # Out-of-range dummies: the film has r * n_pend spare columns past
         # n_pix where non-pending lanes' flushes land; they are sliced off.
         self.dummy_slot = n_pix + self.lane_iota
-        self.n_pend = 1 if differentiable else max(1, min(2, -(-16 // opts.spp)))
-        self.pend_iota = torch.arange(self.n_pend, dtype=_I32, device=dev)
-        self.dummy_pend = (n_pix + self.lane_iota[:, None] * self.n_pend
+        self.pend_iota = torch.arange(n_pend, dtype=_I32, device=dev)
+        self.dummy_pend = (n_pix + self.lane_iota[:, None] * n_pend
                            + self.pend_iota[None, :])
         self.tables = _shading_tables(scene)
         self.accel = intersector_tables(scene, opts, bvh) if accel is None else accel
-        self.track = track
-        if differentiable:
-            # The static budget, in blocks of spp iterations (one pend slot
-            # per lane: a lane completes at most one pixel a block).
-            e_seg = (opts.bwd_seg_per_sample if opts.bwd_seg_per_sample is not None
-                     else 1.2 / (1.0 - opts.rr_probability))
-            n_iter = (int(np.ceil(n_pix * opts.spp * e_seg / r)) + opts.max_depth
-                      + opts.spp + 4)
-            self.k_steps = self.n_pend * opts.spp
-            self.n_blocks = -(-n_iter // self.k_steps)
         self.pixel_ids = self.word = self.offset = None
-        self.s = self.film = self.blocks = None
+        self.s = self.film = None
 
     def isect(self, o, d):
         return intersect_any(self.scene, self.bvh, o, d, self.opts,
@@ -1578,7 +1518,8 @@ class _LanePool:
         pixels, intersect.  ``env`` is the (scene, shading tables) to shade
         with (a backward recompute passes its leaves); ``replay`` (a
         _Residuals) computes, records or replays the intersect results and
-        sort orders."""
+        sort orders.  Returns ``lit``, whether each lane's shadow rows (one
+        a light) carried rays."""
         opts, r, n_pix, spp = self.opts, self.r, self.n_pix, self.spp
         n_slots, do_sort, num_lights = self.n_slots, self.do_sort, self.num_lights
         n_pend = self.n_pend
@@ -1734,10 +1675,6 @@ class _LanePool:
         l_dir = _nee_resolve(scene, opts, contrib, ok_n, dist_n, smat_n,
                              hs, ts, tris)
         rad = rad + torch.where(shade[:, None], l_dir, 0.0)
-        if not self.differentiable:
-            # Each lane's iterations whose shadow rows carried rays (one row
-            # per light each), summed at the dispatch's end: one kernel here.
-            s["n_lit"] = s["n_lit"] + lit
 
         # Stage completed pixel sums into the lane's next free pend slot; a
         # lane completes at most one pixel per spp iterations, so n_pend
@@ -1764,6 +1701,7 @@ class _LanePool:
             prim_tri=prim_tri, pend_slot=pend_slot, pend_count=pend_count,
             origin=origin, direction=direction, beta=beta, rad=rad,
             pend_r=pend_r, pend_g=pend_g, pend_b=pend_b)
+        return lit
 
     def bootstrap(self, pixel_ids, seed: int, sample_offset: int) -> dict:
         """The state the loop starts from.  The loop carries each lane's
@@ -1802,29 +1740,26 @@ class _LanePool:
             pend_r=torch.zeros((r, n_pend), **f32),
             pend_g=torch.zeros((r, n_pend), **f32),
             pend_b=torch.zeros((r, n_pend), **f32),
-            **({} if self.differentiable else {"n_lit": torch.zeros((r,), **i32)}),
         )
 
     def drained(self, st) -> bool:
         with span("drain_read"):
             return not bool(((st["q"] < self.n_pix) | st["active"].any()).item())
 
-    def for_dispatch(self, pixel_ids, seed: int, sample_offset: int) -> dict:
+    def for_dispatch(self, pixel_ids, seed: int, sample_offset: int) -> None:
         """Takes a dispatch's inputs, the pixel ids, the seed ``seed``'s
-        word and the sample offset, and returns the pool's state buffers
-        ``s``, filled with the state the loop starts from (bootstrapped),
-        the film zeroed (and a forward pool's ``live``).  The pool makes its
-        buffers at its first dispatch and writes every later one into the
-        same tensors, whose addresses the graphs hold."""
+        word and the sample offset, and fills the state buffers ``s`` with
+        the state the loop starts from (bootstrapped), the film zeroed.
+        The pool makes its buffers at its first dispatch and writes every
+        later one into the same tensors, whose addresses the graphs hold."""
         with torch.no_grad():
             boot = self.bootstrap(pixel_ids, seed, sample_offset)
             if self.s is None:
                 # Fixed storage: each block starts from these buffers and
                 # copies its results back into them (the film is added to
                 # in place), so a captured block replays on the same
-                # addresses.  ``live`` counts the iterations that started
-                # before the pool drained.  The film is channel-major, with
-                # r * n_pend spare columns for the dummies.
+                # addresses.  The film is channel-major, with r * n_pend
+                # spare columns for the dummies.
                 i64 = dict(dtype=torch.int64, device=self.dev)
                 self.s = {k: torch.empty_like(v) for k, v in boot.items()}
                 self.film = torch.empty((3, self.n_pix + self.r * self.n_pend),
@@ -1833,19 +1768,11 @@ class _LanePool:
                 self.offset = torch.zeros((), **i64)
                 if self.pixel_fn is None:
                     self.pixel_ids = torch.empty_like(pixel_ids)
-                if self.differentiable:
-                    self._grad_buffers()
-                else:
-                    self.s["live"] = torch.zeros((), **i64)
-                    self.blocks = _Blocks(self._block_fn(), self.dev,
-                                          max(1, self.n_pend * self.spp))
+                self._make_buffers()
             for k, v in boot.items():
                 self.s[k].copy_(v)
-            if not self.differentiable:
-                self.s["live"].zero_()
             self.film.zero_()
         self.take(pixel_ids, seed, sample_offset)
-        return self.s
 
     def take(self, pixel_ids, seed: int, sample_offset: int) -> None:
         """A dispatch's inputs into the buffers the step reads: the pixel
@@ -1856,114 +1783,45 @@ class _LanePool:
             self.word.fill_(rng.seed_word(seed))
             self.offset.fill_(sample_offset)
 
-    def _grad_buffers(self) -> None:
-        """A differentiable pool's buffers beside ``s`` and the film: the
-        blocks' constants, the residuals (when it records), the copies of
-        the gradient's inputs, the cotangents' buffers, and the forward
-        pass's _Blocks, whose graphs share one pool with the backward
-        passes' (backward_for)."""
-        r, dev = self.r, self.dev
-        self.zero_count = torch.zeros((r,), dtype=_I32, device=dev)
-        self.zero_pend = torch.zeros((r, self.n_pend), dtype=torch.float32,
-                                     device=dev)
-        self.res = (_Residuals(self.k_steps, r * (1 + self.num_lights),
-                               r if self.do_sort else 0, dev)
-                    if self.track else _Residuals())
-        # The triangle table is the pool's own (it carries no gradient when
-        # the pool is kept: _grad_pool); every other input is copied in by
-        # each pass (load).
-        xs = _grad_inputs(self.scene, self.tables)
-        self.xs = [xs[0].detach()] + [x.detach().clone() for x in xs[1:]]
-        self.ct_film = torch.zeros_like(self.film)
-        self.ct_state = {f: torch.zeros_like(self.s[f]) for f in _GRAD_STATE}
-        self.graphs = _CudaGraphs(dev) if _captures(dev) else None
-        self.fwd = _Blocks(self._grad_fwd_fn(), dev, 1, _grad_stats, "fwd_",
-                           self.graphs)
-        self.bwd = {}
-
-    def grad_env(self, xs):
-        """(scene, tables) that read the tensors ``xs`` in _grad_inputs'
-        order.  The pool's scene is read for the fields that are no inputs:
-        a kept pool's parameter fields are the first call's, and no block
-        reads them."""
-        return _grad_env(self.scene, xs)
-
-    def load(self, inputs) -> None:
-        """Copies a call's gradient inputs (_grad_inputs' order, the pool's
-        own triangle table first) into the buffers the blocks read."""
-        with torch.no_grad():
-            for x, y in zip(self.xs[1:], inputs[1:]):
-                x.copy_(y)
-
-    def grad_block(self, st, env, res):
-        """One block of the differentiable loop on the state dict ``st``
-        (its entries replaced): ``k_steps`` iterations, then the pend
-        registers reset; returns the film columns and the (3, n) sums they
-        staged.  ``env`` is the (scene, tables) to shade with, ``res`` the
-        residuals' mode and buffers."""
-        for k in range(self.k_steps):
-            self.step(st, k, env, res)
+    @staticmethod
+    def pend(st):
+        """(film columns, (3, r * n_pend) sums) of the pend registers in
+        ``st``.  Real slots are unique (a pixel completes once a dispatch),
+        so every film entry receives one add and the order is immaterial."""
         slots = st["pend_slot"].reshape(-1).long()
         vals = torch.stack([st[c].reshape(-1)
                             for c in ("pend_r", "pend_g", "pend_b")])
-        st.update(pend_slot=self.dummy_pend, pend_count=self.zero_count,
-                  pend_r=self.zero_pend, pend_g=self.zero_pend,
-                  pend_b=self.zero_pend)
         return slots, vals
 
-    def _grad_fwd_fn(self):
-        f = weakref.proxy(self)
-        s, film, res, env = self.s, self.film, self.res, self.grad_env(self.xs)
 
-        def run(_):
-            # Real slots are unique over the frame, so each film entry
-            # receives one add; dummies repeat across blocks and land in
-            # the spare columns.
-            st = dict(s)
-            slots, vals = f.grad_block(st, env, res)
-            film.index_add_(1, slots, vals)
-            for k, v in s.items():
-                v.copy_(st[k])
+class _FramePool(_LanePool):
+    """The frame loop: 2 pend registers a lane below spp 16 (1 from there),
+    added into the film every n_pend * spp iterations, and blocks of
+    _CHECK_EVERY iterations with the drain read between them (``run``),
+    whose _Blocks replays one graph for each flush phase.  Its state adds
+    ``n_lit``, each lane's iterations whose shadow rows carried rays, and
+    ``live``, the iterations that started before the pool drained."""
 
-        return run
+    kept = _POOLS
 
-    def backward_for(self, ct_film, needs):
-        """(the backward pass's _Blocks for the mask ``needs`` of the inputs
-        that need a gradient, its gradient buffers ``acc``), made at the
-        mask's first call, with the film cotangent ``ct_film`` copied in,
-        ``acc`` and the state cotangents zeroed.  Its block recomputes a
-        block under autograd on leaves that alias the input buffers
-        (_vjp_into)."""
-        if needs not in self.bwd:
-            leaves = [x.detach().requires_grad_(n) for x, n in zip(self.xs, needs)]
-            wrt = [x for x in leaves if x.requires_grad]
-            acc = [torch.zeros_like(x) for x in wrt]
-            f, env = weakref.proxy(self), self.grad_env(leaves)
-            s, res, ct_state, ct_film_b = self.s, self.res, self.ct_state, self.ct_film
+    def __init__(self, scene, bvh, opts: RenderOptions, r: int, n_pix: int,
+                 pixel_fn=None, accel=None):
+        super().__init__(scene, bvh, opts, r, n_pix,
+                         max(1, min(2, -(-16 // opts.spp))), pixel_fn, accel)
+        self.check_every = _CHECK_EVERY
 
-            def block(st):
-                slots, vals = f.grad_block(st, env, res)
-                return [(vals, ct_film_b.index_select(1, slots))]
+    @classmethod
+    def variant(cls, scene, pixel_ids):
+        return {}, (_CHECK_EVERY,)
 
-            def run(_):
-                _vjp_into(block, s, ct_state, wrt, acc)
+    def bootstrap(self, pixel_ids, seed: int, sample_offset: int) -> dict:
+        return dict(super().bootstrap(pixel_ids, seed, sample_offset),
+                    n_lit=torch.zeros((self.r,), dtype=_I32, device=self.dev))
 
-            self.bwd[needs] = (_Blocks(run, self.dev, 1, _grad_stats, "bwd_",
-                                       self.graphs), acc)
-        blocks, acc = self.bwd[needs]
-        with torch.no_grad():
-            self.ct_film.copy_(ct_film)
-            for x in acc + list(self.ct_state.values()):
-                x.zero_()
-        return blocks, acc
-
-    def _add_pend(self, st) -> None:
-        # Real slots are unique (each pixel completes once per dispatch), so
-        # every film entry receives one add and the order is immaterial.
-        idx = st["pend_slot"].reshape(-1).long()
-        vals = torch.stack([st["pend_r"].reshape(-1), st["pend_g"].reshape(-1),
-                            st["pend_b"].reshape(-1)])
-        self.film.index_add_(1, idx, vals)
+    def _make_buffers(self) -> None:
+        self.s["live"] = torch.zeros((), dtype=torch.int64, device=self.dev)
+        self.blocks = _Blocks(self._block_fn(), self.dev,
+                              max(1, self.n_pend * self.spp), _loop_stats)
 
     def _block_fn(self):
         f = weakref.proxy(self)
@@ -1976,9 +1834,10 @@ class _LanePool:
             st = dict(f.s)
             for i in range(i0, i0 + check_every):
                 st["live"] = st["live"] + ((st["q"] < n_pix) | st["active"].any())
-                f.step(st, i, env, res)
+                # Summed at the dispatch's end: one kernel an iteration.
+                st["n_lit"] = st["n_lit"] + f.step(st, i, env, res)
                 if (i + 1) % flush_every == 0:
-                    f._add_pend(st)
+                    f.film.index_add_(1, *f.pend(st))
                     st["pend_slot"] = f.dummy_pend
                     st["pend_count"] = torch.zeros((f.r,), **i32)
             for k, v in f.s.items():
@@ -1990,18 +1849,17 @@ class _LanePool:
         """Runs the loaded dispatch's blocks until the pool drains:
         (mean radiance (n_pix, 3), rays traced (a copy))."""
         s, stats = self.s, _loop_stats
-        before = stats["eager_blocks"], stats["graphs"]
-        with torch.no_grad():
+        with self.blocks.one_pass(), torch.no_grad():
+            s["live"].zero_()
             i = 0
             while not self.drained(s):
                 self.blocks.run(i)
                 i += self.check_every
             with span("release"):
-                self._add_pend(s)  # pendings staged since the last flush
+                self.film.index_add_(1, *self.pend(s))  # since the last flush
                 live, rays, lit = torch.stack(
                     (s["live"], s["n_rays"], s["n_lit"].sum())).tolist()
         stats["dispatches"] += 1
-        stats["pool_reuses"] += (stats["eager_blocks"], stats["graphs"]) == before
         stats["iterations"] += i
         stats["idle_iterations"] += i - live
         stats["query_rows"] += i * self.r * (1 + self.num_lights)
@@ -2011,51 +1869,210 @@ class _LanePool:
         return self.film[:, :self.n_pix].T / self.spp, s["n_rays"].clone()
 
 
-def _forward_pool(scene, bvh, opts: RenderOptions, r: int, n_pix: int,
-                  pixel_fn, check_every: int, accel):
-    """(the forward _LanePool for this dispatch, whether it was kept from an
-    earlier one).  Where the blocks replay CUDA graphs, a pool is kept for
-    every dispatch whose blocks' Python would be the same: the options but
-    the seed, the lanes, pixel slots and block length, the device, the
-    ``pixel_fn``, ``accel`` and ``bvh`` given (by identity; the pool holds
-    them) and the scene's tensors (_SceneCache).  A pool of the same options
-    and scene built on other tables, or before a scene tensor changed in
-    place, is replaced.  Elsewhere every dispatch makes its own."""
+class _GradCall:
+    """One call of a _GradPool: its inputs (in _grad_inputs' order), its
+    ``dispatch`` (pixel ids, seed, sample offset: _LanePool.take), and the
+    entry state and residual copies of each block its forward pass
+    recorded.  The pool's passes copy the call's inputs and dispatch in
+    first, so two calls on one kept pool may both run forward before
+    either runs backward."""
+
+    def __init__(self, pool, inputs, dispatch):
+        self.pool, self.inputs, self.dispatch = pool, inputs, dispatch
+        self.entries, self.saved = [], []
+
+    def forward(self):
+        return self.pool.forward(self)
+
+    def backward(self, ct_film, needs) -> list:
+        return self.pool.backward(self, ct_film, needs)
+
+
+class _GradPool(_LanePool):
+    """The differentiable loop: one pend register a lane, a static budget
+    of ``n_blocks`` blocks of ``k_steps`` = spp iterations (a lane completes
+    at most one pixel a block), each ending with its pend registers
+    gathered and reset (``block``).  ``forward`` and ``backward`` are the
+    two halves of the JAX package's ``lax.scan`` over ``jax.checkpoint``-ed
+    blocks that save only the named residuals.  Its buffers add the
+    residuals, copies of the inputs (``xs``), the film's cotangent, a
+    _Backward, and one graph pool for the _Blocks of both passes."""
+
+    kept, loose = _GRAD_POOLS, _STEP_FIELDS
+
+    def __init__(self, scene, bvh, opts: RenderOptions, r: int, n_pix: int,
+                 pixel_fn=None, accel=None, track: bool = False):
+        super().__init__(scene, bvh, opts, r, n_pix, 1, pixel_fn, accel)
+        self.track = track
+        e_seg = (opts.bwd_seg_per_sample if opts.bwd_seg_per_sample is not None
+                 else 1.2 / (1.0 - opts.rr_probability))
+        n_iter = (int(np.ceil(n_pix * opts.spp * e_seg / r)) + opts.max_depth
+                  + opts.spp + 4)
+        self.k_steps = opts.spp
+        self.n_blocks = -(-n_iter // self.k_steps)
+
+    @classmethod
+    def variant(cls, scene, pixel_ids):
+        # A scene whose geometry needs a gradient makes a pool a call.
+        track = _tracks_grad(scene)
+        geometry = any(getattr(scene, f).requires_grad for f in SCENE_FIELDS
+                       if f not in _STEP_FIELDS)
+        return {"track": track}, None if geometry else (pixel_ids.dtype, track)
+
+    def _make_buffers(self) -> None:
+        r, dev = self.r, self.dev
+        self.zero_count = torch.zeros((r,), dtype=_I32, device=dev)
+        self.zero_pend = torch.zeros((r, self.n_pend), dtype=torch.float32,
+                                     device=dev)
+        self.res = (_Residuals(self.k_steps, r * (1 + self.num_lights),
+                               r if self.do_sort else 0, dev)
+                    if self.track else _Residuals())
+        # The triangle table is the pool's own (it carries no gradient when
+        # the pool is kept: variant); every other input is copied in by
+        # each pass (load).
+        xs = _grad_inputs(self.scene, self.tables)
+        self.xs = [xs[0].detach()] + [x.detach().clone() for x in xs[1:]]
+        self.ct_film = torch.zeros_like(self.film)
+        self.bwd = _Backward(self.scene, self.xs, self.s)
+        self.graphs = _CudaGraphs(dev) if _captures(dev) else None
+        self.fwd = _Blocks(self._fwd_fn(), dev, 1, _grad_stats, "fwd_",
+                           self.graphs)
+        self.bwd_blocks = {}
+
+    def load(self, inputs) -> None:
+        """Copies a call's gradient inputs (_grad_inputs' order, the pool's
+        own triangle table first) into the buffers the blocks read."""
+        with torch.no_grad():
+            for x, y in zip(self.xs[1:], inputs[1:]):
+                x.copy_(y)
+
+    def block(self, st, env, res):
+        """One block on the state dict ``st`` (its entries replaced):
+        ``k_steps`` iterations, then the pend registers reset; returns the
+        film columns and the (3, n) sums they staged.  ``env`` is the
+        (scene, tables) to shade with, ``res`` the residuals' mode and
+        buffers."""
+        for k in range(self.k_steps):
+            self.step(st, k, env, res)
+        slots, vals = self.pend(st)
+        st.update(pend_slot=self.dummy_pend, pend_count=self.zero_count,
+                  pend_r=self.zero_pend, pend_g=self.zero_pend,
+                  pend_b=self.zero_pend)
+        return slots, vals
+
+    def _fwd_fn(self):
+        f = weakref.proxy(self)
+        s, film, res = self.s, self.film, self.res
+        env = _grad_env(self.scene, self.xs)
+
+        def run(_):
+            st = dict(s)
+            film.index_add_(1, *f.block(st, env, res))
+            for k, v in s.items():
+                v.copy_(st[k])
+
+        return run
+
+    def _bwd_blocks(self, needs):
+        """The backward pass's _Blocks for the mask ``needs``, made at its
+        first pass: a block's VJP (_Backward.vjp), its staged sums' cotangent
+        read at their film columns."""
+        if needs not in self.bwd_blocks:
+            f, bwd = weakref.proxy(self), self.bwd
+            s, res, ct_film = self.s, self.res, self.ct_film
+
+            def block(st, env):
+                slots, vals = f.block(st, env, res)
+                return [(vals, ct_film.index_select(1, slots))]
+
+            self.bwd_blocks[needs] = _Blocks(
+                lambda _: bwd.vjp(block, s, needs), self.dev, 1, _grad_stats,
+                "bwd_", self.graphs)
+        return self.bwd_blocks[needs]
+
+    def run(self, scene, dispatch):
+        """One call on the loaded dispatch ``dispatch`` (pixel ids, seed,
+        sample offset), its inputs read off the caller's ``scene``: (mean
+        radiance (n_pix, 3), rays traced, negated when the budget ended
+        with samples in flight)."""
+        call = _GradCall(self, _grad_inputs(
+            scene, (self.tables[0], _material_table(scene))), dispatch)
+        film = (_CheckpointedBlocks.apply(call, *call.inputs) if self.track
+                else call.forward())
+        _grad_stats["dispatches"] += 1
+        # A copy: backward loads each block's entry state into these
+        # buffers, and the next call on a kept pool bootstraps into them.
+        s = self.s
+        n_rays = s["n_rays"].clone() if self.drained(s) else -s["n_rays"]
+        return film[:, :self.n_pix].T / self.spp, n_rays
+
+    def forward(self, call):
+        """Runs the call's blocks without recording autograd, the drain
+        read between them, each adding its staged sums into the film in
+        place; returns a copy of the film.  A ``track``-ing pool keeps each
+        block's entry state and residuals in ``call`` for ``backward``."""
+        record = self.track
+        self.load(call.inputs)
+        self.res.mode = "record" if record else None
+        with self.fwd.one_pass(), torch.no_grad():
+            for _ in range(self.n_blocks):
+                if self.drained(self.s):
+                    break
+                if record:
+                    call.entries.append({k: v.clone()
+                                         for k, v in self.s.items()})
+                self.fwd.run(0)
+                if record:
+                    call.saved.append(self.res.copies())
+                _grad_stats["blocks"] += 1
+            film = self.film.clone()
+        self.res.mode = None
+        return film
+
+    def backward(self, call, ct_film, needs) -> list:
+        """The inputs' gradients (None where ``needs`` is false) for the
+        film cotangent ``ct_film``: the call's recorded blocks in reverse
+        order, each recomputed from its entry state with its residuals
+        replayed, and its VJP taken for its staged sums and its exit state;
+        each input's gradient summed over the blocks, the last first."""
+        blocks = self._bwd_blocks(needs)
+        self.bwd.mask(needs)
+        with torch.no_grad():
+            self.ct_film.copy_(ct_film)
+        self.load(call.inputs)
+        self.take(*call.dispatch)
+        with blocks.one_pass():
+            self.bwd.reverse(self.s, self.res, call.entries, call.saved,
+                             lambda _: blocks.run(0))
+        _grad_stats["bwd_passes"] += 1
+        return self.bwd.grads(needs)
+
+
+def _kept_pool(cls, scene, bvh, opts: RenderOptions, r: int, pixel_ids,
+               pixel_fn, accel):
+    """(the pool of kind ``cls`` for this dispatch, whether it was kept
+    from an earlier one).  ``cls.variant(scene, pixel_ids)`` gives the
+    pool's keyword arguments past the shared ones and its kind's part of
+    the key (None: keep none).  Where the blocks replay CUDA graphs, a pool
+    is kept in ``cls.kept`` for every dispatch whose blocks' Python would
+    be the same: the options but the seed, the lanes, pixel slots, the
+    device, the ``pixel_fn``, ``accel`` and ``bvh`` (by identity), the
+    scene's tensors (_SceneCache; the fields ``cls.loose``, which each call
+    copies in, by shape and dtype alone) and the kind's part.  A pool built
+    on other tables, or before a scene tensor changed in place, is
+    replaced."""
+    n_pix = pixel_ids.shape[0]
+    kw, own = cls.variant(scene, pixel_ids)
+
     def build(sc):
-        return _LanePool(sc, bvh, opts, r, n_pix, False, pixel_fn, accel,
-                         check_every)
+        return cls(sc, bvh, opts, r, n_pix, pixel_fn, accel, **kw)
 
-    if not _captures(scene.device):
+    if own is None or not _captures(scene.device):
         return build(scene), False
-    key = (opts.replace(seed=0), r, n_pix, check_every, scene.device,
-           pixel_fn is None, accel is None, bvh is None)
-    return _POOLS.get(scene, key, build, (pixel_fn, accel, bvh))
-
-
-def _grad_pool(scene, bvh, opts: RenderOptions, r: int, n_pix: int,
-               pixel_ids, pixel_fn, accel, track: bool):
-    """(the differentiable _LanePool for this call, whether it was kept from
-    an earlier one).  Where the blocks replay CUDA graphs, a pool is kept
-    for every call whose blocks' Python would be the same, keyed as
-    _forward_pool's and by whether the call records for backward
-    (``track``), the pixel ids' dtype, and the step fields (_STEP_FIELDS)
-    by shape and dtype alone: each call copies their values into the pool
-    (_BlockScan), so a step's new parameter tensors find the pool that the
-    step before captured.  A scene whose other tensors need a gradient (its
-    geometry) makes a pool for every call, as every call on the CPU and
-    under ``eager()`` does."""
-    def build(sc):
-        return _LanePool(sc, bvh, opts, r, n_pix, True, pixel_fn, accel,
-                         track=track)
-
-    if not _captures(scene.device) or any(
-            getattr(scene, f).requires_grad for f in SCENE_FIELDS
-            if f not in _STEP_FIELDS):
-        return build(scene), False
-    key = (opts.replace(seed=0), r, n_pix, pixel_ids.dtype, scene.device, track,
-           pixel_fn is None, accel is None, bvh is None)
-    return _GRAD_POOLS.get(scene, key, build, (pixel_fn, accel, bvh),
-                           loose=_STEP_FIELDS)
+    key = (opts.replace(seed=0), r, n_pix, scene.device, pixel_fn is None,
+           accel is None, bvh is None, *own)
+    return cls.kept.get(scene, key, build, (pixel_fn, accel, bvh),
+                        loose=cls.loose)
 
 
 def render_pixels_refill(
@@ -2067,7 +2084,6 @@ def render_pixels_refill(
     lanes: int | None = None,
     differentiable: bool = False,
     pixel_fn=None,
-    check_every: int = 8,
     accel=None,
 ):
     """Persistent-wavefront renderer with pixel-pinned lane refill.
@@ -2088,59 +2104,39 @@ def render_pixels_refill(
     Estimator and per-path RNG streams are those of the JAX package; every
     pixel is pinned to one lane, so the film does not depend on lane order.
 
-    The forward loop runs in blocks of ``check_every`` iterations, under
-    ``torch.no_grad()``, and reads the drain predicate back between blocks.
-    On a CUDA device every block after the first replays a CUDA graph
-    (``_Blocks``; ``eager()`` turns that off), bit for bit the block run op
-    by op; the pool (_LanePool), its buffers and its graphs are kept for
-    the next dispatch of the same shape, which replays them.
+    The forward loop (_FramePool) runs in blocks of ``_CHECK_EVERY``
+    iterations, under ``torch.no_grad()``, and reads the drain predicate
+    back between blocks.  ``differentiable=True`` (_GradPool) runs a static
+    budget of iterations, ceil(n_pix * spp * e_seg / lanes) + max_depth +
+    spp + 4 with e_seg = ``opts.bwd_seg_per_sample`` or 1.2 / (1 -
+    rr_probability), in blocks of spp iterations, each ending by adding its
+    pend registers into the film, and stops at a block boundary once the
+    pool has drained.  If the budget ends with samples in flight, the ray
+    count is negated: those samples are missing from the film.  When a
+    scene tensor needs a gradient the blocks are one autograd node
+    (_CheckpointedBlocks) that keeps each block's entry state and residuals
+    and recomputes the block for backward.
 
-    ``differentiable=True`` runs a static budget of iterations,
-    ceil(n_pix * spp * e_seg / lanes) + max_depth + spp + 4 with e_seg =
-    ``opts.bwd_seg_per_sample`` or 1.2 / (1 - rr_probability), in blocks of
-    spp iterations (one pend slot per lane; a lane completes at most one
-    pixel per spp iterations); each block ends by adding its pend registers
-    into the film and resetting them.  The loop stops early at a block
-    boundary once the pool has drained (later iterations change nothing).
-    If the budget ends with samples in flight, the ray count is negated:
-    those samples are missing from the film.  When a scene tensor needs a
-    gradient the blocks are one autograd node (_CheckpointedBlocks) that
-    keeps each block's entry state and residuals and recomputes the block
-    for backward; on a CUDA device both passes replay CUDA graphs
-    (``eager()`` turns that off), bit for bit the blocks run op by op, and
-    the pool, its buffers and both passes' graphs are kept for the next
-    call of the same shape, whatever its parameters' values (_grad_pool).
+    On a CUDA device every block after the first, of both passes, replays a
+    CUDA graph (``_Blocks``; ``eager()`` turns that off), bit for bit the
+    block run op by op; the pool, its buffers and its graphs are kept for
+    the next call of the same shape (_kept_pool), whatever a gradient
+    step's parameter values.
 
     Returns (mean radiance (n_pix, 3) aligned with pixel_ids, rays traced as
     an int64 scalar tensor).
     """
     n_pix = pixel_ids.shape[0]
     r = min(lanes or n_pix, n_pix)
-    if not differentiable:
-        with span("pool_setup", {"lanes": r}) as setup:
-            pool, reused = _forward_pool(scene, bvh, opts, r, n_pix, pixel_fn,
-                                         check_every, accel)
-            setup.note(reused=int(reused), lights=pool.num_lights,
-                       post_nee=int(pool.post_nee))
-            pool.for_dispatch(pixel_ids, opts.seed, sample_offset)
-        return pool.run()
-
+    dispatch = (pixel_ids, opts.seed, sample_offset)
     with span("pool_setup", {"lanes": r}) as setup:
-        track = _tracks_grad(scene)
-        pool, reused = _grad_pool(scene, bvh, opts, r, n_pix, pixel_ids,
-                                  pixel_fn, accel, track)
+        pool, reused = _kept_pool(_GradPool if differentiable else _FramePool,
+                                  scene, bvh, opts, r, pixel_ids, pixel_fn,
+                                  accel)
         setup.note(reused=int(reused), lights=pool.num_lights,
                    post_nee=int(pool.post_nee))
-        s = pool.for_dispatch(pixel_ids, opts.seed, sample_offset)
-        inputs = _grad_inputs(scene, (pool.tables[0], _material_table(scene)))
-        scan = _BlockScan(pool, inputs, (pixel_ids, opts.seed, sample_offset))
-    film = (_CheckpointedBlocks.apply(scan, *inputs) if track
-            else scan.forward(record=False))
-    _grad_stats["dispatches"] += 1
-    # A copy: backward loads each block's entry state into these buffers,
-    # and the next call on a kept pool bootstraps into them.
-    n_rays = s["n_rays"].clone() if pool.drained(s) else -s["n_rays"]
-    return film[:, :n_pix].T / opts.spp, n_rays
+        pool.for_dispatch(*dispatch)
+    return pool.run(scene, dispatch) if differentiable else pool.run()
 
 
 @functools.lru_cache(maxsize=16)

@@ -1,5 +1,5 @@
-"""The differentiable lane pool's blocks as one autograd node
-(integrator/wavefront.py::_CheckpointedBlocks, _BlockScan).
+"""The lane pool's gradient loop (integrator/wavefront.py::_GradPool) as
+one autograd node (_CheckpointedBlocks over a _GradCall, _Backward).
 
 On a CUDA device the gradient's forward blocks and its backward blocks
 (recompute one block with its recorded residuals, then take its VJP) replay
@@ -148,17 +148,18 @@ class PlainAutograd:
     nothing recomputed."""
 
     @staticmethod
-    def apply(scan, *inputs):
-        env = scan.env(inputs)
-        st = {k: v.clone() for k, v in scan.state.items()}
-        film = scan.film
-        for _ in range(scan.n_blocks):
-            if scan.drained(st):
+    def apply(call, *inputs):
+        pool = call.pool
+        env = twf._grad_env(pool.scene, inputs)
+        st = {k: v.clone() for k, v in pool.s.items()}
+        film = pool.film
+        for _ in range(pool.n_blocks):
+            if pool.drained(st):
                 break
-            slots, vals = scan.block(st, env, scan.res)
+            slots, vals = pool.block(st, env, pool.res)
             film = film.index_add(1, slots, vals)
         with torch.no_grad():  # the caller reads the drain and the rays here
-            for k, v in scan.state.items():
+            for k, v in pool.s.items():
                 v.copy_(st[k])
         return film
 
@@ -222,27 +223,27 @@ def test_without_grad_records_nothing(scene_dir, monkeypatch):
     opts = _opts(3, True)
     ts, _ = tbuild(scene_dir, "sg16", opts, device="cpu")
     ids, fn = twf._frame_ids(ts, opts)
-    scans = []
-    real = twf._BlockScan
+    calls = []
+    real = twf._GradCall
 
     class Spy(real):
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
-            scans.append(self)
+            calls.append(self)
 
-    monkeypatch.setattr(twf, "_BlockScan", Spy)
+    monkeypatch.setattr(twf, "_GradCall", Spy)
 
     def render(scene):
         return twf.render_pixels_refill(scene, None, opts, ids, lanes=LANES,
                                         differentiable=True, pixel_fn=fn)
 
     img, rays = _captured(monkeypatch, lambda: render(ts))
-    assert not img.requires_grad and not scans[0].res.bufs
-    assert not scans[0].entries and not scans[0].saved
+    assert not img.requires_grad and not calls[0].pool.res.bufs
+    assert not calls[0].entries and not calls[0].saved
     leaves = SceneParams.from_scene(ts).leaves("cpu")
     img_g, rays_g = render(tgrad.apply_params(ts, leaves))
-    assert img_g.requires_grad and scans[1].res.bufs
-    assert len(scans[1].entries) == len(scans[1].saved) > 0
+    assert img_g.requires_grad and calls[1].pool.res.bufs
+    assert len(calls[1].entries) == len(calls[1].saved) > 0
     assert torch.equal(img, img_g.detach()) and int(rays) == int(rays_g) > 0
 
 

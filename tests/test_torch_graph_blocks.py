@@ -1,8 +1,10 @@
-"""The forward lane pool's block loop (integrator/wavefront.py::_Blocks).
+"""The lane pool's frame loop (integrator/wavefront.py::_FramePool) and
+its block driver (_Blocks).
 
-On a CUDA device every block of ``check_every`` iterations after the first
+On a CUDA device every block of ``_CHECK_EVERY`` iterations after the first
 replays a CUDA graph; on the CPU the same block function runs op by op.
-These tests hold, on the CPU:
+These tests set the block length by monkeypatching ``_CHECK_EVERY``, and
+hold, on the CPU:
 
 * the block loop to the per-iteration loop (blocks of one iteration, the
   drain predicate read after every iteration), bit for bit in the film and
@@ -77,11 +79,14 @@ def _opts(spp: int, modern: bool, **kw):
 
 
 def _render(scene_dir, spp: int, modern: bool, length: int):
+    """The frame of the forward loop in blocks of ``length`` iterations."""
     opts = _opts(spp, modern)
     ts, _ = tbuild(scene_dir, "box", opts, device="cpu")
     ids, fn = twf._frame_ids(ts, opts)
-    return twf.render_pixels_refill(ts, None, opts, ids, lanes=LANES,
-                                    pixel_fn=fn, check_every=length)
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(twf, "_CHECK_EVERY", length)
+        return twf.render_pixels_refill(ts, None, opts, ids, lanes=LANES,
+                                        pixel_fn=fn)
 
 
 @pytest.fixture(scope="module")
@@ -249,7 +254,8 @@ def _outside(a, b):
 
 
 @pytest.mark.parametrize("length", [8, 24])
-def test_block_render_matches_jax_refill(scene_dir, fake_graphs, length):
+def test_block_render_matches_jax_refill(scene_dir, fake_graphs, monkeypatch,
+                                         length):
     """The block-structured lane pool (graph bookkeeping on) against the JAX
     package's render_pixels_refill with interpret-mode Pallas, MODERN, spp
     4: tests/test_torch_render.py's whole-render tolerance (at most 0.5% of
@@ -260,8 +266,8 @@ def test_block_render_matches_jax_refill(scene_dir, fake_graphs, length):
     ts, _ = tbuild(scene_dir, "box", opts, device="cpu")
     js, _ = jbuild(scene_dir, "box", jopts)
     ids, _ = twf._frame_ids(ts, opts)
-    ti, tr = twf.render_pixels_refill(ts, None, opts, ids, lanes=LANES,
-                                      check_every=length)
+    monkeypatch.setattr(twf, "_CHECK_EVERY", length)
+    ti, tr = twf.render_pixels_refill(ts, None, opts, ids, lanes=LANES)
     ji, jr = jrefill(js, None, jopts, jnp.asarray(ids.numpy()), lanes=LANES)
     ji, ti = np.asarray(ji), ti.numpy()
     assert ti.shape == ji.shape == (ids.shape[0], 3)

@@ -134,7 +134,8 @@ def test_two_light_post_sort_nee_matches_unsorted(scene_dir):
     pytest.param(False, 40, 3, id="modern-k40-spp3"),
     pytest.param(True, 40, 3, id="compat-k40-spp3"),
 ])
-def test_termination_check_interval_is_invisible(scene_dir, compat, k, spp):
+def test_termination_check_interval_is_invisible(scene_dir, monkeypatch,
+                                                compat, k, spp):
     """Reading the drain predicate every k iterations (the forward loop's
     block length) instead of every iteration leaves the film bitwise
     unchanged (extra iterations are no-ops), whether or not the flush
@@ -145,8 +146,9 @@ def test_termination_check_interval_is_invisible(scene_dir, compat, k, spp):
     ids, fn = twf._frame_ids(ts, opts)
     out = {}
     for every in (1, k):
+        monkeypatch.setattr(twf, "_CHECK_EVERY", every)
         out[every] = twf.render_pixels_refill(ts, None, opts, ids, lanes=96,
-                                              pixel_fn=fn, check_every=every)
+                                              pixel_fn=fn)
     assert torch.equal(out[1][0], out[k][0])
     assert int(out[1][1]) == int(out[k][1])
 

@@ -317,4 +317,5 @@ def test_a_gradient_step_leaves_nothing_to_the_garbage_collector(scene):
         gc.set_debug(0)
         gc.garbage.clear()
         gc.enable()
-    assert not kinds & {"_BlockScan", "_LanePool", "_Residuals", "Tensor"}, kinds
+    assert not kinds & {"_GradCall", "_GradPool", "_Backward", "_Residuals",
+                        "Tensor"}, kinds

@@ -204,6 +204,16 @@ exits non-zero):
             the card and --mesh-tile 2 (gloo): exit code 0, its PNG byte for
             byte the one-process CLI's or within the image limit;
    profile  (g) the CLI's --profile writes a trace holding device kernels;
+   atlas_grad  the atlas gather's backward kernel (csrc/atlas_grad.cu,
+            through kernels/atlas.py, its torch.sort included) at the
+            interior's shapes (65,536 lanes, 327,680 texels; 61% of the
+            lanes untextured at texel 0, 9% misses at the last, 30% on
+            2,000 texels): its sums within 1e-6 of a float64 index_add_
+            (relative to each texel's sum of |rows|), bit for bit the same
+            over two calls, its counters; timed beside its byte bound, the
+            plain version (index_add_ with a sentinel row) and the library
+            call it replaces, index_put_(accumulate=True) of every lane's
+            masked row (the autograd of atlas[idx]), and torch.sort alone;
    bench    (h) bench_torch.py run as a subprocess at a reduced size (the
             box at 256 x 256, stages fwd, bwd and stats, one timed run): exit
             code 0, correct: true, this card's name;
@@ -3279,6 +3289,77 @@ def phase_torchrun(dev):
           "seconds_one": secs["one"], "seconds_torchrun": secs["torchrun"]})
 
 
+ATLAS_LANES = 65_536
+
+
+def atlas_grad_case(dev, seed: int = 24):
+    """(keys with the sentinel, today's ids and mask, rows) at the
+    interior's shapes: 61% of the lanes untextured at texel 0, 9% misses at
+    the last texel, 30% on 2,000 texels (runs of ~10)."""
+    g = np.random.default_rng(seed)
+    n, a = ATLAS_LANES, INTERIOR_TEXELS
+    kind = g.uniform(size=n)
+    has = kind >= 0.7
+    idx = np.where(kind < 0.61, 0, a - 1)
+    idx[has] = g.choice(g.integers(0, a, 2_000), size=int(has.sum()))
+    keys = np.where(has, idx, a).astype(np.int32)
+    rows = g.uniform(-1, 1, (n, 3)).astype(np.float32)
+    t = lambda x: torch.as_tensor(x, device=dev)
+    return t(keys), t(idx.astype(np.int64)), t(has[:, None]), t(rows)
+
+
+def phase_atlas_grad(dev):
+    from montecarlopathtracing_torch.kernels import atlas as A
+
+    keys, idx, has, rows = atlas_grad_case(dev)
+    n, a = keys.shape[0], INTERIOR_TEXELS
+    A.reset_stats()
+    got = A.atlas_grad(keys, rows, a)
+    again = A.atlas_grad(keys, rows, a)
+    sync(dev)
+    stats = A.stats()
+    live = keys < a
+    k = keys[live].long()
+    z = torch.zeros((a, 3), dtype=torch.float64, device=dev)
+    want = z.clone().index_add_(0, k, rows[live].double())
+    scale = z.clone().index_add_(0, k, rows[live].double().abs())
+    err = torch.abs(got.double() - want)
+    check(bool((err <= 1e-6 * scale).all()), "atlas_grad: sums past 1e-6")
+    check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+          "atlas_grad: two calls differ")
+    longest = int(torch.bincount(k).max())
+    check(stats == {"atlas_rows": 2 * n, "atlas_texel_rows": 2 * int(live.sum()),
+                    "atlas_longest_run": longest}, f"atlas_grad counters {stats}")
+    sleep = sleep_ms()
+    masked = torch.where(has, rows, 0.0)
+
+    def library():
+        return torch.zeros((a, 3), device=dev).index_put_((idx,), masked,
+                                                           accumulate=True)
+
+    def mean_ms(fn, reps: int = 20):
+        fn()
+        runs = [timed(fn, sleep) for _ in range(reps)]
+        return sum(r[0] for r in runs) / reps, sum(r[1] for r in runs)
+
+    ms, late = mean_ms(lambda: A.atlas_grad(keys, rows, a))
+    sort_ms_, _ = mean_ms(lambda: torch.sort(keys, stable=True))
+    plain_ms, _ = mean_ms(lambda: A.atlas_grad_plain(keys, rows, a), 5)
+    library_ms, _ = mean_ms(library, 5)
+    lib = library()
+    n_bytes = n * (4 + 12) + a * 12
+    bound, by = bound_of(n_bytes, 0)
+    emit({"phase": "atlas_grad", "lanes": n, "texels": a,
+          "texel_rows": int(live.sum()), "longest_texel_run": longest,
+          "longest_library_run": int(torch.bincount(idx).max()),
+          "max_rel_err": float((err / scale.clamp(min=1e-30)).max()),
+          "library_max_abs_diff": float(torch.abs(lib.double() - want).max()),
+          "ms": ms, "sort_ms": sort_ms_, "plain_ms": plain_ms,
+          "library_ms": library_ms, "bound_ms": bound, "bound_by": by,
+          "bytes": n_bytes, "share_of_bound": bound / ms,
+          "host_outlasted_sleep": late, "sleep_ms": sleep})
+
+
 def phase_compat_frame(dev):
     """The built-in box at 256 x 256, spp 4, compat (RenderOptions'
     defaults), rendered whole through render_image_host_chunked on the card
@@ -3422,6 +3503,7 @@ def main() -> int:
     run(phase_scan_graphs, dev, state)
     run(phase_grad_hbm, dev)
     run(phase_compat_frame, dev)
+    run(phase_atlas_grad, dev)
     run(phase_recovery, dev)
     run(phase_oracle, dev)
     run(phase_native, dev, state)

@@ -60,6 +60,7 @@ from ..accel.lbvh import _WRAPPERS as _WALK_WRAPPERS
 from ..accel.lbvh import (build_lbvh, brute_force_intersect, bvh_intersect,
                           packet_intersect)
 from ..config import RenderOptions
+from ..kernels import atlas as _atlas
 from ..kernels.cluster import _WRAPPERS as _CLUSTER_WRAPPERS
 from ..kernels.cluster import (
     build_cluster_accel,
@@ -394,6 +395,49 @@ class _TableRows(torch.autograd.Function):
         return torch.cat(parts), None
 
 
+class _AtlasTexels(torch.autograd.Function):
+    """``torch.where(has_tex, atlas[idx], kd)``, the texture fetch of
+    _gather_hit, for an atlas that needs a gradient on the card.  The
+    forward pass is those two ops.  The backward pass gives kd what
+    ``torch.where`` gives it and the atlas the sums of the texels'
+    cotangent rows (kernels/atlas.py: a stable sort of the texel keys, then
+    a segmented sum over the runs of one key, in parallel), each lane whose
+    fetch does not reach the output (``has_tex`` false: an untextured
+    material, at texel 0) sent to the sentinel key, which adds nothing.
+    PyTorch's indexing backward gave each run of one index to one warp
+    that added it serially, and texel 0 takes tens of thousands of lanes a
+    call (the untextured ones, and the miss and dead lanes, whose clamped
+    triangle 0 may be textured): ~1 s of the interior's gradient step on an
+    NVIDIA H100 80GB HBM3."""
+
+    @staticmethod
+    def forward(ctx, atlas, idx, has_tex, kd):
+        ctx.save_for_backward(idx, has_tex)
+        ctx.texels = atlas.shape[0]
+        return torch.where(has_tex, atlas[idx.long()], kd)
+
+    @staticmethod
+    def backward(ctx, ct):
+        idx, has_tex = ctx.saved_tensors
+        g_atlas = g_kd = None
+        if ctx.needs_input_grad[0]:
+            keys = torch.where(has_tex[:, 0], idx, ctx.texels)
+            g_atlas = _atlas.atlas_grad(keys, ct, ctx.texels)
+        if ctx.needs_input_grad[3]:
+            g_kd = torch.where(has_tex, 0.0, ct)
+        return g_atlas, None, None, g_kd
+
+
+def _texels(atlas, idx, has_tex, kd):
+    """``torch.where(has_tex, atlas[idx], kd)`` for int32 texel ids ``idx``
+    (R,) in range and the mask ``has_tex`` (R, 1): through _AtlasTexels
+    where autograd records a gradient for an atlas on the card, as the two
+    plain ops otherwise (frames, masks that leave the atlas out, the CPU)."""
+    if atlas.requires_grad and atlas.is_cuda and torch.is_grad_enabled():
+        return _AtlasTexels.apply(atlas, idx, has_tex, kd)
+    return torch.where(has_tex, atlas[idx.long()], kd)
+
+
 def _material_rows(mtab, mat):
     """Rows of a per-material table (mtab (M, 16) material fields, or the
     (M, 3) emission) by material id: a plain row gather in the forward pass
@@ -434,8 +478,8 @@ def _gather_hit(scene, opts, origin, direction, t, tri, tables):
         idx = matf[:, _MF_TEX_OFF].to(_I32) + r * w.to(_I32) + c
         # Out-of-range indices (only from miss lanes' non-finite
         # barycentrics) clamp, as an XLA gather does.
-        texel = scene.atlas[torch.clamp(idx, 0, scene.atlas.shape[0] - 1).long()]
-        kd = torch.where(matf[:, _MF_HAS_TEX:_MF_HAS_TEX + 1] > 0, texel, kd)
+        kd = _texels(scene.atlas, torch.clamp(idx, 0, scene.atlas.shape[0] - 1),
+                     matf[:, _MF_HAS_TEX:_MF_HAS_TEX + 1] > 0, kd)
     return p, pn, matf, kd
 
 
@@ -722,8 +766,10 @@ def render_pixels(scene: SceneArrays, bvh, opts: RenderOptions, pixel_ids,
 
 
 # The launch counters of every kernel wrapper (kernels/cluster.py,
-# accel/lbvh.py), which _Blocks keeps right under graph replays.
-_COUNTED = (*_CLUSTER_WRAPPERS.values(), *_WALK_WRAPPERS.values())
+# accel/lbvh.py, kernels/atlas.py), which _Blocks keeps right under graph
+# replays.
+_COUNTED = (*_CLUSTER_WRAPPERS.values(), *_WALK_WRAPPERS.values(),
+            *_atlas._WRAPPERS.values())
 
 _eager = False
 _loop_stats = dict.fromkeys(("dispatches", "iterations", "idle_iterations",
@@ -784,8 +830,13 @@ def grad_loop_stats() -> dict:
     capture seconds and ``pool_reuses``, the passes that ran no block op by
     op and captured no graph, every block a replay of a graph that an
     earlier call on the same kept pool had captured.  A backward pass runs
-    each recorded block once, in reverse."""
-    return dict(_grad_stats)
+    each recorded block once, in reverse.  With them the atlas gather's
+    backward counters (kernels/atlas.py ``stats()``, read from the device:
+    a synchronisation): ``atlas_rows``, the lanes it summed, of the lane
+    pool and the scan renderer alike; ``atlas_texel_rows``, those whose
+    fetch reached the output (a textured material); ``atlas_longest_run``,
+    the most lanes one texel took in one call."""
+    return {**_grad_stats, **_atlas.stats()}
 
 
 def scan_stats() -> dict:
@@ -805,6 +856,7 @@ def reset_loop_stats() -> None:
     for stats in (_loop_stats, _grad_stats, _scan_stats):
         for k in stats:
             stats[k] = 0
+    _atlas.reset_stats()
 
 
 def _captures(dev) -> bool:

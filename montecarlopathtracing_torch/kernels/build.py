@@ -31,7 +31,7 @@ BUILD_DIR = os.path.join(_HERE, "build")
 
 # The sources, one library each.
 KERNELS = ("cluster_keys", "cluster_intersect", "cluster_intersect_ftb",
-           "cluster_intersect_hbm", "bvh_walk", "packet_walk")
+           "cluster_intersect_hbm", "bvh_walk", "packet_walk", "atlas_grad")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -67,6 +67,8 @@ _SIGNATURES = {
                  [_P, _P, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P]),
     "packet_walk": ("packet_walk", "mcpt_packet_walk",
                     [_P, _P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P]),
+    "atlas_grad": ("atlas_grad", "mcpt_atlas_grad",
+                   [_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P]),
 }
 
 

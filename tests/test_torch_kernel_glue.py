@@ -34,6 +34,7 @@ import pytest
 import torch
 
 from montecarlopathtracing_torch.accel import lbvh as L
+from montecarlopathtracing_torch.kernels import atlas as A
 from montecarlopathtracing_torch.kernels import build as B
 from montecarlopathtracing_torch.kernels import cluster as K
 from montecarlopathtracing_torch.scene.builtin import load_builtin_large
@@ -83,8 +84,10 @@ def test_every_entry_point_has_a_signature():
             for sym in re.findall(r'extern\s+"C"\s+int\s+(\w+)\s*\(', text):
                 found.add((fname[:-3], sym))
     assert found == {(src, sym) for src, sym, _ in B._SIGNATURES.values()}
-    # One wrapper each: the cluster kernels' and the LBVH walks'.
-    assert set(K._WRAPPERS) | set(L._WRAPPERS) == set(B._SIGNATURES)
+    # One wrapper each: the cluster kernels', the LBVH walks' and the atlas
+    # gather's backward.
+    assert (set(K._WRAPPERS) | set(L._WRAPPERS) | set(A._WRAPPERS)
+            == set(B._SIGNATURES))
 
 
 @pytest.mark.parametrize("fname", sorted(

@@ -169,3 +169,32 @@ def test_gradient_steps_replay_kept_graphs_bit_for_bit(box):
     reused = [s["counts"]["reused"] for s in tr.spans
               if s["name"] == "pool_setup"]
     assert reused == [0, 1, 1, 1]
+
+
+@pytest.mark.card
+def test_textured_gradient_steps_replay_kept_graphs_bit_for_bit(box):
+    """The checker box's gradient steps on a kept pool, the atlas among the
+    parameters: its backward sums the texels' rows with the atlas kernel
+    (kernels/atlas.py) inside the replayed graphs, and every gradient, the
+    atlas's too, is bit for bit the steps run op by op."""
+    from montecarlopathtracing_torch.diff import gradients as G
+    from montecarlopathtracing_torch.kernels import atlas as A
+
+    write_box_scene(box, "checker", width=256, height=256, with_texture=True)
+    scene = api.load_scene(box, "checker", OPTS, device="cuda")[0]
+    assert scene.atlas.shape[0] > 0
+    opts = RenderOptions(spp=4)
+    seeds = (41, 42, 43)
+    before = A.atlas_grad.launches
+    steps, st = _sgd_steps(scene, opts, seeds)
+    assert A.atlas_grad.launches > before
+    with twf.eager():
+        eager, _ = _sgd_steps(scene, opts, seeds)
+    for (img, loss, g), (img_e, loss_e, g_e) in zip(steps, eager):
+        assert torch.equal(img, img_e) and torch.equal(loss, loss_e)
+        for f in G.PARAM_FIELDS:
+            assert torch.equal(getattr(g, f), getattr(g_e, f)), f
+        assert bool(g.atlas.abs().max() > 0)
+    assert st["fwd_pool_reuses"] == st["bwd_pool_reuses"] == 2
+    assert 0 < st["atlas_texel_rows"] < st["atlas_rows"]
+    assert st["atlas_longest_run"] > 0
